@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/H100 port (fastvideocodec_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each timed on its own line:
+
+1. device: the card's name and power limit; TF32 off for cuDNN and matmul;
+2. build: nvcc builds the warp kernels (ops/kernels/csrc/warp.cu);
+3. kernels: each kernel against its plain PyTorch version on the card, in
+   float32 and bfloat16, at the main path's shapes, with large and
+   off-border displacements;
+4. card vs CPU: LSVC-TPU in float32 at 64x128, GOP 4, shipped weights, on
+   the card (kernels) and on the CPU (plain versions); then bfloat16 on the
+   card against that float32 result;
+5. rollout: LSVC-TPU in bfloat16 at 1024x2048, GOP 16, weights
+   hd_lsvctpuf2_l2, on a synth_gop_multi clip (seed 0): one run with the
+   launch counts zeroed before it, then 3 runs timed with CUDA events;
+6. decode graph: the receiver's graph at the same setup, same timing;
+7. kernel timing: each kernel, its plain version and the nearest single
+   PyTorch call (grid_sample), on the inputs the main path gives it in one
+   GOP, beside the least time the card could take (the bytes the warp must
+   move over 3.35 TB/s); the kernels also on random flows of the same
+   shapes, their worst case.
+
+It then prints a JSON line of the kernels, the card's name and power limit,
+and last the line ``{"ok": true, "device": {...}}``. Any failed phase
+raises, so the run exits non-zero without that line. It needs no JAX and
+nothing of the JAX package; it exits non-zero when no CUDA device is found.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+GOP, H, W = 16, 1024, 2048
+SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
+TOL = {"float32": 1e-5, "bfloat16": 4e-3}  # kernel vs plain, max abs
+KERNEL_SOURCE = "fastvideocodec_torch/ops/kernels/csrc/warp.cu"
+REPLACES = {
+    "flow_warp": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:501",
+    "flow_warp_s2d": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:547",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    log(f"== phase {name}")
+    yield
+    log(f"== phase {name}: {time.perf_counter() - t0:.3f} s")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke failed: {msg}")
+
+
+def cuda_ms(torch, fn, *args, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of fn(*args) on the card, by CUDA events."""
+    for _ in range(warmup):
+        fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(img, flow) -> float:
+    """Least milliseconds for one warp on the card: each input read once and
+    the output written once, over the HBM rate. The arithmetic (about 40
+    float ops of coordinates per output pixel and 9 per channel) is far
+    below the float32 rate, so bytes bound it."""
+    nbytes = (2 * img.numel() + flow.numel()) * img.element_size()
+    pixels = flow.numel() // 2
+    flops = pixels * (40 + 9 * img.numel() // pixels)
+    require(flops / F32_FLOPS < nbytes / HBM_BYTES_PER_S, "warp bound by operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+@contextlib.contextmanager
+def capture_warp_inputs(captured: dict):
+    """Record a clone of the inputs of every warp the model calls."""
+    from fastvideocodec_torch.layers import spynet
+    from fastvideocodec_torch.models import lsvc
+
+    def grab(name, fn):
+        def wrapped(img, flow):
+            captured[name].append((img.clone(), flow.clone()))
+            return fn(img, flow)
+        return wrapped
+
+    saved = spynet.flow_warp, lsvc.flow_warp_fullres_s2d
+    spynet.flow_warp = grab("flow_warp", saved[0])
+    lsvc.flow_warp_fullres_s2d = grab("flow_warp_s2d", saved[1])
+    try:
+        yield
+    finally:
+        spynet.flow_warp, lsvc.flow_warp_fullres_s2d = saved
+
+
+def warp_inputs(torch, gen, img_shape, flow_shape, dtype):
+    """Image in [0, 1) and a flow mixing small motion with displacements
+    far past 56 px and samples far outside the frame."""
+    img = torch.rand(img_shape, generator=gen, device="cuda")
+    flow = torch.randn(flow_shape, generator=gen, device="cuda") * 8.0
+    flow += (torch.rand(flow_shape, generator=gen, device="cuda") - 0.5) * 400.0
+    return img.to(dtype).contiguous(), flow.to(dtype).contiguous()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from fastvideocodec_torch import build_lsvc_decode, get_codec_model, load_asset, rollout
+    from fastvideocodec_torch.data.synthetic import synth_gop_multi
+    from fastvideocodec_torch.ops.kernels import build
+    from fastvideocodec_torch.ops.kernels import warp as kw
+    from fastvideocodec_torch.ops.warp import (
+        _linspace,
+        grid_norm,
+        plain_flow_warp,
+        plain_flow_warp_s2d,
+        space_to_depth,
+    )
+
+    def sample_grid(flow):
+        """The normalized sampling grid of a flow, in the flow's dtype."""
+        _, _, h, w = flow.shape
+        xs = _linspace(w, flow.device)[None, None, :] + flow[:, 0].float() * grid_norm(w)
+        ys = _linspace(h, flow.device)[None, :, None] + flow[:, 1].float() * grid_norm(h)
+        return torch.stack([xs, ys], dim=-1).to(flow.dtype)
+
+    def grid_sample(img, grid):
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    kernels = {"flow_warp": kw.launch_flow_warp, "flow_warp_s2d": kw.launch_flow_warp_s2d}
+    plains = {"flow_warp": plain_flow_warp, "flow_warp_s2d": plain_flow_warp_s2d}
+    max_err = {k: 0.0 for k in kernels}
+
+    with phase("device"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout.strip().splitlines()[0]
+        kind = torch.cuda.get_device_name(0)
+        log(f"card: {smi}")
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
+            f"count {torch.cuda.device_count()}")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    with phase("build"):
+        build.load()
+        log(f"nvcc seconds: {build.last_build_seconds} (None: library already built) "
+            f"library {build.library_path().relative_to(ROOT)}")
+
+    def spynet_inputs(gen, dtype):
+        return [warp_inputs(torch, gen, (15, 3, h, w), (15, 2, h, w), dtype)
+                for h, w in SPYNET_SHAPES]
+
+    def s2d_inputs(gen, n, dtype):
+        return warp_inputs(torch, gen, (n, 12, H // 2, W // 2), (n, 2, H, W), dtype)
+
+    with phase("kernels vs plain"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            cases = [("flow_warp", *io) for io in spynet_inputs(gen, dtype)]
+            cases.append(("flow_warp_s2d", *s2d_inputs(gen, 8, dtype)))
+            for name, img, flow in cases:
+                got = kernels[name](img, flow)
+                want = plains[name](img, flow)
+                torch.cuda.synchronize()
+                d = (got.float() - want.float()).abs()
+                err, mean = d.max().item(), d.mean().item()
+                log(f"{name} {dname} img {tuple(img.shape)}: max abs {err:.3e} "
+                    f"mean abs {mean:.3e} (tolerance {TOL[dname]:.0e})")
+                require(err <= TOL[dname], f"{name} {dname} disagrees with plain: {err}")
+                max_err[name] = max(max_err[name], err)
+                del got, want, d
+
+    with phase("card vs cpu port"):
+        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+        small = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2).contiguous()
+        res = {}
+        for device in ("cuda", "cpu"):
+            spec = get_codec_model("LSVC-TPU", device=device)
+            load_asset(spec.module, "hd_lsvctpuf2_l2")
+            com, m = rollout(spec, small.to(device))
+            res[device] = (com.float().cpu(), float(m["bpp"]), m["psnr"].float().cpu())
+        (cg, bg, pg), (cc, bc, pc) = res["cuda"], res["cpu"]
+        dmax = (cg - cc).abs().max().item()
+        dmean = (cg - cc).abs().mean().item()
+        dpsnr = (pg - pc).abs().max().item()
+        dbpp = abs(bg - bc) / bc
+        log(f"card vs cpu: recon max abs {dmax:.3e} mean abs {dmean:.3e} (tolerance mean "
+            f"1e-4); psnr card {pg.tolist()} cpu {pc.tolist()} max diff {dpsnr:.2e} dB "
+            f"(tolerance 0.01); bpp card {bg:.6f} cpu {bc:.6f} rel {dbpp:.2e} (tolerance 1e-3)")
+        require(dmean <= 1e-4 and dpsnr <= 0.01 and dbpp <= 1e-3, "card disagrees with cpu")
+        # the bf16 path on the same input, held to the f32 result: bf16 rounding
+        # moved PSNR by 0.010 dB and bpp by 5e-4 relative on an H100
+        spec = get_codec_model("LSVC-TPU", dtype=torch.bfloat16, device="cuda")
+        load_asset(spec.module, "hd_lsvctpuf2_l2")
+        _, m = rollout(spec, small.to("cuda", torch.bfloat16))
+        pb, bb = m["psnr"].float().cpu(), float(m["bpp"])
+        dpsnr, dbpp = (pb - pc).abs().max().item(), abs(bb - bc) / bc
+        log(f"bf16 card vs f32 cpu: psnr {pb.tolist()} max diff {dpsnr:.3f} dB (tolerance "
+            f"0.05); bpp {bb:.6f} rel {dbpp:.2e} (tolerance 0.005)")
+        require(dpsnr <= 0.05 and dbpp <= 0.005, "bf16 path far from f32")
+
+    spec = get_codec_model("LSVC-TPU", dtype=torch.bfloat16, device="cuda")
+    load_asset(spec.module, "hd_lsvctpuf2_l2")
+    clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=GOP)[:, :H, :W]
+    gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)
+    gop = gop.to("cuda", torch.bfloat16).contiguous()
+    del clip
+
+    def timed_runs(fn, *args, runs: int = 3) -> list:
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    with phase("rollout 1024x2048 GOP16 bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        com, m = rollout(spec, gop)
+        torch.cuda.synchronize()
+        rollout_launches = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"launches in one GOP: {rollout_launches}")
+        require(rollout_launches == {"flow_warp": 4, "flow_warp_s2d": 4},
+                f"rollout launch counts {rollout_launches}, want 4 and 4")
+        psnr = m["psnr"].float().cpu()
+        bpp = float(m["bpp"])
+        require(tuple(com.shape) == (GOP - 1, 3, H, W), f"recon shape {tuple(com.shape)}")
+        require(bool(torch.isfinite(com).all()), "recon not finite")
+        require(bool(torch.isfinite(psnr).all()) and float(psnr.min()) > 20.0,
+                f"psnr {psnr.tolist()}")
+        require(np.isfinite(bpp) and bpp > 0.0, f"bpp {bpp}")
+        del com, m
+        times = timed_runs(rollout, spec, gop)
+        require(dict(kw.LAUNCHES) == {"flow_warp": 16, "flow_warp_s2d": 16},
+                f"counts after 4 GOPs {kw.LAUNCHES}")
+        ms = sum(times) / len(times)
+        log(f"rollout: ms/GOP {times} mean {ms:.3f}; fps {1000.0 * (GOP - 1) / ms:.3f}; "
+            f"bpp {bpp:.6f}; psnr mean {float(psnr.mean()):.4f} per frame "
+            f"{[round(v, 4) for v in psnr.tolist()]}; peak memory {peak:.3f} GiB")
+
+    with phase("decode graph 1024x2048 GOP16 bf16"):
+        decode, (mv_q, z_qs, feat_qs) = build_lsvc_decode(spec.module, GOP, H, W)
+        iframe_s2d = space_to_depth(gop[0:1], 2)[0].contiguous()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        mean, sigma, out = decode(iframe_s2d, mv_q, z_qs, feat_qs)
+        torch.cuda.synchronize()
+        decode_launches = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"launches in one GOP: {decode_launches}")
+        require(decode_launches == {"flow_warp": 0, "flow_warp_s2d": 4},
+                f"decode launch counts {decode_launches}, want s2d warp 4")
+        require(tuple(out.shape) == (GOP - 1, 3, H, W) and bool(torch.isfinite(out).all()),
+                "decode output not finite or misshapen")
+        require(np.isfinite(float(mean)) and np.isfinite(float(sigma)), "decode scalars")
+        del out
+        times = timed_runs(decode, iframe_s2d, mv_q, z_qs, feat_qs)
+        ms = sum(times) / len(times)
+        log(f"decode: ms/GOP {times} mean {ms:.3f}; fps {1000.0 * (GOP - 1) / ms:.3f}; "
+            f"recon mean {float(mean):.6f} sigma sum {float(sigma):.6f}; "
+            f"peak memory {peak:.3f} GiB")
+
+    with phase("kernel timing (bf16, one GOP's launches)"):
+        # the kernels' inputs from one more rollout of the clip: the main
+        # path's shapes and its real (smooth) flows
+        captured = {k: [] for k in kernels}
+        with capture_warp_inputs(captured):
+            rollout(spec, gop)
+        require([len(v) for v in captured.values()] == [4, 4],
+                f"captured {[len(v) for v in captured.values()]} launches")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "random_ms": 0.0}
+                for k in kernels}
+        library_ms = 0.0
+        for name, calls in captured.items():
+            r = rows[name]
+            for img, flow in calls:
+                err = (kernels[name](img, flow).float() - plains[name](img, flow).float())
+                err = err.abs().max().item()
+                require(err <= TOL["bfloat16"], f"{name} on main-path inputs: {err}")
+                max_err[name] = max(max_err[name], err)
+                r["ms"] += cuda_ms(torch, kernels[name], img, flow)
+                r["plain_ms"] += cuda_ms(torch, plains[name], img, flow, iters=5)
+                r["bound_ms"] += bound_ms(img, flow)
+                rimg, rflow = warp_inputs(torch, gen, img.shape, flow.shape, img.dtype)
+                r["random_ms"] += cuda_ms(torch, kernels[name], rimg, rflow)
+                if name == "flow_warp":
+                    library_ms += cuda_ms(torch, grid_sample, img, sample_grid(flow))
+        lib = {"flow_warp": library_ms, "flow_warp_s2d": None}
+        for name, r in rows.items():
+            log(f"{name}: kernel {r['ms']:.4f} ms/GOP (on uniform random flows of "
+                f"+-200 px: {r['random_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} (bytes), library {lib[name]}")
+        del captured
+
+    report = {"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": rollout_launches[name],
+            "max_abs_err": max_err[name],
+            "ms": rows[name]["ms"],
+            "plain_ms": rows[name]["plain_ms"],
+            "bound_ms": rows[name]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": lib[name],
+        }
+        for name in kernels
+    ]}
+    log(json.dumps(report))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

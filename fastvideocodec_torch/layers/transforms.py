@@ -1,0 +1,169 @@
+"""Analysis/synthesis transforms (NCHW), ported from
+fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU configuration.
+
+Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
+``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
+the port's ``state_dict`` key by renaming only its leaf (weights.py).
+
+``PolyphaseDeconv`` is ``nn.ConvTranspose2d(k, 2, k//2, output_padding=1)``:
+the JAX polyphase form computes the same map as this transposed conv on the
+un-flipped ``[I, O, k, k]`` kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fastvideocodec_torch.ops.gdn import GDN
+from fastvideocodec_torch.ops.warp import depth_to_space
+
+OUT_CHANNEL_N = 64
+OUT_CHANNEL_M = 96
+OUT_CHANNEL_MV = 128
+STAGES = 3  # stride-2 stages of each transform in the LSVC-TPU s2d domain
+POLYPHASE_FACTOR = 4  # the mv decoder emits the full-resolution flow
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+
+
+def polyphase_deconv(cin: int, cout: int, k: int) -> nn.ConvTranspose2d:
+    """Stride-2 transposed conv doubling H and W (the JAX PolyphaseDeconv)."""
+    return nn.ConvTranspose2d(cin, cout, k, stride=2, padding=k // 2, output_padding=1)
+
+
+def leaky01(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.1)
+
+
+class AnalysisNet(nn.Module):
+    """STAGES x (5x5 s2 conv + GDN), no GDN after the last conv."""
+
+    def __init__(self, in_channels: int, conv_channels: int = OUT_CHANNEL_N,
+                 out_channels: int = OUT_CHANNEL_M):
+        super().__init__()
+        cin = in_channels
+        for i in range(STAGES - 1):
+            self.add_module(f"Conv_{i}", conv(cin, conv_channels, 5, 2))
+            self.add_module(f"GDN_{i}", GDN(conv_channels))
+            cin = conv_channels
+        self.add_module(f"Conv_{STAGES - 1}", conv(cin, out_channels, 5, 2))
+
+    def forward(self, x):
+        for i in range(STAGES - 1):
+            x = getattr(self, f"GDN_{i}")(getattr(self, f"Conv_{i}")(x))
+        return getattr(self, f"Conv_{STAGES - 1}")(x)
+
+
+class SynthesisNet(nn.Module):
+    """STAGES x (5x5 s2 deconv + inverse GDN), no GDN after the last."""
+
+    def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N,
+                 out_channels: int = 3):
+        super().__init__()
+        cin = in_channels
+        for i in range(STAGES - 1):
+            self.add_module(f"PolyphaseDeconv_{i}", polyphase_deconv(cin, conv_channels, 5))
+            self.add_module(f"GDN_{i}", GDN(conv_channels, inverse=True))
+            cin = conv_channels
+        self.add_module(
+            f"PolyphaseDeconv_{STAGES - 1}", polyphase_deconv(cin, out_channels, 5)
+        )
+
+    def forward(self, x):
+        for i in range(STAGES - 1):
+            x = getattr(self, f"GDN_{i}")(getattr(self, f"PolyphaseDeconv_{i}")(x))
+        return getattr(self, f"PolyphaseDeconv_{STAGES - 1}")(x)
+
+
+class AnalysisMVNet(nn.Module):
+    """3x3 convs with LeakyReLU(0.1): strides [2, 1] * (STAGES-1) + [2],
+    then a stride-1 output conv."""
+
+    def __init__(self, in_channels: int = 2, conv_channels: int = OUT_CHANNEL_MV,
+                 out_channels: int = OUT_CHANNEL_MV):
+        super().__init__()
+        strides = [2, 1] * (STAGES - 1) + [2]
+        self.n = len(strides)
+        cin = in_channels
+        for i, s in enumerate(strides):
+            self.add_module(f"Conv_{i}", conv(cin, conv_channels, 3, s))
+            cin = conv_channels
+        self.add_module(f"Conv_{self.n}", conv(cin, out_channels, 3))
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = leaky01(getattr(self, f"Conv_{i}")(x))
+        return getattr(self, f"Conv_{self.n}")(x)
+
+
+class SynthesisMVNet(nn.Module):
+    """Motion synthesis with a polyphase output: the mirrored stack stops
+    one doubling short, and a final 3x3 conv emits f*f*out_channels
+    channels in (ry, rx, c) order that depth-to-space by POLYPHASE_FACTOR
+    into the full-resolution flow."""
+
+    def __init__(self, in_channels: int = OUT_CHANNEL_MV, conv_channels: int = OUT_CHANNEL_MV,
+                 out_channels: int = 2):
+        super().__init__()
+        self.ups = ([True, False] * (STAGES - 1) + [True])[:-1]
+        cin, n_deconv, n_conv = in_channels, 0, 0
+        for up in self.ups:
+            if up:
+                self.add_module(
+                    f"PolyphaseDeconv_{n_deconv}", polyphase_deconv(cin, conv_channels, 3)
+                )
+                n_deconv += 1
+            else:
+                self.add_module(f"Conv_{n_conv}", conv(cin, conv_channels, 3))
+                n_conv += 1
+            cin = conv_channels
+        self.n_conv = n_conv
+        f = POLYPHASE_FACTOR
+        self.add_module(f"Conv_{n_conv}", conv(cin, f * f * out_channels, 3))
+
+    def forward(self, x):
+        n_deconv = n_conv = 0
+        for up in self.ups:
+            if up:
+                x = leaky01(getattr(self, f"PolyphaseDeconv_{n_deconv}")(x))
+                n_deconv += 1
+            else:
+                x = leaky01(getattr(self, f"Conv_{n_conv}")(x))
+                n_conv += 1
+        return depth_to_space(getattr(self, f"Conv_{self.n_conv}")(x), POLYPHASE_FACTOR)
+
+
+class AnalysisPriorNet(nn.Module):
+    """abs -> conv3 s1 -> relu -> conv5 s2 -> relu -> conv5 s2."""
+
+    def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N):
+        super().__init__()
+        c = conv_channels
+        self.Conv_0 = conv(in_channels, c, 3)
+        self.Conv_1 = conv(c, c, 5, 2)
+        self.Conv_2 = conv(c, c, 5, 2)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_0(torch.abs(x)))
+        x = F.relu(self.Conv_1(x))
+        return self.Conv_2(x)
+
+
+class SynthesisPriorNet(nn.Module):
+    """deconv5 s2 -> relu -> deconv5 s2 -> relu -> conv3 -> exp (sigma)."""
+
+    def __init__(self, conv_channels: int = OUT_CHANNEL_N, out_channels: int = OUT_CHANNEL_M):
+        super().__init__()
+        c = conv_channels
+        self.PolyphaseDeconv_0 = polyphase_deconv(c, c, 5)
+        self.PolyphaseDeconv_1 = polyphase_deconv(c, c, 5)
+        self.Conv_0 = conv(c, out_channels, 3)
+
+    def forward(self, x):
+        x = F.relu(self.PolyphaseDeconv_0(x))
+        x = F.relu(self.PolyphaseDeconv_1(x))
+        return torch.exp(self.Conv_0(x))

@@ -1,0 +1,61 @@
+"""Quantization and rate-estimation math, ported from fastvideocodec_tpu/ops/math.py.
+
+Quantization is the eval-time hard round (half to even, as ``jnp.round``);
+training noise is not ported yet. Rates are computed in float32 whatever
+the activation dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+LOG2 = math.log(2.0)
+
+
+def quantize(x: torch.Tensor) -> torch.Tensor:
+    """Hard round (eval time)."""
+    return torch.round(x)
+
+
+def laplace_cdf(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """CDF of Laplace(0, scale) at x."""
+    return 0.5 - 0.5 * torch.sign(x) * torch.expm1(-torch.abs(x) / scale)
+
+
+def laplace_likelihood(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """P(x - 0.5 < X <= x + 0.5) under Laplace(0, scale), scale clamped to
+    [1e-5, 1e10]."""
+    scale = torch.clamp(scale, 1e-5, 1e10)
+    return laplace_cdf(x + 0.5, scale) - laplace_cdf(x - 0.5, scale)
+
+
+class _LowerBound(torch.autograd.Function):
+    """max(x, bound); the gradient passes where x >= bound or where it
+    pushes x up (grad < 0)."""
+
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp(x, min=bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        pass_through = (x >= ctx.bound) | (g < 0)
+        return torch.where(pass_through, g, torch.zeros_like(g)), None
+
+
+def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    return _LowerBound.apply(x, bound)
+
+
+def bits_estimate(likelihoods: torch.Tensor) -> torch.Tensor:
+    """sum(clamp(-log2(p + 1e-5), 0, 50))."""
+    return torch.sum(torch.clamp(-torch.log(likelihoods + 1e-5) / LOG2, 0.0, 50.0))
+
+
+def psnr_from_mse(mse: torch.Tensor) -> torch.Tensor:
+    return 10.0 * torch.log(1.0 / mse) / math.log(10.0)
