@@ -1,3 +1,7 @@
 from fastvideocodec_torch.entropy.bit_estimator import BitEstimator, Bitparm
+from fastvideocodec_torch.entropy.factorized import EntropyBottleneck
+from fastvideocodec_torch.entropy.gaussian import GaussianConditional
+from fastvideocodec_torch.entropy.hyperprior import SSFHyperprior
 
-__all__ = ["BitEstimator", "Bitparm"]
+__all__ = ["BitEstimator", "Bitparm", "EntropyBottleneck", "GaussianConditional",
+           "SSFHyperprior"]

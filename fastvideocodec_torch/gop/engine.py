@@ -1,12 +1,14 @@
-"""GOP rollout of the port: the LSVC whole-GOP call of
-fastvideocodec_tpu/gop/engine.py (``lsvc_gop`` / ``rollout``)."""
+"""GOP rollouts of the port, from fastvideocodec_tpu/gop/engine.py: the
+LSVC whole-GOP call (``lsvc_gop``) and the SSF chain of inter frames
+(``ssf_gop``), dispatched by family in ``rollout``."""
 
 from __future__ import annotations
 
 import torch
 
 from fastvideocodec_torch.models.registry import CodecSpec
-from fastvideocodec_torch.ops.math import psnr_from_mse
+from fastvideocodec_torch.ops.math import bits_estimate, psnr_from_mse
+from fastvideocodec_torch.ops.warp import depth_to_space, space_to_depth
 
 
 @torch.inference_mode()
@@ -26,8 +28,47 @@ def lsvc_gop(spec: CodecSpec, gop: torch.Tensor):
     return com, metrics
 
 
+def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
+    """Per-frame metrics of an s2d frame [B, 12, H/2, W/2], float32: bpp
+    is per full-resolution pixel."""
+    B, C, H, W = x_cur.shape
+    denom = B * H * W * (C // 3)
+    mot = bits_estimate(lik["motion"]["y"]) + bits_estimate(lik["motion"]["z"])
+    res = bits_estimate(lik["residual"]["y"]) + bits_estimate(lik["residual"]["z"])
+    mse = torch.mean((x_rec.float() - x_cur.float()) ** 2)
+    return {
+        "img_loss": mse,
+        "psnr": psnr_from_mse(mse),
+        "bpp_est": (mot + res) / denom,
+        "bpp_res_est": res / denom,
+    }
+
+
+@torch.inference_mode()
+def ssf_gop(spec: CodecSpec, gop: torch.Tensor):
+    """gop [T, 3, H, W] with frame 0 the (uncoded) reference -> (recon
+    [T-1, 3, H, W], metrics). The GOP folds into the s2d domain once, the
+    P-frames run a chain of ``forward_inter`` calls (batch 1), and the
+    recon unfolds once. Metrics are float32 [T-1] stacks of ``img_loss``,
+    ``psnr``, ``bpp_est`` and ``bpp_res_est``."""
+    module = spec.module
+    frames = space_to_depth(gop.to(module.dtype), module.S2D)
+    x_prev = frames[0:1]
+    recons, per_frame = [], []
+    for i in range(1, frames.shape[0]):
+        x_cur = frames[i:i + 1]
+        x_prev, lik = module.forward_inter(x_cur, x_prev)
+        recons.append(x_prev)
+        per_frame.append(_ssf_metrics(x_cur, x_prev, lik))
+    metrics = {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
+    return depth_to_space(torch.cat(recons), module.S2D), metrics
+
+
+ROLLOUTS = {"lsvc": lsvc_gop, "ssf": ssf_gop}
+
+
 def rollout(spec: CodecSpec, gop: torch.Tensor):
     """Estimated-bits encode+decode of one GOP (eval mode)."""
-    if spec.family != "lsvc":
+    if spec.family not in ROLLOUTS:
         raise ValueError(f"family {spec.family!r} is not ported yet")
-    return lsvc_gop(spec, gop)
+    return ROLLOUTS[spec.family](spec, gop)

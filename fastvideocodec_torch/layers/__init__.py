@@ -1,9 +1,13 @@
-from fastvideocodec_torch.layers.blocks import MEBasic, ResBlock, WarpNet
+from fastvideocodec_torch.layers.blocks import MEBasic, ResBlock, WarpNet, qrelu
 from fastvideocodec_torch.layers.spynet import SpyNet
 from fastvideocodec_torch.layers.transforms import (
     AnalysisMVNet,
     AnalysisNet,
     AnalysisPriorNet,
+    SSFDecoder,
+    SSFEncoder,
+    SSFHyperDecoder,
+    SSFHyperDecoderQReLU,
     SynthesisMVNet,
     SynthesisNet,
     SynthesisPriorNet,
@@ -15,9 +19,14 @@ __all__ = [
     "AnalysisPriorNet",
     "MEBasic",
     "ResBlock",
+    "SSFDecoder",
+    "SSFEncoder",
+    "SSFHyperDecoder",
+    "SSFHyperDecoderQReLU",
     "SpyNet",
     "SynthesisMVNet",
     "SynthesisNet",
     "SynthesisPriorNet",
     "WarpNet",
+    "qrelu",
 ]

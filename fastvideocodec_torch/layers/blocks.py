@@ -1,14 +1,20 @@
-"""Building blocks of the LSVC-TPU path (NCHW), ported from
-fastvideocodec_tpu/layers/blocks.py: ResBlock, the WarpNet
-motion-compensation U-net, and the MEBasic SpyNet level."""
+"""Building blocks (NCHW), ported from fastvideocodec_tpu/layers/blocks.py:
+ResBlock, the WarpNet motion-compensation U-net and the MEBasic SpyNet
+level of the LSVC-TPU path, and the forward of QReLU for the SSF
+hyper decoders."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fastvideocodec_torch.layers.transforms import conv
 from fastvideocodec_torch.ops.warp import avg_pool2, bilinear_upsample_x2_ac
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    """k x k conv with the flax ``padding=k//2`` geometry."""
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
 
 
 class ResBlock(nn.Module):
@@ -70,3 +76,9 @@ class MEBasic(nn.Module):
         for i in range(self.n):
             x = F.relu(getattr(self, f"Conv_{i}")(x))
         return getattr(self, f"Conv_{self.n}")(x)
+
+
+def qrelu(x: torch.Tensor) -> torch.Tensor:
+    """clamp(x, 0, 255): the forward of compressai's QReLU at 8 bits. Its
+    smooth surrogate gradient waits for training."""
+    return torch.clamp(x, 0.0, 255.0)

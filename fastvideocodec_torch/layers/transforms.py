@@ -1,5 +1,6 @@
 """Analysis/synthesis transforms (NCHW), ported from
-fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU configuration.
+fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU and SSF-TPU
+configurations.
 
 Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
 ``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fastvideocodec_torch.layers.blocks import conv, qrelu
 from fastvideocodec_torch.ops.gdn import GDN
 from fastvideocodec_torch.ops.warp import depth_to_space
 
@@ -24,10 +26,6 @@ OUT_CHANNEL_M = 96
 OUT_CHANNEL_MV = 128
 STAGES = 3  # stride-2 stages of each transform in the LSVC-TPU s2d domain
 POLYPHASE_FACTOR = 4  # the mv decoder emits the full-resolution flow
-
-
-def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
 
 
 def polyphase_deconv(cin: int, cout: int, k: int) -> nn.ConvTranspose2d:
@@ -167,3 +165,77 @@ class SynthesisPriorNet(nn.Module):
         x = F.relu(self.PolyphaseDeconv_0(x))
         x = F.relu(self.PolyphaseDeconv_1(x))
         return torch.exp(self.Conv_0(x))
+
+
+# ---------------------------------------------------------------------------
+# SSF-family conv stacks, in the SSF-TPU configuration (s2d=2, with the
+# input and output kept in the s2d domain)
+# ---------------------------------------------------------------------------
+
+
+class SSFEncoder(nn.Module):
+    """3 x (5x5 s2 conv), ReLU between: the ``s2d=2`` branch with
+    ``input_s2d``, which takes the frame already in s2d form (so its latent
+    lies at /16 of full resolution). The motion encoder's input is
+    phase-blocked, cat(s2d(cur), s2d(ref)). The same stack is the JAX
+    package's ``SSFHyperEncoder``, which the hyperprior uses."""
+
+    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 192):
+        super().__init__()
+        self.Conv_0 = conv(in_channels, mid_planes, 5, 2)
+        self.Conv_1 = conv(mid_planes, mid_planes, 5, 2)
+        self.Conv_2 = conv(mid_planes, out_planes, 5, 2)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        return self.Conv_2(x)
+
+
+class SSFDecoder(nn.Module):
+    """The ``s2d=2`` branch with ``output_s2d``: two 5x5 s2 deconvs lift the
+    /16 latent to /4, a third emits ``4*mid_planes//8`` channels at /2, ReLU
+    after each, and a 3x3 conv emits ``4*out_planes`` channels at /2 in
+    (ry, rx, c) order, returned without depth-to-space (the SSF-TPU motion
+    decoder's 12 channels are read in c-major phase order by the warp)."""
+
+    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 3):
+        super().__init__()
+        m = mid_planes
+        self.PolyphaseDeconv_0 = polyphase_deconv(in_channels, m, 5)
+        self.PolyphaseDeconv_1 = polyphase_deconv(m, m, 5)
+        self.PolyphaseDeconv_2 = polyphase_deconv(m, 4 * m // 8, 5)
+        self.Conv_0 = conv(4 * m // 8, 4 * out_planes, 3)
+
+    def forward(self, x):
+        x = F.relu(self.PolyphaseDeconv_0(x))
+        x = F.relu(self.PolyphaseDeconv_1(x))
+        x = F.relu(self.PolyphaseDeconv_2(x))
+        return self.Conv_0(x)
+
+
+class SSFHyperDecoder(nn.Module):
+    """3 x (5x5 s2 deconv), all ``planes`` wide, ``act`` between (ReLU)
+    and, when ``act_last``, after the last."""
+
+    act = staticmethod(F.relu)
+    act_last = False
+
+    def __init__(self, planes: int = 192):
+        super().__init__()
+        self.PolyphaseDeconv_0 = polyphase_deconv(planes, planes, 5)
+        self.PolyphaseDeconv_1 = polyphase_deconv(planes, planes, 5)
+        self.PolyphaseDeconv_2 = polyphase_deconv(planes, planes, 5)
+
+    def forward(self, x):
+        x = self.act(self.PolyphaseDeconv_0(x))
+        x = self.act(self.PolyphaseDeconv_1(x))
+        x = self.PolyphaseDeconv_2(x)
+        return self.act(x) if self.act_last else x
+
+
+class SSFHyperDecoderQReLU(SSFHyperDecoder):
+    """SSFHyperDecoder with QReLU after every deconv (the scale decoder)."""
+
+    act = staticmethod(qrelu)
+    act_last = True

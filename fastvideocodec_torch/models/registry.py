@@ -1,11 +1,11 @@
-"""Codec registry of the port: the LSVC-TPU branches of
+"""Codec registry of the port: the LSVC-TPU and SSF-TPU branches of
 fastvideocodec_tpu/models/registry.py.
 
 ``get_codec_model`` builds the module on ``device`` (the card unless the
 caller passes ``device="cpu"``) in eval mode. With ``dtype=torch.bfloat16``
 the conv weights are held in bfloat16 and activations run in bfloat16, as
-the JAX modules do with ``dtype=bfloat16``; GDN, BitEstimator and the rate
-math stay in float32.
+the JAX modules do with ``dtype=bfloat16``; GDN, BitEstimator, the
+entropy bottlenecks and the rate math stay in float32.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 from torch import nn
 
 from fastvideocodec_torch.models.lsvc import LSVC
+from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
+
 
 @dataclass
 class CodecSpec:
@@ -24,27 +26,37 @@ class CodecSpec:
     module: nn.Module
 
 
-def _lsvc(name: str, dtype: torch.dtype) -> LSVC:
+def _build(name: str, dtype: torch.dtype) -> tuple[str, nn.Module]:
     if name == "LSVC-TPU":
         # the flagship: s2d codec domain, pooled-RGB SpyNet with 5x5/3x3
         # kernels, 128-wide transforms, full-res flow and full-res MC warp
-        return LSVC(channels=128, conv_channels=128, spynet_widths=(32, 64, 32, 16),
-                    spynet_kernels=(5, 5, 3, 3), warp_width=64,
-                    dtype=dtype)
+        return "lsvc", LSVC(channels=128, conv_channels=128,
+                            spynet_widths=(32, 64, 32, 16), spynet_kernels=(5, 5, 3, 3),
+                            warp_width=64, dtype=dtype)
     if name == "LSVC-TPU-TINY":
         # the flagship's architecture at golden-RD scale
-        return LSVC(channels=48, conv_channels=32, spynet_widths=(8, 16, 8, 4),
-                    spynet_kernels=(5, 5, 5, 5), warp_width=32,
-                    dtype=dtype)
-    raise ValueError(f"codec {name!r} is not ported yet (have LSVC-TPU, LSVC-TPU-TINY)")
+        return "lsvc", LSVC(channels=48, conv_channels=32, spynet_widths=(8, 16, 8, 4),
+                            spynet_kernels=(5, 5, 5, 5), warp_width=32, dtype=dtype)
+    if name == "SSF-TPU":
+        # the whole inter pipeline in the s2d domain, pyramid scale-space
+        # warp; compressai's widths (mid 128, planes 192)
+        return "ssf", ScaleSpaceFlow(mid_planes=128, planes=192, dtype=dtype)
+    if name == "SSF-TPU-TINY":
+        # SSF-TPU at golden-RD scale
+        return "ssf", ScaleSpaceFlow(mid_planes=32, planes=48, dtype=dtype)
+    raise ValueError(
+        f"codec {name!r} is not ported yet (have LSVC-TPU, LSVC-TPU-TINY, SSF-TPU, "
+        f"SSF-TPU-TINY)"
+    )
 
 
 def get_codec_model(name: str, dtype: torch.dtype = torch.float32,
                     device="cuda") -> CodecSpec:
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    module = _lsvc(name, dtype).to(device).eval().requires_grad_(False)
+    family, module = _build(name, dtype)
+    module = module.to(device).eval().requires_grad_(False)
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.to(dtype)
-    return CodecSpec(name=name, family="lsvc", module=module)
+    return CodecSpec(name=name, family=family, module=module)

@@ -1,0 +1,98 @@
+"""Scale-space-flow (SSF) codec in its SSF-TPU configuration
+(``pipeline_s2d``), ported from fastvideocodec_tpu/models/ssf.py.
+
+The whole inter pipeline runs in the space-to-depth domain: frames are
+[B, 12, H/2, W/2] tensors, folded once per GOP. Per P-frame:
+
+  y_motion = motion_encoder(cat(x_cur, x_ref))      (phase-blocked input)
+  y_motion_hat ~ motion_hyperprior
+  motion_info = motion_decoder(y_motion_hat)        [B, 12, H/2, W/2], c-major
+  x_pred = warp_volume_pyramid_s2d(x_ref, vol_half(x_ref), motion_info)
+  y_res_hat ~ res_hyperprior(res_encoder(x_cur - x_pred))
+  x_rec = x_pred + res_decoder(cat(y_res_hat, y_motion_hat))
+
+The prediction's level-0 sample and half-resolution stack sample are the
+hand-written pixel warps on CUDA tensors. Keyframes go through the img_*
+transforms. Eval only: training noise and the ``s2d=1`` (SSF-Official)
+branches are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from fastvideocodec_torch.entropy.hyperprior import SSFHyperprior
+from fastvideocodec_torch.layers.transforms import SSFDecoder, SSFEncoder
+from fastvideocodec_torch.ops.warp import (
+    depth_to_space,
+    gaussian_volume,
+    s2d_phase_mean,
+    space_to_depth,
+    warp_volume_pyramid_s2d,
+)
+
+
+NUM_LEVELS = 5  # scale-space levels, the original included
+SIGMA0 = 1.5  # blur of each level
+
+
+class ScaleSpaceFlow(nn.Module):
+    S2D = 2
+
+    def __init__(self, mid_planes: int = 128, planes: int = 192,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        mp, pl = mid_planes, planes
+        img_c = 3 * self.S2D * self.S2D
+        self.img_encoder = SSFEncoder(img_c, mp, pl)
+        self.img_decoder = SSFDecoder(pl, mp, 3)
+        self.img_hyperprior = SSFHyperprior(pl)
+        self.motion_encoder = SSFEncoder(2 * img_c, mp, pl)
+        self.motion_decoder = SSFDecoder(pl, mp, 3)
+        self.motion_hyperprior = SSFHyperprior(pl)
+        self.res_encoder = SSFEncoder(img_c, mp, pl)
+        self.res_decoder = SSFDecoder(2 * pl, mp, 3)
+        self.res_hyperprior = SSFHyperprior(pl)
+
+    def make_volume(self, x_ref: torch.Tensor):
+        """(x_ref, vol_half): level 0 is the s2d reference itself; the
+        blurred levels are built at half resolution from its phase mean."""
+        h = s2d_phase_mean(x_ref, 3)  # == avg_pool2 of the full frame
+        return x_ref, gaussian_volume(h, SIGMA0, NUM_LEVELS - 1)
+
+    def warp_prediction(self, volume, motion_info: torch.Tensor) -> torch.Tensor:
+        level0_s2d, vol_half = volume
+        return warp_volume_pyramid_s2d(level0_s2d, vol_half, motion_info, NUM_LEVELS)
+
+    def forward_keyframe(self, x: torch.Tensor):
+        y_hat, lik = self.img_hyperprior(self.img_encoder(x))
+        return self.img_decoder(y_hat), {"keyframe": lik}
+
+    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor):
+        """x_cur, x_ref [B, 12, H/2, W/2] in the model dtype -> (x_rec,
+        {"motion": lik, "residual": lik})."""
+        y_motion = self.motion_encoder(torch.cat([x_cur, x_ref], dim=1))
+        y_motion_hat, motion_lik = self.motion_hyperprior(y_motion)
+        motion_info = self.motion_decoder(y_motion_hat)
+        x_pred = self.warp_prediction(self.make_volume(x_ref), motion_info)
+        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred))
+        x_res_hat = self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1))
+        return x_pred + x_res_hat, {"motion": motion_lik, "residual": res_lik}
+
+    def forward(self, frames: torch.Tensor):
+        """Keyframe + chained inter frames over frames [T, B, 3, H, W]:
+        returns (recon [T, B, 3, H, W], per-frame likelihood dicts). The
+        frames fold into the s2d domain once and the recon unfolds once."""
+        T = frames.shape[0]
+        x = space_to_depth(frames.to(self.dtype).flatten(0, 1), self.S2D)
+        x = x.unflatten(0, (T, -1))
+        x_ref, lik0 = self.forward_keyframe(x[0])
+        recons, liks = [x_ref], [lik0]
+        for i in range(1, T):
+            x_ref, lik = self.forward_inter(x[i], x_ref)
+            recons.append(x_ref)
+            liks.append(lik)
+        out = depth_to_space(torch.cat(recons), self.S2D)
+        return out.unflatten(0, (T, -1)), liks

@@ -88,5 +88,12 @@ def load() -> ctypes.CDLL:
     for fn in (lib.fvc_flow_warp, lib.fvc_flow_warp_s2d):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    pixel = args[:7]  # img, flow, out, B, C, H (or Hs), W (or Ws)
+    lib.fvc_pixel_warp.argtypes = [*pixel, ctypes.c_int, ctypes.c_void_p]  # dtype, stream
+    lib.fvc_pixel_warp_s2d.argtypes = [
+        *pixel, ctypes.c_int, ctypes.c_int, ctypes.c_void_p  # phase_flow, dtype, stream
+    ]
+    for fn in (lib.fvc_pixel_warp, lib.fvc_pixel_warp_s2d):
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -1,9 +1,12 @@
 """Launchers of the CUDA warp kernels (csrc/warp.cu), each with a launch count.
 
 A launcher checks its CUDA tensors and launches its kernel on the current
-stream, or raises. ``flow_warp`` and ``flow_warp_fullres_s2d`` in
-ops/warp.py call these for CUDA tensors and the plain versions beside them
-for CPU tensors.
+stream, or raises. The dispatchers in ops/warp.py (``flow_warp``,
+``flow_warp_fullres_s2d``, ``pixel_warp``, ``pixel_warp_s2d``,
+``pixel_warp_s2d_sflow``) call these for CUDA tensors and the plain
+versions beside them for CPU tensors. The normalized-grid warps take a
+flow of the image's dtype; the pixel warps a float32 flow with a float32
+or bfloat16 image.
 
 ``LAUNCHES[name]`` grows by one at each kernel launch and nowhere else, so
 a run can show that it went through the kernels; ``reset_launches()``
@@ -17,7 +20,13 @@ import torch
 
 from fastvideocodec_torch.ops.kernels import build
 
-LAUNCHES = {"flow_warp": 0, "flow_warp_s2d": 0}
+LAUNCHES = {
+    "flow_warp": 0,
+    "flow_warp_s2d": 0,
+    "pixel_warp": 0,
+    "pixel_warp_s2d": 0,
+    "pixel_warp_s2d_sflow": 0,
+}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -32,26 +41,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(img: torch.Tensor, flow: torch.Tensor, flow_hw: tuple) -> int:
+def _check(img: torch.Tensor, flow: torch.Tensor, flow_shape: tuple,
+           flow_dtype: torch.dtype | None = None) -> int:
+    """Raise unless img (4-D) and flow (of ``flow_shape``, and of
+    ``flow_dtype`` or else img's dtype) are contiguous on one CUDA device;
+    return the kernels' dtype code of img."""
     if img.device.type != "cuda" or flow.device != img.device:
         raise ValueError(
             f"warp kernel needs img and flow on one CUDA device, got {img.device} "
             f"and {flow.device}"
         )
-    if img.dtype not in _DTYPES or flow.dtype != img.dtype:
+    want = img.dtype if flow_dtype is None else flow_dtype
+    if img.dtype not in _DTYPES or flow.dtype != want:
         raise TypeError(
-            f"warp kernel takes float32 or bfloat16 img and flow of one dtype, got "
+            f"warp kernel takes a float32 or bfloat16 img and a {want} flow, got "
             f"{img.dtype} and {flow.dtype}"
         )
-    if img.dim() != 4 or flow.dim() != 4 or flow.shape[1] != 2:
-        raise ValueError(f"bad shapes img {tuple(img.shape)} flow {tuple(flow.shape)}")
-    if flow.shape[0] != img.shape[0] or tuple(flow.shape[2:]) != flow_hw:
+    if img.dim() != 4 or tuple(flow.shape) != tuple(flow_shape):
         raise ValueError(
-            f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}"
+            f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}: want "
+            f"{tuple(flow_shape)}"
         )
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError("warp kernel needs contiguous img and flow")
     return _DTYPES[img.dtype]
+
+
+def _s2d_shape(img_s2d: torch.Tensor) -> tuple:
+    if img_s2d.dim() != 4 or img_s2d.shape[1] % 4:
+        raise ValueError(f"s2d image needs shape [B, 4C, H/2, W/2], got {tuple(img_s2d.shape)}")
+    return tuple(img_s2d.shape)
 
 
 def _raise_if_failed(rc: int, name: str) -> None:
@@ -62,7 +81,7 @@ def _raise_if_failed(rc: int, name: str) -> None:
 def launch_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Bilinear backward warp, img [B, C, H, W], flow [B, 2, H, W] pixels."""
     B, C, H, W = img.shape
-    dtype = _check(img, flow, (H, W))
+    dtype = _check(img, flow, (B, 2, H, W))
     lib = build.load()
     out = torch.empty_like(img)
     with torch.cuda.device(img.device):
@@ -79,10 +98,8 @@ def launch_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 def launch_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Full-resolution warp of an s2d image: img_s2d [B, 4C, H/2, W/2],
     flow [B, 2, H, W] full-res pixels; returns the warped image in s2d form."""
-    B, C4, Hs, Ws = img_s2d.shape
-    if C4 % 4:
-        raise ValueError(f"s2d image needs 4C channels, got {C4}")
-    dtype = _check(img_s2d, flow, (2 * Hs, 2 * Ws))
+    B, C4, Hs, Ws = _s2d_shape(img_s2d)
+    dtype = _check(img_s2d, flow, (B, 2, 2 * Hs, 2 * Ws))
     lib = build.load()
     out = torch.empty_like(img_s2d)
     with torch.cuda.device(img_s2d.device):
@@ -94,3 +111,51 @@ def launch_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Ten
     _raise_if_failed(rc, "flow_warp_s2d")
     LAUNCHES["flow_warp_s2d"] += 1
     return out
+
+
+def launch_pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Pixel-displacement warp (source = output + flow), img [B, C, H, W],
+    flow [B, 2, H, W] float32."""
+    B, C, H, W = img.shape
+    dtype = _check(img, flow, (B, 2, H, W), torch.float32)
+    lib = build.load()
+    out = torch.empty_like(img)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fvc_pixel_warp(
+            img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W, dtype, stream,
+        )
+    _raise_if_failed(rc, "pixel_warp")
+    LAUNCHES["pixel_warp"] += 1
+    return out
+
+
+def _launch_pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor, phase_flow: bool,
+                           name: str) -> torch.Tensor:
+    B, C4, Hs, Ws = _s2d_shape(img_s2d)
+    shape = (B, 8, Hs, Ws) if phase_flow else (B, 2, 2 * Hs, 2 * Ws)
+    dtype = _check(img_s2d, flow, shape, torch.float32)
+    lib = build.load()
+    out = torch.empty_like(img_s2d)
+    with torch.cuda.device(img_s2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fvc_pixel_warp_s2d(
+            img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C4 // 4, Hs, Ws,
+            int(phase_flow), dtype, stream,
+        )
+    _raise_if_failed(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def launch_pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Full-resolution pixel warp of an s2d image: img_s2d [B, 4C, H/2, W/2],
+    flow [B, 2, H, W] float32 full-res pixels; returns s2d form."""
+    return _launch_pixel_warp_s2d(img_s2d, flow, False, "pixel_warp_s2d")
+
+
+def launch_pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -> torch.Tensor:
+    """Full-resolution pixel warp of an s2d image by a float32 flow in
+    c-major s2d phase form [B, 8, H/2, W/2] (channel comp*4 + 2*ry + rx);
+    returns s2d form."""
+    return _launch_pixel_warp_s2d(img_s2d, flow_s2d, True, "pixel_warp_s2d_sflow")

@@ -12,10 +12,15 @@ import math
 import torch
 
 LOG2 = math.log(2.0)
+SCALES_MIN = 0.11  # compressai's scale lower bound
+LIKELIHOOD_LOWER_BOUND = 1e-9
 
 
 def quantize(x: torch.Tensor) -> torch.Tensor:
-    """Hard round (eval time)."""
+    """Hard round (eval time). It is also the JAX package's straight-through
+    ``quantize_ste`` at eval time: x + (round(x) - x) equals round(x)
+    exactly in floating point. The straight-through gradient waits for
+    training."""
     return torch.round(x)
 
 
@@ -29,6 +34,23 @@ def laplace_likelihood(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     [1e-5, 1e10]."""
     scale = torch.clamp(scale, 1e-5, 1e10)
     return laplace_cdf(x + 0.5, scale) - laplace_cdf(x - 0.5, scale)
+
+
+def gaussian_std_cdf(x: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF via erfc (compressai ``_standardized_cumulative``)."""
+    return 0.5 * torch.special.erfc(-x * 2 ** -0.5)
+
+
+def gaussian_likelihood(x: torch.Tensor, scale: torch.Tensor,
+                        mean: torch.Tensor) -> torch.Tensor:
+    """P(x - 0.5 < X <= x + 0.5) under N(mean, scale^2), the scale bounded
+    below at SCALES_MIN and the result at 1e-9 (compressai
+    GaussianConditional)."""
+    scale = lower_bound(scale, SCALES_MIN)
+    x = torch.abs(x - mean)
+    upper = gaussian_std_cdf((0.5 - x) / scale)
+    lower = gaussian_std_cdf((-0.5 - x) / scale)
+    return lower_bound(upper - lower, LIKELIHOOD_LOWER_BOUND)
 
 
 class _LowerBound(torch.autograd.Function):

@@ -7,19 +7,26 @@ keeps the JAX package's channel order ``(ry, rx, c)`` (channel index
 permutation. ``torch.pixel_unshuffle`` orders channels ``(c, ry, rx)`` and
 is deliberately not used.
 
-``plain_flow_warp`` is the gather form of the JAX exact path
-(``_xla_flow_warp`` + ``grid_sample_bilinear``): the sampling coordinate is
-built in float32 for every image dtype, and the four taps are lerped in
-float32 and rounded once to the image dtype. ``flow_warp`` and
-``flow_warp_fullres_s2d`` launch the hand-written CUDA kernels
-(ops/kernels/warp.py) for CUDA tensors and run the plain versions for CPU
-tensors only: a CUDA tensor never falls back to them. There is no
+Two warp conventions, each the gather form of a JAX exact path:
+``plain_flow_warp`` (``_xla_flow_warp``: linspace grid + flow*2/(size-1))
+and ``plain_pixel_warp`` (``_xla_pixel_warp``: source = output + flow).
+The sampling coordinate is built in float32 for every image dtype, and the
+four taps are lerped in float32 and rounded once to the image dtype. The
+dispatchers (``flow_warp``, ``flow_warp_fullres_s2d``, ``pixel_warp``,
+``pixel_warp_s2d``, ``pixel_warp_s2d_sflow``) launch the hand-written CUDA
+kernels (ops/kernels/warp.py) for CUDA tensors and run the plain versions
+for CPU tensors only: a CUDA tensor never falls back to them. There is no
 displacement bound: the TPU kernel's clamp was a limit of the TPU.
+
+The SSF scale-space volume ops at the end (blur, volume, phase mean, s2d
+upsample, the pyramid warp) are plain PyTorch, as they were XLA fusions
+on the TPU.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -129,11 +136,9 @@ def _linspace(n: int, device) -> torch.Tensor:
     return torch.as_tensor(lin, device=device)
 
 
-def _taps(flow_c: torch.Tensor, lin: torch.Tensor, size: int):
-    """Border-clamped bilinear taps along one axis for a pixel flow
-    component: (index lo, index hi, weight of hi), all from float32 math."""
-    g = lin + flow_c.float() * grid_norm(size)
-    u = ((g + 1.0) * size - 1.0) * 0.5  # unnormalize, align_corners=False
+def _border_taps(u: torch.Tensor, size: int):
+    """Border-clamped bilinear taps of an unnormalized float32 coordinate:
+    (index lo, index hi, weight of hi)."""
     u = u.clamp(0.0, size - 1)
     u0 = torch.floor(u)
     t = u - u0
@@ -142,15 +147,44 @@ def _taps(flow_c: torch.Tensor, lin: torch.Tensor, size: int):
     return i0, i1, t
 
 
-def plain_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Bilinear backward warp, exact and unbounded (gather form).
+def _taps(flow_c: torch.Tensor, lin: torch.Tensor, size: int):
+    """Taps along one axis for a flow component in the normalized-grid
+    convention: linspace(-1,1) + flow*2/(size-1), unnormalized with
+    align_corners=False."""
+    g = lin + flow_c.float() * grid_norm(size)
+    return _border_taps(((g + 1.0) * size - 1.0) * 0.5, size)
 
-    img [B, C, H, W]; flow [B, 2, H, W] in pixels. The sample point of
-    output pixel (y, x) is linspace(-1,1)[x] + flow_x*2/(W-1) (same for y),
-    unnormalized with align_corners=False and clamped to the border."""
+
+@functools.lru_cache(maxsize=64)
+def _divisor(n: int, device) -> torch.Tensor:
+    """n as a one-element float32 tensor on ``device``: dividing by it is
+    IEEE float32 division on every device (PyTorch's CUDA division by a
+    Python scalar multiplies by the reciprocal instead)."""
+    return torch.full((1,), float(n), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _arange(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.float32, device=device)
+
+
+def _pixel_taps(flow_c: torch.Tensor, pos: torch.Tensor, size: int):
+    """Taps along one axis for a flow component in the pixel convention
+    (source = output + flow), op for op as the JAX exact path builds them:
+    g = (2*(i + f) + 1)/size - 1 (_xla_pixel_warp), then
+    u = ((g + 1)*size - 1)/2 (grid_sample's unnormalize). The round trip
+    is not the identity in float32, so it is kept."""
+    s = pos + flow_c.float()
+    g = (2.0 * s + 1.0) / _divisor(size, s.device) - 1.0
+    return _border_taps(((g + 1.0) * size - 1.0) * 0.5, size)
+
+
+def _gather_lerp(img: torch.Tensor, x_taps, y_taps) -> torch.Tensor:
+    """Bilinear gather of img [B, C, H, W] at per-output-pixel taps
+    ([B, H, W] each): the four taps lerped in float32, rounded once."""
     B, C, H, W = img.shape
-    x0, x1, tx = _taps(flow[:, 0], _linspace(W, img.device)[None, None, :], W)
-    y0, y1, ty = _taps(flow[:, 1], _linspace(H, img.device)[None, :, None], H)
+    x0, x1, tx = x_taps
+    y0, y1, ty = y_taps
     flat = img.reshape(B, C, H * W)
 
     def gather(yi, xi):
@@ -163,6 +197,20 @@ def plain_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     bot = gather(y1, x0) * (1.0 - tx) + gather(y1, x1) * tx
     out = top * (1.0 - ty) + bot * ty
     return out.to(img.dtype).reshape(B, C, H, W)
+
+
+def plain_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear backward warp, exact and unbounded (gather form).
+
+    img [B, C, H, W]; flow [B, 2, H, W] in pixels. The sample point of
+    output pixel (y, x) is linspace(-1,1)[x] + flow_x*2/(W-1) (same for y),
+    unnormalized with align_corners=False and clamped to the border."""
+    _, _, H, W = img.shape
+    return _gather_lerp(
+        img,
+        _taps(flow[:, 0], _linspace(W, img.device)[None, None, :], W),
+        _taps(flow[:, 1], _linspace(H, img.device)[None, :, None], H),
+    )
 
 
 def plain_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -192,6 +240,210 @@ def flow_warp_fullres_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Te
     return kernels.launch_flow_warp_s2d(img_s2d, flow)
 
 
+def plain_pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear warp with direct pixel displacements, exact and unbounded:
+    output pixel (y, x) samples img at (x + flow_x, y + flow_y), clamped to
+    the border (the JAX ``_xla_pixel_warp``). img [B, C, H, W] of any
+    float dtype; flow [B, 2, H, W], its coordinates built in float32."""
+    _, _, H, W = img.shape
+    return _gather_lerp(
+        img,
+        _pixel_taps(flow[:, 0], _arange(W, img.device)[None, None, :], W),
+        _pixel_taps(flow[:, 1], _arange(H, img.device)[None, :, None], H),
+    )
+
+
+def plain_pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Full-resolution pixel warp of an s2d image: img_s2d [B, 4C, H/2, W/2],
+    flow [B, 2, H, W]; returns s2d form (the JAX ``_exact_pixel_fullres_s2d``)."""
+    return space_to_depth(plain_pixel_warp(depth_to_space(img_s2d, 2), flow), 2)
+
+
+def plain_pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -> torch.Tensor:
+    """plain_pixel_warp_s2d with the flow in s2d phase form too:
+    flow_s2d [B, 8, H/2, W/2] in c-major order, channel comp*4 + 2*ry + rx
+    ([fx p0..p3, fy p0..p3]); each 4-channel block is the (ry, rx) phase
+    set of one flow component (the JAX ``_exact_pixel_s2d_sflow``)."""
+    flow = torch.cat(
+        [depth_to_space(flow_s2d[:, 0:4], 2), depth_to_space(flow_s2d[:, 4:8], 2)], dim=1
+    )
+    return plain_pixel_warp_s2d(img_s2d, flow)
+
+
+def pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Pixel-displacement warp, img [B, C, H, W], flow [B, 2, H, W]
+    (float32): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if _on_cpu(img, flow):
+        return plain_pixel_warp(img, flow)
+    return kernels.launch_pixel_warp(img, flow)
+
+
+def pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Full-resolution pixel warp of an s2d image, flow [B, 2, H, W]
+    full-res (float32); returns s2d form."""
+    if _on_cpu(img_s2d, flow):
+        return plain_pixel_warp_s2d(img_s2d, flow)
+    return kernels.launch_pixel_warp_s2d(img_s2d, flow)
+
+
+def pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -> torch.Tensor:
+    """Full-resolution pixel warp of an s2d image by a flow in c-major s2d
+    phase form [B, 8, H/2, W/2] (float32); returns s2d form."""
+    if _on_cpu(img_s2d, flow_s2d):
+        return plain_pixel_warp_s2d_sflow(img_s2d, flow_s2d)
+    return kernels.launch_pixel_warp_s2d_sflow(img_s2d, flow_s2d)
+
+
+# ---------------------------------------------------------------------------
+# Scale-space volume ops of the SSF family (plain PyTorch: on the TPU they
+# were XLA fusions, not kernels)
+# ---------------------------------------------------------------------------
+
+
+def gaussian_kernel1d(kernel_size: int, sigma: float) -> np.ndarray:
+    half = (kernel_size - 1) * 0.5
+    x = np.arange(kernel_size, dtype=np.float64) - half
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _blur_taps(kernel_size: int, sigma: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """The tap coefficients rounded to the image dtype, on its device
+    (cached: no host-to-device copy per call)."""
+    return torch.as_tensor(gaussian_kernel1d(kernel_size, sigma)).to(device, dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _phase_scale(H: int, W: int, device) -> torch.Tensor:
+    """[W/2 x4, H/2 x4] as [8, 1, 1] float32: the c-major phase flow's
+    normalized-to-pixel scale."""
+    scl = np.asarray([W / 2.0] * 4 + [H / 2.0] * 4, np.float32)
+    return torch.as_tensor(scl, device=device)[:, None, None]
+
+
+def _edge_pad(v: torch.Tensor, axis: int, pad: int) -> torch.Tensor:
+    shape = list(v.shape)
+    shape[axis] = pad
+    first = v.narrow(axis, 0, 1).expand(shape)
+    last = v.narrow(axis, v.shape[axis] - 1, 1).expand(shape)
+    return torch.cat([first, v, last], axis)
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable gaussian blur of [B, C, H, W] with edge padding over
+    2*ceil(3 sigma) + 1 taps, as the JAX package computes it: per axis,
+    each tap coefficient is rounded to the image dtype and the products are
+    summed left to right (a depthwise conv would sum in another order and
+    round otherwise in bfloat16)."""
+    kernel_size = 2 * int(math.ceil(3 * sigma)) + 1
+    pad = kernel_size // 2
+    k = _blur_taps(kernel_size, sigma, x.dtype, x.device)
+
+    def tap_sum(v, axis):
+        n = v.shape[axis]
+        vp = _edge_pad(v, axis, pad)
+        out = k[0] * vp.narrow(axis, 0, n)
+        for t in range(1, kernel_size):
+            out = out + k[t] * vp.narrow(axis, t, n)
+        return out
+
+    return tap_sum(tap_sum(x, 2), 3)
+
+
+def gaussian_volume(x: torch.Tensor, sigma0: float, num_levels: int) -> torch.Tensor:
+    """Scale-space volume as a flat channel stack [B, (num_levels+1)*C, H, W]:
+    level 0 is x, level 1 blur(x), deeper levels avg-pool, blur and
+    bilinear-upsample back (compressai ScaleSpaceFlow.gaussian_volume)."""
+    levels = [x]
+    cur = gaussian_blur(x, sigma0)
+    levels.append(cur)
+    for i in range(1, num_levels):
+        cur = gaussian_blur(avg_pool2(cur), sigma0)
+        interp = cur
+        for _ in range(i):
+            interp = bilinear_upsample_x2(interp)
+        levels.append(interp)
+    return torch.cat(levels, dim=1)
+
+
+def s2d_phase_mean(x_s2d: torch.Tensor, channels: int) -> torch.Tensor:
+    """Mean over the four s2d phases, [B, 4C, H, W] -> [B, C, H, W]: the
+    avg_pool2 of the full-resolution image, summed phase by phase."""
+    C = channels
+    return (x_s2d[:, 0:C] + x_s2d[:, C:2 * C] + x_s2d[:, 2 * C:3 * C]
+            + x_s2d[:, 3 * C:4 * C]) * 0.25
+
+
+def up2_to_s2d(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsample (align_corners=False) emitted in s2d form:
+    [B, C, H, W] -> [B, 4C, H, W], phases in (ry, rx, c) order. Each phase
+    is one shifted lerp: even = 0.25*prev + 0.75*self, odd = 0.75*self +
+    0.25*next, edges clamped."""
+
+    def taps(v, axis):
+        n = v.shape[axis]
+        prev = torch.cat([v.narrow(axis, 0, 1), v.narrow(axis, 0, n - 1)], axis)
+        nxt = torch.cat([v.narrow(axis, 1, n - 1), v.narrow(axis, n - 1, 1)], axis)
+        return 0.25 * prev + 0.75 * v, 0.75 * v + 0.25 * nxt
+
+    phases = []
+    for vh in taps(x, 2):  # ry = 0, 1
+        phases.extend(taps(vh, 3))  # rx = 0, 1
+    return torch.cat(phases, dim=1)
+
+
+def warp_volume_pyramid_s2d(level0_s2d: torch.Tensor, vol_half: torch.Tensor,
+                            motion_s2d: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """The SSF-TPU prediction: a pyramid scale-space warp with every tensor
+    in the s2d domain.
+
+    level0_s2d [B, 4C, H/2, W/2] is the reference frame in s2d form;
+    vol_half [B, (D-1)*C, H/2, W/2] the flat half-resolution blurred stack
+    (D = num_levels + 1); motion_s2d [B, 12, H/2, W/2] the motion field in
+    c-major phase order [fx p0..p3, fy p0..p3, scale p0..p3], p = 2*ry + rx.
+    The level-0 sample is a full-resolution pixel warp by the phase-form
+    flow (float32); the blurred stack is sampled at half resolution by the
+    phase-mean flow and blended by depth hat weights; a per-phase weight
+    max(0, 1 - z) mixes the two. Returns the prediction in s2d form."""
+    B, C4, H2, W2 = level0_s2d.shape
+    C = C4 // 4
+    H, W = 2 * H2, 2 * W2
+    D = num_levels + 1
+    dt = level0_s2d.dtype
+    dev = level0_s2d.device
+    motion = motion_s2d.float()
+    s0 = pixel_warp_s2d_sflow(level0_s2d, motion[:, :8] * _phase_scale(H, W, dev))
+
+    # half-resolution flow and depth: phase means (the JAX package's 12x3
+    # mixing matmul, whose only non-zero weights are these)
+    def phase_sum(first, weight):
+        w = float(np.float32(weight))
+        out = motion[:, first] * w
+        for c in range(first + 1, first + 4):
+            out = out + motion[:, c] * w
+        return out[:, None]
+
+    flow_h = torch.cat([phase_sum(0, 0.25 * (W / 2.0) * 0.5),
+                        phase_sum(4, 0.25 * (H / 2.0) * 0.5)], dim=1)
+    z_h = torch.clamp(((phase_sum(8, 0.25) + 1.0) * D - 1.0) * 0.5, 1.0, D - 1.0) - 1.0
+    sampled_h = pixel_warp(vol_half, flow_h)
+
+    # depth hat blend over the D-1 half-res levels, summed in float32
+    lv = torch.arange(D - 1, dtype=torch.float32, device=dev)[None, :, None, None]
+    wd = torch.clamp(1.0 - torch.abs(z_h - lv), min=0.0)  # [B, D-1, H2, W2]
+    w_ext = wd.repeat_interleave(C, dim=1).to(dt)
+    th = (w_ext * sampled_h).reshape(B, D - 1, C, H2, W2).float().sum(1).to(dt)
+    t_s2d = up2_to_s2d(th)
+
+    # per-phase level-0 weight a = max(0, 1 - z) in the motion dtype, as JAX
+    zp = torch.clamp(((motion_s2d[:, 8:12] + 1.0) * D - 1.0) * 0.5, 0.0, D - 1)
+    a4 = torch.clamp(1.0 - zp, min=0.0)
+    a12 = a4.repeat_interleave(C, dim=1).to(dt)
+    return a12 * s0 + (1.0 - a12) * t_s2d
+
+
 __all__ = [
     "avg_pool2",
     "bilinear_upsample_x2",
@@ -199,8 +451,20 @@ __all__ = [
     "depth_to_space",
     "flow_warp",
     "flow_warp_fullres_s2d",
+    "gaussian_blur",
+    "gaussian_kernel1d",
+    "gaussian_volume",
     "grid_norm",
+    "pixel_warp",
+    "pixel_warp_s2d",
+    "pixel_warp_s2d_sflow",
     "plain_flow_warp",
     "plain_flow_warp_s2d",
+    "plain_pixel_warp",
+    "plain_pixel_warp_s2d",
+    "plain_pixel_warp_s2d_sflow",
+    "s2d_phase_mean",
     "space_to_depth",
+    "up2_to_s2d",
+    "warp_volume_pyramid_s2d",
 ]

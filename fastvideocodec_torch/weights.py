@@ -12,7 +12,9 @@ names, so a path maps to a ``state_dict`` key by its leaf alone:
   their names and shapes.
 
 Loading raises on any key that maps nowhere and on any parameter left
-unset.
+unset. ``seeded_flat`` makes a flax-keyed, flax-layout checkpoint of
+numpy-seeded values for a registry name, for the configurations that ship
+no trained weights; the same dict loads into both packages.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch import nn
+
+from fastvideocodec_torch.entropy.factorized import FILTERS
+from fastvideocodec_torch.models.registry import get_codec_model
 
 ASSET_DIR = Path(__file__).resolve().parents[1] / "fastvideocodec_tpu" / "assets"
 
@@ -90,3 +95,68 @@ def load_asset(module: nn.Module, name: str) -> nn.Module:
     """Load the shipped checkpoint ``fastvideocodec_tpu/assets/<name>.npz``."""
     with np.load(asset_path(name)) as data:
         return load_flat(module, {k: data[k] for k in data.files})
+
+
+def flax_shapes(module: nn.Module) -> dict:
+    """{'params/a/b/leaf': flax shape} of every parameter of ``module``: the
+    inverse of the mapping ``load_flat`` applies."""
+    shapes = {}
+    for tkey, p in module.named_parameters():
+        mod_path, leaf = tkey.rsplit(".", 1) if "." in tkey else ("", tkey)
+        shape = tuple(p.shape)
+        if leaf == "weight":
+            sub = module.get_submodule(mod_path)
+            if isinstance(sub, nn.ConvTranspose2d):
+                shape = (shape[2], shape[3], shape[0], shape[1])  # [k, k, I, O]
+            elif isinstance(sub, nn.Conv2d):
+                shape = (shape[2], shape[3], shape[1], shape[0])  # HWIO
+            else:
+                raise KeyError(f"no flax layout for {tkey!r}: {type(sub).__name__}")
+            leaf = "kernel"
+        path = "/".join(["params", *mod_path.split("."), leaf]) if mod_path else f"params/{leaf}"
+        shapes[path] = shape
+    return shapes
+
+
+# flax lecun_normal: a normal truncated to +-2 standard deviations, scaled
+# so that its variance is 1/fan_in
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal(rng: np.random.Generator, shape: tuple) -> np.ndarray:
+    v = rng.standard_normal(shape)
+    while (bad := np.abs(v) >= 2.0).any():
+        v[bad] = rng.standard_normal(int(bad.sum()))
+    return v * (np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNCATED_STD)
+
+
+def seeded_flat(name: str, seed: int) -> dict:
+    """Random parameters for the registry codec ``name``, drawn from
+    ``np.random.default_rng(seed)`` in sorted key order with the JAX
+    modules' own initialisers: flax ``lecun_normal`` for conv and deconv
+    kernels, zero conv biases, and EntropyBottleneck.setup's formulas
+    (softplus-inverse matrices, U(-0.5, 0.5) biases, zero factors,
+    quantiles (-10, 0, 10)). Returns {'params/...': float32 array} in flax
+    layout, for ``load_flat`` here and for the JAX package's ``apply``."""
+    shapes = flax_shapes(get_codec_model(name, device="meta").module)
+    rng = np.random.default_rng(seed)
+    init_scale = 10.0
+    K = len(FILTERS) + 1
+    flat = {}
+    for key in sorted(shapes):
+        shape, leaf = shapes[key], key.rsplit("/", 1)[1]
+        if leaf == "kernel":
+            value = _lecun_normal(rng, shape)
+        elif leaf.startswith("matrix_"):
+            scale = init_scale ** (1.0 / K)
+            value = np.full(shape, np.log(np.expm1(1.0 / scale / shape[1])))
+        elif leaf.startswith("bias_"):
+            value = rng.uniform(-0.5, 0.5, shape)
+        elif leaf == "quantiles":
+            value = np.tile(np.asarray([-init_scale, 0.0, init_scale]), (shape[0], 1, 1))
+        elif leaf in ("bias",) or leaf.startswith("factor_"):
+            value = np.zeros(shape)
+        else:
+            raise KeyError(f"no initialiser for {key!r}")
+        flat[key] = value.astype(np.float32)
+    return flat

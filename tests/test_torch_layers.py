@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from fastvideocodec_torch.entropy import bit_estimator as tbe
+from fastvideocodec_torch.entropy import hyperprior as thyper
 from fastvideocodec_torch.layers import blocks as tblocks
 from fastvideocodec_torch.layers import spynet as tspynet
 from fastvideocodec_torch.layers import transforms as ttf
 from fastvideocodec_torch.weights import load_params
 from fastvideocodec_tpu.entropy import bit_estimator as jbe
+from fastvideocodec_tpu.entropy import hyperprior as jhyper
 from fastvideocodec_tpu.layers import blocks as jblocks
 from fastvideocodec_tpu.layers import spynet as jspynet
 from fastvideocodec_tpu.layers import transforms as jtf
@@ -37,7 +39,12 @@ def random_params(jmod, *inputs, seed=0):
     with eval_shape, which compiles nothing): kernels ~ N(0, 1/fan_in),
     GDN beta in [1, 1.5] and gamma ~ |N(0.1, 0.05)|, every other leaf
     ~ N(0, 0.05)."""
-    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(seed), *inputs)
+    return random_params_like(jax.eval_shape(jmod.init, jax.random.PRNGKey(seed), *inputs),
+                              seed)
+
+
+def random_params_like(shapes, seed=0):
+    """random_params for a tree of shapes."""
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
@@ -143,3 +150,64 @@ def test_spynet(kernels):
 def test_bit_estimator_likelihood():
     x = np.round(np.random.default_rng(3).normal(0, 3, (2, 3, 4, 6))).astype(np.float32)
     check_layer(jbe.BitEstimator(6), tbe.BitEstimator(6), x, method=jbe.BitEstimator.likelihood)
+
+
+# SSF-TPU transforms: the s2d=2 branches with the input and output in s2d form
+
+
+def test_ssf_encoder():
+    check_layer(jtf.SSFEncoder(mid_planes=8, out_planes=12, s2d=2, input_s2d=True),
+                ttf.SSFEncoder(24, 8, 12), rand((2, 16, 24, 24)))
+
+
+def test_ssf_decoder_s2d_output():
+    check_layer(jtf.SSFDecoder(mid_planes=16, out_planes=3, s2d=2, output_s2d=True),
+                ttf.SSFDecoder(12, 16, 3), rand((2, 2, 3, 12)))
+
+
+def test_ssf_hyper_encoder():
+    check_layer(jtf.SSFHyperEncoder(mid_planes=8, out_planes=12),
+                ttf.SSFEncoder(12, 8, 12), rand((2, 8, 12, 12)) - 0.5)
+
+
+def test_ssf_hyper_decoder():
+    check_layer(jtf.SSFHyperDecoder(mid_planes=12, out_planes=12),
+                ttf.SSFHyperDecoder(12), rand((2, 1, 2, 12)) - 0.5)
+
+
+def test_ssf_hyper_decoder_qrelu_clamps_like_jax():
+    """Kernels scaled up 30x drive every stage past both ends of [0, 255]."""
+    x = rand((2, 1, 2, 12)) - 0.5
+    jmod = jtf.SSFHyperDecoderQReLU(mid_planes=12, out_planes=12)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: v * 30 if path[-1].key == "kernel" else v,
+        random_params(jmod, jnp.asarray(x)),
+    )
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    assert (want == 0.0).any() and (want == 255.0).any()
+    tmod = load_params(ttf.SSFHyperDecoderQReLU(12), params)
+    with torch.no_grad():
+        got = tmod(nchw(x)).numpy().transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL * 255)
+
+
+@pytest.mark.parametrize("h, w", [(4, 8), (3, 5)])
+def test_ssf_hyperprior(h, w):
+    """y_hat and both likelihoods, including the crop of the hyper
+    decoders' 8*ceil(y/8) output to y's size (z is 1x1 at 4x8)."""
+    y = (rand((2, h, w, 12)) - 0.5) * 8
+    jmod = jhyper.SSFHyperprior(planes=12, mid_planes=12)
+    shapes = jax.eval_shape(lambda k, a: jmod.init(k, a, training=False),
+                            jax.random.PRNGKey(0), jnp.asarray(y))
+    params = random_params_like(shapes)
+    with jax.default_matmul_precision("highest"):
+        jy_hat, jlik, _ = jax.jit(lambda p, a: jmod.apply(p, a, training=False))(
+            params, jnp.asarray(y))
+    tmod = load_params(thyper.SSFHyperprior(12), params)
+    with torch.no_grad():
+        ty_hat, tlik = tmod(nchw(y))
+    nhwc = lambda t: t.numpy().transpose(0, 2, 3, 1)  # noqa: E731
+    np.testing.assert_allclose(nhwc(ty_hat), np.asarray(jy_hat), rtol=0, atol=TOL * 8)
+    for key in ("y", "z"):
+        np.testing.assert_allclose(nhwc(tlik[key]), np.asarray(jlik[key]), rtol=1e-4, atol=0)

@@ -136,4 +136,5 @@ def test_launch_counts_stay_zero_on_cpu():
 
     kw.reset_launches()
     ft.rollout(port_model(*CONFIGS[1]), nchw(clip()))
-    assert kw.LAUNCHES == {"flow_warp": 0, "flow_warp_s2d": 0}
+    assert {"flow_warp", "flow_warp_s2d"} <= set(kw.LAUNCHES)
+    assert set(kw.LAUNCHES.values()) == {0}

@@ -1,11 +1,13 @@
 """Package-level guards of the PyTorch port.
 
-- The port and chip_smoke.py import with jax, flax and fastvideocodec_tpu
-  unimportable (the card's machine has none of them).
+- The port and chip_smoke.py import with jax, flax and
+  fastvideocodec_tpu unimportable (the card's machine has none of them).
 - chip_smoke.py exits non-zero, printing no result, without a CUDA card and
   in a directory that holds nothing else of the repo.
 - The weight loader raises on unknown and on missing parameters.
-- Entry points default to the card.
+- Entry points default to the card, and a CUDA-side tensor never reaches
+  a warp's plain version.
+- ``seeded_flat`` gives the keys and shapes of the JAX modules' ``init``.
 - The port holds only small text files, and builds its kernels with nvcc
   alone: no PyTorch extension builder, no PyTorch C++ headers.
 """
@@ -85,6 +87,25 @@ def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
     assert _no_result(r), r.stdout
 
 
+def test_ssf_rollout_runs_without_jax():
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop_multi\n"
+        "spec = ft.get_codec_model('SSF-TPU-TINY', device='cpu')\n"
+        "ft.load_asset(spec.module, 'tiny_ssftpu_l2')\n"
+        "clip = synth_gop_multi(np.random.default_rng(0), size=64, gop=2)[:, :32]\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)\n"
+        "recon, m = ft.rollout(spec, gop)\n"
+        "assert recon.shape == (1, 3, 32, 64) and bool(torch.isfinite(recon).all())\n"
+        "assert float(m['bpp_est'][0]) > 0\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
 def _tiny_cpu_model():
     return ft.get_codec_model("LSVC-TPU-TINY", device="cpu").module
 
@@ -131,6 +152,100 @@ def test_entry_points_default_to_the_card():
     else:
         with (pytest.raises((RuntimeError, AssertionError))):
             ft.get_codec_model("LSVC-TPU-TINY")
+
+
+def test_ssf_entry_point_defaults_to_the_card():
+    if torch.cuda.is_available():
+        spec = ft.get_codec_model("SSF-TPU-TINY")
+        assert next(spec.module.parameters()).device.type == "cuda"
+    else:
+        with (pytest.raises((RuntimeError, AssertionError))):
+            ft.get_codec_model("SSF-TPU-TINY")
+
+
+@pytest.mark.parametrize("name, args", [
+    ("pixel_warp", ((1, 15, 8, 16), (1, 2, 8, 16))),
+    ("pixel_warp_s2d", ((1, 12, 8, 16), (1, 2, 16, 32))),
+    ("pixel_warp_s2d_sflow", ((1, 12, 8, 16), (1, 8, 8, 16))),
+])
+def test_pixel_dispatchers_never_reach_the_plain_version_off_cpu(monkeypatch, name, args):
+    """A tensor that is not on the CPU goes to the launcher, which raises
+    here (no card), and never to the plain version."""
+    from fastvideocodec_torch.ops import warp as twarp
+
+    reached = []
+    monkeypatch.setattr(twarp, f"plain_{name}", lambda *a: reached.append(a))
+    img, flow = (torch.empty(shape, device="meta") for shape in args)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(twarp, name)(img, flow)
+    assert not reached
+
+
+def test_shipped_ssf_weights_map_completely():
+    spec = ft.get_codec_model("SSF-TPU-TINY", device="cpu")
+    with np.load(ft.weights.asset_path("tiny_ssftpu_l2")) as data:
+        assert len(data.files) == 141
+        ft.weights.load_flat(spec.module, {k: data[k] for k in data.files})
+        q = data["params/motion_hyperprior/bottleneck/quantiles"].astype(np.float32)
+    got = spec.module.motion_hyperprior.bottleneck.quantiles.detach().numpy()
+    np.testing.assert_array_equal(got, q)
+    assert ft.weights.flax_shapes(spec.module)[
+        "params/res_hyperprior/bottleneck/matrix_4"] == (48, 1, 3)
+
+
+@pytest.mark.parametrize("name", ["SSF-TPU", "SSF-TPU-TINY"])
+def test_seeded_flat_has_the_jax_init_keys_and_shapes(name):
+    """Keys and shapes equal those of the JAX module's init (traced with
+    eval_shape, which computes nothing); the deterministic initialisers
+    (bottleneck matrices, factors, quantiles; zero biases) equal its values
+    of them; kernels are lecun_normal: truncated at 2 standard deviations,
+    variance 1/fan_in."""
+    import jax
+    import jax.numpy as jnp
+
+    from fastvideocodec_tpu.entropy.factorized import EntropyBottleneck
+    from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
+
+    module = jax_get_codec_model(name).module
+    shapes = jax.eval_shape(lambda k, f: module.init(k, f),
+                            jax.random.PRNGKey(0), jnp.zeros((2, 1, 32, 64, 3)))
+    want = {"/".join(path): leaf.shape for path, leaf in _paths(shapes)}
+    flat = ft.weights.seeded_flat(name, 0)
+    assert {k: v.shape for k, v in flat.items()} == want
+    ch = flat["params/img_hyperprior/bottleneck/quantiles"].shape[0]
+    init = EntropyBottleneck(ch).init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 1, ch)),
+                                      training=False)["params"]
+    for leaf in ("matrix_0", "matrix_2", "factor_1", "quantiles"):
+        np.testing.assert_array_equal(flat[f"params/res_hyperprior/bottleneck/{leaf}"],
+                                      np.asarray(init[leaf]))
+    kernel = flat["params/res_decoder/PolyphaseDeconv_0/kernel"]
+    std = 1 / np.sqrt(np.prod(kernel.shape[:-1]))
+    assert np.abs(kernel).max() < 2 * std / 0.8796256610342398
+    assert abs(kernel.std() / std - 1) < 0.02
+    assert not flat["params/res_decoder/PolyphaseDeconv_0/bias"].any()
+
+
+def test_seeded_flat_follows_its_seed():
+    a, b, c = (ft.weights.seeded_flat("SSF-TPU-TINY", s) for s in (0, 0, 1))
+    key = "params/motion_encoder/Conv_0/kernel"
+    np.testing.assert_array_equal(a[key], b[key])
+    assert not np.array_equal(a[key], c[key])
+
+
+def _paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def test_bf16_ssf_model_keeps_bottlenecks_in_float32():
+    m = ft.get_codec_model("SSF-TPU-TINY", dtype=torch.bfloat16, device="cpu").module
+    assert m.motion_encoder.Conv_0.weight.dtype == torch.bfloat16
+    assert m.res_decoder.PolyphaseDeconv_2.weight.dtype == torch.bfloat16
+    assert m.res_hyperprior.hyper_decoder_scale.PolyphaseDeconv_0.weight.dtype == torch.bfloat16
+    assert m.res_hyperprior.bottleneck.matrix_0.dtype == torch.float32
 
 
 def test_bf16_model_keeps_rate_and_gdn_params_in_float32():
