@@ -7,11 +7,17 @@ Phases, each timed on its own line:
 
 1. device: the card's name and power limit, the host's CPU; TF32 off for
    cuDNN and matmul;
-2. build: nvcc builds the warp kernels (ops/kernels/csrc/warp.cu);
+2. build: nvcc builds the warp kernels (ops/kernels/csrc/warp.cu); ptxas's
+   report (registers, spills, shared memory) of the two tiled kernels;
 3. kernels: each of the five kernels against its plain PyTorch version on
    the card, float32 and bfloat16 images (float32 flows for the pixel
    warps), at the shapes of the LSVC-TPU and SSF-TPU paths, with large and
-   off-border displacements;
+   off-border displacements; the two tiled kernels (flow_warp,
+   flow_warp_s2d) must equal their plain versions bit for bit, here and
+   on ragged shapes with smooth flows (every tile staged in shared
+   memory), +-200 px random flows (none) and flows smooth on one half and
+   random on the other (both in one launch); then each kernel's gradient
+   (its autograd Function) against autograd through its plain version;
 4. card vs CPU: LSVC-TPU in float32 at 64x128, GOP 4, shipped weights, on
    the card (kernels) and on the CPU (plain versions); then bfloat16 on the
    card against that float32 result;
@@ -25,8 +31,11 @@ Phases, each timed on its own line:
 7. kernel timing: each LSVC kernel, its plain version and the nearest
    single PyTorch call (grid_sample), on the inputs the main path gives it
    in one GOP, beside the least time the card could take (the bytes the
-   warp must move over 3.35 TB/s); the kernels also on random flows of the
-   same shapes, their worst case;
+   warp must move over 3.35 TB/s); the kernel also with the L2 cache
+   flushed before each launch, and on random flows of the same shapes,
+   its worst case; for the tiled kernels the share of tiles whose
+   footprint fits the shared-memory budget (the host's copy of the
+   kernel's rule, ops/warp.py:staged_tiles);
 8. SSF card vs CPU: SSF-TPU-TINY in float32 at 64x128, GOP 4, shipped
    weights tiny_ssftpu_l2, card against CPU; then bfloat16 on the card
    against that float32 result;
@@ -64,6 +73,11 @@ SSF_BF16_BPP_REL = 0.095  # and relative bpp gap (an H100 measured 0.0222 dB, 0.
 GOP, H, W = 16, 1024, 2048
 SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
 TOL = {"float32": 1e-5, "bfloat16": 4e-3}  # kernel vs plain, max abs
+TILED = ("flow_warp", "flow_warp_s2d")  # these must equal their plain versions exactly
+# gradients through the Function vs autograd through the plain version: the
+# image gradient is a scatter-add whose atomic order may change per run
+GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # rtol, atol x max |grad|
+FLUSH_BYTES = 256 * 2**20  # written between launches: five times the 50 MB L2
 KERNEL_SOURCE = "fastvideocodec_torch/ops/kernels/csrc/warp.cu"
 REPLACES = {
     "flow_warp": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:502",
@@ -106,6 +120,32 @@ def cuda_ms(torch, fn, *args, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tol_of(name: str, dname: str) -> float:
+    return 0.0 if name in TILED else TOL[dname]
+
+
+def cold_ms(torch, fn, *args, flush, reps: int = 5) -> float:
+    """Mean milliseconds of one launch of fn(*args) on the card with the L2
+    cache flushed first: a write of ``flush`` (FLUSH_BYTES) before each
+    launch, the launch alone between two CUDA events. A spin of the card
+    (torch.cuda._sleep, about 0.2 ms) after the flush lets the host enqueue
+    the launch before the start event fires, so the events time the kernel
+    and not the host's call."""
+    fn(*args)
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(400_000)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def bound_ms(img, flow) -> float:
@@ -189,6 +229,7 @@ def main() -> int:
     from fastvideocodec_torch.data.synthetic import synth_gop_multi
     from fastvideocodec_torch.ops.kernels import build
     from fastvideocodec_torch.ops.kernels import warp as kw
+    from fastvideocodec_torch.ops import warp as ow
     from fastvideocodec_torch.ops.warp import (
         _linspace,
         depth_to_space,
@@ -199,6 +240,7 @@ def main() -> int:
         plain_pixel_warp_s2d,
         plain_pixel_warp_s2d_sflow,
         space_to_depth,
+        staged_tiles,
     )
     from fastvideocodec_torch.weights import load_flat, seeded_flat
 
@@ -239,7 +281,15 @@ def main() -> int:
         "pixel_warp_s2d": plain_pixel_warp_s2d,
         "pixel_warp_s2d_sflow": plain_pixel_warp_s2d_sflow,
     }
-    require(set(kernels) == set(kw.LAUNCHES) == set(REPLACES), "kernel tables disagree")
+    dispatchers = {
+        "flow_warp": ow.flow_warp,
+        "flow_warp_s2d": ow.flow_warp_fullres_s2d,
+        "pixel_warp": ow.pixel_warp,
+        "pixel_warp_s2d": ow.pixel_warp_s2d,
+        "pixel_warp_s2d_sflow": ow.pixel_warp_s2d_sflow,
+    }
+    require(set(kernels) == set(kw.LAUNCHES) == set(REPLACES) == set(dispatchers),
+            "kernel tables disagree")
     max_err = {k: 0.0 for k in kernels}
     zero_counts = {k: 0 for k in kernels}
 
@@ -248,10 +298,10 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30, check=True,
         ).stdout.strip().splitlines()[0]
-        kind = torch.cuda.get_device_name(0)
+        card_name = torch.cuda.get_device_name(0)
         log(f"card: {smi}")
         log(f"host: {host_cpu()}")
-        log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} device {card_name} "
             f"count {torch.cuda.device_count()}")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -260,6 +310,11 @@ def main() -> int:
         build.load()
         log(f"nvcc seconds: {build.last_build_seconds} (None: library already built) "
             f"library {build.library_path().relative_to(ROOT)}")
+        report = build.build_log().splitlines()
+        for i, line in enumerate(report):  # ptxas: the entry, its spills, its registers
+            if "Compiling entry function" in line and "flow_warp" in line:
+                entry, spills = line.split("'")[1], report[i + 2].strip()
+                log(f"ptxas {entry}: {spills}; {report[i + 3].split(':', 1)[1].strip()}")
 
     def spynet_inputs(gen, dtype):
         return [warp_inputs(torch, gen, (15, 3, h, w), (15, 2, h, w), dtype)
@@ -295,12 +350,113 @@ def main() -> int:
                 torch.cuda.synchronize()
                 d = (got.float() - want.float()).abs()
                 err, mean = d.max().item(), d.mean().item()
+                tol = tol_of(name, dname)
                 log(f"{name} {dname} img {tuple(img.shape)} flow {tuple(flow.shape)} "
                     f"{str(flow.dtype).split('.')[1]}: max abs {err:.3e} "
-                    f"mean abs {mean:.3e} (tolerance {TOL[dname]:.0e})")
-                require(err <= TOL[dname], f"{name} {dname} disagrees with plain: {err}")
+                    f"mean abs {mean:.3e} (tolerance {tol:.0e})")
+                require(err <= tol, f"{name} {dname} disagrees with plain: {err}")
                 max_err[name] = max(max_err[name], err)
                 del got, want, d
+
+    def smooth_flow(gen, shape):
+        """A shift of up to 10 px plus a slow wave of 3 px: every tile's
+        footprint fits its budget."""
+        B, _, h, w = shape
+        yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+        xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+        shift = (torch.rand(B, 2, 1, 1, generator=gen, device="cuda") - 0.5) * 20.0
+        phase = torch.rand(B, 2, 1, 1, generator=gen, device="cuda") * 6.2832
+        return shift + 3.0 * torch.sin(xx / 17.0 + phase) * torch.cos(yy / 13.0)
+
+    def random_flow(gen, shape):
+        return (torch.rand(shape, generator=gen, device="cuda") - 0.5) * 400.0
+
+    def mixed_flow(gen, shape):
+        """Smooth on the top half of the frame, +-200 px random on the bottom."""
+        flow = smooth_flow(gen, shape)
+        h = shape[2]
+        flow[:, :, h // 2:] = random_flow(gen, flow[:, :, h // 2:].shape)
+        return flow
+
+    # full-res [B, C, H, W]: rows odd, even but off a multiple of 8, and on
+    # it; tiles ragged at the bottom and right; the last holds whole tiles
+    ragged = {"flow_warp": [(2, 3, 37, 141), (1, 3, 40, 268), (3, 3, 18, 34), (1, 3, 64, 512)],
+              "flow_warp_s2d": [(2, 3, 38, 150), (1, 3, 40, 264), (3, 3, 18, 36),
+                                (1, 3, 64, 512)]}
+    flows = {"smooth": smooth_flow, "random": random_flow, "mixed": mixed_flow}
+    with phase("tiled kernels: ragged shapes, smooth, random and mixed flows"):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for name in TILED:
+            for dtype in (torch.float32, torch.bfloat16):
+                for pattern, make in flows.items():
+                    for shape in ragged[name]:
+                        img = torch.rand(shape, generator=gen, device="cuda")
+                        if name == "flow_warp_s2d":
+                            img = space_to_depth(img)
+                        img = img.to(dtype).contiguous()
+                        flow = make(gen, (shape[0], 2, *shape[2:])).to(dtype).contiguous()
+                        staged, tiles = staged_tiles(name, img, flow)
+                        got = kernels[name](img, flow)
+                        want = plains[name](img, flow)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        require(err == 0.0, f"{name} {dtype} {pattern} {shape}: max abs {err}")
+                        if pattern == "smooth":
+                            require(staged == tiles, f"{name} {pattern} {shape}: {staged}/{tiles}")
+                        if shape == ragged[name][-1]:
+                            want_share = {"smooth": 1.0, "random": 0.0, "mixed": 0.5}[pattern]
+                            require(staged == want_share * tiles,
+                                    f"{name} {pattern} {shape}: {staged}/{tiles} staged")
+                        max_err[name] = max(max_err[name], err)
+                    log(f"{name} {str(dtype).split('.')[1]} {pattern} flows on "
+                        f"{len(ragged[name])} shapes: max abs 0 (tolerance 0); staged tiles "
+                        f"of the last {staged}/{tiles}")
+
+    grad_shapes = {"flow_warp": ((2, 3, 12, 20), (2, 2, 12, 20)),
+                   "flow_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
+                   "pixel_warp": ((2, 5, 12, 20), (2, 2, 12, 20)),
+                   "pixel_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
+                   "pixel_warp_s2d_sflow": ((2, 12, 6, 10), (2, 8, 6, 10))}
+    # The image gradient is a scatter-add whose rounding follows the order of
+    # its atomics: deterministic algorithms where PyTorch has them, and in
+    # bf16 flows of a few pixels, so that no source pixel sums the hundreds
+    # of samples that +-150 px flows pile onto the border (each sum a few
+    # bf16 roundings, far inside the bar)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with phase("gradients through the kernels"):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for name, (img_shape, flow_shape) in grad_shapes.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                spread = 300.0 if dtype == torch.float32 else 16.0
+                img = torch.rand(img_shape, generator=gen, device="cuda").to(dtype)
+                flow = (torch.randn(flow_shape, generator=gen, device="cuda") * 3.0
+                        + (torch.rand(flow_shape, generator=gen, device="cuda") - 0.5) * spread)
+                flow = flow.to(torch.float32 if name.startswith("pixel") else dtype)
+                g = torch.randn(img_shape, generator=gen, device="cuda").to(dtype)
+                res = {}
+                for how, fn in (("kernel", dispatchers[name]), ("plain", plains[name])):
+                    kw.reset_launches()
+                    i = img.detach().requires_grad_()
+                    f = flow.detach().requires_grad_()
+                    (fn(i, f).float() * g.float()).sum().backward()
+                    res[how] = (i.grad, f.grad, kw.LAUNCHES[name])
+                torch.cuda.synchronize()
+                (gi, gf, n), (pi, pf, _) = res["kernel"], res["plain"]
+                require(n == 1, f"{name}: the forward launched its kernel {n} times")
+                rtol, atol = GRAD_TOL[dname]
+                errs = []
+                for got, want in ((gi, pi), (gf, pf)):
+                    require(got is not None and got.dtype == want.dtype, f"{name}: no gradient")
+                    d = (got.float() - want.float()).abs()
+                    scale = want.float().abs().max().item()
+                    errs.append(d.max().item() / max(scale, 1e-30))
+                    require(bool((d <= atol * max(scale, 1.0) + rtol * want.float().abs()).all()),
+                            f"{name} {dname} gradient off: max abs {d.max().item()}")
+                log(f"{name} {dname} gradients of image and flow vs plain: max abs / max "
+                    f"|grad| {errs[0]:.2e} and {errs[1]:.2e} (rtol {rtol:.0e}, atol "
+                    f"{atol:.0e} x max |grad|)")
+    torch.use_deterministic_algorithms(False)
 
     with phase("card vs cpu port"):
         clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
@@ -414,15 +570,25 @@ def main() -> int:
         shapes; ``library_call(name, img, flow)`` gives the library time
         where one PyTorch call computes the same function."""
         gen = torch.Generator(device="cuda").manual_seed(1)
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
         for name in names:
-            r = rows[name] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "random_ms": 0.0}
+            r = rows[name] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "random_ms": 0.0,
+                              "cold_ms": 0.0, "staged": 0, "tiles": 0, "launches": []}
             lib[name] = None
             for img, flow in captured[name]:
                 err = (kernels[name](img, flow).float() - plains[name](img, flow).float())
                 err = err.abs().max().item()
-                require(err <= TOL["bfloat16"], f"{name} on main-path inputs: {err}")
+                require(err <= tol_of(name, "bfloat16"), f"{name} on main-path inputs: {err}")
                 max_err[name] = max(max_err[name], err)
-                r["ms"] += cuda_ms(torch, kernels[name], img, flow)
+                if name in TILED:
+                    staged, tiles = staged_tiles(name, img, flow)
+                    r["staged"] += staged
+                    r["tiles"] += tiles
+                warm = cuda_ms(torch, kernels[name], img, flow)
+                cold = cold_ms(torch, kernels[name], img, flow, flush=flush)
+                r["ms"] += warm
+                r["cold_ms"] += cold
+                r["launches"].append(f"{tuple(img.shape)}: {warm:.4f} / {cold:.4f}")
                 r["plain_ms"] += cuda_ms(torch, plains[name], img, flow, iters=5)
                 r["bound_ms"] += bound_ms(img, flow)
                 rimg, rflow = warp_inputs(torch, gen, img.shape, flow.shape, img.dtype,
@@ -431,9 +597,13 @@ def main() -> int:
                 t = library_call(name, img, flow) if library_call else None
                 if t is not None:
                     lib[name] = (lib[name] or 0.0) + t
+            staged = (f"; tiles staged {r['staged']}/{r['tiles']} "
+                      f"({r['staged'] / r['tiles']:.4f})" if name in TILED else "")
             log(f"{name}: kernel {r['ms']:.4f} ms/GOP over {len(captured[name])} launches "
-                f"(on uniform random flows of +-200 px: {r['random_ms']:.4f}), plain "
-                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} (bytes), library {lib[name]}")
+                f"(L2 flushed before each launch: {r['cold_ms']:.4f}; on uniform random "
+                f"flows of +-200 px: {r['random_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} (bytes), library {lib[name]}{staged}")
+            log(f"{name} per launch, img shape: warm / L2-flushed ms: {r['launches']}")
 
     rows, lib = {}, {}
     with phase("kernel timing (bf16, one GOP's launches)"):
@@ -553,7 +723,7 @@ def main() -> int:
     log(json.dumps(report))
     log(smi)
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

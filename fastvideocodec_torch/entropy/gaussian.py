@@ -6,16 +6,18 @@ from __future__ import annotations
 
 import torch
 
-from fastvideocodec_torch.ops.math import gaussian_likelihood
+from fastvideocodec_torch.ops.math import gaussian_likelihood, quantize
 
 
 class GaussianConditional:
     """Stateless: round around the means and the interval likelihood."""
 
     def __call__(self, x: torch.Tensor, scales: torch.Tensor, means: torch.Tensor):
-        """(x_hat, likelihoods), both float32: x_hat = round(x - means) +
-        means, the likelihood of x_hat under N(means, scales^2). Computed in
-        float32 whatever the activation dtype."""
-        x, scales, means = x.float(), scales.float(), means.float()
-        x_hat = torch.round(x - means) + means
-        return x_hat, gaussian_likelihood(x_hat, scales, means)
+        """(x_hat, likelihoods): x_hat = round(x - means) + means in x's
+        dtype, the symbol rounded once in that dtype as the decoder receives
+        it; the likelihood of that same symbol under N(means, scales^2),
+        computed in float32 whatever the activation dtype."""
+        q = quantize(x - means)
+        means32 = means.float()
+        lik = gaussian_likelihood(q.float() + means32, scales.float(), means32)
+        return q + means, lik

@@ -5,7 +5,8 @@ fastvideocodec_tpu/entropy/hyperprior.py (``SSFHyperprior`` without
 y -> hyper encoder -> z; z is coded by the factorized bottleneck; the mean
 and QReLU-scale hyper decoders give the Gaussian parameters of y, cropped
 to y's size (the three stride-2 deconvs emit 8*ceil(y/8) pixels); y_hat is
-the round of y around the means, in y's dtype. Rates are float32.
+the round of y around the means, in y's dtype, and y's rate is the float32
+likelihood of that same symbol.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from fastvideocodec_torch.layers.transforms import (
     SSFHyperDecoder,
     SSFHyperDecoderQReLU,
 )
-from fastvideocodec_torch.ops.math import quantize
 
 
 class SSFHyperprior(nn.Module):
@@ -42,6 +42,5 @@ class SSFHyperprior(nn.Module):
         h, w = y.shape[2:]
         scales = self.hyper_decoder_scale(z_hat)[:, :, :h, :w]
         means = self.hyper_decoder_mean(z_hat)[:, :, :h, :w]
-        _, y_lik = self.gaussian(y, scales, means)
-        y_hat = quantize(y - means) + means
+        y_hat, y_lik = self.gaussian(y, scales, means)
         return y_hat, {"y": y_lik, "z": z_lik}

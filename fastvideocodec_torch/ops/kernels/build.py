@@ -25,7 +25,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, shared memory and spills, into LOG_NAME
 )
+LOG_NAME = "nvcc.log"
 NVCC_TIMEOUT_S = 300
 
 _lib: ctypes.CDLL | None = None
@@ -47,6 +49,13 @@ def library_path() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
 
 
+def build_log() -> str:
+    """What nvcc printed when it built the current library (ptxas's report
+    of each kernel), or "" before the build."""
+    log = library_path().with_name(LOG_NAME)
+    return log.read_text() if log.exists() else ""
+
+
 def build() -> Path:
     """Compile warp.cu unless the library for this source and flags exists."""
     global last_build_seconds
@@ -57,10 +66,11 @@ def build() -> Path:
     tmp = path.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        subprocess.run(
+        done = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
             check=True, timeout=NVCC_TIMEOUT_S, capture_output=True, text=True,
         )
+        path.with_name(LOG_NAME).write_text(done.stdout + done.stderr)
     except subprocess.CalledProcessError as e:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed:\n{e.stdout}\n{e.stderr}") from e

@@ -10,10 +10,19 @@ or bfloat16 image.
 
 ``LAUNCHES[name]`` grows by one at each kernel launch and nowhere else, so
 a run can show that it went through the kernels; ``reset_launches()``
-zeroes the counts.
+zeroes the counts. A launcher gives no gradient: the dispatchers wrap it in
+``ops.warp.KernelWarp`` when autograd needs one.
+
+``flow_warp`` and ``flow_warp_s2d`` are tiled: a block owns a tile of
+outputs and stages the tile's source footprint in shared memory when it
+fits a budget. The tile shapes and budgets below mirror warp.cu's
+constants, for ``ops.warp.staged_tiles``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -29,7 +38,14 @@ LAUNCHES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+ALIGN = 8  # kAlign: staged columns start and end on multiples of it
+FLOW_WARP_TILE = (8, 256)  # kFwRows, kFwCols: output rows and columns of a block
+FLOW_WARP_STAGE_ELEMS = 16 * 1024  # kFwStageElems: footprint budget in elements
+FLOW_WARP_S2D_TILE = (8, 128)  # kS2dRows, kS2dCols: s2d rows and columns of a block
+FLOW_WARP_S2D_STAGE_ELEMS = 20 * 1024  # kS2dStageElems
 
+
+@functools.lru_cache(maxsize=64)
 def grid_norm(size: int) -> float:
     """2/(size-1) rounded to float32: the pixel-to-normalized flow scale,
     shared by the kernels and the plain versions."""
@@ -73,6 +89,15 @@ def _s2d_shape(img_s2d: torch.Tensor) -> tuple:
     return tuple(img_s2d.shape)
 
 
+def _on_device(t: torch.Tensor):
+    """A kernel launches in the current device's context: switch to t's
+    device only when it is another (the switch costs the host a few
+    microseconds a launch)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def _raise_if_failed(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -84,11 +109,10 @@ def launch_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     dtype = _check(img, flow, (B, 2, H, W))
     lib = build.load()
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _on_device(img):
         rc = lib.fvc_flow_warp(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W,
-            grid_norm(W), grid_norm(H), dtype, stream,
+            grid_norm(W), grid_norm(H), dtype, torch.cuda.current_stream().cuda_stream,
         )
     _raise_if_failed(rc, "flow_warp")
     LAUNCHES["flow_warp"] += 1
@@ -102,11 +126,10 @@ def launch_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Ten
     dtype = _check(img_s2d, flow, (B, 2, 2 * Hs, 2 * Ws))
     lib = build.load()
     out = torch.empty_like(img_s2d)
-    with torch.cuda.device(img_s2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _on_device(img_s2d):
         rc = lib.fvc_flow_warp_s2d(
             img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C4 // 4, Hs, Ws,
-            grid_norm(2 * Ws), grid_norm(2 * Hs), dtype, stream,
+            grid_norm(2 * Ws), grid_norm(2 * Hs), dtype, torch.cuda.current_stream().cuda_stream,
         )
     _raise_if_failed(rc, "flow_warp_s2d")
     LAUNCHES["flow_warp_s2d"] += 1

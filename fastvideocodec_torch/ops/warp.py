@@ -15,8 +15,10 @@ four taps are lerped in float32 and rounded once to the image dtype. The
 dispatchers (``flow_warp``, ``flow_warp_fullres_s2d``, ``pixel_warp``,
 ``pixel_warp_s2d``, ``pixel_warp_s2d_sflow``) launch the hand-written CUDA
 kernels (ops/kernels/warp.py) for CUDA tensors and run the plain versions
-for CPU tensors only: a CUDA tensor never falls back to them. There is no
-displacement bound: the TPU kernel's clamp was a limit of the TPU.
+for CPU tensors only: a CUDA tensor never falls back to them. On a CUDA
+tensor that needs a gradient the kernel runs inside ``KernelWarp``, whose
+backward is the vjp of the plain version. There is no displacement bound:
+the TPU kernel's clamp was a limit of the TPU.
 
 The SSF scale-space volume ops at the end (blur, volume, phase mean, s2d
 upsample, the pyramid warp) are plain PyTorch, as they were XLA fusions
@@ -219,25 +221,17 @@ def plain_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tens
     return space_to_depth(plain_flow_warp(depth_to_space(img_s2d, 2), flow), 2)
 
 
-def _on_cpu(img: torch.Tensor, flow: torch.Tensor) -> bool:
-    return img.device.type == "cpu" and flow.device.type == "cpu"
-
-
 def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Bilinear backward warp, img [B, C, H, W], flow [B, 2, H, W] pixels:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if _on_cpu(img, flow):
-        return plain_flow_warp(img, flow)
-    return kernels.launch_flow_warp(img, flow)
+    return _dispatch("flow_warp", img, flow)
 
 
 def flow_warp_fullres_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Full-resolution warp of an s2d image: img_s2d [B, 4C, H/2, W/2],
     flow [B, 2, H, W] full-res pixels; returns the warped image in s2d form.
     Equal to space_to_depth(flow_warp(depth_to_space(img_s2d), flow))."""
-    if _on_cpu(img_s2d, flow):
-        return plain_flow_warp_s2d(img_s2d, flow)
-    return kernels.launch_flow_warp_s2d(img_s2d, flow)
+    return _dispatch("flow_warp_s2d", img_s2d, flow)
 
 
 def plain_pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -274,25 +268,114 @@ def pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Pixel-displacement warp, img [B, C, H, W], flow [B, 2, H, W]
     (float32): the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    if _on_cpu(img, flow):
-        return plain_pixel_warp(img, flow)
-    return kernels.launch_pixel_warp(img, flow)
+    return _dispatch("pixel_warp", img, flow)
 
 
 def pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Full-resolution pixel warp of an s2d image, flow [B, 2, H, W]
     full-res (float32); returns s2d form."""
-    if _on_cpu(img_s2d, flow):
-        return plain_pixel_warp_s2d(img_s2d, flow)
-    return kernels.launch_pixel_warp_s2d(img_s2d, flow)
+    return _dispatch("pixel_warp_s2d", img_s2d, flow)
 
 
 def pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -> torch.Tensor:
     """Full-resolution pixel warp of an s2d image by a flow in c-major s2d
     phase form [B, 8, H/2, W/2] (float32); returns s2d form."""
-    if _on_cpu(img_s2d, flow_s2d):
-        return plain_pixel_warp_s2d_sflow(img_s2d, flow_s2d)
-    return kernels.launch_pixel_warp_s2d_sflow(img_s2d, flow_s2d)
+    return _dispatch("pixel_warp_s2d_sflow", img_s2d, flow_s2d)
+
+
+# Each kernel's plain version, by its launch-count name. Its launcher is
+# ops/kernels/warp.py's launch_<name>, looked up at each call.
+PLAIN = {
+    "flow_warp": plain_flow_warp,
+    "flow_warp_s2d": plain_flow_warp_s2d,
+    "pixel_warp": plain_pixel_warp,
+    "pixel_warp_s2d": plain_pixel_warp_s2d,
+    "pixel_warp_s2d_sflow": plain_pixel_warp_s2d_sflow,
+}
+
+
+def _launcher(name: str):
+    return getattr(kernels, f"launch_{name}")
+
+
+class KernelWarp(torch.autograd.Function):
+    """A warp kernel with a gradient: the forward is the kernel's launcher,
+    the backward the vjp of its plain version on the saved inputs, computed
+    by autograd on their device (the JAX package's ``custom_vjp`` entry
+    points take the vjp of the exact gather path the same way). Call as
+    ``KernelWarp.apply(name, img, flow)``."""
+
+    @staticmethod
+    def forward(ctx, name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        ctx.name = name
+        ctx.save_for_backward(img, flow)
+        return _launcher(name)(img, flow)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad: torch.Tensor):
+        img, flow = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip((img, flow), wanted)]
+            out = PLAIN[ctx.name](*inputs)
+            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
+                                             grad))
+        return None, *(next(grads) if w else None for w in wanted)
+
+
+def _dispatch(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The plain version for CPU tensors; else the kernel, through
+    ``KernelWarp`` only when autograd needs its gradient (the launcher
+    alone costs the host less, which the launch-bound rollouts feel)."""
+    if img.device.type == "cpu" and flow.device.type == "cpu":
+        return PLAIN[name](img, flow)
+    if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
+        return KernelWarp.apply(name, img, flow)
+    return _launcher(name)(img, flow)
+
+
+def _tile_reduce(v: torch.Tensor, tile: tuple, fill: int, op) -> torch.Tensor:
+    """op (amin or amax) of v [B, H, W] over tiles of (rows, cols), the
+    ragged edge padded with ``fill``: [B, tiles down, tiles across]."""
+    B, H, W = v.shape
+    th, tw = tile
+    v = F.pad(v, (0, -W % tw, 0, -H % th), value=fill)
+    return op(v.reshape(B, v.shape[1] // th, th, v.shape[2] // tw, tw), dim=(2, 4))
+
+
+def staged_tiles(name: str, img: torch.Tensor, flow: torch.Tensor) -> tuple:
+    """(tiles staged, tiles) of tiled kernel ``name`` (``flow_warp`` or
+    ``flow_warp_s2d``) on these inputs: a tile is staged when its source
+    footprint fits the kernel's shared-memory budget, by warp.cu's rule:
+    the box of the border-clamped taps of the tile's outputs (in s2d rows
+    and columns for the s2d kernel), its columns widened to multiples of
+    ALIGN when the image's rows allow 16-byte copies, times its planes,
+    against the budget in elements."""
+    if name == "flow_warp":
+        B, planes, H, W = img.shape
+        tile, budget, shift = kernels.FLOW_WARP_TILE, kernels.FLOW_WARP_STAGE_ELEMS, 0
+        row_width = W
+    elif name == "flow_warp_s2d":
+        B, planes, Hs, Ws = img.shape
+        H, W = 2 * Hs, 2 * Ws
+        rows, cols = kernels.FLOW_WARP_S2D_TILE
+        tile, budget, shift = (2 * rows, 2 * cols), kernels.FLOW_WARP_S2D_STAGE_ELEMS, 1
+        row_width = Ws
+    else:
+        raise ValueError(f"{name!r} is not a tiled kernel")
+    x0, x1, _ = _taps(flow[:, 0], _linspace(W, flow.device)[None, None, :], W)
+    y0, y1, _ = _taps(flow[:, 1], _linspace(H, flow.device)[None, :, None], H)
+    big = H + W
+    r0 = _tile_reduce(y0, tile, big, torch.amin) >> shift
+    r1 = _tile_reduce(y1, tile, -1, torch.amax) >> shift
+    c0 = _tile_reduce(x0, tile, big, torch.amin) >> shift
+    c1 = _tile_reduce(x1, tile, -1, torch.amax) >> shift
+    if row_width % kernels.ALIGN == 0 and img.data_ptr() % 16 == 0:  # 16-byte copies
+        c0 = c0 - c0 % kernels.ALIGN
+        c1 = c1 + kernels.ALIGN - 1 - c1 % kernels.ALIGN
+    elems = planes * (r1 - r0 + 1) * (c1 - c0 + 1)
+    return int((elems <= budget).sum()), elems.numel()
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +537,8 @@ __all__ = [
     "gaussian_blur",
     "gaussian_kernel1d",
     "gaussian_volume",
+    "KernelWarp",
+    "PLAIN",
     "grid_norm",
     "pixel_warp",
     "pixel_warp_s2d",
@@ -465,6 +550,7 @@ __all__ = [
     "plain_pixel_warp_s2d_sflow",
     "s2d_phase_mean",
     "space_to_depth",
+    "staged_tiles",
     "up2_to_s2d",
     "warp_volume_pyramid_s2d",
 ]

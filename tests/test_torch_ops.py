@@ -289,6 +289,74 @@ class TestVolumeOps:
         np.testing.assert_allclose(got, want, rtol=0, atol=WARP_ATOL)
 
 
+def _off_ties(rng, shape):
+    """A big_flow-like displacement field (small motion plus up to +-150 px,
+    samples far off the frame) whose fractional parts lie in [0.05, 0.95]:
+    a pixel-convention sample then sits at least 0.05 px from an integer
+    coordinate and from the border. At such ties the two frameworks'
+    gradients legitimately differ: floor's gradient is 0 in both, but
+    jnp.clip splits a tie's gradient where torch.clamp passes it, and an
+    ulp either side of an integer picks other taps."""
+    f = rng.normal(0, 3, shape) + rng.uniform(-150, 150, shape)
+    frac = f - np.floor(f)
+    return (f + np.where(np.abs(frac - 0.5) > 0.45, 0.1, 0.0)).astype(np.float32)
+
+
+class TestWarpGradients:
+    """The plain versions' gradients (the backward of every kernel's
+    autograd Function) against jax.vjp of the JAX package's exact paths
+    (the backward of its custom_vjp entry points), on the same numpy inputs
+    and cotangent, in float32. Tolerance 1e-5 relative and absolute: the
+    image gradient is a scatter-add whose summation order differs.
+
+    The flows keep their samples off integer coordinates and off the
+    border (``_off_ties``); for the normalized-grid warps, whose samples
+    carry the linspace grid's offset, the distance is checked in float64
+    below."""
+
+    @staticmethod
+    def _grads(fn, img, flow, g):
+        i = torch.from_numpy(img).requires_grad_()
+        f = torch.from_numpy(flow).requires_grad_()
+        out = fn(i, f)
+        return torch.autograd.grad(out, [i, f], torch.from_numpy(g))
+
+    @staticmethod
+    def _jax_grads(fn, img, flow, g):
+        to_nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))
+        _, vjp = jax.vjp(fn, to_nhwc(img), to_nhwc(flow))
+        return [np.asarray(a).transpose(0, 3, 1, 2) for a in vjp(to_nhwc(g))]
+
+    @pytest.mark.parametrize("name, jax_fn, s2d, phase_flow", [
+        ("flow_warp", jwarp._xla_flow_warp, False, False),
+        ("flow_warp_s2d", jwk._exact_fullres_s2d, True, False),
+        ("pixel_warp", jwarp._xla_pixel_warp, False, False),
+        ("pixel_warp_s2d", jwk._exact_pixel_fullres_s2d, True, False),
+        ("pixel_warp_s2d_sflow", jwk._exact_pixel_s2d_sflow, True, True),
+    ])
+    def test_plain_gradients_match_jax_vjp(self, name, jax_fn, s2d, phase_flow):
+        rng = np.random.default_rng(30)
+        B, C, H, W = 2, 3, 12, 20
+        img_shape = (B, 4 * C, H // 2, W // 2) if s2d else (B, C, H, W)
+        flow_shape = (B, 8, H // 2, W // 2) if phase_flow else (B, 2, H, W)
+        img = rng.random(img_shape, dtype=np.float32)
+        flow = _off_ties(rng, flow_shape)
+        g = rng.normal(0, 1, img_shape).astype(np.float32)
+        if not name.startswith("pixel"):  # the normalized grid's samples in float64
+            for axis, n in ((0, W), (1, H)):
+                pos = np.arange(n).reshape((1, -1) if axis == 0 else (-1, 1))
+                lin = -1.0 + 2.0 * pos / (n - 1)
+                u = ((lin + flow[:, axis] * 2.0 / (n - 1) + 1.0) * n - 1.0) / 2.0
+                inside = (u > 0) & (u < n - 1)
+                assert np.abs(u[inside] - np.round(u[inside])).min() > 1e-3
+                assert np.abs(u[~inside] - np.clip(u[~inside], 0, n - 1)).min() > 1e-3
+        got = self._grads(twarp.PLAIN[name], img, flow, g)
+        want = self._jax_grads(jax_fn, img, flow, g)
+        for t, w in zip(got, want):
+            np.testing.assert_allclose(t.numpy(), w, rtol=1e-5, atol=1e-5)
+        assert np.abs(want[1]).max() > 0.1  # the flow's gradient is not all zero
+
+
 @pytest.mark.gpu
 class TestWarpKernelsOnCard:
     """The CUDA kernels against their plain versions on the card; skipped

@@ -190,3 +190,35 @@ def test_launch_counts_stay_zero_on_cpu():
     kw.reset_launches()
     ft.rollout(port_model(*CONFIGS[0]), nchw(clip()))
     assert set(kw.LAUNCHES.values()) == {0}
+
+
+def test_bf16_rate_symbols_are_the_decoded_symbols():
+    """In bfloat16 the rate of y is the float32 likelihood of the symbol the
+    decoder receives, round(y - means) taken in bfloat16 as y_hat takes it,
+    and not of round(y - means) taken in float32. The latent is drawn wide
+    (sigma 40) so that the two rounds differ on some elements, as they do
+    on the trained tiny model's latents at 128x256; the test asserts that
+    they do before it checks the rate. Equality is exact: both sides run the
+    same ops on the same symbols."""
+    from fastvideocodec_torch.ops.math import gaussian_likelihood
+
+    hp = port_model("SSF-TPU-TINY", "tiny_ssftpu_l2", torch.bfloat16).module.res_hyperprior
+    seen = {}
+    real = hp.gaussian
+
+    def record(y, scales, means):
+        seen.update(scales=scales, means=means)
+        return real(y, scales, means)
+
+    hp.gaussian = record
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.normal(0, 40, (1, 48, 8, 16)).astype(np.float32)).bfloat16()
+    with torch.inference_mode():
+        y_hat, lik = hp(y)
+    means, scales = seen["means"], seen["scales"]
+    q = torch.round(y - means)
+    assert (q.float() != torch.round(y.float() - means.float())).sum() > 0
+    assert y_hat.dtype == torch.bfloat16
+    torch.testing.assert_close(y_hat, q + means, rtol=0, atol=0)
+    want = gaussian_likelihood(q.float() + means.float(), scales.float(), means.float())
+    torch.testing.assert_close(lik["y"], want, rtol=0, atol=0)
