@@ -14,10 +14,11 @@ Phases, each timed on its own line:
    warps), at the shapes of the LSVC-TPU and SSF-TPU paths, with large and
    off-border displacements; the two tiled kernels (flow_warp,
    flow_warp_s2d) must equal their plain versions bit for bit, here and
-   on ragged shapes with smooth flows (every tile staged in shared
-   memory), +-200 px random flows (none) and flows smooth on one half and
-   random on the other (both in one launch); then each kernel's gradient
-   (its autograd Function) against autograd through its plain version;
+   on ragged shapes with smooth flows (every tile of flow_warp_s2d staged
+   in shared memory), +-200 px random flows (none) and flows smooth on one
+   half and random on the other (both in one launch); then each kernel's
+   gradient (its autograd Function) against autograd through its plain
+   version;
 4. card vs CPU: LSVC-TPU in float32 at 64x128, GOP 4, shipped weights, on
    the card (kernels) and on the CPU (plain versions); then bfloat16 on the
    card against that float32 result;
@@ -33,9 +34,9 @@ Phases, each timed on its own line:
    in one GOP, beside the least time the card could take (the bytes the
    warp must move over 3.35 TB/s); the kernel also with the L2 cache
    flushed before each launch, and on random flows of the same shapes,
-   its worst case; for the tiled kernels the share of tiles whose
-   footprint fits the shared-memory budget (the host's copy of the
-   kernel's rule, ops/warp.py:staged_tiles);
+   its worst case; for flow_warp_s2d the share of tiles whose footprint
+   fits the shared-memory budget (the host's copy of the kernel's rule,
+   ops/warp.py:staged_tiles);
 8. SSF card vs CPU: SSF-TPU-TINY in float32 at 64x128, GOP 4, shipped
    weights tiny_ssftpu_l2, card against CPU; then bfloat16 on the card
    against that float32 result;
@@ -146,6 +147,16 @@ def cold_ms(torch, fn, *args, flush, reps: int = 5) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def ptxas_report(build_log: str, part: str) -> list:
+    """(entry, "spills; registers and shared memory") from ptxas's -v report
+    in build_log, for each kernel entry whose name holds ``part``."""
+    lines = build_log.splitlines()
+    return [(line.split("'")[1],
+             f"{lines[i + 2].strip()}; {lines[i + 3].split(':', 1)[1].strip()}")
+            for i, line in enumerate(lines)
+            if "Compiling entry function" in line and part in line]
 
 
 def bound_ms(img, flow) -> float:
@@ -310,11 +321,8 @@ def main() -> int:
         build.load()
         log(f"nvcc seconds: {build.last_build_seconds} (None: library already built) "
             f"library {build.library_path().relative_to(ROOT)}")
-        report = build.build_log().splitlines()
-        for i, line in enumerate(report):  # ptxas: the entry, its spills, its registers
-            if "Compiling entry function" in line and "flow_warp" in line:
-                entry, spills = line.split("'")[1], report[i + 2].strip()
-                log(f"ptxas {entry}: {spills}; {report[i + 3].split(':', 1)[1].strip()}")
+        for entry, report in ptxas_report(build.build_log(), "flow_warp"):
+            log(f"ptxas {entry}: {report}")
 
     def spynet_inputs(gen, dtype):
         return [warp_inputs(torch, gen, (15, 3, h, w), (15, 2, h, w), dtype)
@@ -395,22 +403,25 @@ def main() -> int:
                             img = space_to_depth(img)
                         img = img.to(dtype).contiguous()
                         flow = make(gen, (shape[0], 2, *shape[2:])).to(dtype).contiguous()
-                        staged, tiles = staged_tiles(name, img, flow)
                         got = kernels[name](img, flow)
                         want = plains[name](img, flow)
                         torch.cuda.synchronize()
                         err = (got.float() - want.float()).abs().max().item()
                         require(err == 0.0, f"{name} {dtype} {pattern} {shape}: max abs {err}")
+                        max_err[name] = max(max_err[name], err)
+                        if name != "flow_warp_s2d":  # the one kernel that stages
+                            continue
+                        staged, tiles = staged_tiles(img, flow)
                         if pattern == "smooth":
                             require(staged == tiles, f"{name} {pattern} {shape}: {staged}/{tiles}")
                         if shape == ragged[name][-1]:
                             want_share = {"smooth": 1.0, "random": 0.0, "mixed": 0.5}[pattern]
                             require(staged == want_share * tiles,
                                     f"{name} {pattern} {shape}: {staged}/{tiles} staged")
-                        max_err[name] = max(max_err[name], err)
+                    share = (f"; staged tiles of the last {staged}/{tiles}"
+                             if name == "flow_warp_s2d" else "")
                     log(f"{name} {str(dtype).split('.')[1]} {pattern} flows on "
-                        f"{len(ragged[name])} shapes: max abs 0 (tolerance 0); staged tiles "
-                        f"of the last {staged}/{tiles}")
+                        f"{len(ragged[name])} shapes: max abs 0 (tolerance 0){share}")
 
     grad_shapes = {"flow_warp": ((2, 3, 12, 20), (2, 2, 12, 20)),
                    "flow_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
@@ -580,8 +591,8 @@ def main() -> int:
                 err = err.abs().max().item()
                 require(err <= tol_of(name, "bfloat16"), f"{name} on main-path inputs: {err}")
                 max_err[name] = max(max_err[name], err)
-                if name in TILED:
-                    staged, tiles = staged_tiles(name, img, flow)
+                if name == "flow_warp_s2d":
+                    staged, tiles = staged_tiles(img, flow)
                     r["staged"] += staged
                     r["tiles"] += tiles
                 warm = cuda_ms(torch, kernels[name], img, flow)
@@ -598,7 +609,7 @@ def main() -> int:
                 if t is not None:
                     lib[name] = (lib[name] or 0.0) + t
             staged = (f"; tiles staged {r['staged']}/{r['tiles']} "
-                      f"({r['staged'] / r['tiles']:.4f})" if name in TILED else "")
+                      f"({r['staged'] / r['tiles']:.4f})" if r["tiles"] else "")
             log(f"{name}: kernel {r['ms']:.4f} ms/GOP over {len(captured[name])} launches "
                 f"(L2 flushed before each launch: {r['cold_ms']:.4f}; on uniform random "
                 f"flows of +-200 px: {r['random_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "

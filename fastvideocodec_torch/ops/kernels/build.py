@@ -44,22 +44,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
 
 
-def build_log() -> str:
-    """What nvcc printed when it built the current library (ptxas's report
-    of each kernel), or "" before the build."""
-    log = library_path().with_name(LOG_NAME)
+def build_log(source: Path = SOURCE) -> str:
+    """What nvcc printed when it built source's library (ptxas's report of
+    each kernel), or "" before the build."""
+    log = library_path(source).with_name(LOG_NAME)
     return log.read_text() if log.exists() else ""
 
 
-def build() -> Path:
-    """Compile warp.cu unless the library for this source and flags exists."""
+def build(source: Path = SOURCE) -> Path:
+    """Compile source (warp.cu, or another version of it with the same C
+    interface) unless the library for this source and flags exists."""
     global last_build_seconds
-    path = library_path()
+    path = library_path(source)
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -67,7 +68,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     try:
         done = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             check=True, timeout=NVCC_TIMEOUT_S, capture_output=True, text=True,
         )
         path.with_name(LOG_NAME).write_text(done.stdout + done.stderr)
@@ -83,11 +84,16 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """Build if needed, then load the library and declare its functions."""
+    """Build warp.cu if needed, then load the library and declare its functions."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    if _lib is None:
+        _lib = open_library(build())
+    return _lib
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its functions."""
+    lib = ctypes.CDLL(str(path))
     args = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img, flow, out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, C, H, W
@@ -105,5 +111,4 @@ def load() -> ctypes.CDLL:
     ]
     for fn in (lib.fvc_pixel_warp, lib.fvc_pixel_warp_s2d):
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib

@@ -21,10 +21,10 @@
 // All are bound by bytes: a few flops per byte moved. The two normalized-
 // grid warps of the LSVC-TPU main path (flow_warp_kernel,
 // flow_warp_s2d_kernel) are tiled: a block owns a tile of outputs, a warp
-// one row of it and a thread pairs of neighbouring outputs, and the block
-// stages the tile's source footprint in shared memory when it fits. The
-// two pixel warps of SSF-TPU are still plain gathers: one thread per
-// output position on a 1-D grid. The pixel-convention kernels take a
+// one row of it and a thread pairs of neighbouring outputs; the s2d warp's
+// block also stages the tile's source footprint in shared memory when it
+// fits. The two pixel warps of SSF-TPU are still plain gathers: one thread
+// per output position on a 1-D grid. The pixel-convention kernels take a
 // float32 flow with a float32 or bfloat16 image: a bfloat16 flow would be
 // pixels coarse at 2048 wide.
 
@@ -284,12 +284,10 @@ __device__ __forceinline__ float lerp_at(const T* sc, const Taps4& t) {
 
 // Gather, lerp and store one pair of outputs in each of C channels: output
 // e of channel c reads src + c*cstride at its taps t[e] and goes to
-// out[c*ostride + e], the first n of the two. kC > 0 is C known at compile
-// time: the channel loop unrolls and its loads issue together.
-template <int kC, typename T>
+// out[c*ostride + e], the first n of the two.
+template <typename T>
 __device__ __forceinline__ void lerp_pair(const T* src, int cstride, const Taps4 (&t)[2], int C,
                                           T* out, int ostride, bool vec, int n) {
-  if (kC > 0) C = kC;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const T* sc = src + c * cstride;
@@ -323,7 +321,6 @@ constexpr int kFwPairs = 4;                  // pairs of outputs a thread owns
 constexpr int kFwCols = kPairCols * kFwPairs;  // 256 columns a warp covers
 constexpr int kFwRows = 8;                   // warps of a block, one output row each
 constexpr int kFwThreads = 32 * kFwRows;     // 256: a tile of kFwRows x kFwCols outputs
-constexpr int kFwStageElems = 16 * 1024;     // footprint budget: 32 KB of bf16, 64 KB of f32
 
 // Replaces pallas_flow_warp (fastvideocodec_tpu/ops/pallas/warp_kernel.py:501),
 // the SpyNet level warp. img [B,C,H,W], flow [B,2,H,W], out [B,C,H,W].
@@ -341,116 +338,58 @@ constexpr int kFwStageElems = 16 * 1024;     // footprint budget: 32 KB of bf16,
 // - the flow and every output channel move as 2-element vectors, each
 //   warp access 128 contiguous bytes in bf16 (a masked scalar edge where W
 //   is odd or a pointer unaligned); runs of 8 outputs a thread with
-//   16-byte vectors were tried first and lost: their gathers hit each
-//   shared-memory bank four times (PERF.md);
-// - a first pass over the flow reduces the tile's extreme coordinates to
-//   the box of its taps (exact: the taps are border-clamped and monotone)
-//   and, if the C planes of that footprint fit kFwStageElems, the block
-//   copies it into shared memory with 16-byte cp.async, overlapped with
-//   computing the first taps, and gathers from there; a larger footprint
-//   (large or scattered flows) gathers from global memory in the same
-//   kernel, so there is no displacement limit;
-// - the second pass reads each pair's flow again (from L1) and computes its
-//   taps just before its gathers: holding them all cost more occupancy than
-//   the reads (64 registers against 80 to 128 in the versions that held
-//   them).
-template <typename T, int kC>
+//   16-byte vectors were tried first and lost (PERF.md);
+// - the gathers read global memory, through L1: staging the tile's
+//   footprint in shared memory, as flow_warp_s2d_kernel does, measured
+//   slower here on the path's flows and on random ones (warp_ab.py,
+//   PERF.md).
+template <typename T>
 __global__ void __launch_bounds__(kFwThreads)
 flow_warp_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restrict__ out,
                  int C, int H, int W, float norm_x, float norm_y, int flags) {
-  extern __shared__ __align__(16) unsigned char stage_bytes[];
-  T* stage = reinterpret_cast<T*>(stage_bytes);
   __shared__ float lin_x[kFwCols], lin_y[kFwRows];
-  __shared__ Box box;
 
   const int tid = threadIdx.x, lane = tid & 31, row = tid >> 5, b = blockIdx.z;
   const int tx0 = blockIdx.x * kFwCols, ty0 = blockIdx.y * kFwRows;
   for (int t = tid; t < kFwCols; t += kFwThreads) lin_x[t] = linspace_at(tx0 + t, W);
   if (tid < kFwRows) lin_y[tid] = linspace_at(ty0 + tid, H);
-  if (tid == 0) empty_box(&box);
   __syncthreads();
 
-  const bool vec = flags & kVecPairs, vec16 = flags & kVec16;
   const int y = ty0 + row, plane = H * W;
-  const int pix = y < H ? y * W + tx0 : 0;  // the warp's first output
-  int n[kFwPairs];  // outputs of pair m in the image; never grows with m
-#pragma unroll
-  for (int m = 0; m < kFwPairs; ++m)
-    n[m] = y < H ? max(0, min(2, W - tx0 - pair_col(m, lane))) : 0;
+  if (y >= H) return;
+  const bool vec = flags & kVecPairs;
+  const int pix = y * W + tx0;  // the warp's first output
   const T* fb = flow + (int64_t)b * 2 * plane + pix;
-
-  // the flow of pair m (read again for its taps: holding it costs occupancy)
-  auto load_flow = [&](int m, Vec<T, 2>& fx, Vec<T, 2>& fy) {
-    fx = load_vec<2>(fb + pair_col(m, lane), vec, n[m]);
-    fy = load_vec<2>(fb + plane + pair_col(m, lane), vec, n[m]);
-  };
-  Extremes ext;
+  const T* ib = img + (int64_t)b * C * plane;
+  T* ob = out + (int64_t)b * C * plane + pix;
+  const float ly = lin_y[row];
 #pragma unroll
   for (int m = 0; m < kFwPairs; ++m) {
-    Vec<T, 2> fx, fy;
-    load_flow(m, fx, fy);
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (e < n[m])
-        ext.add(grid_coord(lin_x[pair_col(m, lane) + e], to_f32(fx.v[e]), norm_x),
-                grid_coord(lin_y[row], to_f32(fy.v[e]), norm_y));
-  }
-  const Box fp = block_box(ext.box(H, W, 0), &box);
-
-  const T* ib = img + (int64_t)b * C * plane;
-  Source s;
-  const bool staged = fits_stage(fp, C, vec16, kFwStageElems, &s);
-  if (staged) {
-    stage_footprint(stage, ib, C, plane, W, s, fp.r1 - fp.r0 + 1, vec16);
-  } else {
-    s = Source{0, 0, W, plane};
-  }
-  // the taps of pair m; past the edge the pair's first output's, never stored
-  auto pair_taps = [&](int m, Taps4 (&t)[2]) {
-    Vec<T, 2> fx, fy;
-    load_flow(m, fx, fy);
+    const int col = pair_col(m, lane), n = min(2, W - tx0 - col);
+    if (n <= 0) break;  // never grows with m
+    const Vec<T, 2> fx = load_vec<2>(fb + col, vec, n), fy = load_vec<2>(fb + plane + col, vec, n);
+    // the taps of the pair; past the edge the pair's first output's, never stored
+    Taps4 t[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const bool in = e < n[m];
+      const bool in = e < n;
       const float ux = to_f32(in ? fx.v[e] : fx.v[0]), uy = to_f32(in ? fy.v[e] : fy.v[0]);
-      const float lx = lin_x[pair_col(m, lane) + (in ? e : 0)];
-      const Tap a = border_tap(grid_coord(lx, ux, norm_x), W);
-      const Tap c = border_tap(grid_coord(lin_y[row], uy, norm_y), H);
-      const int r0 = (c.i0 - s.r0) * s.pitch, r1 = (c.i1 - s.r0) * s.pitch;
-      const int c0 = a.i0 - s.c0, c1 = a.i1 - s.c0;
-      t[e] = Taps4{r0 + c0, r0 + c1, r1 + c0, r1 + c1, a.t, c.t};
+      const Tap a = border_tap(grid_coord(lin_x[col + (in ? e : 0)], ux, norm_x), W);
+      const Tap c = border_tap(grid_coord(ly, uy, norm_y), H);
+      const int r0 = c.i0 * W, r1 = c.i1 * W;
+      t[e] = Taps4{r0 + a.i0, r0 + a.i1, r1 + a.i0, r1 + a.i1, a.t, c.t};
     }
-  };
-  Taps4 first[2];
-  pair_taps(0, first);
-  if (staged) {
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  if (n[0] == 0) return;  // no output of this thread in the image
-  T* ob = out + (int64_t)b * C * plane + pix;
-  auto gather = [&](const T* src) {  // inlined at each call: shared or global loads
-    lerp_pair<kC>(src, s.cstride, first, C, ob + pair_col(0, lane), plane, vec, n[0]);
-#pragma unroll
-    for (int m = 1; m < kFwPairs; ++m) {
-      if (n[m] == 0) break;
-      Taps4 t[2];
-      pair_taps(m, t);
-      lerp_pair<kC>(src, s.cstride, t, C, ob + pair_col(m, lane), plane, vec, n[m]);
-    }
-  };
-  if (staged) {
-    gather(stage);
-  } else {
-    gather(ib);
+    lerp_pair(ib, plane, t, C, ob + col, plane, vec, n);
   }
 }
 
-constexpr int kS2dPairs = 2;                   // pairs of s2d positions a thread owns
-constexpr int kS2dCols = kPairCols * kS2dPairs;  // 128 s2d columns a warp covers
-constexpr int kS2dRows = 8;                  // warps of a block, one s2d row each
-constexpr int kS2dThreads = 32 * kS2dRows;   // 256: a tile of kS2dRows x kS2dCols positions
-constexpr int kS2dStageElems = 20 * 1024;    // footprint budget: 40 KB of bf16, 80 KB of f32
+// The tile and the budget in plain numbers: ops/warp.py:staged_tiles reads
+// them (and kAlign) from this file.
+constexpr int kS2dCols = 128;                   // s2d columns a warp covers
+constexpr int kS2dRows = 8;                     // warps of a block, one s2d row each
+constexpr int kS2dStageElems = 20480;           // footprint budget: 40 KB of bf16, 80 KB of f32
+constexpr int kS2dPairs = kS2dCols / kPairCols;  // 2 pairs of s2d positions a thread owns
+constexpr int kS2dThreads = 32 * kS2dRows;      // 256: a tile of kS2dRows x kS2dCols positions
 constexpr int kS2dBlocksPerSM = 4;  // bf16: 4 x 40 KB of shared memory, <= 64 registers
 
 // Replaces pallas_flow_warp_s2d (fastvideocodec_tpu/ops/pallas/warp_kernel.py:547),
@@ -463,7 +402,7 @@ constexpr int kS2dBlocksPerSM = 4;  // bf16: 4 x 40 KB of shared memory, <= 64 r
 //
 // Bound by bytes: ~33.6 MB per 1024x2048 frame in bf16 (image, flow,
 // output), ~0.15 ms per GOP at 3.35 TB/s. The tiling, as in
-// flow_warp_kernel:
+// flow_warp_kernel, plus a shared-memory stage:
 // - grid (column tiles, row tiles, B) over s2d positions; a block owns
 //   kS2dRows x kS2dCols of them, a warp one s2d row and a thread
 //   kS2dPairs pairs of neighbouring positions (2 x 4 full-res pixels
@@ -473,16 +412,24 @@ constexpr int kS2dBlocksPerSM = 4;  // bf16: 4 x 40 KB of shared memory, <= 64 r
 // - the flow of a pair is read as one 4-element vector per full-res row
 //   and component (both rows: no stride-2 waste), each output phase
 //   plane's pair written as one 2-element vector;
-// - the footprint box (in s2d rows and columns) from the tile's extreme
-//   coordinates; if the 4C phase planes of it fit kS2dStageElems it is
-//   copied into shared memory with 16-byte cp.async, so the phase planes
-//   a warp's taps alternate between are read from shared memory; else the
-//   block gathers from global memory;
+// - a first pass over the flow reduces the tile's extreme coordinates to
+//   the box of its taps in s2d rows and columns (exact: the taps are
+//   border-clamped and monotone); if the 4C phase planes of it fit
+//   kS2dStageElems the block copies them into shared memory with 16-byte
+//   cp.async, overlapped with computing the first taps, so the phase
+//   planes a warp's taps alternate between are read from shared memory;
+//   a larger footprint (large or scattered flows) gathers from global
+//   memory in the same kernel, so there is no displacement limit; on the
+//   path's flows staging beat gathering every tile from global memory,
+//   unlike in flow_warp_kernel (warp_ab.py, PERF.md);
+// - the second pass reads each pair's flow again (from L1) and computes
+//   its taps just before its gathers: holding them all cost more
+//   occupancy than the reads;
 // - occupancy: kS2dBlocksPerSM blocks of 256 threads an SM (registers
 //   capped at 64) and a budget that leaves the L1 cache room: with 48 KB
 //   a block, four blocks left the global path's gathers too little L1 and
 //   random flows ran 24% slower than the plain gather of the first port.
-template <typename T, int kC>
+template <typename T>
 __global__ void __launch_bounds__(kS2dThreads, kS2dBlocksPerSM)
 flow_warp_s2d_kernel(const T* __restrict__ img, const T* __restrict__ flow,
                      T* __restrict__ out, int C, int Hs, int Ws, float norm_x, float norm_y,
@@ -588,7 +535,7 @@ flow_warp_s2d_kernel(const T* __restrict__ img, const T* __restrict__ flow,
 #pragma unroll
         for (int rx = 0; rx < 2; ++rx) {
           T* oc = ob + (ry * 2 + rx) * C * splane + pair_col(m, lane);
-          lerp_pair<kC>(src, s.cstride, t[rx], C, oc, splane, vec, n[m]);
+          lerp_pair(src, s.cstride, t[rx], C, oc, splane, vec, n[m]);
         }
       }
     }
@@ -673,34 +620,17 @@ constexpr int kThreads = 256;
 
 inline unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-// Let both builds of a tiled kernel use bytes of dynamic shared memory
-// (above 48 KB with the static shared memory only after this opt-in).
-template <typename K>
-cudaError_t allow_stage(K kernel3, K kernel, int bytes) {
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  const cudaError_t e = cudaFuncSetAttribute(kernel3, attr, bytes);
-  return e != cudaSuccess ? e : cudaFuncSetAttribute(kernel, attr, bytes);
-}
-
 inline bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
-// The tiled kernels come in two builds: for C = 3 (the main path's colour
-// planes) and for any C.
 template <typename T>
 int launch_flow_warp(const void* img, const void* flow, void* out, int B, int C, int H, int W,
                      float norm_x, float norm_y, cudaStream_t s) {
-  constexpr int kBytes = kFwStageElems * sizeof(T);
-  static const cudaError_t allowed =
-      allow_stage(flow_warp_kernel<T, 3>, flow_warp_kernel<T, 0>, kBytes);
-  if (allowed != cudaSuccess) return (int)allowed;
-  auto kernel = C == 3 ? flow_warp_kernel<T, 3> : flow_warp_kernel<T, 0>;
   constexpr int kPair = 2 * sizeof(T);
   int flags = 0;
   if (W % 2 == 0 && aligned(img, kPair) && aligned(flow, kPair) && aligned(out, kPair))
     flags |= kVecPairs;
-  if (W % kAlign == 0 && aligned(img, 16)) flags |= kVec16;
   dim3 grid((W + kFwCols - 1) / kFwCols, (H + kFwRows - 1) / kFwRows, B);
-  kernel<<<grid, kFwThreads, kBytes, s>>>(
+  flow_warp_kernel<T><<<grid, kFwThreads, 0, s>>>(
       (const T*)img, (const T*)flow, (T*)out, C, H, W, norm_x, norm_y, flags);
   return (int)cudaGetLastError();
 }
@@ -708,18 +638,20 @@ int launch_flow_warp(const void* img, const void* flow, void* out, int B, int C,
 template <typename T>
 int launch_flow_warp_s2d(const void* img, const void* flow, void* out, int B, int C, int Hs,
                          int Ws, float norm_x, float norm_y, cudaStream_t s) {
+  // The stage's dynamic shared memory (above 48 KB with the static only
+  // after this opt-in, which holds for the current device alone: so at
+  // every launch).
   constexpr int kBytes = kS2dStageElems * sizeof(T);
-  static const cudaError_t allowed =
-      allow_stage(flow_warp_s2d_kernel<T, 3>, flow_warp_s2d_kernel<T, 0>, kBytes);
+  const cudaError_t allowed = cudaFuncSetAttribute(
+      flow_warp_s2d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (allowed != cudaSuccess) return (int)allowed;
-  auto kernel = C == 3 ? flow_warp_s2d_kernel<T, 3> : flow_warp_s2d_kernel<T, 0>;
   constexpr int kPair = 2 * sizeof(T);
   int flags = 0;
   if (Ws % 2 == 0 && aligned(img, kPair) && aligned(flow, 2 * kPair) && aligned(out, kPair))
     flags |= kVecPairs;
   if (Ws % kAlign == 0 && aligned(img, 16)) flags |= kVec16;
   dim3 grid((Ws + kS2dCols - 1) / kS2dCols, (Hs + kS2dRows - 1) / kS2dRows, B);
-  kernel<<<grid, kS2dThreads, kBytes, s>>>(
+  flow_warp_s2d_kernel<T><<<grid, kS2dThreads, kBytes, s>>>(
       (const T*)img, (const T*)flow, (T*)out, C, Hs, Ws, norm_x, norm_y, flags);
   return (int)cudaGetLastError();
 }

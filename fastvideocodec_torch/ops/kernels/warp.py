@@ -14,15 +14,16 @@ zeroes the counts. A launcher gives no gradient: the dispatchers wrap it in
 ``ops.warp.KernelWarp`` when autograd needs one.
 
 ``flow_warp`` and ``flow_warp_s2d`` are tiled: a block owns a tile of
-outputs and stages the tile's source footprint in shared memory when it
-fits a budget. The tile shapes and budgets below mirror warp.cu's
-constants, for ``ops.warp.staged_tiles``.
+outputs, and the s2d kernel's block stages the tile's source footprint in
+shared memory when it fits a budget. ``tile_constants()`` reads that tile
+and budget from warp.cu itself, for ``ops.warp.staged_tiles``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import re
 
 import numpy as np
 import torch
@@ -38,11 +39,15 @@ LAUNCHES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-ALIGN = 8  # kAlign: staged columns start and end on multiples of it
-FLOW_WARP_TILE = (8, 256)  # kFwRows, kFwCols: output rows and columns of a block
-FLOW_WARP_STAGE_ELEMS = 16 * 1024  # kFwStageElems: footprint budget in elements
-FLOW_WARP_S2D_TILE = (8, 128)  # kS2dRows, kS2dCols: s2d rows and columns of a block
-FLOW_WARP_S2D_STAGE_ELEMS = 20 * 1024  # kS2dStageElems
+
+@functools.cache
+def tile_constants() -> dict:
+    """warp.cu's constants written as plain numbers (``constexpr int kName =
+    123;``), by name: among them kAlign, kS2dRows, kS2dCols and
+    kS2dStageElems, the s2d kernel's staging rule. Read from the source the
+    kernels are built from, so the host's copy of the rule cannot drift."""
+    text = build.SOURCE.read_text()
+    return {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
 
 
 @functools.lru_cache(maxsize=64)

@@ -344,36 +344,29 @@ def _tile_reduce(v: torch.Tensor, tile: tuple, fill: int, op) -> torch.Tensor:
     return op(v.reshape(B, v.shape[1] // th, th, v.shape[2] // tw, tw), dim=(2, 4))
 
 
-def staged_tiles(name: str, img: torch.Tensor, flow: torch.Tensor) -> tuple:
-    """(tiles staged, tiles) of tiled kernel ``name`` (``flow_warp`` or
-    ``flow_warp_s2d``) on these inputs: a tile is staged when its source
-    footprint fits the kernel's shared-memory budget, by warp.cu's rule:
-    the box of the border-clamped taps of the tile's outputs (in s2d rows
-    and columns for the s2d kernel), its columns widened to multiples of
-    ALIGN when the image's rows allow 16-byte copies, times its planes,
+def staged_tiles(img_s2d: torch.Tensor, flow: torch.Tensor) -> tuple:
+    """(tiles staged, tiles) of the s2d flow warp's kernel on these inputs
+    (img_s2d [B, 4C, H/2, W/2], flow [B, 2, H, W]): a tile is staged when
+    its source footprint fits the kernel's shared-memory budget, by
+    warp.cu's rule: the box of the border-clamped taps of the tile's
+    outputs in s2d rows and columns, its columns widened to multiples of
+    kAlign when the image's rows allow 16-byte copies, times its 4C planes,
     against the budget in elements."""
-    if name == "flow_warp":
-        B, planes, H, W = img.shape
-        tile, budget, shift = kernels.FLOW_WARP_TILE, kernels.FLOW_WARP_STAGE_ELEMS, 0
-        row_width = W
-    elif name == "flow_warp_s2d":
-        B, planes, Hs, Ws = img.shape
-        H, W = 2 * Hs, 2 * Ws
-        rows, cols = kernels.FLOW_WARP_S2D_TILE
-        tile, budget, shift = (2 * rows, 2 * cols), kernels.FLOW_WARP_S2D_STAGE_ELEMS, 1
-        row_width = Ws
-    else:
-        raise ValueError(f"{name!r} is not a tiled kernel")
+    k = kernels.tile_constants()
+    align, budget = k["kAlign"], k["kS2dStageElems"]
+    B, planes, Hs, Ws = img_s2d.shape
+    H, W = 2 * Hs, 2 * Ws
+    tile = (2 * k["kS2dRows"], 2 * k["kS2dCols"])  # in full-res pixels
     x0, x1, _ = _taps(flow[:, 0], _linspace(W, flow.device)[None, None, :], W)
     y0, y1, _ = _taps(flow[:, 1], _linspace(H, flow.device)[None, :, None], H)
     big = H + W
-    r0 = _tile_reduce(y0, tile, big, torch.amin) >> shift
-    r1 = _tile_reduce(y1, tile, -1, torch.amax) >> shift
-    c0 = _tile_reduce(x0, tile, big, torch.amin) >> shift
-    c1 = _tile_reduce(x1, tile, -1, torch.amax) >> shift
-    if row_width % kernels.ALIGN == 0 and img.data_ptr() % 16 == 0:  # 16-byte copies
-        c0 = c0 - c0 % kernels.ALIGN
-        c1 = c1 + kernels.ALIGN - 1 - c1 % kernels.ALIGN
+    r0 = _tile_reduce(y0, tile, big, torch.amin) >> 1
+    r1 = _tile_reduce(y1, tile, -1, torch.amax) >> 1
+    c0 = _tile_reduce(x0, tile, big, torch.amin) >> 1
+    c1 = _tile_reduce(x1, tile, -1, torch.amax) >> 1
+    if Ws % align == 0 and img_s2d.data_ptr() % 16 == 0:  # 16-byte copies
+        c0 = c0 - c0 % align
+        c1 = c1 + align - 1 - c1 % align
     elems = planes * (r1 - r0 + 1) * (c1 - c0 + 1)
     return int((elems <= budget).sum()), elems.numel()
 

@@ -1,6 +1,6 @@
 """Package-level guards of the PyTorch port.
 
-- The port and chip_smoke.py import with jax, flax and
+- The port, chip_smoke.py and warp_ab.py import with jax, flax and
   fastvideocodec_tpu unimportable (the card's machine has none of them).
 - chip_smoke.py exits non-zero, printing no result, without a CUDA card and
   in a directory that holds nothing else of the repo.
@@ -73,6 +73,20 @@ def test_chip_smoke_imports_without_jax():
 
 def _no_result(r: subprocess.CompletedProcess) -> bool:
     return r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_warp_ab_imports_without_jax_and_needs_a_card():
+    r = run_blocked(
+        "import warp_ab\n"
+        "assert callable(warp_ab.main)\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    if not torch.cuda.is_available():
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        r = subprocess.run([sys.executable, "warp_ab.py", f"warp={build.SOURCE}"],
+                           capture_output=True, text=True, timeout=120, cwd=str(REPO), env=env)
+        assert r.returncode != 0 and "median" not in r.stdout, r.stdout
 
 
 def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
@@ -271,7 +285,7 @@ def test_kernel_library_path_keys_source_and_flags():
 def _port_files():
     files = [p for p in PORT.rglob("*") if p.is_file() and "__pycache__" not in p.parts]
     files += sorted((REPO / "tests").glob("test_torch_*"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "warp_ab.py"]
     return files
 
 
