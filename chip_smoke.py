@@ -8,17 +8,17 @@ Phases, each timed on its own line:
 1. device: the card's name and power limit, the host's CPU; TF32 off for
    cuDNN and matmul;
 2. build: nvcc builds the warp kernels (ops/kernels/csrc/warp.cu); ptxas's
-   report (registers, spills, shared memory) of the two tiled kernels;
-3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, float32 and bfloat16 images (float32 flows for the pixel
-   warps), at the shapes of the LSVC-TPU and SSF-TPU paths, with large and
-   off-border displacements; the two tiled kernels (flow_warp,
-   flow_warp_s2d) must equal their plain versions bit for bit, here and
-   on ragged shapes with smooth flows (every tile of flow_warp_s2d staged
-   in shared memory), +-200 px random flows (none) and flows smooth on one
-   half and random on the other (both in one launch); then each kernel's
-   gradient (its autograd Function) against autograd through its plain
-   version;
+   report (registers, spills, shared memory) of every kernel;
+3. kernels: each of the five (tiled) kernels against its plain PyTorch
+   version on the card, float32 and bfloat16 images (float32 flows for the
+   pixel warps), bit for bit (max abs 0): at the shapes of the LSVC-TPU and
+   SSF-TPU paths, with large and off-border displacements; on ragged
+   shapes with smooth flows (every tile of flow_warp_s2d staged in shared
+   memory), +-200 px random flows (none) and flows smooth on one
+   half and random on the other (both in one launch); and with two NaN
+   flow pixels, which must give NaN exactly where the plain version does;
+   then each kernel's gradient (its autograd Function) against autograd
+   through its plain version;
 4. card vs CPU: LSVC-TPU in float32 at 64x128, GOP 4, shipped weights, on
    the card (kernels) and on the CPU (plain versions); then bfloat16 on the
    card against that float32 result;
@@ -33,10 +33,11 @@ Phases, each timed on its own line:
    single PyTorch call (grid_sample), on the inputs the main path gives it
    in one GOP, beside the least time the card could take (the bytes the
    warp must move over 3.35 TB/s); the kernel also with the L2 cache
-   flushed before each launch, and on random flows of the same shapes,
-   its worst case; for flow_warp_s2d the share of tiles whose footprint
-   fits the shared-memory budget (the host's copy of the kernel's rule,
-   ops/warp.py:staged_tiles);
+   flushed before each launch, on smooth flows of the same shapes (a
+   trained codec's) and on random ones, its worst case; for flow_warp_s2d
+   the share of tiles whose footprint fits the shared-memory budget (the
+   host's copy of the kernel's rule, ops/warp.py:staged_tiles), on the
+   path's flows and on the smooth ones;
 8. SSF card vs CPU: SSF-TPU-TINY in float32 at 64x128, GOP 4, shipped
    weights tiny_ssftpu_l2, card against CPU; then bfloat16 on the card
    against that float32 result;
@@ -73,8 +74,6 @@ SSF_BF16_PSNR_DB = 0.11  # SSF-TPU-TINY bf16 card vs f32 CPU: max per-frame PSNR
 SSF_BF16_BPP_REL = 0.095  # and relative bpp gap (an H100 measured 0.0222 dB, 0.019)
 GOP, H, W = 16, 1024, 2048
 SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
-TOL = {"float32": 1e-5, "bfloat16": 4e-3}  # kernel vs plain, max abs
-TILED = ("flow_warp", "flow_warp_s2d")  # these must equal their plain versions exactly
 # gradients through the Function vs autograd through the plain version: the
 # image gradient is a scatter-add whose atomic order may change per run
 GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # rtol, atol x max |grad|
@@ -89,6 +88,7 @@ REPLACES = {
 }
 LSVC_KERNELS = ("flow_warp", "flow_warp_s2d")
 SSF_KERNELS = ("pixel_warp", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
+S2D_KERNELS = ("flow_warp_s2d", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
 
 
 def log(msg: str) -> None:
@@ -121,10 +121,6 @@ def cuda_ms(torch, fn, *args, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def tol_of(name: str, dname: str) -> float:
-    return 0.0 if name in TILED else TOL[dname]
 
 
 def cold_ms(torch, fn, *args, flush, reps: int = 5) -> float:
@@ -226,6 +222,50 @@ def warp_inputs(torch, gen, img_shape, flow_shape, dtype, flow_dtype=None):
     return img.to(dtype).contiguous(), flow.to(flow_dtype or dtype).contiguous()
 
 
+def smooth_flow(torch, gen, shape):
+    """A shift of up to 10 px plus a slow wave of 3 px: every tile's
+    footprint fits its budget."""
+    B, _, h, w = shape
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    shift = (torch.rand(B, 2, 1, 1, generator=gen, device="cuda") - 0.5) * 20.0
+    phase = torch.rand(B, 2, 1, 1, generator=gen, device="cuda") * 6.2832
+    return shift + 3.0 * torch.sin(xx / 17.0 + phase) * torch.cos(yy / 13.0)
+
+
+def random_flow(torch, gen, shape):
+    return (torch.rand(shape, generator=gen, device="cuda") - 0.5) * 400.0
+
+
+def mixed_flow(torch, gen, shape):
+    """Smooth on the top half of the frame, +-200 px random on the bottom."""
+    flow = smooth_flow(torch, gen, shape)
+    h = shape[2]
+    flow[:, :, h // 2:] = random_flow(torch, gen, flow[:, :, h // 2:].shape)
+    return flow
+
+
+def phase_form(torch, flow):
+    """A full-res flow [B, 2, H, W] in c-major s2d phase form [B, 8, H/2, W/2]
+    (channel comp*4 + 2*ry + rx)."""
+    from fastvideocodec_torch.ops.warp import space_to_depth
+
+    return torch.cat([space_to_depth(flow[:, :1]), space_to_depth(flow[:, 1:])], dim=1)
+
+
+def flow_like(torch, gen, make, flow):
+    """A flow made by ``make`` (smooth_flow, random_flow, mixed_flow) with
+    the shape, layout and dtype of ``flow``: a c-major phase flow [B, 8, h,
+    w] is made at full resolution [B, 2, 2h, 2w] and folded into phase
+    form, so that it is smooth in the image's pixels."""
+    B, ch, h, w = flow.shape
+    if ch == 8:
+        out = phase_form(torch, make(torch, gen, (B, 2, 2 * h, 2 * w)))
+    else:
+        out = make(torch, gen, tuple(flow.shape))
+    return out.to(flow.dtype).contiguous()
+
+
 def main() -> int:
     import torch
 
@@ -242,8 +282,8 @@ def main() -> int:
     from fastvideocodec_torch.ops.kernels import warp as kw
     from fastvideocodec_torch.ops import warp as ow
     from fastvideocodec_torch.ops.warp import (
+        _full_res_flow,
         _linspace,
-        depth_to_space,
         grid_norm,
         plain_flow_warp,
         plain_flow_warp_s2d,
@@ -272,11 +312,6 @@ def main() -> int:
         xs = torch.arange(w, device=flow.device, dtype=torch.float32) + flow[:, 0]
         ys = torch.arange(h, device=flow.device, dtype=torch.float32)[:, None] + flow[:, 1]
         return torch.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1], dim=-1)
-
-    def full_res_flow(flow_s2d):
-        """The c-major s2d phase flow [B, 8, h, w] at full resolution [B, 2, 2h, 2w]."""
-        return torch.cat([depth_to_space(flow_s2d[:, 0:4]),
-                          depth_to_space(flow_s2d[:, 4:8])], dim=1).contiguous()
 
     kernels = {
         "flow_warp": kw.launch_flow_warp,
@@ -321,7 +356,7 @@ def main() -> int:
         build.load()
         log(f"nvcc seconds: {build.last_build_seconds} (None: library already built) "
             f"library {build.library_path().relative_to(ROOT)}")
-        for entry, report in ptxas_report(build.build_log(), "flow_warp"):
+        for entry, report in ptxas_report(build.build_log(), "warp"):
             log(f"ptxas {entry}: {report}")
 
     def spynet_inputs(gen, dtype):
@@ -345,6 +380,19 @@ def main() -> int:
                                             (1, 2, H, W), dtype, f32)),
         ]
 
+    def hold_exact(name, img, flow, what) -> int:
+        """The kernel against its plain version: NaN at the same outputs,
+        bit for bit equal at all others; returns the NaN count."""
+        got = kernels[name](img, flow)
+        want = plains[name](img, flow)
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        require(torch.equal(got.isnan(), nan), f"{what}: NaN where the plain version has none")
+        err = (got[~nan].float() - want[~nan].float()).abs().max().item()
+        require(err == 0.0, f"{what}: max abs {err}")
+        max_err[name] = max(max_err[name], err)
+        return int(nan.sum())
+
     with phase("kernels vs plain"):
         gen = torch.Generator(device="cuda").manual_seed(0)
         for dtype in (torch.float32, torch.bfloat16):
@@ -353,62 +401,46 @@ def main() -> int:
             cases.append(("flow_warp_s2d", *s2d_inputs(gen, 8, dtype)))
             cases += ssf_inputs(gen, dtype)
             for name, img, flow in cases:
-                got = kernels[name](img, flow)
-                want = plains[name](img, flow)
-                torch.cuda.synchronize()
-                d = (got.float() - want.float()).abs()
-                err, mean = d.max().item(), d.mean().item()
-                tol = tol_of(name, dname)
-                log(f"{name} {dname} img {tuple(img.shape)} flow {tuple(flow.shape)} "
-                    f"{str(flow.dtype).split('.')[1]}: max abs {err:.3e} "
-                    f"mean abs {mean:.3e} (tolerance {tol:.0e})")
-                require(err <= tol, f"{name} {dname} disagrees with plain: {err}")
-                max_err[name] = max(max_err[name], err)
-                del got, want, d
-
-    def smooth_flow(gen, shape):
-        """A shift of up to 10 px plus a slow wave of 3 px: every tile's
-        footprint fits its budget."""
-        B, _, h, w = shape
-        yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
-        xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
-        shift = (torch.rand(B, 2, 1, 1, generator=gen, device="cuda") - 0.5) * 20.0
-        phase = torch.rand(B, 2, 1, 1, generator=gen, device="cuda") * 6.2832
-        return shift + 3.0 * torch.sin(xx / 17.0 + phase) * torch.cos(yy / 13.0)
-
-    def random_flow(gen, shape):
-        return (torch.rand(shape, generator=gen, device="cuda") - 0.5) * 400.0
-
-    def mixed_flow(gen, shape):
-        """Smooth on the top half of the frame, +-200 px random on the bottom."""
-        flow = smooth_flow(gen, shape)
-        h = shape[2]
-        flow[:, :, h // 2:] = random_flow(gen, flow[:, :, h // 2:].shape)
-        return flow
+                what = (f"{name} {dname} img {tuple(img.shape)} flow {tuple(flow.shape)} "
+                        f"{str(flow.dtype).split('.')[1]}")
+                hold_exact(name, img, flow, what)
+                log(f"{what}: max abs 0 (tolerance 0)")
 
     # full-res [B, C, H, W]: rows odd, even but off a multiple of 8, and on
-    # it; tiles ragged at the bottom and right; the last holds whole tiles
+    # it; tiles ragged at the bottom and right; the last holds whole tiles;
+    # pixel_warp with 15 and 7 channels (its chunks and a remainder)
+    s2d_ragged = [(2, 3, 38, 150), (1, 3, 40, 264), (3, 3, 18, 36), (1, 3, 64, 512)]
     ragged = {"flow_warp": [(2, 3, 37, 141), (1, 3, 40, 268), (3, 3, 18, 34), (1, 3, 64, 512)],
-              "flow_warp_s2d": [(2, 3, 38, 150), (1, 3, 40, 264), (3, 3, 18, 36),
-                                (1, 3, 64, 512)]}
+              "pixel_warp": [(2, 15, 37, 141), (1, 7, 40, 268), (3, 3, 18, 34),
+                             (1, 15, 64, 512)],
+              **{name: s2d_ragged for name in S2D_KERNELS}}
     flows = {"smooth": smooth_flow, "random": random_flow, "mixed": mixed_flow}
-    with phase("tiled kernels: ragged shapes, smooth, random and mixed flows"):
+
+    def tiled_case(gen, name, shape, make, dtype, nan_at=()):
+        """(img, flow) of kernel ``name`` at full-res [B, C, H, W]: the image
+        in s2d form for the s2d kernels, the flow float32 for the pixel
+        kernels and in phase form for the sflow; NaN flows at the full-res
+        pixels ``nan_at``."""
+        img = torch.rand(shape, generator=gen, device="cuda")
+        if name in S2D_KERNELS:
+            img = space_to_depth(img)
+        flow = make(torch, gen, (shape[0], 2, *shape[2:]))
+        for y, x in nan_at:
+            flow[:, :, y, x] = float("nan")
+        if name == "pixel_warp_s2d_sflow":
+            flow = phase_form(torch, flow)
+        flow_dtype = torch.float32 if name in SSF_KERNELS else dtype
+        return img.to(dtype).contiguous(), flow.to(flow_dtype).contiguous()
+
+    with phase("tiled kernels: ragged shapes, smooth, random, mixed and NaN flows"):
         gen = torch.Generator(device="cuda").manual_seed(2)
-        for name in TILED:
+        for name in kernels:
             for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
                 for pattern, make in flows.items():
                     for shape in ragged[name]:
-                        img = torch.rand(shape, generator=gen, device="cuda")
-                        if name == "flow_warp_s2d":
-                            img = space_to_depth(img)
-                        img = img.to(dtype).contiguous()
-                        flow = make(gen, (shape[0], 2, *shape[2:])).to(dtype).contiguous()
-                        got = kernels[name](img, flow)
-                        want = plains[name](img, flow)
-                        torch.cuda.synchronize()
-                        err = (got.float() - want.float()).abs().max().item()
-                        require(err == 0.0, f"{name} {dtype} {pattern} {shape}: max abs {err}")
-                        max_err[name] = max(max_err[name], err)
+                        img, flow = tiled_case(gen, name, shape, make, dtype)
+                        hold_exact(name, img, flow, f"{name} {dname} {pattern} {shape}")
                         if name != "flow_warp_s2d":  # the one kernel that stages
                             continue
                         staged, tiles = staged_tiles(img, flow)
@@ -420,8 +452,22 @@ def main() -> int:
                                     f"{name} {pattern} {shape}: {staged}/{tiles} staged")
                     share = (f"; staged tiles of the last {staged}/{tiles}"
                              if name == "flow_warp_s2d" else "")
-                    log(f"{name} {str(dtype).split('.')[1]} {pattern} flows on "
-                        f"{len(ragged[name])} shapes: max abs 0 (tolerance 0){share}")
+                    log(f"{name} {dname} {pattern} flows on {len(ragged[name])} shapes: "
+                        f"max abs 0 (tolerance 0){share}")
+                # two NaN flow pixels: NaN in each channel of their outputs,
+                # as in the plain version; flow_warp_s2d still stages the
+                # first tile (its footprint reaching index 0) but not the other
+                img, flow = tiled_case(gen, name, (1, 3, 64, 512), smooth_flow, dtype,
+                                       nan_at=((5, 7), (37, 300)))
+                nans = hold_exact(name, img, flow, f"{name} {dname} NaN flow")
+                require(nans == 2 * 3, f"{name} {dname}: {nans} NaN outputs, want 6")
+                share = ""
+                if name == "flow_warp_s2d":
+                    staged, tiles = staged_tiles(img, flow)
+                    require((staged, tiles) == (7, 8), f"{name} NaN flow: {staged}/{tiles} staged")
+                    share = f"; staged tiles {staged}/{tiles}"
+                log(f"{name} {dname} NaN flow at 2 pixels: NaN at the plain version's "
+                    f"{nans} outputs, max abs 0 elsewhere{share}")
 
     grad_shapes = {"flow_warp": ((2, 3, 12, 20), (2, 2, 12, 20)),
                    "flow_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
@@ -577,24 +623,24 @@ def main() -> int:
 
     def time_kernels(names, captured, rows, lib, library_call=None):
         """Sum over one GOP's captured launches of each kernel's time, its
-        plain version's, its bound and its time on random flows of the same
-        shapes; ``library_call(name, img, flow)`` gives the library time
-        where one PyTorch call computes the same function."""
+        plain version's, its bound and its time on smooth and on random
+        flows of the same shapes; ``library_call(name, img, flow)`` gives
+        the library time where one PyTorch call computes the same function."""
         gen = torch.Generator(device="cuda").manual_seed(1)
+        sgen = torch.Generator(device="cuda").manual_seed(4)
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
         for name in names:
             r = rows[name] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "random_ms": 0.0,
-                              "cold_ms": 0.0, "staged": 0, "tiles": 0, "launches": []}
+                              "smooth_ms": 0.0, "cold_ms": 0.0, "launches": [],
+                              "staged": [0, 0], "smooth_staged": [0, 0]}
             lib[name] = None
             for img, flow in captured[name]:
-                err = (kernels[name](img, flow).float() - plains[name](img, flow).float())
-                err = err.abs().max().item()
-                require(err <= tol_of(name, "bfloat16"), f"{name} on main-path inputs: {err}")
-                max_err[name] = max(max_err[name], err)
+                sflow = flow_like(torch, sgen, smooth_flow, flow)
+                for f in (flow, sflow):
+                    hold_exact(name, img, f, f"{name} on main-path inputs")
                 if name == "flow_warp_s2d":
-                    staged, tiles = staged_tiles(img, flow)
-                    r["staged"] += staged
-                    r["tiles"] += tiles
+                    for key, f in (("staged", flow), ("smooth_staged", sflow)):
+                        r[key] = [a + b for a, b in zip(r[key], staged_tiles(img, f))]
                 warm = cuda_ms(torch, kernels[name], img, flow)
                 cold = cold_ms(torch, kernels[name], img, flow, flush=flush)
                 r["ms"] += warm
@@ -602,17 +648,22 @@ def main() -> int:
                 r["launches"].append(f"{tuple(img.shape)}: {warm:.4f} / {cold:.4f}")
                 r["plain_ms"] += cuda_ms(torch, plains[name], img, flow, iters=5)
                 r["bound_ms"] += bound_ms(img, flow)
+                r["smooth_ms"] += cuda_ms(torch, kernels[name], img, sflow)
                 rimg, rflow = warp_inputs(torch, gen, img.shape, flow.shape, img.dtype,
                                           flow.dtype)
                 r["random_ms"] += cuda_ms(torch, kernels[name], rimg, rflow)
                 t = library_call(name, img, flow) if library_call else None
                 if t is not None:
                     lib[name] = (lib[name] or 0.0) + t
-            staged = (f"; tiles staged {r['staged']}/{r['tiles']} "
-                      f"({r['staged'] / r['tiles']:.4f})" if r["tiles"] else "")
+            staged = ""
+            if name == "flow_warp_s2d":
+                (sp, tp), (ss, ts) = r["staged"], r["smooth_staged"]
+                staged = (f"; tiles staged on the path {sp}/{tp} ({sp / tp:.4f}), on the "
+                          f"smooth flows {ss}/{ts} ({ss / ts:.4f})")
             log(f"{name}: kernel {r['ms']:.4f} ms/GOP over {len(captured[name])} launches "
-                f"(L2 flushed before each launch: {r['cold_ms']:.4f}; on uniform random "
-                f"flows of +-200 px: {r['random_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+                f"(L2 flushed before each launch: {r['cold_ms']:.4f}; on smooth flows: "
+                f"{r['smooth_ms']:.4f}; on uniform random flows of +-200 px: "
+                f"{r['random_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
                 f"{r['bound_ms']:.4f} (bytes), library {lib[name]}{staged}")
             log(f"{name} per launch, img shape: warm / L2-flushed ms: {r['launches']}")
 
@@ -702,7 +753,7 @@ def main() -> int:
                 == [GOP - 1, GOP - 1], f"captured {[len(v) for v in captured.values()]}")
         # no codec calls pixel_warp_s2d: time it on the level-0 sample's
         # inputs, its phase flow unpacked to full resolution
-        captured["pixel_warp_s2d"] = [(img, full_res_flow(flow))
+        captured["pixel_warp_s2d"] = [(img, _full_res_flow(flow).contiguous())
                                       for img, flow in captured["pixel_warp_s2d_sflow"]]
 
         def ssf_library(name, img, flow):

@@ -13,10 +13,11 @@ a run can show that it went through the kernels; ``reset_launches()``
 zeroes the counts. A launcher gives no gradient: the dispatchers wrap it in
 ``ops.warp.KernelWarp`` when autograd needs one.
 
-``flow_warp`` and ``flow_warp_s2d`` are tiled: a block owns a tile of
-outputs, and the s2d kernel's block stages the tile's source footprint in
-shared memory when it fits a budget. ``tile_constants()`` reads that tile
-and budget from warp.cu itself, for ``ops.warp.staged_tiles``.
+All five are tiled: a block owns a tile of outputs. The three s2d warps
+share one kernel body, and ``flow_warp_s2d``'s block stages the tile's
+source footprint in shared memory when it fits a budget.
+``tile_constants()`` reads that tile and budget from warp.cu itself, for
+``ops.warp.staged_tiles``.
 """
 
 from __future__ import annotations
@@ -148,10 +149,10 @@ def launch_pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     dtype = _check(img, flow, (B, 2, H, W), torch.float32)
     lib = build.load()
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _on_device(img):
         rc = lib.fvc_pixel_warp(
-            img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W, dtype, stream,
+            img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W, dtype,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_if_failed(rc, "pixel_warp")
     LAUNCHES["pixel_warp"] += 1
@@ -165,11 +166,10 @@ def _launch_pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor, phase_flow
     dtype = _check(img_s2d, flow, shape, torch.float32)
     lib = build.load()
     out = torch.empty_like(img_s2d)
-    with torch.cuda.device(img_s2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _on_device(img_s2d):
         rc = lib.fvc_pixel_warp_s2d(
             img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C4 // 4, Hs, Ws,
-            int(phase_flow), dtype, stream,
+            int(phase_flow), dtype, torch.cuda.current_stream().cuda_stream,
         )
     _raise_if_failed(rc, name)
     LAUNCHES[name] += 1

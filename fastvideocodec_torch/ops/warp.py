@@ -258,10 +258,14 @@ def plain_pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) ->
     flow_s2d [B, 8, H/2, W/2] in c-major order, channel comp*4 + 2*ry + rx
     ([fx p0..p3, fy p0..p3]); each 4-channel block is the (ry, rx) phase
     set of one flow component (the JAX ``_exact_pixel_s2d_sflow``)."""
-    flow = torch.cat(
+    return plain_pixel_warp_s2d(img_s2d, _full_res_flow(flow_s2d))
+
+
+def _full_res_flow(flow_s2d: torch.Tensor) -> torch.Tensor:
+    """A c-major s2d phase flow [B, 8, H/2, W/2] at full resolution [B, 2, H, W]."""
+    return torch.cat(
         [depth_to_space(flow_s2d[:, 0:4], 2), depth_to_space(flow_s2d[:, 4:8], 2)], dim=1
     )
-    return plain_pixel_warp_s2d(img_s2d, flow)
 
 
 def pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -351,7 +355,8 @@ def staged_tiles(img_s2d: torch.Tensor, flow: torch.Tensor) -> tuple:
     warp.cu's rule: the box of the border-clamped taps of the tile's
     outputs in s2d rows and columns, its columns widened to multiples of
     kAlign when the image's rows allow 16-byte copies, times its 4C planes,
-    against the budget in elements."""
+    against the budget in elements. The pixel s2d warps share the kernel's
+    body but never stage."""
     k = kernels.tile_constants()
     align, budget = k["kAlign"], k["kS2dStageElems"]
     B, planes, Hs, Ws = img_s2d.shape

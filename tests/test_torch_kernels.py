@@ -1,6 +1,6 @@
 """The warp kernels' wrappers: their autograd Function, the dispatch rule and
 the host-side tile rule on the CPU; on a CUDA card, the tiled kernels'
-exactness and the Function's gradients.
+exactness (NaN flows included) and the Function's gradients.
 
 The file imports nothing of JAX, so its ``gpu`` tests run on a card whose
 machine has none (the suite's conftest imports JAX):
@@ -30,7 +30,8 @@ SHAPES = {
     "pixel_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
     "pixel_warp_s2d_sflow": ((2, 12, 6, 10), (2, 8, 6, 10)),
 }
-TILED = ("flow_warp", "flow_warp_s2d")
+TILED = tuple(SHAPES)  # every kernel is tiled, and equals its plain version bit for bit
+S2D = ("flow_warp_s2d", "pixel_warp_s2d", "pixel_warp_s2d_sflow")  # s2d images, one body
 
 
 def inputs(name, rng, dtype=torch.float32, device="cpu", spread=150.0):
@@ -135,14 +136,25 @@ def mixed_flow(rng, shape):
 FLOWS = {"smooth": smooth_flow, "random": random_flow, "mixed": mixed_flow}
 
 
+def phase_form(flow):
+    """A full-res flow [B, 2, H, W] in c-major s2d phase form [B, 8, H/2, W/2]
+    (channel comp*4 + 2*ry + rx)."""
+    return torch.cat([twarp.space_to_depth(flow[:, :1]), twarp.space_to_depth(flow[:, 1:])], 1)
+
+
 def tiled_case(name, shape, kind, rng, dtype, device="cpu"):
-    """(img, flow) for tiled kernel ``name`` at full-res [B, C, H, W]."""
+    """(img, flow) for tiled kernel ``name`` at full-res [B, C, H, W]: the
+    image in s2d form for the s2d kernels; the flow float32 for the pixel
+    kernels, in phase form (built from the full-res field) for the sflow."""
     B, C, H, W = shape
     img = torch.from_numpy(rng.random((B, C, H, W), dtype=np.float32))
-    if name == "flow_warp_s2d":
+    if name in S2D:
         img = twarp.space_to_depth(img)
     flow = torch.from_numpy(FLOWS[kind](rng, (B, 2, H, W)))
-    return img.to(device, dtype).contiguous(), flow.to(device, dtype).contiguous()
+    if name == "pixel_warp_s2d_sflow":
+        flow = phase_form(flow)
+    flow_dtype = torch.float32 if name.startswith("pixel") else dtype
+    return img.to(device, dtype).contiguous(), flow.to(device, flow_dtype).contiguous()
 
 
 def share_of(img, flow):
@@ -210,7 +222,10 @@ def card():
 RAGGED = {
     "flow_warp": [(2, 3, 37, 141), (1, 3, 40, 268), (3, 3, 18, 34), (1, 3, 64, 512)],
     "flow_warp_s2d": [(2, 3, 38, 150), (1, 3, 40, 264), (3, 3, 18, 36), (1, 3, 64, 512)],
+    # 15 and 7 channels: kPwChunk at a time and a remainder
+    "pixel_warp": [(2, 15, 37, 141), (1, 7, 40, 268), (3, 3, 18, 34), (1, 15, 64, 512)],
 }
+RAGGED["pixel_warp_s2d"] = RAGGED["pixel_warp_s2d_sflow"] = RAGGED["flow_warp_s2d"]
 
 
 @pytest.mark.gpu
@@ -237,18 +252,27 @@ def test_tiled_kernels_are_exact(card, name, kind, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", TILED)
 def test_tiled_kernels_stage_around_a_nan_flow(card, name):
-    """A NaN in a smooth flow: the kernel reads index 0 for it (the plain
-    version gives NaN there, ROADMAP section 3, Open 1), so flow_warp_s2d's
-    staged footprint must reach index 0 for that tile. Every output where
-    the plain version is not NaN equals it bit for bit."""
+    """Two NaN pixels in a smooth flow, at full-res (5, 7) and (37, 300):
+    each gives NaN in every channel of its output, exactly where the plain
+    version has NaN (a NaN weight; ROADMAP section 3, closed fault 3). The
+    NaN reads index 0, so flow_warp_s2d's staged footprint must reach it:
+    the first tile still stages, the other's box grows past the budget and
+    gathers from global memory. Every other output equals the plain
+    version bit for bit."""
     rng = np.random.default_rng(45)
-    img, flow = tiled_case(name, (1, 3, 64, 512), "smooth", rng, torch.float32, "cuda")
-    flow[0, :, 5, 7] = float("nan")
+    full = "pixel_warp_s2d" if name == "pixel_warp_s2d_sflow" else name
+    img, flow = tiled_case(full, (1, 3, 64, 512), "smooth", rng, torch.float32, "cuda")
+    flow[0, :, 5, 7] = flow[0, :, 37, 300] = float("nan")
+    if name == "pixel_warp_s2d_sflow":
+        flow = phase_form(flow).contiguous()
+    if name == "flow_warp_s2d":
+        assert share_of(img, flow) == 7 / 8
     got = getattr(kwarp, f"launch_{name}")(img, flow)
     torch.cuda.synchronize()
     want = twarp.PLAIN[name](img, flow)
     nan = want.isnan()
-    assert bool(nan.any())
+    assert int(nan.sum()) == 2 * 3
+    assert torch.equal(got.isnan(), nan)
     assert torch.equal(got[~nan], want[~nan])
 
 

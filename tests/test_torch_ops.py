@@ -357,6 +357,42 @@ class TestWarpGradients:
         assert np.abs(want[1]).max() > 0.1  # the flow's gradient is not all zero
 
 
+@pytest.mark.parametrize("name, jax_fn, s2d, phase_flow", [
+    ("flow_warp", jwarp._xla_flow_warp, False, False),
+    ("flow_warp_s2d", jwk._exact_fullres_s2d, True, False),
+    ("pixel_warp", jwarp._xla_pixel_warp, False, False),
+    ("pixel_warp_s2d", jwk._exact_pixel_fullres_s2d, True, False),
+    ("pixel_warp_s2d_sflow", jwk._exact_pixel_s2d_sflow, True, True),
+])
+def test_plain_nan_outputs_are_where_jax_puts_them(name, jax_fn, s2d, phase_flow):
+    """One flow pixel NaN (both components of full-res pixel (5, 7); in the
+    c-major phase form, phase (1, 1) of s2d position (2, 3)): the plain
+    version gives NaN exactly where the JAX package's exact path does, in
+    every channel of that output and nowhere else, and equals it within the
+    warp tolerance elsewhere. The CUDA kernels are held to the plain
+    version's NaNs on the card (tests/test_torch_kernels.py)."""
+    rng = np.random.default_rng(31)
+    B, C, H, W = 2, 3, 12, 20
+    img_shape = (B, 4 * C, H // 2, W // 2) if s2d else (B, C, H, W)
+    flow_shape = (B, 8, H // 2, W // 2) if phase_flow else (B, 2, H, W)
+    img = rng.random(img_shape, dtype=np.float32)
+    flow = big_flow(rng, B, *flow_shape[2:]).transpose(0, 3, 1, 2)
+    if phase_flow:
+        flow = np.concatenate([flow] * 4, axis=1)[:, [0, 2, 4, 6, 1, 3, 5, 7]]
+        flow[1, [3, 7], 2, 3] = np.nan
+    else:
+        flow[1, :, 5, 7] = np.nan
+    flow = np.ascontiguousarray(flow)
+    got = twarp.PLAIN[name](torch.from_numpy(img), torch.from_numpy(flow)).numpy()
+    to_nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))
+    want = highest(jax_fn, to_nhwc(img), to_nhwc(flow)).transpose(0, 3, 1, 2)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    full = twarp.depth_to_space(torch.from_numpy(nan), 2).numpy() if s2d else nan
+    assert full.sum() == C and full[1, :, 5, 7].all()  # one pixel, every channel
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=0, atol=WARP_ATOL)
+
+
 @pytest.mark.gpu
 class TestWarpKernelsOnCard:
     """The CUDA kernels against their plain versions on the card; skipped
