@@ -48,7 +48,24 @@ Phases, each timed on its own line:
    gated (random weights);
 10. SSF kernel timing: the three pixel warps as in phase 7, on the inputs
    the SSF rollout gives them (pixel_warp_s2d, which no codec calls, on
-   the level-0 inputs with the phase flow unpacked to full resolution).
+   the level-0 inputs with the phase flow unpacked to full resolution);
+11. coder: g++ builds the host range coder (coder/range_coder.cc); the
+   four codecs' tables from hd_lsvctpuf2_l2 and the seeded SSF-TPU
+   weights; a seeded batch of symbols, past the support on both sides,
+   round-trips through each; the scale-table codecs' bucketing of scales
+   on the card (the video path's) equals their bucketing of the same
+   scales on the host (the one the CPU tests hold to the JAX codecs');
+12. LSVC real bits: LSVC-TPU's real bitstream encode and decode
+   (coder/video.py) in bfloat16 at 1024x2048, GOP 16, hd_lsvctpuf2_l2, on
+   the rollout's clip: one warm-up run, then 3 runs, each with the launch
+   counts zeroed before its encode and before its decode, timed by the
+   host clock around the call (range coding included, the card
+   synchronised at its end), the range coder's seconds of each, real bpp
+   beside the rollout's estimate on the same clip; decode must equal the
+   encode recon bit for bit in every run;
+13. SSF real bits: the same for SSF-TPU (seeded weights, keyframe coded),
+   its real bpp held within 5% of the model's estimate over the same GOP
+   (its forward, which codes the keyframe as the coder does).
 
 It then prints a JSON line of the kernels, the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -763,6 +780,125 @@ def main() -> int:
 
         time_kernels(SSF_KERNELS, captured, rows, lib, ssf_library)
         del captured
+
+    from fastvideocodec_torch import coder
+    from fastvideocodec_torch.coder import service
+    from fastvideocodec_torch.ops.math import bits_estimate
+    from fastvideocodec_torch.tools.real_bits_fps import code_gop, codecs_of
+
+    with phase("coder"):
+        coder.get_lib()
+        log(f"g++ seconds: {coder.last_build_seconds} (None: library already built) "
+            f"library {coder.library_path().relative_to(ROOT)}")
+        lspec = get_codec_model("LSVC-TPU", dtype=torch.bfloat16, device="cuda")
+        load_asset(lspec.module, "hd_lsvctpuf2_l2")
+        t0 = time.perf_counter()
+        lsvc_codecs, ssf_codecs = codecs_of(lspec), codecs_of(sspec)
+        log(f"tables of the LSVC-TPU and SSF-TPU codecs: {time.perf_counter() - t0:.3f} s")
+        rng = np.random.default_rng(0)
+        mv_codec, _, feat_codec = lsvc_codecs
+        n = 200_000
+        cases = {  # symbols past the support on both sides, and in it
+            "BitEstimator (mv)": (mv_codec, (1, 1, n // 128, 128), None),
+            "Laplace (features)": (feat_codec, (1, 1, n // 96, 96), (0.1, 300.0)),
+            "factorized (img z)": (ssf_codecs[0].z_codec, (1, 1, n // 192, 192), None),
+            "Gaussian (img y)": (ssf_codecs[0].y_codec, (1, 1, n // 192, 192), (0.1, 300.0)),
+        }
+        for what, (codec, shape, scale_range) in cases.items():
+            sym = np.round(rng.laplace(0.0, 3.0, shape)).astype(np.float32)
+            sym.flat[rng.choice(sym.size, 64, replace=False)] = rng.choice([-1, 1], 64) * 1000
+            if scale_range is None:
+                want = sym
+                if isinstance(codec, service.FactorizedCodec):  # codes round(x - median)
+                    sym = sym + codec.medians
+                    want = np.round(sym - codec.medians) + codec.medians
+                data = codec.compress(sym)
+                got = codec.decompress(data, shape)
+            else:
+                scales = np.exp(rng.uniform(*np.log(scale_range), shape)).astype(np.float16)
+                want = sym
+                data = codec.compress(sym, scales)
+                got = codec.decompress(data, scales)
+            require(np.array_equal(got, want), f"{what}: round trip differs")
+            log(f"{what}: {sym.size} symbols (64 of them at +-1000, past the support of "
+                f"most tables, both signs) in {len(data)} bytes, decoded equal")
+        # the video path buckets scales on the card, compress/decompress on
+        # the host: the same indexes, also at the table's entries and next
+        # to them, for the sigmas' f16, the SSF scales' bf16 and float32
+        table = feat_codec.cond.table
+        scales = np.concatenate([np.exp(rng.uniform(-4.0, 7.0, 1_000_000)), table,
+                                 np.nextafter(table, 0), np.nextafter(table, np.inf),
+                                 [0.0, -1.0, np.nan, np.inf]])
+        for dt in (torch.float16, torch.bfloat16, torch.float32):
+            t = torch.from_numpy(scales).to(dt)
+            for what, codec in (("Laplace", feat_codec), ("Gaussian", ssf_codecs[0].y_codec)):
+                on_card = codec.bucket(t.cuda()).cpu()
+                require(torch.equal(on_card, codec.bucket(t)),
+                        f"{what} {dt}: bucketing on the card differs from the host's")
+        log(f"bucketing of {scales.size} scales on the card equals the host's "
+            f"(f16, bf16, f32; Laplace and Gaussian codecs)")
+
+    def real_bits(spec, codecs, want_enc, want_dec, est_bpp, key):
+        """A warm-up GOP, then 3: launch counts, times, bpp, identity."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = code_gop(spec, gop, codecs)
+        require(r["identical"], "warm-up: decode != encode recon")
+        runs = []
+        for i in range(3):
+            r = code_gop(spec, gop, codecs)
+            runs.append(r)
+            require(r["identical"], f"run {i}: decode != encode recon")
+            require(r["enc_launches"] == {**zero_counts, **want_enc},
+                    f"run {i}: encode launches {r['enc_launches']}, want {want_enc}")
+            require(r["dec_launches"] == {**zero_counts, **want_dec},
+                    f"run {i}: decode launches {r['dec_launches']}, want {want_dec}")
+            log(f"run {i}: encode {r['enc_s'] * 1e3:.3f} ms/GOP (AC {r['enc_ac_s']:.4f} s), "
+                f"decode {r['dec_s'] * 1e3:.3f} ms/GOP (AC {r['dec_ac_s']:.4f} s); real bpp "
+                f"{r['bpp']:.6f}{key(r)}, estimated {est_bpp:.6f}; decode == encode bit for "
+                f"bit; launches encode {r['enc_launches']} decode {r['dec_launches']}")
+        recon = r["recon"]
+        require(bool(torch.isfinite(recon).all()), "real-bits recon not finite")
+        log(f"real bits: encode ms/GOP {[round(x['enc_s'] * 1e3, 3) for x in runs]}, decode "
+            f"ms/GOP {[round(x['dec_s'] * 1e3, 3) for x in runs]}, encode+decode fps of the "
+            f"P-frames {[round((GOP - 1) / (x['enc_s'] + x['dec_s']), 3) for x in runs]}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        return runs
+
+    with phase("lsvc real bits 1024x2048 GOP16 bf16"):
+        _, m = rollout(lspec, gop)
+        est, psnr_est = float(m["bpp"]), float(m["psnr"].float().mean())
+        runs = real_bits(lspec, lsvc_codecs, {"flow_warp": 4, "flow_warp_s2d": 4},
+                         {"flow_warp_s2d": 4}, est, lambda r: "")
+        recon = runs[-1]["recon"]
+        require(tuple(recon.shape) == (GOP - 1, 3, H, W), f"recon shape {tuple(recon.shape)}")
+        mse = torch.mean((recon.float() - gop[1:].float()) ** 2, dim=(1, 2, 3))
+        psnr = float((10 * torch.log10(1 / mse)).mean())
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"lsvc real bits: bpp {runs[-1]['bpp']:.6f} vs the rollout's estimate {est:.6f} "
+            f"(rel {rel:.4f}, tolerance 0.05); psnr mean {psnr:.4f} vs the rollout's "
+            f"{psnr_est:.4f} (tolerance 0.1 dB)")
+        require(rel < 0.05 and abs(psnr - psnr_est) < 0.1, "real bits far from the rollout")
+        del runs, recon, lspec, lsvc_codecs
+
+    with phase("ssf real bits 1024x2048 GOP16 bf16"):
+        # the model's estimate over the same GOP, keyframe coded as the
+        # coder codes it (the rollout predicts from the uncoded frame 0)
+        with torch.inference_mode():
+            _, liks = sspec.module(gop[:, None])
+        est = sum(float(bits_estimate(v)) for lik in liks for d in lik.values()
+                  for v in d.values()) / (GOP * H * W)
+        del liks
+        want = {"pixel_warp": GOP - 1, "pixel_warp_s2d_sflow": GOP - 1}
+        runs = real_bits(sspec, ssf_codecs, want, want, est,
+                         lambda r: f" over {GOP} frames, {r['bpp_inter']:.6f} over the P-frames")
+        recon = runs[-1]["recon"]
+        require(tuple(recon.shape) == (GOP, 1, 3, H, W), f"recon shape {tuple(recon.shape)}")
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"ssf real bits (seeded weights): bpp {runs[-1]['bpp']:.6f} vs the model's "
+            f"estimate {est:.6f} over the same {GOP} frames (rel {rel:.4f}, tolerance 0.05)")
+        require(rel < 0.05, "ssf real bits far from the model's estimate")
+        del runs, recon
 
     launches = {**{k: rollout_launches[k] for k in LSVC_KERNELS},
                 **{k: ssf_launches[k] for k in SSF_KERNELS}}

@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of fastvideocodec_tpu, for one NVIDIA H100.
 
-Imports torch and numpy only: nothing of JAX and nothing of the JAX
-package, which stays the reference. Ported: the LSVC-TPU rollout and decode
-graph, and the SSF-TPU rollout (``rollout`` dispatches on the codec
-family). Tensors are NCHW; space-to-depth keeps the JAX channel order
+Imports torch, numpy and (for the Gaussian coder tables) scipy: nothing of
+JAX and nothing of the JAX package, which stays the reference. Ported: the
+LSVC-TPU rollout and decode graph, the SSF-TPU rollout (``rollout``
+dispatches on the codec family), and the real bitstreams of both
+(``coder.video``: the networks on the card, a C++ range coder on host
+threads). Tensors are NCHW; space-to-depth keeps the JAX channel order
 (ry, rx, c). Entry points run on the card unless the caller passes
 ``device="cpu"``. The bilinear warps are hand-written CUDA kernels
 (ops/kernels/csrc/warp.cu, built with nvcc at first use); CPU tensors take

@@ -1,0 +1,318 @@
+"""Whole-GOP real-bitstream encode and decode of LSVC-TPU and SSF-TPU,
+ported from fastvideocodec_tpu/coder/video.py.
+
+LSVC (tree codec):
+  encode: flow + mv analysis for all P-frames in one batch -> mv symbols to
+          the host BitEstimator coder; then per tree layer: motion
+          compensation, residual analysis -> z symbols (BitEstimator coder)
+          and f16 sigmas -> feature symbols (Laplace coder) -> recon,
+          which feeds the next layer.
+  decode: the mirror image, from (I-frame, bitstreams) only.
+SSF (chain codec): keyframe, then per P-frame the motion and the residual
+  hyperpriors (z: factorized tables; y: Gaussian scale-table coder).
+
+The decoder sees only the bitstreams, so ``decode == encode recon`` bit
+for bit is the correctness invariant. Both sides take every tensor they
+share (motion compensation, recon, sigmas, means and scales) from the same
+model function on the same shapes, under deterministic cuDNN algorithms
+(``deterministic_convs``): a sigma one ulp away picks another table and
+corrupts the stream. The encoder computes each tree layer's motion
+compensation once, for its analysis and its recon.
+
+Symbols leave the card as NHWC arrays (``permute(0, 2, 3, 1)``), the JAX
+package's order, so both packages write the same bytes for the same
+symbols; each ``*_shape`` in the streams is that NHWC shape. The scales
+are bucketed into the coder's scale table on the card, so one byte a
+symbol crosses. Host coding runs on AsyncCoder threads: a tensor is copied
+into pinned memory without blocking (``HostCopy``) and the worker waits on
+its event, so the host keeps enqueuing the next layer's work while this
+layer is coded.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from fastvideocodec_torch.coder import AsyncCoder
+from fastvideocodec_torch.coder.service import (
+    BitEstimatorCodec,
+    FactorizedCodec,
+    GaussianCodec,
+    LaplaceCodec,
+)
+from fastvideocodec_torch.models.registry import CodecSpec
+from fastvideocodec_torch.ops.warp import avg_pool2, depth_to_space, space_to_depth
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms, picked by heuristics rather than by
+    timing, for the scope; the caller's settings come back after it. Some
+    of cuDNN's backward-data algorithms (the forward of ConvTranspose2d)
+    accumulate with atomics, so two identical calls could differ in the
+    last bit."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+class HostCopy:
+    """A tensor's copy on the host, started without waiting for the card: a
+    non-blocking copy into pinned memory and an event that ``numpy()``
+    waits on. A CPU tensor is used as it is."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    """NCHW -> the coder's NHWC order, contiguous (bfloat16 as float32,
+    which numpy holds exactly)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def nhwc_shape(t: torch.Tensor) -> tuple:
+    n, c, h, w = t.shape
+    return (n, h, w, c)
+
+
+def from_nhwc(a: np.ndarray, device) -> torch.Tensor:
+    """A decoded NHWC array -> a contiguous NCHW tensor on ``device``: the
+    memory layout the encoder's tensor had, so the convs pick the same
+    algorithms on both sides."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device).permute(0, 3, 1, 2).contiguous()
+
+
+def _device(spec: CodecSpec) -> torch.device:
+    return next(spec.module.parameters()).device
+
+
+def _resolve(obj):
+    """Replace AsyncCoder futures by their bytes, recursively."""
+    if hasattr(obj, "result") and callable(obj.result):
+        return obj.result()
+    if isinstance(obj, dict):
+        return {k: _resolve(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_resolve(v) for v in obj]
+    return obj
+
+
+def lsvc_codecs(module):
+    """(mv, z, feature) codecs: the two BitEstimators' tables and the
+    Laplace scale table."""
+    return (BitEstimatorCodec(module.bit_estimator_mv.numpy_params()),
+            BitEstimatorCodec(module.bit_estimator_z.numpy_params()),
+            LaplaceCodec())
+
+
+@torch.inference_mode()
+def lsvc_compress(spec: CodecSpec, gop: torch.Tensor, codecs=None):
+    """gop [T, 3, H, W] with frame 0 already I-coded -> (streams, recon
+    [T-1, 3, H, W] in the model dtype, bits). ``codecs`` (from
+    ``lsvc_codecs``) spares a caller that codes many GOPs the tables."""
+    m = spec.module
+    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    x = gop.to(_device(spec), m.dtype)
+    bs = x.shape[0] - 1
+    sched = m.schedule(bs)
+    x_flow = avg_pool2(x)
+    x = space_to_depth(x, m.S2D)
+    target = x[1:]
+    with deterministic_convs(), AsyncCoder(workers=len(sched.layers) + 1) as coder:
+        mv_q = m.mv_encode(x_flow[1:], x_flow[list(sched.ref_index)])
+        mv_host = HostCopy(nhwc(mv_q))
+        mv_future = coder.submit(lambda: mv_codec.compress(mv_host.numpy()))
+        mv_hat = m.mv_decode(mv_q)
+
+        com = [None] * bs
+        z_futures, feat_futures, z_shapes, feat_shapes = [], [], [], []
+        for layer in sched.layers:
+            refs = torch.stack([x[0] if sched.parents[f] == 0 else com[sched.parents[f] - 1]
+                                for f in layer])
+            mc = m.layer_mc(refs, mv_hat[[f - 1 for f in layer]])
+            z_q, feat_q = m.analyze(target[[f - 1 for f in layer]], mc)
+            z_host, feat_host = HostCopy(nhwc(z_q)), HostCopy(nhwc(feat_q))
+            idx_host = HostCopy(nhwc(feat_codec.bucket(m.sigmas(z_q))))
+            z_futures.append(coder.submit(lambda h=z_host: z_codec.compress(h.numpy())))
+            feat_futures.append(coder.submit(
+                lambda f=feat_host, i=idx_host: feat_codec.encode(f.numpy(), i.numpy())))
+            z_shapes.append(nhwc_shape(z_q))
+            feat_shapes.append(nhwc_shape(feat_q))
+            com_frames = m.layer_recon(feat_q, mc)
+            for i, f in enumerate(layer):
+                com[f - 1] = com_frames[i]
+        recon = depth_to_space(torch.stack(com), m.S2D)
+        streams = {
+            "mv": mv_future.result(),
+            "mv_shape": nhwc_shape(mv_q),
+            "z": [f.result() for f in z_futures],
+            "z_shapes": z_shapes,
+            "features": [f.result() for f in feat_futures],
+            "feat_shapes": feat_shapes,
+        }
+    bits = 8 * (len(streams["mv"]) + sum(map(len, streams["z"]))
+                + sum(map(len, streams["features"])))
+    return streams, recon, bits
+
+
+@torch.inference_mode()
+def lsvc_decompress(spec: CodecSpec, iframe: torch.Tensor, streams: dict, num_p_frames: int,
+                    codecs=None) -> torch.Tensor:
+    """P-frames [num_p_frames, 3, H, W] from (I-frame [3, H, W], streams) only."""
+    m = spec.module
+    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    device = _device(spec)
+    sched = m.schedule(num_p_frames)
+    iframe = space_to_depth(iframe[None].to(device, m.dtype), m.S2D)[0]
+    layers = range(len(sched.layers))
+    # Nothing in the entropy decode depends on the tree recursion: a layer's
+    # features need only its sigmas, which need only its z. So the mv stream
+    # (the largest), every z and then every layer's features decode on
+    # their own threads at once, and the card reconstructs layer after
+    # layer as they arrive.
+    with deterministic_convs(), AsyncCoder(workers=len(layers) + 1) as coder:
+        mv_future = coder.submit(mv_codec.decompress, streams["mv"], streams["mv_shape"])
+        z_futures = [coder.submit(z_codec.decompress, streams["z"][li], streams["z_shapes"][li])
+                     for li in layers]
+
+        def decode_features(li, idx_host):
+            return feat_codec.decode(streams["features"][li], idx_host.numpy()).astype(np.int16)
+
+        feat_futures = []
+        for li in layers:
+            z_q = from_nhwc(z_futures[li].result().astype(np.int16), device)
+            idx_host = HostCopy(nhwc(feat_codec.bucket(m.sigmas(z_q))))
+            feat_futures.append(coder.submit(decode_features, li, idx_host))
+        mv_hat = m.mv_decode(from_nhwc(mv_future.result().astype(np.int16), device))
+
+        com = [None] * num_p_frames
+        for li, layer in enumerate(sched.layers):
+            refs = torch.stack([iframe if sched.parents[f] == 0 else com[sched.parents[f] - 1]
+                                for f in layer])
+            mc = m.layer_mc(refs, mv_hat[[f - 1 for f in layer]])
+            com_frames = m.layer_recon(from_nhwc(feat_futures[li].result(), device), mc)
+            for i, f in enumerate(layer):
+                com[f - 1] = com_frames[i]
+    return depth_to_space(torch.stack(com), m.S2D)
+
+
+class HyperpriorCoder:
+    """Real coding of one SSFHyperprior (reference Hyperprior,
+    models.py:1958-1999): z through the bottleneck's factorized tables, y
+    through the Gaussian scale-table coder with the decoded means and
+    scales. The y symbol is round(y - means) in the model dtype."""
+
+    def __init__(self, hyperprior, dtype: torch.dtype):
+        self.hp = hyperprior
+        self.dtype = dtype
+        self.z_codec = FactorizedCodec(hyperprior.bottleneck.numpy_params())
+        self.y_codec = GaussianCodec()
+
+    def compress(self, y: torch.Tensor, coder: AsyncCoder):
+        """y [B, C, h, w] -> (streams holding futures of ``coder``, y_hat in
+        y's dtype). The card never waits for the host: z_hat is the
+        bottleneck's dequantized z, which is what the decoder gets back
+        from the z stream."""
+        z = self.hp.hyper_encoder(y)
+        z_host = HostCopy(nhwc(z.float()))
+        z_stream = coder.submit(lambda: self.z_codec.compress(z_host.numpy()))
+        means, scales = self.hp.means_scales(self.hp.bottleneck.dequantize(z).to(y.dtype),
+                                             *y.shape[2:])
+        q = torch.round(y - means)
+        q_host = HostCopy(nhwc(q.to(torch.int32)))
+        idx_host = HostCopy(nhwc(self.y_codec.bucket(scales)))
+        y_stream = coder.submit(lambda: self.y_codec.encode(q_host.numpy(), idx_host.numpy()))
+        return {"z": z_stream, "y": y_stream, "z_shape": nhwc_shape(z)}, q + means
+
+    def decompress(self, streams: dict, y_shape: tuple, device, coder: AsyncCoder):
+        """Start decoding y (y_shape NHWC): z on this thread, the means and
+        scales on the card, the y symbols on a ``coder`` thread. Returns a
+        function that gives y_hat [B, C, h, w] once its symbols are in."""
+        z_hat = from_nhwc(self.z_codec.decompress(streams["z"], streams["z_shape"]), device)
+        means, scales = self.hp.means_scales(z_hat.to(self.dtype), *y_shape[1:3])
+        idx_host = HostCopy(nhwc(self.y_codec.bucket(scales)))
+        q = coder.submit(lambda: self.y_codec.decode(streams["y"], idx_host.numpy()))
+        return lambda: from_nhwc(q.result(), device).to(self.dtype) + means
+
+
+def ssf_codecs(module):
+    """The keyframe's, the motion's and the residual's HyperpriorCoders."""
+    return tuple(HyperpriorCoder(hp, module.dtype) for hp in
+                 (module.img_hyperprior, module.motion_hyperprior, module.res_hyperprior))
+
+
+@torch.inference_mode()
+def ssf_compress_gop(spec: CodecSpec, gop: torch.Tensor, codecs=None):
+    """Keyframe + chain of inter frames, gop [T, B, 3, H, W] -> (streams,
+    recon [T, B, 3, H, W] in the model dtype, bits). ``codecs`` (from
+    ``ssf_codecs``) spares a caller that codes many GOPs the tables."""
+    m = spec.module
+    img_hp, mot_hp, res_hp = codecs or ssf_codecs(m)
+    x = m.fold_gop(gop.to(_device(spec), m.dtype))
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        y0 = m.img_encoder(x[0])
+        key_streams, y0_hat = img_hp.compress(y0, coder)
+        x_ref = m.img_decoder(y0_hat)
+        frames, inter = [x_ref], []
+        for t in range(1, x.shape[0]):
+            y_mot = m.motion_encoder(torch.cat([x[t], x_ref], dim=1))
+            mot_s, y_mot_hat = mot_hp.compress(y_mot, coder)
+            x_pred = m.forward_prediction(x_ref, m.motion_decoder(y_mot_hat))
+            y_res = m.res_encoder(x[t] - x_pred)
+            res_s, y_res_hat = res_hp.compress(y_res, coder)
+            x_ref = x_pred + m.res_decoder(torch.cat([y_res_hat, y_mot_hat], dim=1))
+            frames.append(x_ref)
+            inter.append({"motion": mot_s, "residual": res_s,
+                          "y_mot_shape": nhwc_shape(y_mot), "y_res_shape": nhwc_shape(y_res)})
+        streams = _resolve({"keyframe": key_streams, "y0_shape": nhwc_shape(y0),
+                            "inter": inter})
+    bits = 8 * (len(streams["keyframe"]["z"]) + len(streams["keyframe"]["y"])
+                + sum(len(s[k]["z"]) + len(s[k]["y"])
+                      for s in streams["inter"] for k in ("motion", "residual")))
+    return streams, m.unfold_gop(torch.stack(frames)), bits
+
+
+@torch.inference_mode()
+def ssf_decompress_gop(spec: CodecSpec, streams: dict, codecs=None) -> torch.Tensor:
+    """The whole GOP [T, B, 3, H, W] from the streams only."""
+    m = spec.module
+    img_hp, mot_hp, res_hp = codecs or ssf_codecs(m)
+    device = _device(spec)
+    # Each y needs only its own z, not the frames before it: every y of the
+    # GOP starts decoding on the coder's threads at once, and the card's
+    # chain of frames takes them as they arrive.
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        y0_hat = img_hp.decompress(streams["keyframe"], streams["y0_shape"], device, coder)
+        inter = [(mot_hp.decompress(s["motion"], s["y_mot_shape"], device, coder),
+                  res_hp.decompress(s["residual"], s["y_res_shape"], device, coder))
+                 for s in streams["inter"]]
+        x_ref = m.img_decoder(y0_hat())
+        frames = [x_ref]
+        for y_mot, y_res in inter:
+            y_mot_hat = y_mot()
+            x_pred = m.forward_prediction(x_ref, m.motion_decoder(y_mot_hat))
+            x_ref = x_pred + m.res_decoder(torch.cat([y_res(), y_mot_hat], dim=1))
+            frames.append(x_ref)
+    return m.unfold_gop(torch.stack(frames))

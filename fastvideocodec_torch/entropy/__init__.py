@@ -1,7 +1,7 @@
 from fastvideocodec_torch.entropy.bit_estimator import BitEstimator, Bitparm
 from fastvideocodec_torch.entropy.factorized import EntropyBottleneck
-from fastvideocodec_torch.entropy.gaussian import GaussianConditional
+from fastvideocodec_torch.entropy.gaussian import GaussianConditional, LaplaceConditional
 from fastvideocodec_torch.entropy.hyperprior import SSFHyperprior
 
 __all__ = ["BitEstimator", "Bitparm", "EntropyBottleneck", "GaussianConditional",
-           "SSFHyperprior"]
+           "LaplaceConditional", "SSFHyperprior"]

@@ -47,3 +47,9 @@ class BitEstimator(nn.Module):
     def likelihood(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         return self(x + 0.5) - self(x - 0.5)
+
+    def numpy_params(self) -> dict:
+        """{'f1': {'h', 'b', 'a'}, ..., 'f4': {'h', 'b'}} as float32 numpy
+        arrays: the flax names, as the real-bits coder's tables take them."""
+        return {name: {k: p.detach().float().cpu().numpy() for k, p in f.named_parameters()}
+                for name, f in self.named_children()}

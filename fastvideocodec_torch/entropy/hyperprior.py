@@ -38,9 +38,13 @@ class SSFHyperprior(nn.Module):
         """y [B, C, h, w] -> (y_hat in y's dtype, {"y": likelihoods of y,
         "z": likelihoods of z}, float32)."""
         z_hat, z_lik = self.bottleneck(self.hyper_encoder(y))
-        z_hat = z_hat.to(y.dtype)
-        h, w = y.shape[2:]
-        scales = self.hyper_decoder_scale(z_hat)[:, :, :h, :w]
-        means = self.hyper_decoder_mean(z_hat)[:, :, :h, :w]
+        means, scales = self.means_scales(z_hat.to(y.dtype), *y.shape[2:])
         y_hat, y_lik = self.gaussian(y, scales, means)
         return y_hat, {"y": y_lik, "z": z_lik}
+
+    def means_scales(self, z_hat: torch.Tensor, h: int, w: int):
+        """The Gaussian parameters of y from the decoded z (in y's dtype),
+        cropped to y's h x w."""
+        scales = self.hyper_decoder_scale(z_hat)[:, :, :h, :w]
+        means = self.hyper_decoder_mean(z_hat)[:, :, :h, :w]
+        return means, scales

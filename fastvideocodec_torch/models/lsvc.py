@@ -12,7 +12,9 @@ runs at full resolution on the s2d reference (``flow_warp_fullres_s2d``,
 the hand-written s2d kernel on CUDA tensors). Rates are Laplace (residual
 features, sigma from the hyper decoder) and BitEstimator (z, mv).
 
-Eval only: training noise, attention and frame sharding are not ported yet.
+The real-bits coder (coder/video.py) runs the same network in pieces
+(``mv_encode`` .. ``sigmas``). Eval only: training noise, attention and
+frame sharding are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +80,35 @@ class LSVC(nn.Module):
         warped = flow_warp_fullres_s2d(ref, 2.0 * mv)
         pred = self.warpnet(torch.cat([warped, ref], dim=1)) + warped
         return pred, warped
+
+    # Pieces of the real-bits coder (coder/video.py). The encoder and the
+    # decoder take the motion compensation, the recon and the f16 sigmas
+    # from these same functions on the same shapes and dtypes, so that
+    # decode == encode holds bit for bit. Symbols travel as int16.
+    def mv_encode(self, x_flow_cur: torch.Tensor, x_flow_ref: torch.Tensor) -> torch.Tensor:
+        """Flow of the pooled frames, then the mv encoder: int16 symbols."""
+        return quantize(self.mv_encoder(self.optic_flow(x_flow_cur, x_flow_ref))).to(torch.int16)
+
+    def mv_decode(self, mv_q: torch.Tensor) -> torch.Tensor:
+        return self.mv_decoder(mv_q.to(self.dtype))
+
+    def layer_mc(self, refs: torch.Tensor, mv_hat: torch.Tensor) -> torch.Tensor:
+        """Motion compensation of one tree layer against its stacked parents."""
+        return self.motioncompensation(refs, mv_hat)[0]
+
+    def analyze(self, target: torch.Tensor, mc: torch.Tensor):
+        """Residual and prior encoders: (z_q, feat_q), both int16."""
+        feature = self.res_encoder(target - mc)
+        z_q = quantize(self.prior_encoder(feature))
+        return z_q.to(torch.int16), quantize(feature).to(torch.int16)
+
+    def layer_recon(self, feat_q: torch.Tensor, mc: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(self.res_decoder(feat_q.to(mc.dtype)) + mc, 0.0, 1.0)
+
+    def sigmas(self, z_q: torch.Tensor) -> torch.Tensor:
+        """The Laplace scales of the features, float16: the host coder
+        buckets them into its scale table, and both sides bucket these."""
+        return self.prior_decoder(z_q.to(self.dtype)).to(torch.float16)
 
     def res_codec(self, res: torch.Tensor):
         feature = self.res_encoder(res)

@@ -13,8 +13,9 @@ The whole inter pipeline runs in the space-to-depth domain: frames are
 
 The prediction's level-0 sample and half-resolution stack sample are the
 hand-written pixel warps on CUDA tensors. Keyframes go through the img_*
-transforms. Eval only: training noise and the ``s2d=1`` (SSF-Official)
-branches are not ported yet.
+transforms. The real-bits coder (coder/video.py) calls these same pieces.
+Eval only: training noise and the ``s2d=1`` (SSF-Official) branches are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +67,19 @@ class ScaleSpaceFlow(nn.Module):
         level0_s2d, vol_half = volume
         return warp_volume_pyramid_s2d(level0_s2d, vol_half, motion_info, NUM_LEVELS)
 
+    def forward_prediction(self, x_ref: torch.Tensor, motion_info: torch.Tensor) -> torch.Tensor:
+        return self.warp_prediction(self.make_volume(x_ref), motion_info)
+
+    def fold_gop(self, frames: torch.Tensor) -> torch.Tensor:
+        """[T, B, 3, H, W] -> the s2d domain [T, B, 12, H/2, W/2]."""
+        T = frames.shape[0]
+        return space_to_depth(frames.flatten(0, 1), self.S2D).unflatten(0, (T, -1))
+
+    def unfold_gop(self, x: torch.Tensor) -> torch.Tensor:
+        """[T, B, 12, H/2, W/2] -> [T, B, 3, H, W]."""
+        T = x.shape[0]
+        return depth_to_space(x.flatten(0, 1), self.S2D).unflatten(0, (T, -1))
+
     def forward_keyframe(self, x: torch.Tensor):
         y_hat, lik = self.img_hyperprior(self.img_encoder(x))
         return self.img_decoder(y_hat), {"keyframe": lik}
@@ -75,8 +89,7 @@ class ScaleSpaceFlow(nn.Module):
         {"motion": lik, "residual": lik})."""
         y_motion = self.motion_encoder(torch.cat([x_cur, x_ref], dim=1))
         y_motion_hat, motion_lik = self.motion_hyperprior(y_motion)
-        motion_info = self.motion_decoder(y_motion_hat)
-        x_pred = self.warp_prediction(self.make_volume(x_ref), motion_info)
+        x_pred = self.forward_prediction(x_ref, self.motion_decoder(y_motion_hat))
         y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred))
         x_res_hat = self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1))
         return x_pred + x_res_hat, {"motion": motion_lik, "residual": res_lik}
@@ -85,14 +98,11 @@ class ScaleSpaceFlow(nn.Module):
         """Keyframe + chained inter frames over frames [T, B, 3, H, W]:
         returns (recon [T, B, 3, H, W], per-frame likelihood dicts). The
         frames fold into the s2d domain once and the recon unfolds once."""
-        T = frames.shape[0]
-        x = space_to_depth(frames.to(self.dtype).flatten(0, 1), self.S2D)
-        x = x.unflatten(0, (T, -1))
+        x = self.fold_gop(frames.to(self.dtype))
         x_ref, lik0 = self.forward_keyframe(x[0])
         recons, liks = [x_ref], [lik0]
-        for i in range(1, T):
+        for i in range(1, x.shape[0]):
             x_ref, lik = self.forward_inter(x[i], x_ref)
             recons.append(x_ref)
             liks.append(lik)
-        out = depth_to_space(torch.cat(recons), self.S2D)
-        return out.unflatten(0, (T, -1)), liks
+        return self.unfold_gop(torch.stack(recons)), liks

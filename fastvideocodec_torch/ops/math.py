@@ -2,17 +2,21 @@
 
 Quantization is the eval-time hard round (half to even, as ``jnp.round``);
 training noise is not ported yet. Rates are computed in float32 whatever
-the activation dtype.
+the activation dtype. The real-bits coder buckets scales into the
+exp-spaced ``scale_table`` (float64, host numpy) with ``build_indexes``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 LOG2 = math.log(2.0)
 SCALES_MIN = 0.11  # compressai's scale lower bound
+SCALES_MAX = 256.0
+SCALES_LEVELS = 64
 LIKELIHOOD_LOWER_BOUND = 1e-9
 
 
@@ -77,6 +81,24 @@ def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
 def bits_estimate(likelihoods: torch.Tensor) -> torch.Tensor:
     """sum(clamp(-log2(p + 1e-5), 0, 50))."""
     return torch.sum(torch.clamp(-torch.log(likelihoods + 1e-5) / LOG2, 0.0, 50.0))
+
+
+def scale_table() -> np.ndarray:
+    """The coder's exp-spaced scale table, SCALES_LEVELS scales from
+    SCALES_MIN to SCALES_MAX, float64 numpy (reference
+    entropy_models.py:18-23)."""
+    return np.exp(np.linspace(math.log(SCALES_MIN), math.log(SCALES_MAX), SCALES_LEVELS))
+
+
+def build_indexes(scales: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Bucket each scale into the scale table (compressai build_indexes):
+    the number of entries of table[:-1] strictly below max(scale, table[0]),
+    compared in the table's dtype (a binary search; a NaN scale takes the
+    last bucket, as no entry compares below it in the JAX package's sum of
+    comparisons); int32."""
+    scales = torch.maximum(scales.to(table.dtype), table[0])
+    idx = torch.searchsorted(table[:-1].contiguous(), scales.contiguous(), right=False)
+    return torch.where(scales.isnan(), table.shape[0] - 1, idx).to(torch.int32)
 
 
 def psnr_from_mse(mse: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Package-level guards of the PyTorch port.
 
-- The port, chip_smoke.py and warp_ab.py import with jax, flax and
-  fastvideocodec_tpu unimportable (the card's machine has none of them).
+- The port, chip_smoke.py, warp_ab.py and real_bits_ab.py import with
+  jax, flax and fastvideocodec_tpu unimportable (the card's machine has
+  none of them); real_bits_ab.py's synchronous copies are swapped in for
+  their scope only.
 - chip_smoke.py exits non-zero, printing no result, without a CUDA card and
   in a directory that holds nothing else of the repo.
 - The weight loader raises on unknown and on missing parameters.
@@ -87,6 +89,27 @@ def test_warp_ab_imports_without_jax_and_needs_a_card():
         r = subprocess.run([sys.executable, "warp_ab.py", f"warp={build.SOURCE}"],
                            capture_output=True, text=True, timeout=120, cwd=str(REPO), env=env)
         assert r.returncode != 0 and "median" not in r.stdout, r.stdout
+
+
+def test_real_bits_ab_imports_without_jax_and_restores_the_copies():
+    r = run_blocked(
+        "import torch, real_bits_ab as ab\n"
+        "from fastvideocodec_torch.coder import video as cv\n"
+        "shipped = cv.HostCopy\n"
+        "with ab.copies('shipped'):\n"
+        "    assert cv.HostCopy is shipped\n"
+        "try:\n"
+        "    with ab.copies('synchronous'):\n"
+        "        assert cv.HostCopy is ab._SyncCopy\n"
+        "        t = torch.arange(6).reshape(2, 3)\n"
+        "        assert (cv.HostCopy(t).numpy() == t.numpy()).all()\n"
+        "        raise KeyError('inside')\n"
+        "except KeyError:\n"
+        "    pass\n"
+        "assert cv.HostCopy is shipped\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
 def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
