@@ -65,9 +65,29 @@ Phases, each timed on its own line:
    encode recon bit for bit in every run;
 13. SSF real bits: the same for SSF-TPU (seeded weights, keyframe coded),
    its real bpp held within 5% of the model's estimate over the same GOP
-   (its forward, which codes the keyframe as the coder does).
+   (its forward, which codes the keyframe as the coder does);
+14. ELFVC card vs CPU: ELFVC-SP-TPU-TINY (tiny_elfvctpu_l3, sp_stage 2) in
+   float32 at 64x128, GOP 4, card against CPU; then bfloat16 on the card
+   against that float32 result; the same on seeded_flat weights at 128x256,
+   where the P-frame symbols the SPnets take are not all 0;
+15. ELFVC rollout: ELFVC-SP-TPU at its full widths (SPnet trunk 512) in
+   bfloat16, sp_stage 2, 1024x2048, GOP 16, seeded_flat("ELFVC-SP-TPU",
+   0), the same clip: one run with the launch counts zeroed (exactly 30
+   pixel_warp and 30 pixel_warp_s2d_sflow: two of each per P-frame), then
+   3 timed runs with their host enqueue times; bpp, PSNR, pred_err_norm and
+   peak memory printed, not gated (random weights); then one full-width
+   SPnet attention call (4 heads, 8192 tokens, d 32, bf16) timed in the
+   fused SDPA form the card runs and in the plain form;
+16. ELFVC real bits: the same setup through elfvc_compress_gop and
+   elfvc_decompress_gop as in phase 12: a warm-up GOP, then 3, each with
+   decode == encode bit for bit, launches exactly 30 + 30 on encode and
+   15 + 15 on decode, and real bpp within 5% of the model's forward
+   estimate over the same GOP.
 
-It then prints a JSON line of the kernels, the card's name and power limit,
+It then prints a JSON line of the kernels (each with its launches on every
+path it was counted on; ``launches`` is the count on the newest path that
+runs it: the ELFVC rollout for the two pixel warps), the card's name and
+power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
 nothing of the JAX package; it exits non-zero when no CUDA device is found.
@@ -89,6 +109,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 SSF_BF16_PSNR_DB = 0.11  # SSF-TPU-TINY bf16 card vs f32 CPU: max per-frame PSNR gap
 SSF_BF16_BPP_REL = 0.095  # and relative bpp gap (an H100 measured 0.0222 dB, 0.019)
+# ELFVC-SP-TPU-TINY bf16 card vs f32 CPU (an H100 measured 0.0803-0.0806 dB and
+# 1.5e-7: every P-frame symbol is 0 on this clip)
+ELFVC_BF16_PSNR_DB = 0.25
+ELFVC_BF16_BPP_REL = 0.05
+# ELFVC-SP-TPU-TINY on seeded_flat(.., 0) at 128x256, nonzero P-frame symbols
+# (bf16 against f32: 0.051 dB and 0.031 on the CPU, 0.0567 dB and 0.0349 on an H100)
+ELFVC_SEEDED_BF16_PSNR_DB = 0.25
+ELFVC_SEEDED_BF16_BPP_REL = 0.1
+ELFVC_SP_STAGE = 2
 GOP, H, W = 16, 1024, 2048
 SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
 # gradients through the Function vs autograd through the plain version: the
@@ -702,34 +731,52 @@ def main() -> int:
         time_kernels(LSVC_KERNELS, captured, rows, lib, lsvc_library)
         del captured, spec
 
-    with phase("ssf card vs cpu port"):
-        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+    def chain_card_vs_cpu(label, name, asset, bf16_psnr_db, bf16_bpp_rel, norms=(),
+                          size=(64, 128)):
+        """A tiny chain codec (shipped weights, or ``seeded_flat(name, 0)``
+        for asset "seeded") in float32 at ``size``, GOP 4, on the card
+        against the CPU port; then in bfloat16 on the card against that
+        float32 result. ``norms``: metrics held card vs CPU to 1e-3
+        relative too."""
+        h, w = size
+        clip = synth_gop_multi(np.random.default_rng(0), size=max(h, w), gop=4)[:, :h, :w]
         small = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2).contiguous()
         res = {}
         for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
                               ("cuda", torch.bfloat16)):
-            sspec = get_codec_model("SSF-TPU-TINY", dtype=dtype, device=device)
-            load_asset(sspec.module, "tiny_ssftpu_l2")
-            com, m = rollout(sspec, small.to(device, dtype))
+            spec = get_codec_model(name, dtype=dtype, device=device, sp_stage=ELFVC_SP_STAGE)
+            if asset == "seeded":
+                load_flat(spec.module, seeded_flat(name, 0))
+            else:
+                load_asset(spec.module, asset)
+            com, m = rollout(spec, small.to(device, dtype))
             res[device, dtype] = (com.float().cpu(), m["psnr"].float().cpu(),
-                                  float(m["bpp_est"].sum()))
-        (cg, pg, bg), (cc, pc, bc) = res["cuda", torch.float32], res["cpu", torch.float32]
+                                  float(m["bpp_est"].sum()),
+                                  {k: m[k].float().cpu() for k in norms})
+        (cg, pg, bg, ng), (cc, pc, bc, nc) = res["cuda", torch.float32], res["cpu", torch.float32]
         dmax = (cg - cc).abs().max().item()
         dmean = (cg - cc).abs().mean().item()
         dpsnr = (pg - pc).abs().max().item()
         dbpp = abs(bg - bc) / bc
-        log(f"ssf card vs cpu: recon max abs {dmax:.3e} mean abs {dmean:.3e} (tolerance mean "
-            f"1e-4); psnr card {pg.tolist()} cpu {pc.tolist()} max diff {dpsnr:.2e} dB "
-            f"(tolerance 0.01); bpp card {bg:.6f} cpu {bc:.6f} rel {dbpp:.2e} (tolerance 1e-3)")
-        require(dmean <= 1e-4 and dpsnr <= 0.01 and dbpp <= 1e-3, "ssf card disagrees with cpu")
-        # the bf16 path on the same input, held to the f32 result; the bar is
-        # about five times the gap an H100 measured
-        _, pb, bb = res["cuda", torch.bfloat16]
+        dnorm = {k: ((ng[k] - nc[k]).abs() / nc[k]).max().item() for k in norms}
+        log(f"{label} card vs cpu: recon max abs {dmax:.3e} mean abs {dmean:.3e} (tolerance "
+            f"mean 1e-4); psnr card {pg.tolist()} cpu {pc.tolist()} max diff {dpsnr:.2e} dB "
+            f"(tolerance 0.01); bpp card {bg:.6f} cpu {bc:.6f} rel {dbpp:.2e} (tolerance 1e-3)"
+            + "".join(f"; {k} card {ng[k].tolist()} cpu {nc[k].tolist()} max rel "
+                      f"{dnorm[k]:.2e} (tolerance 1e-3)" for k in norms))
+        require(dmean <= 1e-4 and dpsnr <= 0.01 and dbpp <= 1e-3
+                and all(d <= 1e-3 for d in dnorm.values()), f"{label} card disagrees with cpu")
+        # the bf16 path on the same input, held to the f32 result
+        _, pb, bb, _ = res["cuda", torch.bfloat16]
         dpsnr, dbpp = (pb - pc).abs().max().item(), abs(bb - bc) / bc
-        log(f"ssf bf16 card vs f32 cpu: psnr {pb.tolist()} max diff {dpsnr:.4f} dB "
-            f"(tolerance {SSF_BF16_PSNR_DB}); bpp {bb:.6f} rel {dbpp:.3e} (tolerance "
-            f"{SSF_BF16_BPP_REL})")
-        require(dpsnr <= SSF_BF16_PSNR_DB and dbpp <= SSF_BF16_BPP_REL, "ssf bf16 far from f32")
+        log(f"{label} bf16 card vs f32 cpu: psnr {pb.tolist()} max diff {dpsnr:.4f} dB "
+            f"(tolerance {bf16_psnr_db}); bpp {bb:.6f} rel {dbpp:.3e} (tolerance "
+            f"{bf16_bpp_rel})")
+        require(dpsnr <= bf16_psnr_db and dbpp <= bf16_bpp_rel, f"{label} bf16 far from f32")
+
+    with phase("ssf card vs cpu port"):
+        chain_card_vs_cpu("ssf", "SSF-TPU-TINY", "tiny_ssftpu_l2", SSF_BF16_PSNR_DB,
+                          SSF_BF16_BPP_REL)
 
     sspec = get_codec_model("SSF-TPU", dtype=torch.bfloat16, device="cuda")
     t0 = time.perf_counter()
@@ -783,7 +830,7 @@ def main() -> int:
 
     from fastvideocodec_torch import coder
     from fastvideocodec_torch.coder import service
-    from fastvideocodec_torch.ops.math import bits_estimate
+    from fastvideocodec_torch.gop.engine import estimated_bits
     from fastvideocodec_torch.tools.real_bits_fps import code_gop, codecs_of
 
     with phase("coder"):
@@ -886,8 +933,7 @@ def main() -> int:
         # coder codes it (the rollout predicts from the uncoded frame 0)
         with torch.inference_mode():
             _, liks = sspec.module(gop[:, None])
-        est = sum(float(bits_estimate(v)) for lik in liks for d in lik.values()
-                  for v in d.values()) / (GOP * H * W)
+        est = estimated_bits(liks) / (GOP * H * W)
         del liks
         want = {"pixel_warp": GOP - 1, "pixel_warp_s2d_sflow": GOP - 1}
         runs = real_bits(sspec, ssf_codecs, want, want, est,
@@ -898,10 +944,97 @@ def main() -> int:
         log(f"ssf real bits (seeded weights): bpp {runs[-1]['bpp']:.6f} vs the model's "
             f"estimate {est:.6f} over the same {GOP} frames (rel {rel:.4f}, tolerance 0.05)")
         require(rel < 0.05, "ssf real bits far from the model's estimate")
+        del runs, recon, sspec, ssf_codecs
+
+    from fastvideocodec_torch.layers.blocks import plain_attention
+
+    with phase("elfvc card vs cpu port"):
+        chain_card_vs_cpu("elfvc", "ELFVC-SP-TPU-TINY", "tiny_elfvctpu_l3", ELFVC_BF16_PSNR_DB,
+                          ELFVC_BF16_BPP_REL, norms=("pred_err_norm",))
+        # the trained model codes every P-frame symbol as 0 on that clip; the
+        # seeded one at 128x256 feeds its SPnets nonzero symbols
+        chain_card_vs_cpu("elfvc seeded", "ELFVC-SP-TPU-TINY", "seeded",
+                          ELFVC_SEEDED_BF16_PSNR_DB, ELFVC_SEEDED_BF16_BPP_REL,
+                          norms=("pred_err_norm",), size=(128, 256))
+
+    espec = get_codec_model("ELFVC-SP-TPU", dtype=torch.bfloat16, device="cuda",
+                            sp_stage=ELFVC_SP_STAGE)
+    t0 = time.perf_counter()
+    load_flat(espec.module, seeded_flat("ELFVC-SP-TPU", 0))
+    log(f"ELFVC-SP-TPU seeded weights: {sum(p.numel() for p in espec.module.parameters())} "
+        f"parameters in {time.perf_counter() - t0:.3f} s (sp_stage {ELFVC_SP_STAGE})")
+    elfvc_want = {**zero_counts, "pixel_warp": 2 * (GOP - 1),
+                  "pixel_warp_s2d_sflow": 2 * (GOP - 1)}
+
+    with phase("elfvc rollout 1024x2048 GOP16 bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        com, m = rollout(espec, gop)
+        torch.cuda.synchronize()
+        elfvc_launches = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"launches in one GOP: {elfvc_launches}")
+        require(elfvc_launches == elfvc_want,
+                f"elfvc launch counts {elfvc_launches}, want {elfvc_want}")
+        psnr = m["psnr"].float().cpu()
+        bpp = m["bpp_est"].float().cpu()
+        pred_err = m["pred_err_norm"].float().cpu()
+        require(tuple(com.shape) == (GOP - 1, 3, H, W), f"recon shape {tuple(com.shape)}")
+        require(bool(torch.isfinite(com).all()), "elfvc recon not finite")
+        require(all(bool(torch.isfinite(v).all()) for v in (psnr, bpp, pred_err))
+                and float(bpp.min()) > 0.0, f"elfvc psnr {psnr.tolist()} bpp {bpp.tolist()}")
+        del com, m
+        times, enqueue = timed_runs(rollout, espec, gop)
+        ms = sum(times) / len(times)
+        log(f"elfvc rollout: ms/GOP {times} mean {ms:.3f}; host enqueue ms/GOP "
+            f"{[round(t, 3) for t in enqueue]}; fps {1000.0 * (GOP - 1) / ms:.3f}; "
+            f"bpp (random weights, not gated) mean {float(bpp.mean()):.6f}; psnr mean "
+            f"{float(psnr.mean()):.4f}; pred_err_norm mean {float(pred_err.mean()):.4f}; "
+            f"peak memory {peak:.3f} GiB")
+        # the SPnet's attention at full width: [1, heads 4, 64 * 128 tokens, d 32]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v = (torch.randn((1, 4, (H // 16) * (W // 16), 32), generator=gen,
+                               device="cuda").to(torch.bfloat16) for _ in range(3))
+        fused = F.scaled_dot_product_attention(q, k, v)
+        plain = plain_attention(q, k, v)
+        diff = (fused.float() - plain.float()).abs().max().item()
+        fused_ms = cuda_ms(torch, F.scaled_dot_product_attention, q, k, v)
+        plain_ms = cuda_ms(torch, plain_attention, q, k, v, iters=5)
+        log(f"attention {tuple(q.shape)} bf16: fused SDPA {fused_ms:.4f} ms, plain (scores "
+            f"materialised) {plain_ms:.4f} ms; max abs diff {diff:.3e}; "
+            f"{2 * (GOP - 1)} calls per GOP")
+        del q, k, v, fused, plain
+
+    with phase("elfvc real bits 1024x2048 GOP16 bf16"):
+        # the model's estimate over the same GOP, keyframe coded as the
+        # coder codes it
+        with torch.inference_mode():
+            _, liks = espec.module(gop[:, None])
+        est = estimated_bits(liks) / (GOP * H * W)
+        del liks
+        elfvc_codecs = codecs_of(espec)
+        half = {"pixel_warp": GOP - 1, "pixel_warp_s2d_sflow": GOP - 1}
+        runs = real_bits(espec, elfvc_codecs, {k: 2 * n for k, n in half.items()}, half, est,
+                         lambda r: f" over {GOP} frames, {r['bpp_inter']:.6f} over the P-frames")
+        recon = runs[-1]["recon"]
+        require(tuple(recon.shape) == (GOP, 1, 3, H, W), f"recon shape {tuple(recon.shape)}")
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"elfvc real bits (seeded weights, sp_stage {ELFVC_SP_STAGE}): bpp "
+            f"{runs[-1]['bpp']:.6f} vs the model's estimate {est:.6f} over the same {GOP} "
+            f"frames (rel {rel:.4f}, tolerance 0.05)")
+        require(rel < 0.05, "elfvc real bits far from the model's estimate")
+        elfvc_enc, elfvc_dec = runs[-1]["enc_launches"], runs[-1]["dec_launches"]
         del runs, recon
 
+    by_path = {name: {"lsvc_rollout": rollout_launches[name],
+                      "lsvc_decode_graph": decode_launches[name],
+                      "ssf_rollout": ssf_launches[name],
+                      "elfvc_rollout": elfvc_launches[name],
+                      "elfvc_real_bits_encode": elfvc_enc[name],
+                      "elfvc_real_bits_decode": elfvc_dec[name]} for name in kernels}
     launches = {**{k: rollout_launches[k] for k in LSVC_KERNELS},
-                **{k: ssf_launches[k] for k in SSF_KERNELS}}
+                **{k: elfvc_launches[k] for k in SSF_KERNELS}}
     report = {"kernels": [
         {
             "name": name,
@@ -915,6 +1048,7 @@ def main() -> int:
             "bound_ms": rows[name]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": lib[name],
+            "launches_by_path": by_path[name],
         }
         for name in kernels
     ]}

@@ -1,5 +1,5 @@
-"""Whole-GOP real-bitstream encode and decode of LSVC-TPU and SSF-TPU,
-ported from fastvideocodec_tpu/coder/video.py.
+"""Whole-GOP real-bitstream encode and decode of LSVC-TPU, SSF-TPU and
+ELFVC(-SP)-TPU, ported from fastvideocodec_tpu/coder/video.py.
 
 LSVC (tree codec):
   encode: flow + mv analysis for all P-frames in one batch -> mv symbols to
@@ -10,6 +10,10 @@ LSVC (tree codec):
   decode: the mirror image, from (I-frame, bitstreams) only.
 SSF (chain codec): keyframe, then per P-frame the motion and the residual
   hyperpriors (z: factorized tables; y: Gaussian scale-table coder).
+ELFVC (chain codec with state): as SSF, with the motion coded as a delta
+  on the carried motion prior, after a flow predictor that only the
+  encoder runs; with -SP the hyperpriors' SPnets predict y from the
+  decoded symbols (and the previous frame's) on both sides.
 
 The decoder sees only the bitstreams, so ``decode == encode recon`` bit
 for bit is the correctness invariant. Both sides take every tensor they
@@ -222,18 +226,31 @@ class HyperpriorCoder:
     """Real coding of one SSFHyperprior (reference Hyperprior,
     models.py:1958-1999): z through the bottleneck's factorized tables, y
     through the Gaussian scale-table coder with the decoded means and
-    scales. The y symbol is round(y - means) in the model dtype."""
+    scales. The y symbol round_y = round(y - means) is taken in the model
+    dtype. What the decoders get (``y_out``) is round_y + means, or, when
+    the hyperprior has an SPnet and ``sp`` set (ELFVC-SP by its sp_stage),
+    the SPnet's prediction from round_y and the previous frame's round_y
+    (the zeros of ``ELFVC.init_state`` on the GOP's first P-frame). Both
+    sides predict from the symbols themselves, so the decoder's input to
+    the SPnet is the encoder's bit for bit."""
 
     def __init__(self, hyperprior, dtype: torch.dtype):
         self.hp = hyperprior
         self.dtype = dtype
+        self.sp = hyperprior.sp and hyperprior.y_predictor is not None
         self.z_codec = FactorizedCodec(hyperprior.bottleneck.numpy_params())
         self.y_codec = GaussianCodec()
 
-    def compress(self, y: torch.Tensor, coder: AsyncCoder):
-        """y [B, C, h, w] -> (streams holding futures of ``coder``, y_hat in
-        y's dtype). The card never waits for the host: z_hat is the
-        bottleneck's dequantized z, which is what the decoder gets back
+    def _finish(self, round_y: torch.Tensor, means: torch.Tensor, q_y_prior):
+        """(y_out, the next frame's prior round_y)."""
+        if self.sp:
+            return self.hp.predict_y(round_y, q_y_prior, means), round_y
+        return round_y + means, round_y
+
+    def compress(self, y: torch.Tensor, coder: AsyncCoder, q_y_prior=None):
+        """y [B, C, h, w] -> (streams holding futures of ``coder``, y_out in
+        y's dtype, round_y). The card never waits for the host: z_hat is
+        the bottleneck's dequantized z, which is what the decoder gets back
         from the z stream."""
         z = self.hp.hyper_encoder(y)
         z_host = HostCopy(nhwc(z.float()))
@@ -244,23 +261,38 @@ class HyperpriorCoder:
         q_host = HostCopy(nhwc(q.to(torch.int32)))
         idx_host = HostCopy(nhwc(self.y_codec.bucket(scales)))
         y_stream = coder.submit(lambda: self.y_codec.encode(q_host.numpy(), idx_host.numpy()))
-        return {"z": z_stream, "y": y_stream, "z_shape": nhwc_shape(z)}, q + means
+        streams = {"z": z_stream, "y": y_stream, "z_shape": nhwc_shape(z)}
+        return (streams, *self._finish(q, means, q_y_prior))
 
     def decompress(self, streams: dict, y_shape: tuple, device, coder: AsyncCoder):
         """Start decoding y (y_shape NHWC): z on this thread, the means and
         scales on the card, the y symbols on a ``coder`` thread. Returns a
-        function that gives y_hat [B, C, h, w] once its symbols are in."""
+        function of the prior (unused without an SPnet) that gives (y_out
+        [B, C, h, w], round_y) once the symbols are in."""
         z_hat = from_nhwc(self.z_codec.decompress(streams["z"], streams["z_shape"]), device)
         means, scales = self.hp.means_scales(z_hat.to(self.dtype), *y_shape[1:3])
         idx_host = HostCopy(nhwc(self.y_codec.bucket(scales)))
         q = coder.submit(lambda: self.y_codec.decode(streams["y"], idx_host.numpy()))
-        return lambda: from_nhwc(q.result(), device).to(self.dtype) + means
+
+        def finish(q_y_prior=None):
+            return self._finish(from_nhwc(q.result(), device).to(self.dtype), means, q_y_prior)
+
+        return finish
 
 
 def ssf_codecs(module):
-    """The keyframe's, the motion's and the residual's HyperpriorCoders."""
+    """The keyframe's, the motion's and the residual's HyperpriorCoders
+    (of SSF and ELFVC alike)."""
     return tuple(HyperpriorCoder(hp, module.dtype) for hp in
                  (module.img_hyperprior, module.motion_hyperprior, module.res_hyperprior))
+
+
+def _streams_bits(streams: dict) -> int:
+    """The bits of a chain codec's streams: the keyframe's z and y, and
+    every P-frame's motion and residual z and y."""
+    return 8 * (len(streams["keyframe"]["z"]) + len(streams["keyframe"]["y"])
+                + sum(len(s[k]["z"]) + len(s[k]["y"])
+                      for s in streams["inter"] for k in ("motion", "residual")))
 
 
 @torch.inference_mode()
@@ -273,25 +305,22 @@ def ssf_compress_gop(spec: CodecSpec, gop: torch.Tensor, codecs=None):
     x = m.fold_gop(gop.to(_device(spec), m.dtype))
     with deterministic_convs(), AsyncCoder(workers=4) as coder:
         y0 = m.img_encoder(x[0])
-        key_streams, y0_hat = img_hp.compress(y0, coder)
+        key_streams, y0_hat, _ = img_hp.compress(y0, coder)
         x_ref = m.img_decoder(y0_hat)
         frames, inter = [x_ref], []
         for t in range(1, x.shape[0]):
             y_mot = m.motion_encoder(torch.cat([x[t], x_ref], dim=1))
-            mot_s, y_mot_hat = mot_hp.compress(y_mot, coder)
+            mot_s, y_mot_hat, _ = mot_hp.compress(y_mot, coder)
             x_pred = m.forward_prediction(x_ref, m.motion_decoder(y_mot_hat))
             y_res = m.res_encoder(x[t] - x_pred)
-            res_s, y_res_hat = res_hp.compress(y_res, coder)
+            res_s, y_res_hat, _ = res_hp.compress(y_res, coder)
             x_ref = x_pred + m.res_decoder(torch.cat([y_res_hat, y_mot_hat], dim=1))
             frames.append(x_ref)
             inter.append({"motion": mot_s, "residual": res_s,
                           "y_mot_shape": nhwc_shape(y_mot), "y_res_shape": nhwc_shape(y_res)})
         streams = _resolve({"keyframe": key_streams, "y0_shape": nhwc_shape(y0),
                             "inter": inter})
-    bits = 8 * (len(streams["keyframe"]["z"]) + len(streams["keyframe"]["y"])
-                + sum(len(s[k]["z"]) + len(s[k]["y"])
-                      for s in streams["inter"] for k in ("motion", "residual")))
-    return streams, m.unfold_gop(torch.stack(frames)), bits
+    return streams, m.unfold_gop(torch.stack(frames)), _streams_bits(streams)
 
 
 @torch.inference_mode()
@@ -308,11 +337,83 @@ def ssf_decompress_gop(spec: CodecSpec, streams: dict, codecs=None) -> torch.Ten
         inter = [(mot_hp.decompress(s["motion"], s["y_mot_shape"], device, coder),
                   res_hp.decompress(s["residual"], s["y_res_shape"], device, coder))
                  for s in streams["inter"]]
-        x_ref = m.img_decoder(y0_hat())
+        x_ref = m.img_decoder(y0_hat()[0])
         frames = [x_ref]
         for y_mot, y_res in inter:
-            y_mot_hat = y_mot()
+            y_mot_hat, _ = y_mot()
             x_pred = m.forward_prediction(x_ref, m.motion_decoder(y_mot_hat))
-            x_ref = x_pred + m.res_decoder(torch.cat([y_res(), y_mot_hat], dim=1))
+            x_ref = x_pred + m.res_decoder(torch.cat([y_res()[0], y_mot_hat], dim=1))
+            frames.append(x_ref)
+    return m.unfold_gop(torch.stack(frames))
+
+
+@torch.inference_mode()
+def elfvc_compress_gop(spec: CodecSpec, gop: torch.Tensor, codecs=None):
+    """ELFVC(-SP) keyframe + chain, gop [T, B, 3, H, W] -> (streams, recon
+    [T, B, 3, H, W] in the model dtype, bits), with the streams of
+    ``ssf_compress_gop``'s form. The flow predictor runs on the decoded
+    context (x_ref, x_ref_ref, the motion prior), so only the motion's
+    delta is coded; each frame's scale-space volume is built once for its
+    two warps. ``codecs`` from ``ssf_codecs``."""
+    m = spec.module
+    img_hp, mot_hp, res_hp = codecs or ssf_codecs(m)
+    x = m.fold_gop(gop.to(_device(spec), m.dtype))
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        y0 = m.img_encoder(x[0])
+        key_streams, y0_hat, _ = img_hp.compress(y0, coder)
+        x_ref = m.img_decoder(y0_hat)
+        B, _, h, w = x_ref.shape
+        state = m.init_state(B, h, w)
+        qpm, qpr = state.q_y_prior_motion, state.q_y_prior_res
+        frames, inter = [x_ref], []
+        for t in range(1, x.shape[0]):
+            motion_info_local = m.flow_predictor(
+                torch.cat([x_ref, state.x_ref_ref, state.motion_info_prior], dim=1))
+            volume = m.make_volume(x_ref)
+            y_mot = m.motion_encoder(
+                torch.cat([x[t], m.warp_prediction(volume, motion_info_local)], dim=1))
+            mot_s, y_mot_out, qpm = mot_hp.compress(y_mot, coder, qpm)
+            motion_info = state.motion_info_prior + m.motion_decoder(y_mot_out)
+            x_pred = m.warp_prediction(volume, motion_info)
+            y_res = m.res_encoder(x[t] - x_pred)
+            res_s, y_res_out, qpr = res_hp.compress(y_res, coder, qpr)
+            x_rec = x_pred + m.res_decoder(torch.cat([y_res_out, y_mot_out], dim=1))
+            state = state._replace(x_ref_ref=x_ref, motion_info_prior=motion_info)
+            x_ref = x_rec
+            frames.append(x_ref)
+            inter.append({"motion": mot_s, "residual": res_s,
+                          "y_mot_shape": nhwc_shape(y_mot), "y_res_shape": nhwc_shape(y_res)})
+        streams = _resolve({"keyframe": key_streams, "y0_shape": nhwc_shape(y0),
+                            "inter": inter})
+    return streams, m.unfold_gop(torch.stack(frames)), _streams_bits(streams)
+
+
+@torch.inference_mode()
+def elfvc_decompress_gop(spec: CodecSpec, streams: dict, codecs=None) -> torch.Tensor:
+    """The whole GOP [T, B, 3, H, W] from the streams only. The decoder runs
+    no flow predictor: it needs only the carried prior plus the decoded
+    delta. Every y starts decoding at once, as in ``ssf_decompress_gop``;
+    the SPnets then run in the chain's order on the card."""
+    m = spec.module
+    img_hp, mot_hp, res_hp = codecs or ssf_codecs(m)
+    device = _device(spec)
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        y0_hat = img_hp.decompress(streams["keyframe"], streams["y0_shape"], device, coder)
+        inter = [(mot_hp.decompress(s["motion"], s["y_mot_shape"], device, coder),
+                  res_hp.decompress(s["residual"], s["y_res_shape"], device, coder))
+                 for s in streams["inter"]]
+        x_ref = m.img_decoder(y0_hat()[0])
+        B, _, h, w = x_ref.shape
+        state = m.init_state(B, h, w)
+        qpm, qpr = state.q_y_prior_motion, state.q_y_prior_res
+        frames = [x_ref]
+        for y_mot, y_res in inter:
+            y_mot_out, qpm = y_mot(qpm)
+            motion_info = state.motion_info_prior + m.motion_decoder(y_mot_out)
+            x_pred = m.forward_prediction(x_ref, motion_info)
+            y_res_out, qpr = y_res(qpr)
+            x_rec = x_pred + m.res_decoder(torch.cat([y_res_out, y_mot_out], dim=1))
+            state = state._replace(x_ref_ref=x_ref, motion_info_prior=motion_info)
+            x_ref = x_rec
             frames.append(x_ref)
     return m.unfold_gop(torch.stack(frames))

@@ -1,12 +1,18 @@
 """The SSF-family hyperprior at eval time, ported from
-fastvideocodec_tpu/entropy/hyperprior.py (``SSFHyperprior`` without
-``super_prec``; reference models.py:1958-1999).
+fastvideocodec_tpu/entropy/hyperprior.py (``SSFHyperprior``; reference
+models.py:1958-1999).
 
 y -> hyper encoder -> z; z is coded by the factorized bottleneck; the mean
 and QReLU-scale hyper decoders give the Gaussian parameters of y, cropped
 to y's size (the three stride-2 deconvs emit 8*ceil(y/8) pixels); y_hat is
 the round of y around the means, in y's dtype, and y's rate is the float32
 likelihood of that same symbol.
+
+With ``super_prec`` (ELFVC-SP) the hyperprior also holds an SPnet,
+``y_predictor``, that predicts y from the symbol round(y - means) and the
+previous frame's symbol (``q_y_prior``); with ``sp`` the decoders take that
+prediction in place of y_hat. ``forward_with_prior`` is the JAX module's
+``__call__`` with its prior; ``forward`` is the SSF codecs' call.
 """
 
 from __future__ import annotations
@@ -16,31 +22,62 @@ from torch import nn
 
 from fastvideocodec_torch.entropy.factorized import EntropyBottleneck
 from fastvideocodec_torch.entropy.gaussian import GaussianConditional
+from fastvideocodec_torch.layers.blocks import SPnet
 from fastvideocodec_torch.layers.transforms import (
     SSFEncoder,
     SSFHyperDecoder,
     SSFHyperDecoderQReLU,
 )
+from fastvideocodec_torch.ops.math import quantize
 
 
 class SSFHyperprior(nn.Module):
-    """Every stage of the hyper path is ``planes`` wide."""
+    """Every stage of the hyper path is ``planes`` wide; the SPnet's trunk
+    is ``8 * sp_dim``."""
 
-    def __init__(self, planes: int = 192):
+    def __init__(self, planes: int = 192, super_prec: bool = False, sp: bool = False,
+                 sp_dim: int = 64):
         super().__init__()
         self.bottleneck = EntropyBottleneck(planes)
         self.hyper_encoder = SSFEncoder(planes, planes, planes)
         self.hyper_decoder_mean = SSFHyperDecoder(planes)
         self.hyper_decoder_scale = SSFHyperDecoderQReLU(planes)
         self.gaussian = GaussianConditional()
+        self.sp = sp
+        self.y_predictor = SPnet(2 * planes, planes, sp_dim) if super_prec else None
+
+    def _forward(self, y: torch.Tensor):
+        z_hat, z_lik = self.bottleneck(self.hyper_encoder(y))
+        means, scales = self.means_scales(z_hat.to(y.dtype), *y.shape[2:])
+        y_hat, y_lik = self.gaussian(y, scales, means)
+        return y_hat, {"y": y_lik, "z": z_lik}, means
 
     def forward(self, y: torch.Tensor):
         """y [B, C, h, w] -> (y_hat in y's dtype, {"y": likelihoods of y,
         "z": likelihoods of z}, float32)."""
-        z_hat, z_lik = self.bottleneck(self.hyper_encoder(y))
-        means, scales = self.means_scales(z_hat.to(y.dtype), *y.shape[2:])
-        y_hat, y_lik = self.gaussian(y, scales, means)
-        return y_hat, {"y": y_lik, "z": z_lik}
+        y_hat, lik, _ = self._forward(y)
+        return y_hat, lik
+
+    def forward_with_prior(self, y: torch.Tensor, q_y_prior):
+        """(y_hat, {"y", "z", "pred_err_y", "Q_err_y"}, new prior), as the
+        JAX module returns them. Q_err_y = round(y - means) + means - y.
+        Without an SPnet, pred_err_y is None and the prior passes through;
+        with one, pred_err_y = pred_y - y, y_hat is pred_y when ``sp``, and
+        the new prior is round(y - means)."""
+        y_hat, lik, means = self._forward(y)
+        round_y = quantize(y - means)
+        lik["Q_err_y"] = round_y + means - y
+        lik["pred_err_y"] = None
+        if self.y_predictor is None:
+            return y_hat, lik, q_y_prior
+        pred_y = self.predict_y(round_y, q_y_prior, means)
+        lik["pred_err_y"] = pred_y - y
+        return (pred_y if self.sp else y_hat), lik, round_y
+
+    def predict_y(self, round_y: torch.Tensor, q_y_prior: torch.Tensor,
+                  means: torch.Tensor) -> torch.Tensor:
+        """SPnet(cat(round_y, q_y_prior)) + round_y + means."""
+        return self.y_predictor(torch.cat([round_y, q_y_prior], dim=1)) + round_y + means
 
     def means_scales(self, z_hat: torch.Tensor, h: int, w: int):
         """The Gaussian parameters of y from the decoded z (in y's dtype),

@@ -1,6 +1,7 @@
 """GOP rollouts of the port, from fastvideocodec_tpu/gop/engine.py: the
-LSVC whole-GOP call (``lsvc_gop``) and the SSF chain of inter frames
-(``ssf_gop``), dispatched by family in ``rollout``."""
+LSVC whole-GOP call (``lsvc_gop``), the SSF chain of inter frames
+(``ssf_gop``) and the ELFVC chain with its temporal state (``elfvc_gop``),
+dispatched by family in ``rollout``."""
 
 from __future__ import annotations
 
@@ -64,7 +65,40 @@ def ssf_gop(spec: CodecSpec, gop: torch.Tensor):
     return depth_to_space(torch.cat(recons), module.S2D), metrics
 
 
-ROLLOUTS = {"lsvc": lsvc_gop, "ssf": ssf_gop}
+@torch.inference_mode()
+def elfvc_gop(spec: CodecSpec, gop: torch.Tensor):
+    """gop [T, 3, H, W] with frame 0 the (uncoded) reference -> (recon
+    [T-1, 3, H, W], metrics). As ``ssf_gop``, with the ELFVC state starting
+    at zeros; with ``super_prec`` the metrics add ``pred_err_norm`` and
+    ``Q_err_norm``, the sums over the frame's hyperpriors of the L2 norms
+    of pred_y - y and of round(y - means) + means - y. All float32 [T-1]."""
+    module = spec.module
+    frames = space_to_depth(gop.to(module.dtype), module.S2D)
+    x_prev = frames[0:1]
+    state = module.init_state(1, *frames.shape[2:])
+    recons, per_frame = [], []
+    for i in range(1, frames.shape[0]):
+        x_cur = frames[i:i + 1]
+        x_prev, out, state = module.forward_inter(x_cur, x_prev, state)
+        recons.append(x_prev)
+        metrics = _ssf_metrics(x_cur, x_prev, out)
+        if module.super_prec:
+            for key in ("pred_err", "Q_err"):
+                metrics[f"{key}_norm"] = sum(torch.linalg.vector_norm(e.float())
+                                             for e in out[key])
+        per_frame.append(metrics)
+    metrics = {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
+    return depth_to_space(torch.cat(recons), module.S2D), metrics
+
+
+def estimated_bits(liks) -> float:
+    """The estimated bits of a codec ``forward``'s per-frame dicts: the sum
+    of every "y" and "z" likelihood's bits (the keyframe's included)."""
+    return sum(float(bits_estimate(part[key])) for lik in liks for name, part in lik.items()
+               if name in ("keyframe", "motion", "residual") for key in ("y", "z"))
+
+
+ROLLOUTS = {"lsvc": lsvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
 
 
 def rollout(spec: CodecSpec, gop: torch.Tensor):

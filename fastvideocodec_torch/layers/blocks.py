@@ -1,7 +1,15 @@
 """Building blocks (NCHW), ported from fastvideocodec_tpu/layers/blocks.py:
 ResBlock, the WarpNet motion-compensation U-net and the MEBasic SpyNet
-level of the LSVC-TPU path, and the forward of QReLU for the SSF
-hyper decoders."""
+level of the LSVC-TPU path, the forward of QReLU for the SSF hyper
+decoders, and the super-precision SPnet of ELFVC-SP with its blocks
+(ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention).
+
+The SPnet blocks keep the flax names of their parameters (``g``,
+GroupNorm ``scale``/``bias``, the WSConvBlock's ``weight`` (its flax
+``kernel``) and ``bias``) and, as flax does, keep them in float32 whatever
+the activation dtype: the weight-standardized kernel is standardized in
+float32 and cast to the activation dtype only for its conv, and the norms
+reduce in float32."""
 
 from __future__ import annotations
 
@@ -82,3 +90,155 @@ def qrelu(x: torch.Tensor) -> torch.Tensor:
     """clamp(x, 0, 255): the forward of compressai's QReLU at 8 bits. Its
     smooth surrogate gradient waits for training."""
     return torch.clamp(x, 0.0, 255.0)
+
+
+# ---------------------------------------------------------------------------
+# Super-precision SPnet (reference super_precision.py) and its blocks
+# ---------------------------------------------------------------------------
+
+NORM_EPS = 1e-5  # the LayerNorm, GroupNorm and weight-standardization eps
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel axis with a scale ``g`` and the biased
+    variance. The statistics are taken in float32 and rounded to x's dtype,
+    as jnp.mean and jnp.var give them; the float32 ``g`` makes the output
+    float32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(1, keepdim=True)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        return (x - mean) * torch.rsqrt(var + NORM_EPS) * self.g[None, :, None, None]
+
+
+class GroupNorm(nn.Module):
+    """flax GroupNorm with its params ``scale`` and ``bias``, float32
+    statistics; returns float32. Not ``F.group_norm``: its moments kernel
+    gives each (item, group) one thread block, 8 blocks at batch 1, and
+    took 0.16 ms a call on an H100 for the SPnet's [1, 512, 64, 128]
+    (``tools/profile_rollout.py``); ``var_mean`` spreads that reduction
+    over the card."""
+
+    def __init__(self, channels: int, groups: int = 8):
+        super().__init__()
+        self.groups = groups
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        g = x.float().reshape(B, self.groups, C // self.groups, H * W)
+        var, mean = torch.var_mean(g, dim=(2, 3), keepdim=True, correction=0)
+        scale, bias = (p.reshape(1, self.groups, -1, 1) for p in (self.scale, self.bias))
+        return ((g - mean) * (torch.rsqrt(var + NORM_EPS) * scale) + bias).reshape(B, C, H, W)
+
+
+class WSConvBlock(nn.Module):
+    """3x3 weight-standardized conv (mean and biased variance of the kernel
+    over (cin, kh, kw) per output channel), its float32 bias, GroupNorm(8)
+    and SiLU. Not an nn.Conv2d: the registry casts those to the model
+    dtype, and this kernel stays float32 until after its standardization."""
+
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 8):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.GroupNorm_0 = GroupNorm(out_channels, groups)
+
+    def forward(self, x):
+        w = self.weight
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        var = ((w - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
+        w = (w - mean) * torch.rsqrt(var + NORM_EPS)
+        y = F.conv2d(x, w.to(x.dtype), padding=1) + self.bias[None, :, None, None]
+        return F.silu(self.GroupNorm_0(y).to(x.dtype))
+
+
+class ResnetBlock(nn.Module):
+    """Two WSConvBlocks and a skip, through a 1x1 conv when the widths
+    differ."""
+
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 8):
+        super().__init__()
+        self.WSConvBlock_0 = WSConvBlock(in_channels, out_channels, groups)
+        self.WSConvBlock_1 = WSConvBlock(out_channels, out_channels, groups)
+        self.Conv_0 = conv(in_channels, out_channels, 1) if in_channels != out_channels else None
+
+    def forward(self, x):
+        h = self.WSConvBlock_1(self.WSConvBlock_0(x))
+        if self.Conv_0 is not None:
+            x = self.Conv_0(x)
+        return h + x
+
+
+def plain_attention(q, k, v):
+    """Softmax attention over [B, heads, N, d]: q scaled by d^-1/2, then two
+    matmuls and a softmax over the keys (the JAX package's ``_mha``)."""
+    q = q * q.shape[-1] ** -0.5
+    return torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v
+
+
+def attention(q, k, v):
+    """``plain_attention`` for CPU tensors; on the card PyTorch's fused
+    scaled_dot_product_attention, which never holds the N x N scores (4 x
+    8192 x 8192 at 1024x2048)."""
+    if q.device.type == "cpu":
+        return plain_attention(q, k, v)
+    return F.scaled_dot_product_attention(q, k, v)
+
+
+class ConvAttention(nn.Module):
+    """1x1-conv qkv attention with the pixels of each item as tokens (the
+    JAX package's ``atype=0``)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.Conv_0 = nn.Conv2d(dim, 3 * inner, 1, bias=False)
+        self.Conv_1 = conv(inner, dim, 1)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        qkv = self.Conv_0(x.to(self.Conv_0.weight.dtype))
+        # channel head*d + i of each third, tokens in row-major pixel order;
+        # q, k and v contiguous [B, heads, N, d], which the fused attention
+        # needs (on a view whose last dim is strided it falls back to its
+        # float32 math form)
+        qkv = qkv.reshape(B, 3, self.heads, self.dim_head, H * W).permute(1, 0, 2, 4, 3)
+        q, k, v = qkv.contiguous().unbind(0)
+        out = attention(q, k, v).transpose(2, 3).reshape(B, -1, H, W)
+        return self.Conv_1(out)
+
+
+class SPnet(nn.Module):
+    """Predicts a dequantization correction from cat(round_y, Q_y_prior):
+    a 7x7 conv to 8*dim, a ResnetBlock, a pre-norm attention residual, a
+    ResnetBlock, a concat skip from the 7x7 conv, a ResnetBlock down to dim
+    and a 1x1 conv out."""
+
+    def __init__(self, in_channels: int, output_channels: int = 192, dim: int = 64,
+                 groups: int = 8):
+        super().__init__()
+        mid = 8 * dim
+        self.Conv_0 = conv(in_channels, mid, 7)
+        self.ResnetBlock_0 = ResnetBlock(mid, mid, groups)
+        self.ChannelLayerNorm_0 = ChannelLayerNorm(mid)
+        self.ConvAttention_0 = ConvAttention(mid)
+        self.ResnetBlock_1 = ResnetBlock(mid, mid, groups)
+        self.ResnetBlock_2 = ResnetBlock(2 * mid, dim, groups)
+        self.Conv_1 = conv(dim, output_channels, 1)
+
+    def forward(self, x):
+        x = r = self.Conv_0(x)
+        x = self.ResnetBlock_0(x)
+        x = x + self.ConvAttention_0(self.ChannelLayerNorm_0(x))
+        x = self.ResnetBlock_1(x)
+        x = self.ResnetBlock_2(torch.cat([x, r], dim=1))
+        return self.Conv_1(x)

@@ -1,6 +1,6 @@
 """Analysis/synthesis transforms (NCHW), ported from
-fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU and SSF-TPU
-configurations.
+fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU, SSF-TPU and
+ELFVC(-SP)-TPU configurations.
 
 Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
 ``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
@@ -239,3 +239,28 @@ class SSFHyperDecoderQReLU(SSFHyperDecoder):
 
     act = staticmethod(qrelu)
     act_last = True
+
+
+class FlowPredictor(nn.Module):
+    """ELFVC's local motion prediction from the decoded context, in the
+    ``s2d=2, input_s2d, output_s2d, quarter_trunk`` branch (the only one
+    the '-TPU' codecs build): a 5x5 stride-2 stem from the s2d context to
+    /4 of full resolution, two 5x5 convs there (ReLU after each), and a 5x5
+    conv to ``4*f*f*out_planes`` channels whose depth-to-space by 2 (the
+    JAX (ry, rx, c) order) gives the /2 motion field in s2d form."""
+
+    S2D = 2
+
+    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 3):
+        super().__init__()
+        m, f = mid_planes, self.S2D
+        self.Conv_0 = conv(in_channels, m, 5, 2)
+        self.Conv_1 = conv(m, m, 5)
+        self.Conv_2 = conv(m, m, 5)
+        self.Conv_3 = conv(m, 4 * f * f * out_planes, 5)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        x = F.relu(self.Conv_2(x))
+        return depth_to_space(self.Conv_3(x), 2)

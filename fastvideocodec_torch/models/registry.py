@@ -1,11 +1,12 @@
-"""Codec registry of the port: the LSVC-TPU and SSF-TPU branches of
-fastvideocodec_tpu/models/registry.py.
+"""Codec registry of the port: the LSVC-TPU, SSF-TPU and ELFVC(-SP)-TPU
+branches of fastvideocodec_tpu/models/registry.py.
 
 ``get_codec_model`` builds the module on ``device`` (the card unless the
 caller passes ``device="cpu"``) in eval mode. With ``dtype=torch.bfloat16``
 the conv weights are held in bfloat16 and activations run in bfloat16, as
 the JAX modules do with ``dtype=bfloat16``; GDN, BitEstimator, the
-entropy bottlenecks and the rate math stay in float32.
+entropy bottlenecks, the rate math and the SPnet's weight-standardized
+kernels and norm parameters stay in float32.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from fastvideocodec_torch.models.elfvc import ELFVC
 from fastvideocodec_torch.models.lsvc import LSVC
 from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 
@@ -26,7 +28,7 @@ class CodecSpec:
     module: nn.Module
 
 
-def _build(name: str, dtype: torch.dtype) -> tuple[str, nn.Module]:
+def _build(name: str, dtype: torch.dtype, sp_stage: int) -> tuple[str, nn.Module]:
     if name == "LSVC-TPU":
         # the flagship: s2d codec domain, pooled-RGB SpyNet with 5x5/3x3
         # kernels, 128-wide transforms, full-res flow and full-res MC warp
@@ -44,17 +46,35 @@ def _build(name: str, dtype: torch.dtype) -> tuple[str, nn.Module]:
     if name == "SSF-TPU-TINY":
         # SSF-TPU at golden-RD scale
         return "ssf", ScaleSpaceFlow(mid_planes=32, planes=48, dtype=dtype)
+    if name in ("ELFVC-TPU", "ELFVC-SP-TPU"):
+        # SSF-TPU's widths, a quarter-resolution flow predictor, and with -SP
+        # an SPnet (trunk 8 * 64 = 512 wide) in the motion and residual
+        # hyperpriors
+        return "elfvc", ELFVC(mid_planes=128, planes=192, super_prec="-SP" in name,
+                              sp_stage=sp_stage, sp_dim=64, dtype=dtype)
+    if name in ("ELFVC-TPU-TINY", "ELFVC-SP-TPU-TINY"):
+        # at golden-RD scale; tiny_elfvctpu_l{0,3,6} are ELFVC-SP-TPU-TINY
+        # trained at sp_stage=2
+        return "elfvc", ELFVC(mid_planes=32, planes=48, super_prec="-SP" in name,
+                              sp_stage=sp_stage, sp_dim=16, dtype=dtype)
+    if name.startswith("ELFVC"):
+        raise ValueError(
+            f"codec {name!r} is not ported yet: the s2d=1 ELFVC forms wait for the "
+            f"SSF-Official slice (have ELFVC-TPU, ELFVC-SP-TPU and their -TINY forms)"
+        )
     raise ValueError(
         f"codec {name!r} is not ported yet (have LSVC-TPU, LSVC-TPU-TINY, SSF-TPU, "
-        f"SSF-TPU-TINY)"
+        f"SSF-TPU-TINY, ELFVC-TPU, ELFVC-SP-TPU, ELFVC-TPU-TINY, ELFVC-SP-TPU-TINY)"
     )
 
 
 def get_codec_model(name: str, dtype: torch.dtype = torch.float32,
-                    device="cuda") -> CodecSpec:
+                    device="cuda", sp_stage: int = 1) -> CodecSpec:
+    """``sp_stage`` (ELFVC-SP only): 1 lets the motion SPnet replace the
+    motion latent, 2 the residual SPnet as well."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    family, module = _build(name, dtype)
+    family, module = _build(name, dtype, sp_stage)
     module = module.to(device).eval().requires_grad_(False)
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

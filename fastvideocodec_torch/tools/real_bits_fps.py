@@ -1,21 +1,23 @@
-"""Real-bits throughput of the port on one CUDA card: LSVC-TPU or SSF-TPU
-at 1024x2048, GOP 16, through the real bitstream encode AND decode (the
-networks on the card, range coding on host threads), with decode == encode
-checked bit for bit and the host coder's seconds apart from the rest.
+"""Real-bits throughput of the port on one CUDA card: LSVC-TPU, SSF-TPU or
+ELFVC-SP-TPU at 1024x2048, GOP 16, through the real bitstream encode AND
+decode (the networks on the card, range coding on host threads), with
+decode == encode checked bit for bit and the host coder's seconds apart
+from the rest.
 
-    python -m fastvideocodec_torch.tools.real_bits_fps [--codec LSVC-TPU|SSF-TPU]
+    python -m fastvideocodec_torch.tools.real_bits_fps [--codec LSVC-TPU|SSF-TPU|ELFVC-SP-TPU]
         [--gop 16] [--h 1024] [--w 2048] [--reps 3] [--level 2]
         [--dtype f32|bf16] [--json PATH] [--device cuda|cpu]
 
 Weights: LSVC-TPU reads fastvideocodec_tpu/assets/hd_lsvctpuf2_l{level}.npz
-by path; SSF-TPU ships no full-width checkpoint and runs
-``seeded_flat("SSF-TPU", 0)`` (flagged ``trained: false``). The clip is
+by path; SSF-TPU and ELFVC-SP-TPU ship no full-width checkpoint and run
+``seeded_flat(codec, 0)`` (flagged ``trained: false``), ELFVC-SP-TPU at
+sp_stage 2 (both SPnets replace y). The clip is
 synth_gop_multi with numpy seed 123. One warm-up run, then ``--reps``
 timed runs, each printing encode and decode seconds (host clock around the
 call, the card synchronised at its end, range coding included), the AC
-seconds of each, real bpp and the identity check. SSF's bits include its
-coded keyframe, so its bpp is over all GOP frames; LSVC's is over the
-P-frames (frame 0 is taken as already coded).
+seconds of each, real bpp and the identity check. SSF's and ELFVC's bits
+include their coded keyframe, so their bpp is over all GOP frames; LSVC's
+is over the P-frames (frame 0 is taken as already coded).
 """
 
 from __future__ import annotations
@@ -34,16 +36,24 @@ from fastvideocodec_torch.data.synthetic import synth_gop_multi
 from fastvideocodec_torch.ops.kernels import warp as kw
 
 
+SP_STAGE = 2  # ELFVC-SP-TPU's stage, the one its tiny checkpoints were trained at
+CODERS = {  # family: (tables, encode, decode)
+    "lsvc": (cv.lsvc_codecs, cv.lsvc_compress, cv.lsvc_decompress),
+    "ssf": (cv.ssf_codecs, cv.ssf_compress_gop, cv.ssf_decompress_gop),
+    "elfvc": (cv.ssf_codecs, cv.elfvc_compress_gop, cv.elfvc_decompress_gop),
+}
+
+
 def codecs_of(spec):
     """The coder tables of a model, built once for many GOPs."""
-    return cv.lsvc_codecs(spec.module) if spec.family == "lsvc" else cv.ssf_codecs(spec.module)
+    return CODERS[spec.family][0](spec.module)
 
 
 def code_gop(spec, gop: torch.Tensor, codecs) -> dict:
     """Encode, then decode, one GOP [T, 3, H, W] (frame 0 the I-frame for
-    LSVC, the keyframe SSF codes); seconds by the host clock with the card
-    synchronised at the end of each, the warp launches of each, bits and
-    whether the decode equals the encode recon bit for bit."""
+    LSVC, the keyframe SSF and ELFVC code); seconds by the host clock with
+    the card synchronised at the end of each, the warp launches of each,
+    bits and whether the decode equals the encode recon bit for bit."""
     on_card = gop.device.type == "cuda"
 
     def sync():
@@ -51,34 +61,33 @@ def code_gop(spec, gop: torch.Tensor, codecs) -> dict:
             torch.cuda.synchronize()
 
     T, _, H, W = gop.shape
+    lsvc = spec.family == "lsvc"
+    _, compress, decompress = CODERS[spec.family]
     sync()
     kw.reset_launches()
     t0 = time.perf_counter()
     with measure_ac_time() as enc_ac:
-        if spec.family == "lsvc":
-            streams, recon, bits = cv.lsvc_compress(spec, gop, codecs)
-        else:
-            streams, recon, bits = cv.ssf_compress_gop(spec, gop[:, None], codecs)
+        streams, recon, bits = compress(spec, gop if lsvc else gop[:, None], codecs)
         sync()
     enc_s = time.perf_counter() - t0
     enc_launches = dict(kw.LAUNCHES)
     kw.reset_launches()
     t0 = time.perf_counter()
     with measure_ac_time() as dec_ac:
-        if spec.family == "lsvc":
-            decoded = cv.lsvc_decompress(spec, gop[0], streams, T - 1, codecs)
+        if lsvc:
+            decoded = decompress(spec, gop[0], streams, T - 1, codecs)
         else:
-            decoded = cv.ssf_decompress_gop(spec, streams, codecs)
+            decoded = decompress(spec, streams, codecs)
         sync()
     dec_s = time.perf_counter() - t0
-    frames = T - 1 if spec.family == "lsvc" else T
+    frames = T - 1 if lsvc else T
     out = {
         "enc_s": enc_s, "dec_s": dec_s, "enc_ac_s": enc_ac["seconds"],
         "dec_ac_s": dec_ac["seconds"], "bits": bits, "bpp": bits / (frames * H * W),
         "identical": bool(torch.equal(decoded, recon)), "enc_launches": enc_launches,
         "dec_launches": dict(kw.LAUNCHES), "recon": recon,
     }
-    if spec.family == "ssf":  # the P-frames' rate, as the rollout estimates it
+    if not lsvc:  # the P-frames' rate, as the rollout estimates it
         inter = sum(len(s[k]["z"]) + len(s[k]["y"])
                     for s in streams["inter"] for k in ("motion", "residual"))
         out["bpp_inter"] = 8 * inter / ((T - 1) * H * W)
@@ -86,8 +95,9 @@ def code_gop(spec, gop: torch.Tensor, codecs) -> dict:
 
 
 def load_model(codec: str, level: int, dtype: torch.dtype, device: str):
-    """(spec, trained): LSVC-TPU's shipped weights by path, SSF-TPU's seeded."""
-    spec = ft.get_codec_model(codec, dtype=dtype, device=device)
+    """(spec, trained): LSVC-TPU's shipped weights by path, SSF-TPU's and
+    ELFVC-SP-TPU's seeded."""
+    spec = ft.get_codec_model(codec, dtype=dtype, device=device, sp_stage=SP_STAGE)
     if codec == "LSVC-TPU":
         ft.load_asset(spec.module, f"hd_lsvctpuf2_l{level}")
         return spec, True
@@ -97,7 +107,8 @@ def load_model(codec: str, level: int, dtype: torch.dtype, device: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU"), default="LSVC-TPU")
+    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU"),
+                    default="LSVC-TPU")
     ap.add_argument("--gop", type=int, default=16)
     ap.add_argument("--h", type=int, default=1024)
     ap.add_argument("--w", type=int, default=2048)

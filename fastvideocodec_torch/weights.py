@@ -8,8 +8,10 @@ names, so a path maps to a ``state_dict`` key by its leaf alone:
 - a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW);
 - a ``PolyphaseDeconv`` ``kernel`` [k, k, I, O] becomes the
   ``ConvTranspose2d`` ``weight`` [I, O, k, k], with no spatial flip;
-- ``bias``, GDN ``beta``/``gamma`` and BitEstimator ``h``/``b``/``a`` keep
-  their names and shapes.
+- a ``WSConvBlock`` ``kernel`` (HWIO) becomes its ``weight`` (OIHW), like a
+  conv's;
+- ``bias``, GDN ``beta``/``gamma``, BitEstimator ``h``/``b``/``a``, GroupNorm
+  ``scale``/``bias`` and ChannelLayerNorm ``g`` keep their names and shapes.
 
 Loading raises on any key that maps nowhere and on any parameter left
 unset. ``seeded_flat`` makes a flax-keyed, flax-layout checkpoint of
@@ -27,9 +29,11 @@ import torch
 from torch import nn
 
 from fastvideocodec_torch.entropy.factorized import FILTERS
+from fastvideocodec_torch.layers.blocks import WSConvBlock
 from fastvideocodec_torch.models.registry import get_codec_model
 
 ASSET_DIR = Path(__file__).resolve().parents[1] / "fastvideocodec_tpu" / "assets"
+CONVS = (nn.Conv2d, WSConvBlock)  # modules whose flax ``kernel`` is HWIO
 
 
 def asset_path(name: str) -> Path:
@@ -65,7 +69,7 @@ def load_flat(module: nn.Module, flat: Mapping) -> nn.Module:
                 raise KeyError(f"unmapped parameter {key!r}") from e
             if isinstance(sub, nn.ConvTranspose2d):
                 arr = arr.transpose(2, 3, 0, 1)
-            elif isinstance(sub, nn.Conv2d):
+            elif isinstance(sub, CONVS):
                 arr = arr.transpose(3, 2, 0, 1)
             else:
                 raise KeyError(f"unmapped parameter {key!r}: {type(sub).__name__}")
@@ -108,7 +112,7 @@ def flax_shapes(module: nn.Module) -> dict:
             sub = module.get_submodule(mod_path)
             if isinstance(sub, nn.ConvTranspose2d):
                 shape = (shape[2], shape[3], shape[0], shape[1])  # [k, k, I, O]
-            elif isinstance(sub, nn.Conv2d):
+            elif isinstance(sub, CONVS):
                 shape = (shape[2], shape[3], shape[1], shape[0])  # HWIO
             else:
                 raise KeyError(f"no flax layout for {tkey!r}: {type(sub).__name__}")
@@ -133,8 +137,11 @@ def _lecun_normal(rng: np.random.Generator, shape: tuple) -> np.ndarray:
 def seeded_flat(name: str, seed: int) -> dict:
     """Random parameters for the registry codec ``name``, drawn from
     ``np.random.default_rng(seed)`` in sorted key order with the JAX
-    modules' own initialisers: flax ``lecun_normal`` for conv and deconv
-    kernels, zero conv biases, and EntropyBottleneck.setup's formulas
+    modules' own initialisers: flax ``lecun_normal`` for conv, deconv and
+    weight-standardized kernels, zero conv biases, U(-fan_in^-1/2,
+    +fan_in^-1/2) for the WSConvBlock biases (blocks.py:362-370 of the JAX
+    package), ones for GroupNorm ``scale`` and ChannelLayerNorm ``g``, zero
+    GroupNorm biases, and EntropyBottleneck.setup's formulas
     (softplus-inverse matrices, U(-0.5, 0.5) biases, zero factors,
     quantiles (-10, 0, 10)). Returns {'params/...': float32 array} in flax
     layout, for ``load_flat`` here and for the JAX package's ``apply``."""
@@ -154,6 +161,11 @@ def seeded_flat(name: str, seed: int) -> dict:
             value = rng.uniform(-0.5, 0.5, shape)
         elif leaf == "quantiles":
             value = np.tile(np.asarray([-init_scale, 0.0, init_scale]), (shape[0], 1, 1))
+        elif leaf == "bias" and key.rsplit("/", 2)[1].startswith("WSConvBlock_"):
+            bound = float(np.prod(shapes[key[: -len("bias")] + "kernel"][:-1])) ** -0.5
+            value = rng.uniform(-bound, bound, shape)
+        elif leaf in ("scale", "g"):
+            value = np.ones(shape)
         elif leaf in ("bias",) or leaf.startswith("factor_"):
             value = np.zeros(shape)
         else:

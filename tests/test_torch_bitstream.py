@@ -2,7 +2,18 @@
 
 LSVC-TPU-TINY (tiny_lsvctpu_l2) and LSVC-TPU (hd_lsvctpuf2_l2) code the
 synth_gop_multi clip (numpy seed 0) at 64x128, GOP 4; SSF-TPU-TINY
-(tiny_ssftpu_l2) codes it at 128x128, GOP 3, batch 1. For each, in float32:
+(tiny_ssftpu_l2) codes it at 128x128, GOP 3, batch 1; ELFVC-SP-TPU-TINY
+(tiny_elfvctpu_l3, sp_stage 2: both SPnets replace y) at 64x128, GOP 3,
+and ELFVC-TPU-TINY (no SPnet) and ELFVC-SP-TPU-TINY at sp_stage 2 and 1,
+all three on ``seeded_flat(name, 0)``, at 128x256, GOP 3. The trained
+ELFVC-SP-TPU-TINY codes every P-frame y symbol of this clip as 0, so the
+seeded SP cases are the ones that hold the SPnets fed with decoded
+symbols, and the carried round-y prior, to JAX on nonzero symbols
+(``test_elfvc_sp_symbols_are_not_all_zero`` keeps them so). At 64x128
+the seeded ELFVC-TPU-TINY's nine streams hold 2482 estimated bits, and
+the range coder's flush (about 30 bits a stream) alone puts its real
+bits 11% above them: 128x256 brings that share under 2%. For each, in
+float32:
 
 - the port's decode equals its encode recon bit for bit;
 - its encode recon is within RECON_ATOL of JAX's ``lsvc_compress`` /
@@ -19,6 +30,10 @@ synth_gop_multi clip (numpy seed 0) at 64x128, GOP 4; SSF-TPU-TINY
   forward for SSF), as TestGoldenRDLSVCTPU holds JAX's.
 
 One bfloat16 case per family: decode equals encode bit for bit.
+
+ELFVC is held closer: its symbols and its streams are JAX's, all of them,
+and both its encoder recon and its decode of JAX's streams are within
+ELFVC_ATOL = 3e-6 of JAX's recon (measured 4e-7).
 """
 
 import functools
@@ -32,30 +47,70 @@ import fastvideocodec_torch as ft
 from fastvideocodec_torch.coder import measure_ac_time
 from fastvideocodec_torch.coder import video as tv
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from fastvideocodec_torch.gop.engine import estimated_bits
 from fastvideocodec_torch.ops.kernels import warp as kw
-from fastvideocodec_torch.ops.math import bits_estimate
 from fastvideocodec_tpu.coder import video as jv
 from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 from fastvideocodec_tpu.train.checkpoint import asset_params
 
 RECON_ATOL = 1e-4
+ELFVC_ATOL = 3e-6
 MAX_SYMBOL_FLIPS = 2
 EST_REL = 0.05
-CONFIGS = {
-    "LSVC-TPU-TINY": ("tiny_lsvctpu_l2", 4, 64, 128),
-    "LSVC-TPU": ("hd_lsvctpuf2_l2", 4, 64, 128),
-    "SSF-TPU-TINY": ("tiny_ssftpu_l2", 3, 128, 128),
+SP_STAGE = 2  # ELFVC-SP's: both SPnets replace y (ignored by the other codecs)
+CONFIGS = {  # case: (registry name, weights, gop, h, w, sp_stage)
+    "LSVC-TPU-TINY": ("LSVC-TPU-TINY", "tiny_lsvctpu_l2", 4, 64, 128, SP_STAGE),
+    "LSVC-TPU": ("LSVC-TPU", "hd_lsvctpuf2_l2", 4, 64, 128, SP_STAGE),
+    "SSF-TPU-TINY": ("SSF-TPU-TINY", "tiny_ssftpu_l2", 3, 128, 128, SP_STAGE),
+    "ELFVC-SP-TPU-TINY": ("ELFVC-SP-TPU-TINY", "tiny_elfvctpu_l3", 3, 64, 128, SP_STAGE),
+    "ELFVC-TPU-TINY": ("ELFVC-TPU-TINY", "seeded 0", 3, 128, 256, SP_STAGE),
+    "ELFVC-SP-TPU-TINY-seeded": ("ELFVC-SP-TPU-TINY", "seeded 0", 3, 128, 256, 2),
+    "ELFVC-SP-TPU-TINY-seeded-sp1": ("ELFVC-SP-TPU-TINY", "seeded 0", 3, 128, 256, 1),
 }
+SP_SEEDED = ["ELFVC-SP-TPU-TINY-seeded", "ELFVC-SP-TPU-TINY-seeded-sp1"]
+ELFVC = ["ELFVC-SP-TPU-TINY", "ELFVC-TPU-TINY", *SP_SEEDED]
 
 
 def clip(gop, h, w) -> np.ndarray:
     return synth_gop_multi(np.random.default_rng(0), size=max(h, w), gop=gop)[:, :h, :w]
 
 
-def port_model(name, dtype=torch.float32):
-    spec = ft.get_codec_model(name, dtype=dtype, device="cpu")
-    ft.load_asset(spec.module, CONFIGS[name][0])
+def port_model(case, dtype=torch.float32, sp_stage=None):
+    """The port's model of a CONFIGS case, at the case's sp_stage unless
+    one is given."""
+    name, weights, *_, case_stage = CONFIGS[case]
+    spec = ft.get_codec_model(name, dtype=dtype, device="cpu",
+                              sp_stage=case_stage if sp_stage is None else sp_stage)
+    if weights == "seeded 0":
+        ft.load_flat(spec.module, ft.seeded_flat(name, 0))
+    else:
+        ft.load_asset(spec.module, weights)
     return spec
+
+
+def jax_params(case) -> dict:
+    name, weights = CONFIGS[case][:2]
+    if weights != "seeded 0":
+        return {"params": asset_params(weights)["params"]}
+    tree: dict = {}
+    for key, value in ft.seeded_flat(name, 0).items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(value)
+    return tree
+
+
+def compress(spec, x, codecs=None):
+    """The chain codecs' encode of x [T, B, 3, H, W]."""
+    fn = tv.elfvc_compress_gop if spec.family == "elfvc" else tv.ssf_compress_gop
+    return fn(spec, x, codecs=codecs)
+
+
+def decompress(spec, streams, codecs=None):
+    fn = tv.elfvc_decompress_gop if spec.family == "elfvc" else tv.ssf_decompress_gop
+    return fn(spec, streams, codecs=codecs)
 
 
 class Recorder:
@@ -107,7 +162,7 @@ def streams_and_symbols(spec, streams, gop, iframe):
         for key in ("z", "features"):
             pairs += [(d, recs[key].symbols_of(d)) for d in streams[key]]
         return recon, pairs
-    recon = tv.ssf_decompress_gop(spec, streams, codecs=codecs)
+    recon = decompress(spec, streams, codecs=codecs)
     parts = [("keyframe", streams["keyframe"])]
     for s in streams["inter"]:
         parts += [("motion", s["motion"]), ("residual", s["residual"])]
@@ -129,15 +184,15 @@ def structure(streams):
 
 
 @functools.lru_cache(maxsize=None)
-def coded(name):
+def coded(case):
     """Both packages' encodes of the clip, and the port's decodes of its own
     and of JAX's streams."""
-    asset, gop, h, w = CONFIGS[name]
+    name, _, gop, h, w, sp_stage = CONFIGS[case]
     frames = clip(gop, h, w)
-    spec = port_model(name)
+    spec = port_model(case)
     x = torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2)))
-    jspec = jax_get_codec_model(name)
-    params = {"params": asset_params(asset)["params"]}
+    jspec = jax_get_codec_model(name, sp_stage=sp_stage)
+    params = jax_params(case)
     kw.reset_launches()
     if spec.family == "lsvc":
         with measure_ac_time() as ac:
@@ -149,12 +204,12 @@ def coded(name):
     else:
         x = x[:, None]
         with measure_ac_time() as ac:
-            streams, recon, bits = tv.ssf_compress_gop(spec, x)
+            streams, recon, bits = compress(spec, x)
         with torch.inference_mode():
             _, liks = spec.module(x)
-        bits_est = sum(float(bits_estimate(v)) for lik in liks for d in lik.values()
-                       for v in d.values())
-        jstreams, jrecon, jbits = jv.ssf_compress_gop(jspec, params, jnp.asarray(frames)[:, None])
+        bits_est = estimated_bits(liks)
+        jcompress = jv.elfvc_compress_gop if spec.family == "elfvc" else jv.ssf_compress_gop
+        jstreams, jrecon, jbits = jcompress(jspec, params, jnp.asarray(frames)[:, None])
         to_nhwc = (0, 1, 3, 4, 2)
     decoded, symbols = streams_and_symbols(spec, streams, gop, x[0])
     jdecoded, jsymbols = streams_and_symbols(spec, jstreams, gop, x[0])
@@ -220,18 +275,67 @@ def test_real_bits_near_estimate(name):
     assert abs(r["bits"] - r["bits_est"]) / r["bits_est"] < EST_REL, (r["bits"], r["bits_est"])
 
 
-@pytest.mark.parametrize("name", ["LSVC-TPU-TINY", "SSF-TPU-TINY"])
+@pytest.mark.parametrize("name", ["LSVC-TPU-TINY", "SSF-TPU-TINY", "ELFVC-SP-TPU-TINY"])
 def test_bf16_decode_equals_encode(name):
-    _, gop, h, w = CONFIGS[name]
+    _, _, gop, h, w, _ = CONFIGS[name]
     spec = port_model(name, torch.bfloat16)
     x = torch.from_numpy(np.ascontiguousarray(clip(gop, h, w).transpose(0, 3, 1, 2)))
     if spec.family == "lsvc":
         streams, recon, bits = tv.lsvc_compress(spec, x)
         decoded = tv.lsvc_decompress(spec, x[0], streams, gop - 1)
     else:
-        streams, recon, bits = tv.ssf_compress_gop(spec, x[:, None])
-        decoded = tv.ssf_decompress_gop(spec, streams)
+        streams, recon, bits = compress(spec, x[:, None])
+        decoded = decompress(spec, streams)
     assert recon.dtype == decoded.dtype == torch.bfloat16
     assert torch.equal(decoded, recon) and bits > 0
     f32 = coded(name)
     assert abs(bits - f32["bits"]) / f32["bits"] < 0.05  # bf16 codes near the f32 rate
+
+
+@pytest.mark.parametrize("name", ELFVC)
+def test_elfvc_streams_are_jax_streams(name):
+    """Every symbol and every byte: the whole streams dict equals JAX's."""
+    r = coded(name)
+    for (_, a), (_, b) in zip(r["symbols"], r["jsymbols"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert r["streams"] == r["jstreams"]
+    assert r["bits"] == r["jbits"]
+
+
+@pytest.mark.parametrize("name", ELFVC)
+def test_elfvc_recon_within_3e6_of_jax(name):
+    """The encoder's recon and the port's decode of JAX's streams, against
+    JAX's encoder recon."""
+    r = coded(name)
+    np.testing.assert_allclose(r["recon_nhwc"], r["jrecon"], rtol=0, atol=ELFVC_ATOL)
+    np.testing.assert_allclose(r["jdecoded"], r["jrecon"], rtol=0, atol=ELFVC_ATOL)
+
+
+def test_elfvc_sp_stage_1_decode_equals_encode():
+    """At sp_stage 1 only the motion SPnet replaces y; the residual y is
+    round(y - means) + means. decode == encode bit for bit, and the
+    keyframe's streams are stage 2's."""
+    name = "ELFVC-SP-TPU-TINY"
+    _, _, gop, h, w, _ = CONFIGS[name]
+    spec = port_model(name, sp_stage=1)
+    codecs = tv.ssf_codecs(spec.module)
+    assert [c.sp for c in codecs] == [False, True, False]
+    x = torch.from_numpy(np.ascontiguousarray(clip(gop, h, w).transpose(0, 3, 1, 2)))[:, None]
+    streams, recon, bits = compress(spec, x, codecs)
+    assert torch.equal(decompress(spec, streams, codecs), recon) and bits > 0
+    assert streams["keyframe"] == coded(name)["streams"]["keyframe"]
+
+
+@pytest.mark.parametrize("name", SP_SEEDED)
+def test_elfvc_sp_symbols_are_not_all_zero(name):
+    """The seeded SP cases code nonzero motion and residual y symbols in
+    every P-frame, so the streams and recon above hold the SPnets on
+    decoded symbols and the carried prior, not on zeros. The coders' sp
+    flags follow the stage."""
+    r = coded(name)
+    inter = r["symbols"][2:]  # per P-frame: motion z, y, then residual z, y
+    assert len(inter) == 4 * (CONFIGS[name][2] - 1)
+    for i in range(0, len(inter), 4):
+        assert np.any(inter[i + 1][1] != 0) and np.any(inter[i + 3][1] != 0)
+    stage = CONFIGS[name][5]
+    assert [c.sp for c in tv.ssf_codecs(port_model(name).module)] == [False, True, stage >= 2]

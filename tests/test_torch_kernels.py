@@ -1,6 +1,7 @@
 """The warp kernels' wrappers: their autograd Function, the dispatch rule and
 the host-side tile rule on the CPU; on a CUDA card, the tiled kernels'
-exactness (NaN flows included) and the Function's gradients.
+exactness (NaN flows included), the Function's gradients, and one
+ELFVC-SP-TPU-TINY P-frame through both pixel kernels.
 
 The file imports nothing of JAX, so its ``gpu`` tests run on a card whose
 machine has none (the suite's conftest imports JAX):
@@ -303,3 +304,35 @@ def test_gradients_on_the_card(card, name, dtype):
         else:
             torch.testing.assert_close(t.float(), w.float(), rtol=2e-2,
                                        atol=2e-2 * float(w.float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_elfvc_p_frame_launches_both_pixel_kernels_on_the_card(card):
+    """ELFVC-SP-TPU-TINY (tiny_elfvctpu_l3, sp_stage 2), one P-frame at
+    64x128 in float32, TF32 off: on the card each pixel kernel launches
+    twice (the local prediction and the decoded motion) and nothing else
+    does; on the CPU nothing launches. The card's recon is within 1e-4 mean
+    abs of the CPU's and its bpp within 1e-3 relative (chip_smoke.py's
+    card-vs-CPU bars)."""
+    import fastvideocodec_torch as ft
+    from fastvideocodec_torch.data.synthetic import synth_gop_multi
+
+    clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=2)[:, :64, :128]
+    gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            spec = ft.get_codec_model("ELFVC-SP-TPU-TINY", device=device, sp_stage=2)
+            ft.load_asset(spec.module, "tiny_elfvctpu_l3")
+            kwarp.reset_launches()
+            recon, metrics = ft.rollout(spec, gop.to(device))
+            out[device] = (recon.cpu(), float(metrics["bpp_est"][0]), dict(kwarp.LAUNCHES))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (card, card_bpp, launches), (cpu, cpu_bpp, cpu_launches) = out["cuda"], out["cpu"]
+    assert launches == {**{k: 0 for k in launches}, "pixel_warp": 2, "pixel_warp_s2d_sflow": 2}
+    assert set(cpu_launches.values()) == {0}
+    assert float((card - cpu).abs().mean()) <= 1e-4
+    assert abs(card_bpp - cpu_bpp) <= 1e-3 * cpu_bpp

@@ -8,8 +8,10 @@
   in a directory that holds nothing else of the repo.
 - The weight loader raises on unknown and on missing parameters.
 - Entry points default to the card, and a CUDA-side tensor never reaches
-  a warp's plain version.
-- ``seeded_flat`` gives the keys and shapes of the JAX modules' ``init``.
+  a warp's plain version (on the ELFVC path too).
+- ``seeded_flat`` gives the keys and shapes of the JAX modules' ``init``,
+  and its SSF-TPU draws are those of the slice before ELFVC's.
+- The s2d=1 ELFVC forms are not ported yet and say so.
 - The port holds only small text files, and builds its kernels with nvcc
   alone: no PyTorch extension builder, no PyTorch C++ headers.
 """
@@ -230,7 +232,7 @@ def test_shipped_ssf_weights_map_completely():
         "params/res_hyperprior/bottleneck/matrix_4"] == (48, 1, 3)
 
 
-@pytest.mark.parametrize("name", ["SSF-TPU", "SSF-TPU-TINY"])
+@pytest.mark.parametrize("name", ["SSF-TPU", "SSF-TPU-TINY", "ELFVC-SP-TPU", "ELFVC-TPU-TINY"])
 def test_seeded_flat_has_the_jax_init_keys_and_shapes(name):
     """Keys and shapes equal those of the JAX module's init (traced with
     eval_shape, which computes nothing); the deterministic initialisers
@@ -327,3 +329,105 @@ def test_port_builds_without_torch_extensions():
         text = path.read_text()
         for word in banned:
             assert word not in text, f"{path} uses {word}"
+
+
+def test_elfvc_rollout_and_real_bits_run_without_jax():
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.coder import video as cv\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop_multi\n"
+        "spec = ft.get_codec_model('ELFVC-SP-TPU-TINY', device='cpu', sp_stage=2)\n"
+        "ft.load_asset(spec.module, 'tiny_elfvctpu_l3')\n"
+        "clip = synth_gop_multi(np.random.default_rng(0), size=64, gop=2)[:, :32]\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)\n"
+        "recon, m = ft.rollout(spec, gop)\n"
+        "assert recon.shape == (1, 3, 32, 64) and bool(torch.isfinite(recon).all())\n"
+        "assert float(m['bpp_est'][0]) > 0 and float(m['pred_err_norm'][0]) > 0\n"
+        "streams, rec, bits = cv.elfvc_compress_gop(spec, gop[:, None])\n"
+        "assert torch.equal(cv.elfvc_decompress_gop(spec, streams), rec) and bits > 0\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+@pytest.mark.parametrize("name", ["ELFVC-TPU", "ELFVC-SP-TPU", "ELFVC-TPU-TINY",
+                                  "ELFVC-SP-TPU-TINY"])
+def test_elfvc_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        spec = ft.get_codec_model(name)
+        assert next(spec.module.parameters()).device.type == "cuda"
+    else:
+        with (pytest.raises((RuntimeError, AssertionError))):
+            ft.get_codec_model(name)
+
+
+@pytest.mark.parametrize("name", ["ELFVC", "ELFVC-SP", "ELFVC-TINY", "ELFVC-SP-TINY"])
+def test_s2d1_elfvc_is_not_ported_yet(name):
+    with pytest.raises(ValueError, match="not ported yet"):
+        ft.get_codec_model(name, device="cpu")
+
+
+def test_elfvc_path_off_cpu_launches_both_pixel_kernels_twice(monkeypatch):
+    """One ELFVC-SP-TPU-TINY P-frame on meta tensors (not the CPU): each
+    of the two pixel warps goes to its launcher twice (the local prediction
+    and the decoded motion), and no warp reaches a plain version. The
+    launchers are stood in for by ones that count and return empty
+    outputs, since there is no card here."""
+    from fastvideocodec_torch.ops import warp as twarp
+    from fastvideocodec_torch.ops.kernels import warp as kwarp
+
+    calls, reached = [], []
+    for name in twarp.PLAIN:
+        monkeypatch.setitem(twarp.PLAIN, name, lambda *a, n=name: reached.append(n))
+        monkeypatch.setattr(kwarp, f"launch_{name}",
+                            lambda img, flow, n=name: calls.append(n) or torch.empty_like(img))
+    m = ft.get_codec_model("ELFVC-SP-TPU-TINY", device="meta", sp_stage=2).module
+    x = torch.empty(1, 12, 32, 64, device="meta")
+    with torch.inference_mode():
+        rec, _, state = m.forward_inter(x, x, m.init_state(1, 32, 64))
+    assert rec.shape == x.shape and state.motion_info_prior.shape == x.shape
+    assert sorted(calls) == ["pixel_warp"] * 2 + ["pixel_warp_s2d_sflow"] * 2
+    assert not reached
+
+
+@pytest.mark.parametrize("level", [0, 3, 6])
+def test_shipped_elfvc_weights_map_completely(level):
+    """tiny_elfvctpu_l{0,3,6}: ELFVC-SP-TPU-TINY, every one of the 217 keys
+    mapped and every parameter set (the loader raises otherwise)."""
+    spec = ft.get_codec_model("ELFVC-SP-TPU-TINY", device="cpu", sp_stage=2)
+    with np.load(ft.weights.asset_path(f"tiny_elfvctpu_l{level}")) as data:
+        assert len(data.files) == 217
+        ft.weights.load_flat(spec.module, {k: data[k] for k in data.files})
+        w = data["params/res_hyperprior/y_predictor/ResnetBlock_2/WSConvBlock_0/kernel"]
+    got = spec.module.res_hyperprior.y_predictor.ResnetBlock_2.WSConvBlock_0.weight
+    np.testing.assert_array_equal(got.detach().numpy(), w.astype(np.float32).transpose(3, 2, 0, 1))
+    assert set(ft.weights.flax_shapes(spec.module)) == set(data.files)
+
+
+def test_bf16_elfvc_keeps_spnet_norms_and_ws_kernels_in_float32():
+    m = ft.get_codec_model("ELFVC-SP-TPU-TINY", dtype=torch.bfloat16, device="cpu").module
+    sp = m.motion_hyperprior.y_predictor
+    assert sp.Conv_0.weight.dtype == torch.bfloat16
+    assert sp.ConvAttention_0.Conv_0.weight.dtype == torch.bfloat16
+    assert m.flow_predictor.Conv_3.weight.dtype == torch.bfloat16
+    for t in (sp.ResnetBlock_0.WSConvBlock_0.weight, sp.ResnetBlock_0.WSConvBlock_0.bias,
+              sp.ResnetBlock_0.WSConvBlock_0.GroupNorm_0.scale, sp.ChannelLayerNorm_0.g):
+        assert t.dtype == torch.float32
+
+
+def test_seeded_ssf_weights_are_unchanged():
+    """seeded_flat("SSF-TPU", 0): a sha256 over its sorted keys and float32
+    bytes, taken on the tree before the ELFVC slice (new initialisers must
+    not shift the draws of a codec that has none of their leaves)."""
+    import hashlib
+
+    flat = ft.weights.seeded_flat("SSF-TPU", 0)
+    h = hashlib.sha256()
+    for key in sorted(flat):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(flat[key], np.float32).tobytes())
+    assert len(flat) == 141
+    assert h.hexdigest() == "b0fd06ea58fc48050865cd7aee59ad3ddce4cc9b75eb7a81f0cc76b791ed9dcc"
