@@ -13,7 +13,8 @@ Phases, each timed on its own line:
    version on the card, float32 and bfloat16 images (float32 flows for the
    pixel warps), bit for bit (max abs 0): at the shapes of the LSVC-TPU and
    SSF-TPU paths, with large and off-border displacements; on ragged
-   shapes with smooth flows (every tile of flow_warp_s2d staged in shared
+   shapes (pixel_warp also at MCVC's 18 channels on 4 views) with smooth
+   flows (every tile of flow_warp_s2d staged in shared
    memory), +-200 px random flows (none) and flows smooth on one
    half and random on the other (both in one launch); and with two NaN
    flow pixels, which must give NaN exactly where the plain version does;
@@ -82,12 +83,37 @@ Phases, each timed on its own line:
    elfvc_decompress_gop as in phase 12: a warm-up GOP, then 3, each with
    decode == encode bit for bit, launches exactly 30 + 30 on encode and
    15 + 15 on decode, and real bpp within 5% of the model's forward
-   estimate over the same GOP.
+   estimate over the same GOP;
+17. MCVC card vs CPU: MCVC-IA-TINY (tiny_mcvc_l3) on 3 views of 64x64
+   (synth_mv_gop, seed 0), GOP 4, float32, with masks [1,1,1] and [1,1,0],
+   card against CPU (3 pixel_warp launches on the card, one a P-frame),
+   then bfloat16 on the card against that float32 result; MCVC-IA at its
+   full widths on seeded_flat("MCVC-IA", 0) at 64x128, card against CPU;
+   the fused attention's backend of each attention shape on the card;
+18. MCVC rollout: MCVC-IA at its full widths (seeded) in bfloat16, GOP 16
+   with the keyframe coded, 4 views of 256x256 (synth_mv_gop, seed 0; the
+   multi-view dataset's frame size) with every view alive and with view 2
+   failed: one run with the launch counts zeroed (exactly 15 pixel_warp at
+   C = 18 and no other warp), then 3 timed runs with their host enqueue
+   times; ms/GOP, ms per view-frame, view-frames/s, bpp, PSNR over the
+   alive views, completeness, peak memory, the attention's backend;
+19. the views sweep 1..6 at 256x256 on uniform random frames (the JAX
+   package's speed task), the same;
+20. MCVC at 4 views of 1024x2048, the row-offset crops (0, 320, 640, 1024)
+   of the 2048x2048 clip of phase 5, the same;
+21. MCVC kernel timing: pixel_warp at C = 18 as in phase 7, on the inputs
+   the 4 x 256x256 and the 4 x 1024x2048 rollouts give it;
+22. MCVC real bits: 4 views of 256x256, view 2 failed, through
+   mcvc_compress_gop and mcvc_decompress_gop as in phase 12: launches
+   exactly 15 + 15, decode == encode bit for bit, real bpp within 5% of
+   the model's estimate over the same GOP and mask.
 
-It then prints a JSON line of the kernels (each with its launches on every
-path it was counted on; ``launches`` is the count on the newest path that
-runs it: the ELFVC rollout for the two pixel warps), the card's name and
-power limit,
+It then prints a JSON line of MCVC's numbers, a JSON line of the kernels
+(each with its launches on every path it was counted on; ``launches`` and
+the times are those of the newest path that runs it: the ELFVC rollout
+for the two s2d pixel warps, MCVC-IA at 4 x 1024x2048 for pixel_warp,
+whose SSF-TPU and 4 x 256x256 timings stand beside them), the card's name
+and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
 nothing of the JAX package; it exits non-zero when no CUDA device is found.
@@ -118,6 +144,14 @@ ELFVC_BF16_BPP_REL = 0.05
 ELFVC_SEEDED_BF16_PSNR_DB = 0.25
 ELFVC_SEEDED_BF16_BPP_REL = 0.1
 ELFVC_SP_STAGE = 2
+# MCVC-IA-TINY (tiny_mcvc_l3) bf16 against f32, 3 views of 64x64, GOP 4 (the
+# CPU port measured 0.0094 dB and 0.0048, an H100 0.0056 dB and 0.0028)
+MCVC_BF16_PSNR_DB = 0.03
+MCVC_BF16_BPP_REL = 0.01
+MCVC_SIZE = 256  # the multi-view dataset's frame size (data/multiview.py)
+MCVC_VIEWS = 4
+MCVC_FAILED = 2  # the view that fails in the masked runs
+C18_RAGGED = (4, 18, 37, 141)  # MCVC's volume warp: 6 levels x 3 colours, 4 views
 GOP, H, W = 16, 1024, 2048
 SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
 # gradients through the Function vs autograd through the plain version: the
@@ -458,7 +492,7 @@ def main() -> int:
     s2d_ragged = [(2, 3, 38, 150), (1, 3, 40, 264), (3, 3, 18, 36), (1, 3, 64, 512)]
     ragged = {"flow_warp": [(2, 3, 37, 141), (1, 3, 40, 268), (3, 3, 18, 34), (1, 3, 64, 512)],
               "pixel_warp": [(2, 15, 37, 141), (1, 7, 40, 268), (3, 3, 18, 34),
-                             (1, 15, 64, 512)],
+                             (1, 15, 64, 512), C18_RAGGED],
               **{name: s2d_ragged for name in S2D_KERNELS}}
     flows = {"smooth": smooth_flow, "random": random_flow, "mixed": mixed_flow}
 
@@ -514,12 +548,21 @@ def main() -> int:
                     share = f"; staged tiles {staged}/{tiles}"
                 log(f"{name} {dname} NaN flow at 2 pixels: NaN at the plain version's "
                     f"{nans} outputs, max abs 0 elsewhere{share}")
+                if name == "pixel_warp":  # MCVC's 18 channels on 4 views
+                    img, flow = tiled_case(gen, name, C18_RAGGED, smooth_flow, dtype,
+                                           nan_at=((5, 7), (30, 100)))
+                    nans = hold_exact(name, img, flow, f"{name} {dname} NaN flow {C18_RAGGED}")
+                    want = C18_RAGGED[0] * 2 * C18_RAGGED[1]
+                    require(nans == want, f"{name} {dname} C18: {nans} NaN outputs, want {want}")
+                    log(f"{name} {dname} NaN flow at 2 pixels of each of 4 views {C18_RAGGED}: "
+                        f"NaN at the plain version's {nans} outputs, max abs 0 elsewhere")
 
-    grad_shapes = {"flow_warp": ((2, 3, 12, 20), (2, 2, 12, 20)),
-                   "flow_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
-                   "pixel_warp": ((2, 5, 12, 20), (2, 2, 12, 20)),
-                   "pixel_warp_s2d": ((2, 12, 6, 10), (2, 2, 12, 20)),
-                   "pixel_warp_s2d_sflow": ((2, 12, 6, 10), (2, 8, 6, 10))}
+    grad_cases = [("flow_warp", (2, 3, 12, 20), (2, 2, 12, 20)),
+                  ("flow_warp_s2d", (2, 12, 6, 10), (2, 2, 12, 20)),
+                  ("pixel_warp", (2, 5, 12, 20), (2, 2, 12, 20)),
+                  ("pixel_warp", C18_RAGGED, (C18_RAGGED[0], 2, *C18_RAGGED[2:])),
+                  ("pixel_warp_s2d", (2, 12, 6, 10), (2, 2, 12, 20)),
+                  ("pixel_warp_s2d_sflow", (2, 12, 6, 10), (2, 8, 6, 10))]
     # The image gradient is a scatter-add whose rounding follows the order of
     # its atomics: deterministic algorithms where PyTorch has them, and in
     # bf16 flows of a few pixels, so that no source pixel sums the hundreds
@@ -528,7 +571,7 @@ def main() -> int:
     torch.use_deterministic_algorithms(True, warn_only=True)
     with phase("gradients through the kernels"):
         gen = torch.Generator(device="cuda").manual_seed(3)
-        for name, (img_shape, flow_shape) in grad_shapes.items():
+        for name, img_shape, flow_shape in grad_cases:
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[1]
                 spread = 300.0 if dtype == torch.float32 else 16.0
@@ -556,7 +599,8 @@ def main() -> int:
                     errs.append(d.max().item() / max(scale, 1e-30))
                     require(bool((d <= atol * max(scale, 1.0) + rtol * want.float().abs()).all()),
                             f"{name} {dname} gradient off: max abs {d.max().item()}")
-                log(f"{name} {dname} gradients of image and flow vs plain: max abs / max "
+                log(f"{name} {dname} {img_shape} gradients of image and flow vs plain: max "
+                    f"abs / max "
                     f"|grad| {errs[0]:.2e} and {errs[1]:.2e} (rtol {rtol:.0e}, atol "
                     f"{atol:.0e} x max |grad|)")
     torch.use_deterministic_algorithms(False)
@@ -592,10 +636,10 @@ def main() -> int:
 
     spec = get_codec_model("LSVC-TPU", dtype=torch.bfloat16, device="cuda")
     load_asset(spec.module, "hd_lsvctpuf2_l2")
-    clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=GOP)[:, :H, :W]
-    gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)
+    # the whole 2048x2048 clip stays on the host for MCVC's row-offset views
+    full_clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=GOP)
+    gop = torch.from_numpy(np.ascontiguousarray(full_clip[:, :H, :W])).permute(0, 3, 1, 2)
     gop = gop.to("cuda", torch.bfloat16).contiguous()
-    del clip
 
     def timed_runs(fn, *args, runs: int = 3):
         """(card ms, host enqueue ms) of each run: CUDA events around the
@@ -885,15 +929,18 @@ def main() -> int:
         log(f"bucketing of {scales.size} scales on the card equals the host's "
             f"(f16, bf16, f32; Laplace and Gaussian codecs)")
 
-    def real_bits(spec, codecs, want_enc, want_dec, est_bpp, key):
-        """A warm-up GOP, then 3: launch counts, times, bpp, identity."""
+    def real_bits(spec, codecs, want_enc, want_dec, est_bpp, key, clip=None, mask=None):
+        """A warm-up GOP, then 3: launch counts, times, bpp, identity; of
+        the rollouts' clip unless ``clip`` (MCVC's views, with their
+        ``mask``) is given."""
+        clip = gop if clip is None else clip
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        r = code_gop(spec, gop, codecs)
+        r = code_gop(spec, clip, codecs, mask)
         require(r["identical"], "warm-up: decode != encode recon")
         runs = []
         for i in range(3):
-            r = code_gop(spec, gop, codecs)
+            r = code_gop(spec, clip, codecs, mask)
             runs.append(r)
             require(r["identical"], f"run {i}: decode != encode recon")
             require(r["enc_launches"] == {**zero_counts, **want_enc},
@@ -906,9 +953,11 @@ def main() -> int:
                 f"bit; launches encode {r['enc_launches']} decode {r['dec_launches']}")
         recon = r["recon"]
         require(bool(torch.isfinite(recon).all()), "real-bits recon not finite")
+        frames, what = (GOP - 1, "P-frames") if mask is None else (GOP * len(mask),
+                                                                     "view-frames")
         log(f"real bits: encode ms/GOP {[round(x['enc_s'] * 1e3, 3) for x in runs]}, decode "
             f"ms/GOP {[round(x['dec_s'] * 1e3, 3) for x in runs]}, encode+decode fps of the "
-            f"P-frames {[round((GOP - 1) / (x['enc_s'] + x['dec_s']), 3) for x in runs]}; peak "
+            f"{what} {[round(frames / (x['enc_s'] + x['dec_s']), 3) for x in runs]}; peak "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         return runs
 
@@ -1027,14 +1076,240 @@ def main() -> int:
         elfvc_enc, elfvc_dec = runs[-1]["enc_launches"], runs[-1]["dec_launches"]
         del runs, recon
 
+    del espec, elfvc_codecs
+
+    # -- MCVC-IA: the multi-camera codec over the views folded into the batch
+    from fastvideocodec_torch.data.synthetic import row_views, synth_mv_gop
+    from fastvideocodec_torch.layers import blocks
+
+    @contextlib.contextmanager
+    def attention_backends(seen: dict):
+        """Record the fused attention's backend for every attention call on
+        the card, by q's shape [b, heads, tokens, d] and dtype: PyTorch's
+        own choice for those inputs."""
+        shipped = blocks.attention
+
+        def recording(q, k, v):
+            key = f"{tuple(q.shape)} {str(q.dtype).split('.')[1]}"
+            if q.is_cuda and key not in seen:
+                try:
+                    from torch.nn.attention import SDPBackend
+                    names = {int(b.value): name for name, b in SDPBackend.__members__.items()}
+                    seen[key] = names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+                except (AttributeError, ImportError, RuntimeError, TypeError) as e:
+                    seen[key] = f"not measured ({type(e).__name__})"
+            return shipped(q, k, v)
+
+        blocks.attention = recording
+        try:
+            yield
+        finally:
+            blocks.attention = shipped
+
+    def mv_frames(frames):
+        """numpy [T, V, h, w, 3] -> [T, V, 3, h, w] float32 on the host."""
+        return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 1, 4, 2, 3)))
+
+    def mcvc_card_vs_cpu(label, name, asset, size, masks, bf16=True):
+        """MCVC on 3 views of synth_mv_gop (seed 0) at ``size``, GOP 4 in
+        float32, card against the CPU port for each mask; then, with
+        ``bf16``, bfloat16 on the card against that float32 result."""
+        h, w = size
+        frames = mv_frames(synth_mv_gop(np.random.default_rng(0), views=3, size=max(h, w),
+                                        gop=4)[:, :, :h, :w])
+        runs = [("cuda", torch.float32), ("cpu", torch.float32)]
+        runs += [("cuda", torch.bfloat16)] if bf16 else []
+        for mask in masks:
+            res, seen = {}, {}
+            mk = np.asarray(mask, np.float32)
+            for device, dtype in runs:
+                spec = get_codec_model(name, dtype=dtype, device=device, num_views=3)
+                if asset == "seeded":
+                    load_flat(spec.module, seeded_flat(name, 0))
+                else:
+                    load_asset(spec.module, asset)
+                kw.reset_launches()
+                with attention_backends(seen):
+                    com, m = rollout(spec, frames.to(device, dtype), mk)
+                want = {**zero_counts, "pixel_warp": 3 if device == "cuda" else 0}
+                require(dict(kw.LAUNCHES) == want, f"{label} {device}: launches {kw.LAUNCHES}")
+                res[device, dtype] = (com.float().cpu(), m["psnr"].float().cpu(),
+                                      float(m["bpp_est"].sum()))
+            (cg, pg, bg), (cc, pc, bc) = res["cuda", torch.float32], res["cpu", torch.float32]
+            dmax = (cg - cc).abs().max().item()
+            dmean = (cg - cc).abs().mean().item()
+            dpsnr = (pg - pc).abs().max().item()
+            dbpp = abs(bg - bc) / bc
+            log(f"{label} mask {list(mask)} card vs cpu: recon max abs {dmax:.3e} mean abs "
+                f"{dmean:.3e} (tolerance mean 1e-4); psnr over the alive views card "
+                f"{pg.tolist()} cpu {pc.tolist()} max diff {dpsnr:.2e} dB (tolerance 0.01); bpp "
+                f"card {bg:.6f} cpu {bc:.6f} rel {dbpp:.2e} (tolerance 1e-3); launches on the "
+                f"card 3 pixel_warp (one a P-frame); attention backend on the card {seen}")
+            require(dmean <= 1e-4 and dpsnr <= 0.01 and dbpp <= 1e-3,
+                    f"{label} card disagrees with cpu")
+            if bf16:
+                _, pb, bb = res["cuda", torch.bfloat16]
+                dpsnr, dbpp = (pb - pc).abs().max().item(), abs(bb - bc) / bc
+                log(f"{label} mask {list(mask)} bf16 card vs f32 cpu: psnr {pb.tolist()} max "
+                    f"diff {dpsnr:.4f} dB (tolerance {MCVC_BF16_PSNR_DB}); bpp {bb:.6f} rel "
+                    f"{dbpp:.3e} (tolerance {MCVC_BF16_BPP_REL})")
+                require(dpsnr <= MCVC_BF16_PSNR_DB and dbpp <= MCVC_BF16_BPP_REL,
+                        f"{label} bf16 far from f32")
+
+    with phase("mcvc card vs cpu port"):
+        mcvc_card_vs_cpu("mcvc-ia tiny", "MCVC-IA-TINY", "tiny_mcvc_l3", (64, 64),
+                         ((1, 1, 1), (1, 1, 0)))
+        mcvc_card_vs_cpu("mcvc-ia seeded", "MCVC-IA", "seeded", (64, 128), ((1, 1, 0),),
+                         bf16=False)
+
+    mcvc_flat = seeded_flat("MCVC-IA", 0)
+
+    def mcvc_model(views):
+        spec = get_codec_model("MCVC-IA", dtype=torch.bfloat16, device="cuda", num_views=views)
+        load_flat(spec.module, mcvc_flat)
+        return spec
+
+    mspec = mcvc_model(MCVC_VIEWS)
+    log(f"MCVC-IA seeded weights: {sum(p.numel() for p in mspec.module.parameters())} "
+        f"parameters")
+    mcvc_want = {**zero_counts, "pixel_warp": GOP - 1}
+    failed = np.ones(MCVC_VIEWS, np.float32)
+    failed[MCVC_FAILED] = 0.0
+    alive = np.ones(MCVC_VIEWS, np.float32)
+    mcvc_rows = {}  # setup: the rollout's numbers, for the report
+
+    def mcvc_rollout(label, spec, frames, mask):
+        """One run with the launch counts zeroed (exactly GOP - 1 pixel_warp,
+        no other warp), then 3 timed runs beside their host enqueue ms."""
+        _, V, _, h, w = frames.shape
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        with attention_backends(seen):
+            com, m = rollout(spec, frames, mask)
+        torch.cuda.synchronize()
+        launches = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(launches == mcvc_want, f"{label}: launches {launches}, want {mcvc_want}")
+        psnr, bpp = m["psnr"].float().cpu(), m["bpp_est"].float().cpu()
+        completeness = float(m["completeness"])
+        require(tuple(com.shape) == (GOP, V, 3, h, w), f"{label}: recon {tuple(com.shape)}")
+        require(bool(torch.isfinite(com).all()), f"{label}: recon not finite")
+        require(bool(torch.isfinite(psnr).all() and torch.isfinite(bpp).all())
+                and float(bpp.min()) > 0.0, f"{label}: psnr {psnr.tolist()} bpp {bpp.tolist()}")
+        require(abs(completeness - float(mask.mean())) < 1e-6, f"{label}: {completeness}")
+        del com, m
+        times, enqueue = timed_runs(rollout, spec, frames, mask)
+        ms = sum(times) / len(times)
+        row = {"views": V, "h": h, "w": w, "mask": mask.tolist(), "ms_per_gop": times,
+               "ms": ms, "enqueue_ms": enqueue, "ms_per_view_frame": ms / (GOP * V),
+               "fps": 1000.0 * GOP * V / ms, "bpp": float(bpp.mean()),
+               "psnr": float(psnr.mean()), "completeness": completeness, "peak_gib": peak,
+               "launches": launches["pixel_warp"], "attention": seen}
+        log(f"mcvc rollout {label}: ms/GOP {times} mean {ms:.3f}; ms per view-frame "
+            f"{row['ms_per_view_frame']:.4f}; view-frames/s {row['fps']:.3f}; host enqueue "
+            f"ms/GOP {[round(t, 3) for t in enqueue]}; bpp (random weights, not gated) "
+            f"{row['bpp']:.6f}; psnr over the alive views {row['psnr']:.4f}; completeness "
+            f"{completeness:.4f}; peak memory {peak:.3f} GiB; launches {launches}; attention "
+            f"backend {seen}")
+        mcvc_rows[label] = row
+        return launches
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with phase(f"mcvc rollout {MCVC_VIEWS}x{MCVC_SIZE}x{MCVC_SIZE} GOP16 bf16"):
+        mv_small = mv_frames(synth_mv_gop(np.random.default_rng(0), views=MCVC_VIEWS,
+                                          size=MCVC_SIZE, gop=GOP))
+        mv_small = mv_small.to("cuda", torch.bfloat16).contiguous()
+        mcvc_rollout(f"{MCVC_VIEWS}x{MCVC_SIZE} alive", mspec, mv_small, alive)
+        mcvc_rollout(f"{MCVC_VIEWS}x{MCVC_SIZE} view {MCVC_FAILED} failed", mspec, mv_small,
+                     failed)
+
+    with phase(f"mcvc views sweep 1..6 x{MCVC_SIZE} GOP16 bf16"):
+        # the JAX speed task's inputs: uniform random frames, every view alive
+        for views in range(1, 7):
+            spec = mcvc_model(views)
+            frames = torch.rand((GOP, views, 3, MCVC_SIZE, MCVC_SIZE), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+            mcvc_rollout(f"{views} views x{MCVC_SIZE}", spec, frames,
+                         np.ones(views, np.float32))
+            del spec, frames
+        log("views sweep: ms per view-frame " + ", ".join(
+            f"{v}: {mcvc_rows[f'{v} views x{MCVC_SIZE}']['ms_per_view_frame']:.4f}"
+            for v in range(1, 7)))
+
+    with phase(f"mcvc rollout {MCVC_VIEWS}x{H}x{W} GOP16 bf16"):
+        mv_big = row_views(full_clip[:, :, :W], MCVC_VIEWS, H)  # rows 0, 320, 640, 1024
+        mv_big = mv_frames(mv_big).to("cuda", torch.bfloat16).contiguous()
+        del full_clip
+        mcvc_launches = mcvc_rollout(f"{MCVC_VIEWS}x{H}x{W} alive", mspec, mv_big, alive)
+
+    mcvc_timing = {}
+    with phase("mcvc kernel timing (bf16, one GOP's pixel_warp launches at C = 18)"):
+        for label, frames in ((f"{MCVC_VIEWS}x{MCVC_SIZE}", mv_small),
+                              (f"{MCVC_VIEWS}x{H}x{W}", mv_big)):
+            captured = {}
+            with capture_warp_inputs(captured):
+                rollout(mspec, frames, alive)
+            require(len(captured.get("pixel_warp", [])) == GOP - 1
+                    and all(img.shape[1] == 18 for img, _ in captured["pixel_warp"]),
+                    f"captured {[(k, len(v)) for k, v in captured.items()]}")
+            mrows, mlib = {}, {}
+            time_kernels(("pixel_warp",), captured, mrows, mlib, ssf_library)
+            mcvc_timing[label] = {**mrows["pixel_warp"], "library_ms": mlib["pixel_warp"]}
+            log(f"pixel_warp C = 18 at {label}: kernel {mrows['pixel_warp']['ms']:.4f} ms/GOP "
+                f"against its byte bound {mrows['pixel_warp']['bound_ms']:.4f} "
+                f"({mrows['pixel_warp']['bound_ms'] / mrows['pixel_warp']['ms']:.3f} of it) "
+                f"and F.grid_sample {mlib['pixel_warp']:.4f}")
+            del captured
+        del mv_big
+
+    with phase(f"mcvc real bits {MCVC_VIEWS}x{MCVC_SIZE}x{MCVC_SIZE} GOP16 bf16"):
+        # the model's estimate over the same GOP and mask, keyframe coded as
+        # the coder codes it
+        with torch.inference_mode():
+            _, liks, _ = mspec.module(mv_small, torch.from_numpy(failed).cuda())
+        est = estimated_bits(liks) / (GOP * MCVC_VIEWS * MCVC_SIZE * MCVC_SIZE)
+        del liks
+        mcvc_codecs = codecs_of(mspec)
+        want = {"pixel_warp": GOP - 1}
+        runs = real_bits(mspec, mcvc_codecs, want, want, est,
+                         lambda r: f" over {GOP} frames of {MCVC_VIEWS} views, "
+                                   f"{r['bpp_inter']:.6f} over the P-frames",
+                         clip=mv_small, mask=failed)
+        recon = runs[-1]["recon"]
+        require(tuple(recon.shape) == (GOP, MCVC_VIEWS, 3, MCVC_SIZE, MCVC_SIZE),
+                f"recon shape {tuple(recon.shape)}")
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"mcvc real bits (seeded weights, view {MCVC_FAILED} failed): bpp "
+            f"{runs[-1]['bpp']:.6f} vs the model's estimate {est:.6f} over the same {GOP} "
+            f"frames (rel {rel:.4f}, tolerance 0.05)")
+        require(rel < 0.05, "mcvc real bits far from the model's estimate")
+        mcvc_enc, mcvc_dec = runs[-1]["enc_launches"], runs[-1]["dec_launches"]
+        del runs, recon
+    log(json.dumps({"mcvc": {"rollouts": mcvc_rows, "pixel_warp_c18": {
+        k: {key: v[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "smooth_ms",
+                                    "random_ms", "library_ms")}
+        for k, v in mcvc_timing.items()}}}))
+
     by_path = {name: {"lsvc_rollout": rollout_launches[name],
                       "lsvc_decode_graph": decode_launches[name],
                       "ssf_rollout": ssf_launches[name],
                       "elfvc_rollout": elfvc_launches[name],
                       "elfvc_real_bits_encode": elfvc_enc[name],
-                      "elfvc_real_bits_decode": elfvc_dec[name]} for name in kernels}
+                      "elfvc_real_bits_decode": elfvc_dec[name],
+                      "mcvc_rollout": mcvc_launches[name],
+                      "mcvc_real_bits_encode": mcvc_enc[name],
+                      "mcvc_real_bits_decode": mcvc_dec[name]} for name in kernels}
+    # each kernel's top-level numbers stay on the path that defined them in
+    # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
+    # timing and ELFVC-SP-TPU's launches for the pixel warps); pixel_warp's
+    # C = 18 numbers on MCVC-IA's rollouts stand only under timing_by_path
     launches = {**{k: rollout_launches[k] for k in LSVC_KERNELS},
                 **{k: elfvc_launches[k] for k in SSF_KERNELS}}
+    timing = {f"mcvc_rollout_{k}": {**v, "launches": mcvc_rows[f"{k} alive"]["launches"]}
+              for k, v in mcvc_timing.items()}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "launches")
     report = {"kernels": [
         {
             "name": name,
@@ -1049,6 +1324,8 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": lib[name],
             "launches_by_path": by_path[name],
+            **({"timing_by_path": {path: {k: t[k] for k in keys} for path, t in timing.items()}}
+               if name == "pixel_warp" else {}),
         }
         for name in kernels
     ]}

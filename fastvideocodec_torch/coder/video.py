@@ -1,5 +1,5 @@
-"""Whole-GOP real-bitstream encode and decode of LSVC-TPU, SSF-TPU and
-ELFVC(-SP)-TPU, ported from fastvideocodec_tpu/coder/video.py.
+"""Whole-GOP real-bitstream encode and decode of LSVC-TPU, SSF-TPU,
+ELFVC(-SP)-TPU and MCVC(-IA), ported from fastvideocodec_tpu/coder/video.py.
 
 LSVC (tree codec):
   encode: flow + mv analysis for all P-frames in one batch -> mv symbols to
@@ -14,6 +14,10 @@ ELFVC (chain codec with state): as SSF, with the motion coded as a delta
   on the carried motion prior, after a flow predictor that only the
   encoder runs; with -SP the hyperpriors' SPnets predict y from the
   decoded symbols (and the previous frame's) on both sides.
+MCVC (chain codec over views folded into the batch): as SSF with the
+  keyframe coded, the failed views zeroed before analysis and the view
+  mask carried in the streams; with -IA both sides run the backup
+  cross-view-attention decoders on the decoded masked latents.
 
 The decoder sees only the bitstreams, so ``decode == encode recon`` bit
 for bit is the correctness invariant. Both sides take every tensor they
@@ -47,6 +51,7 @@ from fastvideocodec_torch.coder.service import (
     GaussianCodec,
     LaplaceCodec,
 )
+from fastvideocodec_torch.models.mcvc import mask_views
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.warp import avg_pool2, depth_to_space, space_to_depth
 
@@ -417,3 +422,68 @@ def elfvc_decompress_gop(spec: CodecSpec, streams: dict, codecs=None) -> torch.T
             x_ref = x_rec
             frames.append(x_ref)
     return m.unfold_gop(torch.stack(frames))
+
+
+@torch.inference_mode()
+def mcvc_compress_gop(spec: CodecSpec, gop: torch.Tensor, mask, codecs=None):
+    """MCVC(-IA) encode (reference models.py:2354-2400), gop [T, B*V, 3, H, W]
+    with the views folded into the batch, mask [B*V] of {0, 1} (numpy or
+    tensor) -> (streams, the enhanced recon [T, B*V, 3, H, W] in the model
+    dtype, bits). The failed views are zeroed before analysis and the
+    joint latents of all views coded once per frame, the keyframe
+    included; the next frame predicts from the plain recon of the masked
+    reference, and with -IA the output is the backup decoders' frames from
+    the masked latents. The mask travels in the streams (the receiver
+    knows which views failed). ``codecs`` from ``ssf_codecs``."""
+    m = spec.module
+    img_hp, mot_hp, res_hp = codecs or ssf_codecs(m)
+    device = _device(spec)
+    x = gop.to(device, m.dtype)
+    mask_list = torch.as_tensor(mask).float().cpu().tolist()
+    alive = torch.tensor(mask_list, dtype=torch.float32, device=device)
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        y0 = m.img_encoder(mask_views(x[0], alive))
+        key_streams, y0_hat, _ = img_hp.compress(y0, coder)
+        x_ref = m.img_decoder(y0_hat)
+        frames, inter = [m.enhance_keyframe(x_ref, y0_hat, alive)], []
+        for t in range(1, x.shape[0]):
+            x_cur, x_ref_m = mask_views(x[t], alive), mask_views(x_ref, alive)
+            y_mot = m.motion_encoder(torch.cat([x_cur, x_ref_m], dim=1))
+            mot_s, y_mot_hat, _ = mot_hp.compress(y_mot, coder)
+            x_pred = m.forward_prediction(x_ref_m, m.motion_decoder(y_mot_hat))
+            y_res = m.res_encoder(x_cur - x_pred)
+            res_s, y_res_hat, _ = res_hp.compress(y_res, coder)
+            x_ref = x_pred + m.res_decoder(torch.cat([y_res_hat, y_mot_hat], dim=1))
+            frames.append(m.enhance_inter(x_ref, x_pred, y_res_hat, y_mot_hat, alive))
+            inter.append({"motion": mot_s, "residual": res_s,
+                          "y_mot_shape": nhwc_shape(y_mot), "y_res_shape": nhwc_shape(y_res)})
+        streams = _resolve({"keyframe": key_streams, "y0_shape": nhwc_shape(y0),
+                            "inter": inter, "mask": mask_list})
+    return streams, torch.stack(frames), _streams_bits(streams)
+
+
+@torch.inference_mode()
+def mcvc_decompress_gop(spec: CodecSpec, streams: dict, codecs=None) -> torch.Tensor:
+    """The enhanced GOP [T, B*V, 3, H, W] from the streams and the mask
+    they carry only: the plain chain of references, and with -IA the
+    backup decoders on the decoded masked latents. Every y starts decoding
+    at once, as in ``ssf_decompress_gop``."""
+    m = spec.module
+    img_hp, mot_hp, res_hp = codecs or ssf_codecs(m)
+    device = _device(spec)
+    alive = torch.tensor(streams["mask"], dtype=torch.float32, device=device)
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        y0_hat = img_hp.decompress(streams["keyframe"], streams["y0_shape"], device, coder)
+        inter = [(mot_hp.decompress(s["motion"], s["y_mot_shape"], device, coder),
+                  res_hp.decompress(s["residual"], s["y_res_shape"], device, coder))
+                 for s in streams["inter"]]
+        y0_hat = y0_hat()[0]
+        x_ref = m.img_decoder(y0_hat)
+        frames = [m.enhance_keyframe(x_ref, y0_hat, alive)]
+        for y_mot, y_res in inter:
+            y_mot_hat, _ = y_mot()
+            y_res_hat, _ = y_res()
+            x_pred = m.forward_prediction(mask_views(x_ref, alive), m.motion_decoder(y_mot_hat))
+            x_ref = x_pred + m.res_decoder(torch.cat([y_res_hat, y_mot_hat], dim=1))
+            frames.append(m.enhance_inter(x_ref, x_pred, y_res_hat, y_mot_hat, alive))
+    return torch.stack(frames)

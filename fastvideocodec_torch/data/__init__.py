@@ -1,3 +1,3 @@
-from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from fastvideocodec_torch.data.synthetic import row_views, synth_gop_multi, synth_mv_gop
 
-__all__ = ["synth_gop_multi"]
+__all__ = ["row_views", "synth_gop_multi", "synth_mv_gop"]

@@ -1,7 +1,8 @@
-"""Seeded synthetic multi-object motion clips (numpy only): a copy of
-``synth_gop_multi`` from fastvideocodec_tpu/data/synthetic.py, so that the
-port imports nothing of the JAX package and both packages see identical
-clips from one seed."""
+"""Seeded synthetic clips (numpy only): copies of ``synth_mv_gop`` and
+``synth_gop_multi`` from fastvideocodec_tpu/data/synthetic.py, with the
+same draw order, so that the port imports nothing of the JAX package and
+both packages see identical clips from one seed; and ``row_views``, the
+port's multi-view clips at sizes ``synth_mv_gop`` does not make."""
 
 from __future__ import annotations
 
@@ -16,6 +17,35 @@ def _smooth(base: np.ndarray, rounds: int = 3) -> np.ndarray:
             + np.roll(base, 1, 1) + np.roll(base, -1, 1)
         ) / 5.0
     return (base - base.min()) / (base.max() - base.min() + 1e-6)
+
+
+def synth_mv_gop(rng: np.random.Generator, views: int = 3, size: int = 64,
+                 gop: int = 4):
+    """V offset crops of one translating texture (multi-view redundancy);
+    identical draw order to the original TestGoldenRDMCVC._synth_mv_gop at
+    the 3/64/4 defaults. Views 5 and 6 start a whole frame to the right
+    and below, and run past the texture's edge (numpy raises on the
+    stack) when the drawn motion is positive in that axis, as in the JAX
+    package. Returns [T, V, H, W, 3]."""
+    V = views
+    H = W = size
+    T = gop
+    base = rng.random((H * 3, W * 3, 3)).astype(np.float32)
+    base = _smooth(base)
+    dx, dy = rng.integers(-3, 4, size=2)
+    offs = [(0, 0), (0, W // 2), (H // 2, 0), (H // 2, W // 2),
+            (0, W), (H, 0)][:V]
+    frames = []
+    for t in range(T):
+        view_list = []
+        for vy, vx in offs:
+            sy, sx = H + vy + t * dy, W + vx + t * dx
+            f = base[sy : sy + H, sx : sx + W]
+            view_list.append(np.clip(
+                f + rng.normal(0, 0.01, f.shape).astype(np.float32), 0, 1
+            ))
+        frames.append(np.stack(view_list))
+    return np.stack(frames)  # [T, V, H, W, 3]
 
 
 def synth_gop_multi(rng: np.random.Generator, size: int = 128, gop: int = 8,
@@ -80,3 +110,14 @@ def synth_gop_multi(rng: np.random.Generator, size: int = 128, gop: int = 8,
             f = f + rng.normal(0, noise, f.shape).astype(np.float32)
         frames.append(np.clip(f, 0, 1))
     return np.stack(frames)
+
+
+def row_views(clip: np.ndarray, views: int, h: int) -> np.ndarray:
+    """V views of h rows cut from one clip [T, n, W, 3] (n >= h rows): view
+    v starts at row v*(n - h)//(V - 1) rounded down to a multiple of 64,
+    the last at n - h (0, 320, 640 and 1024 for 4 views of 1024 rows of a
+    2048-row clip), a single view at row 0. Returns [T, V, h, W, 3]."""
+    n = clip.shape[1]
+    rows = [0] if views == 1 else [v * (n - h) // (views - 1) // 64 * 64
+                                   for v in range(views - 1)] + [n - h]
+    return np.stack([clip[:, r:r + h] for r in rows], axis=1)

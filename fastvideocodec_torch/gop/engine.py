@@ -1,7 +1,8 @@
 """GOP rollouts of the port, from fastvideocodec_tpu/gop/engine.py: the
 LSVC whole-GOP call (``lsvc_gop``), the SSF chain of inter frames
-(``ssf_gop``) and the ELFVC chain with its temporal state (``elfvc_gop``),
-dispatched by family in ``rollout``."""
+(``ssf_gop``), the ELFVC chain with its temporal state (``elfvc_gop``) and
+the MCVC multi-view GOP with its view mask (``mcvc_gop``), dispatched by
+family in ``rollout``."""
 
 from __future__ import annotations
 
@@ -91,6 +92,33 @@ def elfvc_gop(spec: CodecSpec, gop: torch.Tensor):
     return depth_to_space(torch.cat(recons), module.S2D), metrics
 
 
+@torch.inference_mode()
+def mcvc_gop(spec: CodecSpec, gop: torch.Tensor, mask=None):
+    """gop [T, B*V, 3, H, W], the views folded into the batch (b*V + v);
+    mask [B*V] of {0, 1} (numpy or tensor; None: every view alive). The
+    keyframe is coded. Returns (the enhanced recon [T, B*V, 3, H, W] in the
+    model dtype, metrics), the metrics float32 as in the reference's
+    metrics_per_gop (train_multiview.py:161-210): ``img_loss`` and ``psnr``
+    [T] of the distortion averaged over the alive views only, ``bpp_est``
+    [T] over the B*V*H*W pixels of each frame, and ``completeness``, the
+    share of the views alive."""
+    _, N, _, H, W = gop.shape
+    mask = torch.ones(N) if mask is None else torch.as_tensor(mask)
+    alive = mask.to(gop.device, torch.float32)
+    recons, liks, _ = spec.module(gop, alive)
+    bpps = [sum(bits_estimate(part[key]) for part in lik.values() for key in ("y", "z"))
+            / (N * H * W) for lik in liks]
+    per_view = torch.mean((recons.float() - gop.float()) ** 2, dim=(2, 3, 4))  # [T, B*V]
+    mse = torch.sum(per_view * alive, dim=1) / torch.clamp(torch.sum(alive), min=1.0)
+    metrics = {
+        "img_loss": mse,
+        "psnr": psnr_from_mse(mse),
+        "bpp_est": torch.stack(bpps),
+        "completeness": torch.sum(alive) / N,
+    }
+    return recons, metrics
+
+
 def estimated_bits(liks) -> float:
     """The estimated bits of a codec ``forward``'s per-frame dicts: the sum
     of every "y" and "z" likelihood's bits (the keyframe's included)."""
@@ -101,8 +129,13 @@ def estimated_bits(liks) -> float:
 ROLLOUTS = {"lsvc": lsvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
 
 
-def rollout(spec: CodecSpec, gop: torch.Tensor):
-    """Estimated-bits encode+decode of one GOP (eval mode)."""
+def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None):
+    """Estimated-bits encode+decode of one GOP (eval mode); ``mask``, the
+    view mask, is MCVC's alone."""
+    if spec.family == "mcvc":
+        return mcvc_gop(spec, gop, mask)
+    if mask is not None:
+        raise ValueError(f"family {spec.family!r} takes no view mask")
     if spec.family not in ROLLOUTS:
         raise ValueError(f"family {spec.family!r} is not ported yet")
     return ROLLOUTS[spec.family](spec, gop)

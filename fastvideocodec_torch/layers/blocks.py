@@ -1,8 +1,9 @@
 """Building blocks (NCHW), ported from fastvideocodec_tpu/layers/blocks.py:
 ResBlock, the WarpNet motion-compensation U-net and the MEBasic SpyNet
 level of the LSVC-TPU path, the forward of QReLU for the SSF hyper
-decoders, and the super-precision SPnet of ELFVC-SP with its blocks
-(ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention).
+decoders, the super-precision SPnet of ELFVC-SP with its blocks
+(ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention), and
+ConvAttention across views for MCVC-IA.
 
 The SPnet blocks keep the flax names of their parameters (``g``,
 GroupNorm ``scale``/``bias``, the WSConvBlock's ``weight`` (its flax
@@ -187,34 +188,44 @@ def plain_attention(q, k, v):
 def attention(q, k, v):
     """``plain_attention`` for CPU tensors; on the card PyTorch's fused
     scaled_dot_product_attention, which never holds the N x N scores (4 x
-    8192 x 8192 at 1024x2048)."""
+    8192 x 8192 for the SPnet at 1024x2048; 8 x 32768 x 32768 for MCVC-IA
+    at 4 views of 1024x2048)."""
     if q.device.type == "cpu":
         return plain_attention(q, k, v)
     return F.scaled_dot_product_attention(q, k, v)
 
 
 class ConvAttention(nn.Module):
-    """1x1-conv qkv attention with the pixels of each item as tokens (the
-    JAX package's ``atype=0``)."""
+    """1x1-conv qkv attention. With ``num_views`` 1 (the JAX package's
+    ``atype=0``, the SPnet's) the tokens are the pixels of each item; with
+    V views (``atype=2``, MCVC-IA's cross-view attention) they are the
+    (view, y, x) of each V consecutive items of the batch axis, which holds
+    the views folded as b*V + v. A zeroed (failed) view stays a token, its
+    k and v 0 (the qkv conv has no bias), as in the JAX package."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_views: int = 1):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.num_views = heads, dim_head, num_views
         inner = heads * dim_head
         self.Conv_0 = nn.Conv2d(dim, 3 * inner, 1, bias=False)
         self.Conv_1 = conv(inner, dim, 1)
 
     def forward(self, x):
         B, _, H, W = x.shape
+        V = self.num_views
+        if B % V:
+            raise ValueError(f"batch {B} is not a whole number of {V} views")
+        b, N = B // V, V * H * W
         qkv = self.Conv_0(x.to(self.Conv_0.weight.dtype))
-        # channel head*d + i of each third, tokens in row-major pixel order;
-        # q, k and v contiguous [B, heads, N, d], which the fused attention
-        # needs (on a view whose last dim is strided it falls back to its
-        # float32 math form)
-        qkv = qkv.reshape(B, 3, self.heads, self.dim_head, H * W).permute(1, 0, 2, 4, 3)
-        q, k, v = qkv.contiguous().unbind(0)
-        out = attention(q, k, v).transpose(2, 3).reshape(B, -1, H, W)
-        return self.Conv_1(out)
+        # channel head*d + i of each third, tokens in (view, y, x) order; q, k
+        # and v contiguous [b, heads, N, d], which the fused attention needs
+        # (on a view whose last dim is strided it falls back to its float32
+        # math form)
+        qkv = qkv.reshape(b, V, 3, self.heads, self.dim_head, H * W)
+        qkv = qkv.permute(2, 0, 3, 1, 5, 4).contiguous()
+        q, k, v = qkv.reshape(3, b, self.heads, N, self.dim_head).unbind(0)
+        out = attention(q, k, v).reshape(b, self.heads, V, H * W, self.dim_head)
+        return self.Conv_1(out.permute(0, 2, 1, 4, 3).reshape(B, -1, H, W))
 
 
 class SPnet(nn.Module):

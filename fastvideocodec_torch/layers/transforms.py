@@ -1,6 +1,6 @@
 """Analysis/synthesis transforms (NCHW), ported from
-fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU, SSF-TPU and
-ELFVC(-SP)-TPU configurations.
+fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU, SSF-TPU,
+ELFVC(-SP)-TPU and MCVC configurations.
 
 Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
 ``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
@@ -168,50 +168,68 @@ class SynthesisPriorNet(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# SSF-family conv stacks, in the SSF-TPU configuration (s2d=2, with the
-# input and output kept in the s2d domain)
+# SSF-family conv stacks: ``s2d=2`` is the SSF-TPU configuration (input and
+# output kept in the s2d domain), ``s2d=1`` stock SSF's full-resolution one
 # ---------------------------------------------------------------------------
 
 
 class SSFEncoder(nn.Module):
-    """3 x (5x5 s2 conv), ReLU between: the ``s2d=2`` branch with
-    ``input_s2d``, which takes the frame already in s2d form (so its latent
-    lies at /16 of full resolution). The motion encoder's input is
-    phase-blocked, cat(s2d(cur), s2d(ref)). The same stack is the JAX
-    package's ``SSFHyperEncoder``, which the hyperprior uses."""
+    """5x5 stride-2 convs, ReLU between, the latent at /16 of full
+    resolution. ``s2d=2``: the branch with ``input_s2d``, three convs on
+    a frame already in s2d form (the motion encoder's input phase-blocked,
+    cat(s2d(cur), s2d(ref))); the same stack is the JAX package's
+    ``SSFHyperEncoder``, which the hyperprior uses. ``s2d=1``: four convs
+    on the full-resolution frame (``Conv_0..3``)."""
 
-    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 192):
+    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 192,
+                 s2d: int = 2):
         super().__init__()
-        self.Conv_0 = conv(in_channels, mid_planes, 5, 2)
-        self.Conv_1 = conv(mid_planes, mid_planes, 5, 2)
-        self.Conv_2 = conv(mid_planes, out_planes, 5, 2)
+        if s2d not in (1, 2):
+            raise ValueError(f"s2d must be 1 or 2, got {s2d}")
+        self.n = 5 - s2d
+        cin = in_channels
+        for i in range(self.n - 1):
+            self.add_module(f"Conv_{i}", conv(cin, mid_planes, 5, 2))
+            cin = mid_planes
+        self.add_module(f"Conv_{self.n - 1}", conv(cin, out_planes, 5, 2))
 
     def forward(self, x):
-        x = F.relu(self.Conv_0(x))
-        x = F.relu(self.Conv_1(x))
-        return self.Conv_2(x)
+        for i in range(self.n - 1):
+            x = F.relu(getattr(self, f"Conv_{i}")(x))
+        return getattr(self, f"Conv_{self.n - 1}")(x)
 
 
 class SSFDecoder(nn.Module):
-    """The ``s2d=2`` branch with ``output_s2d``: two 5x5 s2 deconvs lift the
-    /16 latent to /4, a third emits ``4*mid_planes//8`` channels at /2, ReLU
-    after each, and a 3x3 conv emits ``4*out_planes`` channels at /2 in
-    (ry, rx, c) order, returned without depth-to-space (the SSF-TPU motion
-    decoder's 12 channels are read in c-major phase order by the warp)."""
+    """5x5 stride-2 deconvs from the /16 latent, ReLU after each but the
+    last layer. ``s2d=2``: the branch with ``output_s2d``: two deconvs lift
+    the latent to /4, a third emits ``4*mid_planes//8`` channels at /2, and
+    a 3x3 conv emits ``4*out_planes`` channels at /2 in (ry, rx, c) order,
+    returned without depth-to-space (the SSF-TPU motion decoder's 12
+    channels are read in c-major phase order by the warp). ``s2d=1``: four
+    deconvs (``PolyphaseDeconv_0..3``), the last to ``out_planes`` at full
+    resolution."""
 
-    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 3):
+    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 3,
+                 s2d: int = 2):
         super().__init__()
+        if s2d not in (1, 2):
+            raise ValueError(f"s2d must be 1 or 2, got {s2d}")
         m = mid_planes
+        self.s2d = s2d
         self.PolyphaseDeconv_0 = polyphase_deconv(in_channels, m, 5)
         self.PolyphaseDeconv_1 = polyphase_deconv(m, m, 5)
-        self.PolyphaseDeconv_2 = polyphase_deconv(m, 4 * m // 8, 5)
-        self.Conv_0 = conv(4 * m // 8, 4 * out_planes, 3)
+        if s2d == 2:
+            self.PolyphaseDeconv_2 = polyphase_deconv(m, 4 * m // 8, 5)
+            self.Conv_0 = conv(4 * m // 8, 4 * out_planes, 3)
+        else:
+            self.PolyphaseDeconv_2 = polyphase_deconv(m, m, 5)
+            self.PolyphaseDeconv_3 = polyphase_deconv(m, out_planes, 5)
 
     def forward(self, x):
         x = F.relu(self.PolyphaseDeconv_0(x))
         x = F.relu(self.PolyphaseDeconv_1(x))
         x = F.relu(self.PolyphaseDeconv_2(x))
-        return self.Conv_0(x)
+        return self.Conv_0(x) if self.s2d == 2 else self.PolyphaseDeconv_3(x)
 
 
 class SSFHyperDecoder(nn.Module):

@@ -1,5 +1,5 @@
-"""Codec registry of the port: the LSVC-TPU, SSF-TPU and ELFVC(-SP)-TPU
-branches of fastvideocodec_tpu/models/registry.py.
+"""Codec registry of the port: the LSVC-TPU, SSF-TPU, ELFVC(-SP)-TPU and
+MCVC branches of fastvideocodec_tpu/models/registry.py.
 
 ``get_codec_model`` builds the module on ``device`` (the card unless the
 caller passes ``device="cpu"``) in eval mode. With ``dtype=torch.bfloat16``
@@ -18,6 +18,7 @@ from torch import nn
 
 from fastvideocodec_torch.models.elfvc import ELFVC
 from fastvideocodec_torch.models.lsvc import LSVC
+from fastvideocodec_torch.models.mcvc import MCVC
 from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 
 
@@ -28,7 +29,12 @@ class CodecSpec:
     module: nn.Module
 
 
-def _build(name: str, dtype: torch.dtype, sp_stage: int) -> tuple[str, nn.Module]:
+# MCVC-IA-OLFT's online fine-tuning changes training only: it serves as MCVC-IA
+MCVC_NAMES = ("MCVC", "MCVC-IA", "MCVC-IA-OLFT")
+
+
+def _build(name: str, dtype: torch.dtype, sp_stage: int,
+           num_views: int) -> tuple[str, nn.Module]:
     if name == "LSVC-TPU":
         # the flagship: s2d codec domain, pooled-RGB SpyNet with 5x5/3x3
         # kernels, 128-wide transforms, full-res flow and full-res MC warp
@@ -57,24 +63,34 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int) -> tuple[str, nn.Module
         # trained at sp_stage=2
         return "elfvc", ELFVC(mid_planes=32, planes=48, super_prec="-SP" in name,
                               sp_stage=sp_stage, sp_dim=16, dtype=dtype)
-    if name.startswith("ELFVC"):
+    if name.removesuffix("-TINY") in MCVC_NAMES:
+        # stock SSF's full-resolution transforms and volume warp over the
+        # views folded into the batch; -IA adds the cross-view attention
+        # backup decoders; -TINY at golden-RD scale (tiny_mcvc_l{0,3,6})
+        widths = dict(planes=48, mid_planes=32) if name.endswith("-TINY") else {}
+        return "mcvc", MCVC(num_views, imbalanced_correlation="-IA" in name, dtype=dtype,
+                            **widths)
+    if name.startswith(("ELFVC", "SSF", "MCVC-Original")):
         raise ValueError(
-            f"codec {name!r} is not ported yet: the s2d=1 ELFVC forms wait for the "
-            f"SSF-Official slice (have ELFVC-TPU, ELFVC-SP-TPU and their -TINY forms)"
+            f"codec {name!r} is not ported yet: the s2d=1 SSF forms (SSF-Official, "
+            f"MCVC-Original, the s2d=1 ELFVC forms) wait for the SSF-Official slice, "
+            f"which their transforms and warp_volume now serve (have SSF-TPU, ELFVC-TPU, "
+            f"ELFVC-SP-TPU, MCVC, MCVC-IA, MCVC-IA-OLFT and their -TINY forms)"
         )
     raise ValueError(
-        f"codec {name!r} is not ported yet (have LSVC-TPU, LSVC-TPU-TINY, SSF-TPU, "
-        f"SSF-TPU-TINY, ELFVC-TPU, ELFVC-SP-TPU, ELFVC-TPU-TINY, ELFVC-SP-TPU-TINY)"
+        f"codec {name!r} is not ported yet (have LSVC-TPU, SSF-TPU, ELFVC-TPU, "
+        f"ELFVC-SP-TPU, MCVC, MCVC-IA, MCVC-IA-OLFT and their -TINY forms)"
     )
 
 
-def get_codec_model(name: str, dtype: torch.dtype = torch.float32,
-                    device="cuda", sp_stage: int = 1) -> CodecSpec:
+def get_codec_model(name: str, dtype: torch.dtype = torch.float32, device="cuda",
+                    sp_stage: int = 1, num_views: int = 0) -> CodecSpec:
     """``sp_stage`` (ELFVC-SP only): 1 lets the motion SPnet replace the
-    motion latent, 2 the residual SPnet as well."""
+    motion latent, 2 the residual SPnet as well. ``num_views`` (MCVC only,
+    at least 1 there): the views folded into each batch item."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    family, module = _build(name, dtype, sp_stage)
+    family, module = _build(name, dtype, sp_stage, num_views)
     module = module.to(device).eval().requires_grad_(False)
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

@@ -14,8 +14,9 @@ The whole inter pipeline runs in the space-to-depth domain: frames are
 The prediction's level-0 sample and half-resolution stack sample are the
 hand-written pixel warps on CUDA tensors. Keyframes go through the img_*
 transforms. The real-bits coder (coder/video.py) calls these same pieces.
-Eval only: training noise and the ``s2d=1`` (SSF-Official) branches are
-not ported yet.
+Eval only: training noise and the ``s2d=1`` (SSF-Official) codec are not
+ported yet; its full-resolution prediction is, as ``FullResPrediction``,
+which MCVC uses.
 """
 
 from __future__ import annotations
@@ -30,12 +31,35 @@ from fastvideocodec_torch.ops.warp import (
     gaussian_volume,
     s2d_phase_mean,
     space_to_depth,
+    warp_volume,
     warp_volume_pyramid_s2d,
 )
 
 
 NUM_LEVELS = 5  # scale-space levels, the original included
 SIGMA0 = 1.5  # blur of each level
+
+
+class FullResPrediction:
+    """The scale-space prediction of stock SSF (the JAX ``ScaleSpaceFlow``
+    methods outside ``pipeline_s2d``), for the codecs that predict at full
+    resolution: MCVC, and SSF-Official and the s2d=1 ELFVC forms to come.
+    The volume is the flat [B, 18, H, W] stack of the reference's six
+    levels; the prediction samples all of it with one full-resolution
+    pixel warp (C = 18) and blends the levels by the decoded scale."""
+
+    @staticmethod
+    def make_volume(x_ref: torch.Tensor) -> torch.Tensor:
+        return gaussian_volume(x_ref, SIGMA0, NUM_LEVELS)
+
+    @staticmethod
+    def warp_prediction(volume: torch.Tensor, motion_info: torch.Tensor) -> torch.Tensor:
+        """motion_info [B, 3, H, W] = (flow x, flow y, scale), the flow in
+        normalized units."""
+        return warp_volume(volume, motion_info[:, 0:2], motion_info[:, 2:3], NUM_LEVELS)
+
+    def forward_prediction(self, x_ref: torch.Tensor, motion_info: torch.Tensor) -> torch.Tensor:
+        return self.warp_prediction(self.make_volume(x_ref), motion_info)
 
 
 class ScaleSpaceFlow(nn.Module):

@@ -20,9 +20,9 @@ tensor that needs a gradient the kernel runs inside ``KernelWarp``, whose
 backward is the vjp of the plain version. There is no displacement bound:
 the TPU kernel's clamp was a limit of the TPU.
 
-The SSF scale-space volume ops at the end (blur, volume, phase mean, s2d
-upsample, the pyramid warp) are plain PyTorch, as they were XLA fusions
-on the TPU.
+The SSF scale-space volume ops at the end (blur, volume, the full-resolution
+volume warp, phase mean, s2d upsample, the pyramid warp) are plain
+PyTorch around the pixel warp, as they were XLA fusions on the TPU.
 """
 
 from __future__ import annotations
@@ -449,6 +449,42 @@ def gaussian_volume(x: torch.Tensor, sigma0: float, num_levels: int) -> torch.Te
     return torch.cat(levels, dim=1)
 
 
+@functools.lru_cache(maxsize=16)
+def _half_size(H: int, W: int, device) -> torch.Tensor:
+    """[W/2, H/2] as [1, 2, 1, 1] float32: a normalized flow's pixel scale."""
+    return torch.as_tensor(np.asarray([W / 2.0, H / 2.0], np.float32),
+                           device=device)[None, :, None, None]
+
+
+def warp_volume(volume: torch.Tensor, flow: torch.Tensor, scale_field: torch.Tensor,
+                num_levels: int) -> torch.Tensor:
+    """Trilinear sample of a flat scale-space volume (compressai
+    warp_volume, the JAX ``warp_volume``): stock SSF's full-resolution
+    prediction.
+
+    volume [B, D*C, H, W] from ``gaussian_volume`` (D = num_levels + 1,
+    level-major channels); flow [B, 2, H, W] in normalized units;
+    scale_field [B, 1, H, W], the depth coordinate in [-1, 1]. All D*C
+    channels are sampled by one ``pixel_warp`` by the float32 flow scaled
+    to pixels by (W/2, H/2) (the half-pixel-centred affine grid plus the
+    flow, unnormalized, is source = output + flow*size/2). The depth
+    z = clip(((s + 1)*D - 1)/2, 0, D - 1) is taken in the scale field's
+    dtype, each hat weight max(0, 1 - |z - d|) cast to the volume's dtype,
+    and the levels summed in order, as the JAX package does."""
+    B, DC, H, W = volume.shape
+    D = num_levels + 1
+    C = DC // D
+    flow_px = (flow.float() * _half_size(H, W, flow.device)).contiguous()
+    sampled = pixel_warp(volume, flow_px)
+    z = torch.clamp(((scale_field + 1.0) * D - 1.0) * 0.5, 0.0, D - 1)
+    out = None
+    for d in range(D):
+        wd = torch.clamp(1.0 - torch.abs(z - d), min=0.0).to(volume.dtype)
+        term = wd * sampled[:, d * C:(d + 1) * C]
+        out = term if out is None else out + term
+    return out
+
+
 def s2d_phase_mean(x_s2d: torch.Tensor, channels: int) -> torch.Tensor:
     """Mean over the four s2d phases, [B, 4C, H, W] -> [B, C, H, W]: the
     avg_pool2 of the full-resolution image, summed phase by phase."""
@@ -550,5 +586,6 @@ __all__ = [
     "space_to_depth",
     "staged_tiles",
     "up2_to_s2d",
+    "warp_volume",
     "warp_volume_pyramid_s2d",
 ]

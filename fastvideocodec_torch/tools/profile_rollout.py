@@ -1,12 +1,16 @@
 """Where a rollout's time goes on one CUDA card: by module, and by kernel.
 
     python -m fastvideocodec_torch.tools.profile_rollout
-        [--codec ELFVC-SP-TPU|SSF-TPU|LSVC-TPU] [--json PATH]
+        [--codec ELFVC-SP-TPU|SSF-TPU|LSVC-TPU|MCVC-IA] [--views 4] [--h 256 --w 256]
+        [--json PATH]
 
 The cell of ``chip_smoke.py``: bf16, 1024x2048, GOP 16, synth_gop_multi
-seed 0, with ``real_bits_fps``'s weights (seeded full widths for SSF-TPU
-and ELFVC-SP-TPU at sp_stage 2, hd_lsvctpuf2_l2 for LSVC-TPU). After a
-warm-up rollout it reports:
+seed 0, with ``real_bits_fps``'s weights (seeded full widths for SSF-TPU,
+ELFVC-SP-TPU at sp_stage 2 and MCVC-IA, hd_lsvctpuf2_l2 for LSVC-TPU);
+MCVC-IA's is ``--views`` views of --h x --w (256x256 unless given) from
+``real_bits_fps.mcvc_clip`` with seed 0, all alive (``--views 4 --h 1024
+--w 2048``: chip_smoke.py's 4 x 1024x2048). After a warm-up rollout it
+reports:
 
 - the GOP's card ms by CUDA events beside its host enqueue ms;
 - by module: every child of the codec, every child of its hyperpriors
@@ -37,7 +41,7 @@ import torch
 
 import fastvideocodec_torch as ft
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
-from fastvideocodec_torch.tools.real_bits_fps import load_model
+from fastvideocodec_torch.tools.real_bits_fps import load_model, mcvc_clip
 
 GOP, H, W = 16, 1024, 2048
 TOP = 15  # kernels listed by device time
@@ -62,11 +66,11 @@ def hooked_calls(module: torch.nn.Module, run):
     return names, {n: c for n, c in calls.items() if c}
 
 
-def by_module(spec, gop, reps: int = 3):
-    """([(name, calls, card ms, host ms) per GOP for each hooked module, by
-    the card's time, largest first], (the largest module, the args and
-    kwargs of its first call))."""
-    names, calls = hooked_calls(spec.module, lambda: ft.rollout(spec, gop))
+def by_module(spec, run, reps: int = 3):
+    """([(name, calls, card ms, host ms) per GOP for each hooked module of
+    the rollout ``run()``, by the card's time, largest first], (the largest
+    module, the args and kwargs of its first call))."""
+    names, calls = hooked_calls(spec.module, run)
     rows = []
     with torch.inference_mode():
         for name, cs in calls.items():
@@ -90,15 +94,15 @@ def by_module(spec, gop, reps: int = 3):
     return rows, (names[heaviest], *calls[heaviest][0])
 
 
-def by_kernel(spec, gop, top: int) -> dict:
-    """One rollout under torch.profiler: busy share, kernel count, top
-    kernels by device time."""
+def by_kernel(run, top: int) -> dict:
+    """One rollout ``run()`` under torch.profiler: busy share, kernel count,
+    top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ft.rollout(spec, gop)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -144,8 +148,11 @@ def call_kernels(module, args, kwargs) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU"),
+    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU", "MCVC-IA"),
                     default="ELFVC-SP-TPU")
+    ap.add_argument("--views", type=int, default=4, help="MCVC-IA's views")
+    ap.add_argument("--h", type=int, default=256, help="MCVC-IA's view height")
+    ap.add_argument("--w", type=int, default=256, help="MCVC-IA's view width")
     ap.add_argument("--json", default="", help="append the summary as one JSON line here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -153,27 +160,36 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    spec, trained = load_model(args.codec, 2, torch.bfloat16, "cuda")
-    clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=GOP)
-    gop = torch.from_numpy(np.ascontiguousarray(clip[:, :H, :W]))
-    gop = gop.permute(0, 3, 1, 2).to("cuda", torch.bfloat16).contiguous()
+    if args.codec.startswith("MCVC"):
+        views, h, w = args.views, args.h, args.w
+        gop, mask = mcvc_clip(0, views, h, w, GOP)
+        what = f"{views} views of "
+    else:
+        views, h, w, mask, what = 1, H, W, None, ""
+        clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=GOP)
+        gop = torch.from_numpy(np.ascontiguousarray(clip[:, :H, :W])).permute(0, 3, 1, 2)
+    spec, trained = load_model(args.codec, 2, torch.bfloat16, "cuda", views)
+    gop = gop.to("cuda", torch.bfloat16).contiguous()
     name = torch.cuda.get_device_name(0)
-    print(f"{args.codec} {'trained' if trained else 'seeded'} {H}x{W} GOP{GOP} bf16 on "
+    print(f"{args.codec} {'trained' if trained else 'seeded'} {what}{h}x{w} GOP{GOP} bf16 on "
           f"{name}", flush=True)
 
-    ft.rollout(spec, gop)  # warm-up
+    def run():
+        return ft.rollout(spec, gop, mask)
+
+    run()  # warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     t0 = time.perf_counter()
-    ft.rollout(spec, gop)
+    run()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
     gop_ms = start.elapsed_time(end)
     print(f"rollout: card {gop_ms:.3f} ms/GOP, host enqueue {enqueue_ms:.3f} ms/GOP", flush=True)
 
-    rows, (heaviest, args0, kwargs0) = by_module(spec, gop)
+    rows, (heaviest, args0, kwargs0) = by_module(spec, run)
     print("by module (per GOP): name, calls, card ms, host ms", flush=True)
     for mod, n, card, host in rows:
         print(f"  {mod}: {n} calls, card {card:.3f} ms, host {host:.3f} ms", flush=True)
@@ -190,7 +206,7 @@ def main(argv=None) -> int:
           f"{sum(r[3] for r in top_level):.3f} ms; the rest of the GOP (warps, volumes, "
           f"glue) card {gop_ms - sum(r[2] for r in top_level):.3f} ms", flush=True)
 
-    k = by_kernel(spec, gop, TOP)
+    k = by_kernel(run, TOP)
     busy = "not measured" if k["busy_ms"] is None else f"{k['busy_ms']:.3f} ms"
     share = ("not measured" if k["busy_ms"] is None
              else f"{1 - k['busy_ms'] / k['wall_ms']:.4f}")
@@ -209,7 +225,7 @@ def main(argv=None) -> int:
         with open(args.json, "a") as f:
             f.write(json.dumps({
                 "tool": "fastvideocodec_torch.tools.profile_rollout", "codec": args.codec,
-                "device": name, "dtype": "bf16", "h": H, "w": W, "gop": GOP,
+                "device": name, "dtype": "bf16", "h": h, "w": w, "views": views, "gop": GOP,
                 "gop_ms": gop_ms, "enqueue_ms": enqueue_ms,
                 "modules": [dict(zip(("name", "calls", "card_ms", "host_ms"), r)) for r in rows],
                 **k}) + "\n")

@@ -1,23 +1,28 @@
 """Real-bits throughput of the port on one CUDA card: LSVC-TPU, SSF-TPU or
-ELFVC-SP-TPU at 1024x2048, GOP 16, through the real bitstream encode AND
-decode (the networks on the card, range coding on host threads), with
-decode == encode checked bit for bit and the host coder's seconds apart
-from the rest.
+ELFVC-SP-TPU at 1024x2048, or MCVC-IA on views of 256x256, GOP 16, through
+the real bitstream encode AND decode (the networks on the card, range
+coding on host threads), with decode == encode checked bit for bit and
+the host coder's seconds apart from the rest.
 
-    python -m fastvideocodec_torch.tools.real_bits_fps [--codec LSVC-TPU|SSF-TPU|ELFVC-SP-TPU]
-        [--gop 16] [--h 1024] [--w 2048] [--reps 3] [--level 2]
-        [--dtype f32|bf16] [--json PATH] [--device cuda|cpu]
+    python -m fastvideocodec_torch.tools.real_bits_fps
+        [--codec LSVC-TPU|SSF-TPU|ELFVC-SP-TPU|MCVC-IA] [--gop 16] [--h H] [--w W]
+        [--views 4] [--failed 2] [--reps 3] [--level 2] [--dtype f32|bf16]
+        [--json PATH] [--device cuda|cpu]
 
 Weights: LSVC-TPU reads fastvideocodec_tpu/assets/hd_lsvctpuf2_l{level}.npz
-by path; SSF-TPU and ELFVC-SP-TPU ship no full-width checkpoint and run
-``seeded_flat(codec, 0)`` (flagged ``trained: false``), ELFVC-SP-TPU at
-sp_stage 2 (both SPnets replace y). The clip is
-synth_gop_multi with numpy seed 123. One warm-up run, then ``--reps``
-timed runs, each printing encode and decode seconds (host clock around the
-call, the card synchronised at its end, range coding included), the AC
-seconds of each, real bpp and the identity check. SSF's and ELFVC's bits
-include their coded keyframe, so their bpp is over all GOP frames; LSVC's
-is over the P-frames (frame 0 is taken as already coded).
+by path; SSF-TPU, ELFVC-SP-TPU and MCVC-IA ship no full-width checkpoint
+and run ``seeded_flat(codec, 0)`` (flagged ``trained: false``),
+ELFVC-SP-TPU at sp_stage 2 (both SPnets replace y). The clip is
+synth_gop_multi with numpy seed 123 (1024x2048 unless --h/--w say
+otherwise); MCVC-IA's (``mcvc_clip``, 256x256 unless given) is
+``--views`` views with the same seed, with the views listed in
+``--failed`` (comma-separated indexes) zeroed. One warm-up run,
+then ``--reps`` timed runs, each printing encode and decode seconds (host
+clock around the call, the card synchronised at its end, range coding
+included), the AC seconds of each, real bpp and the identity check.
+SSF's, ELFVC's and MCVC's bits include their coded keyframe, so their bpp
+is over all GOP frames (and all views); LSVC's is over the P-frames
+(frame 0 is taken as already coded).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 import fastvideocodec_torch as ft
 from fastvideocodec_torch.coder import measure_ac_time
 from fastvideocodec_torch.coder import video as cv
-from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from fastvideocodec_torch.data.synthetic import row_views, synth_gop_multi, synth_mv_gop
 from fastvideocodec_torch.ops.kernels import warp as kw
 
 
@@ -41,6 +46,7 @@ CODERS = {  # family: (tables, encode, decode)
     "lsvc": (cv.lsvc_codecs, cv.lsvc_compress, cv.lsvc_decompress),
     "ssf": (cv.ssf_codecs, cv.ssf_compress_gop, cv.ssf_decompress_gop),
     "elfvc": (cv.ssf_codecs, cv.elfvc_compress_gop, cv.elfvc_decompress_gop),
+    "mcvc": (cv.ssf_codecs, cv.mcvc_compress_gop, cv.mcvc_decompress_gop),
 }
 
 
@@ -49,25 +55,28 @@ def codecs_of(spec):
     return CODERS[spec.family][0](spec.module)
 
 
-def code_gop(spec, gop: torch.Tensor, codecs) -> dict:
-    """Encode, then decode, one GOP [T, 3, H, W] (frame 0 the I-frame for
-    LSVC, the keyframe SSF and ELFVC code); seconds by the host clock with
-    the card synchronised at the end of each, the warp launches of each,
-    bits and whether the decode equals the encode recon bit for bit."""
+def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
+    """Encode, then decode, one GOP: [T, 3, H, W] (frame 0 the I-frame for
+    LSVC, the keyframe SSF and ELFVC code), or MCVC's [T, V, 3, H, W] with
+    its view mask [V]; seconds by the host clock with the card synchronised
+    at the end of each, the warp launches of each, bits and whether the
+    decode equals the encode recon bit for bit."""
     on_card = gop.device.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    T, _, H, W = gop.shape
-    lsvc = spec.family == "lsvc"
+    T, H, W = gop.shape[0], gop.shape[-2], gop.shape[-1]
+    lsvc, mcvc = spec.family == "lsvc", spec.family == "mcvc"
+    views = gop.shape[1] if mcvc else 1
     _, compress, decompress = CODERS[spec.family]
+    args = (gop,) if lsvc else (gop, mask) if mcvc else (gop[:, None],)
     sync()
     kw.reset_launches()
     t0 = time.perf_counter()
     with measure_ac_time() as enc_ac:
-        streams, recon, bits = compress(spec, gop if lsvc else gop[:, None], codecs)
+        streams, recon, bits = compress(spec, *args, codecs)
         sync()
     enc_s = time.perf_counter() - t0
     enc_launches = dict(kw.LAUNCHES)
@@ -83,21 +92,22 @@ def code_gop(spec, gop: torch.Tensor, codecs) -> dict:
     frames = T - 1 if lsvc else T
     out = {
         "enc_s": enc_s, "dec_s": dec_s, "enc_ac_s": enc_ac["seconds"],
-        "dec_ac_s": dec_ac["seconds"], "bits": bits, "bpp": bits / (frames * H * W),
+        "dec_ac_s": dec_ac["seconds"], "bits": bits, "bpp": bits / (frames * views * H * W),
         "identical": bool(torch.equal(decoded, recon)), "enc_launches": enc_launches,
         "dec_launches": dict(kw.LAUNCHES), "recon": recon,
     }
     if not lsvc:  # the P-frames' rate, as the rollout estimates it
         inter = sum(len(s[k]["z"]) + len(s[k]["y"])
                     for s in streams["inter"] for k in ("motion", "residual"))
-        out["bpp_inter"] = 8 * inter / ((T - 1) * H * W)
+        out["bpp_inter"] = 8 * inter / ((T - 1) * views * H * W)
     return out
 
 
-def load_model(codec: str, level: int, dtype: torch.dtype, device: str):
-    """(spec, trained): LSVC-TPU's shipped weights by path, SSF-TPU's and
-    ELFVC-SP-TPU's seeded."""
-    spec = ft.get_codec_model(codec, dtype=dtype, device=device, sp_stage=SP_STAGE)
+def load_model(codec: str, level: int, dtype: torch.dtype, device: str, views: int = 1):
+    """(spec, trained): LSVC-TPU's shipped weights by path, SSF-TPU's,
+    ELFVC-SP-TPU's and MCVC-IA's (on ``views`` views) seeded."""
+    spec = ft.get_codec_model(codec, dtype=dtype, device=device, sp_stage=SP_STAGE,
+                              num_views=views)
     if codec == "LSVC-TPU":
         ft.load_asset(spec.module, f"hd_lsvctpuf2_l{level}")
         return spec, True
@@ -105,13 +115,33 @@ def load_model(codec: str, level: int, dtype: torch.dtype, device: str):
     return spec, False
 
 
+def mcvc_clip(seed: int, views: int, h: int, w: int, gop: int, failed: str = ""):
+    """MCVC's clip [T, V, 3, h, w] (a float32 tensor) and its view mask [V]
+    with the comma-separated views ``failed`` zeroed: square views are
+    synth_mv_gop's offset crops, wide ones (h < w) the ``row_views`` of a
+    synth_gop_multi clip of w x w, as chip_smoke.py's 4 x 1024x2048."""
+    rng = np.random.default_rng(seed)
+    if h == w:
+        clip = synth_mv_gop(rng, views=views, size=h, gop=gop)
+    elif h < w:
+        clip = row_views(synth_gop_multi(rng, size=w, gop=gop), views, h)
+    else:
+        raise ValueError(f"MCVC views of {h}x{w}: taller than wide")
+    mask = np.ones(views, np.float32)
+    for v in filter(None, failed.split(",")):
+        mask[int(v)] = 0.0
+    return torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3))), mask
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU"),
+    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU", "MCVC-IA"),
                     default="LSVC-TPU")
     ap.add_argument("--gop", type=int, default=16)
-    ap.add_argument("--h", type=int, default=1024)
-    ap.add_argument("--w", type=int, default=2048)
+    ap.add_argument("--h", type=int, default=None, help="1024 (MCVC-IA: 256)")
+    ap.add_argument("--w", type=int, default=None, help="2048 (MCVC-IA: 256)")
+    ap.add_argument("--views", type=int, default=4, help="MCVC-IA's views")
+    ap.add_argument("--failed", default="", help="MCVC-IA's failed views, e.g. 2 or 1,3")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--level", type=int, default=2, help="LSVC-TPU's weights level")
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
@@ -120,20 +150,30 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    spec, trained = load_model(args.codec, args.level, dtype, args.device)
-    clip = synth_gop_multi(np.random.default_rng(123), size=max(args.h, args.w), gop=args.gop)
-    gop = torch.from_numpy(np.ascontiguousarray(clip[:, : args.h, : args.w]))
-    gop = gop.permute(0, 3, 1, 2).to(args.device, dtype).contiguous()
+    mcvc = args.codec.startswith("MCVC")
+    if mcvc:
+        args.h, args.w, views = args.h or 256, args.w or 256, args.views
+        gop, mask = mcvc_clip(123, views, args.h, args.w, args.gop, args.failed)
+    else:
+        args.h, args.w, views, mask = args.h or 1024, args.w or 2048, 1, None
+        clip = synth_gop_multi(np.random.default_rng(123), size=max(args.h, args.w),
+                               gop=args.gop)
+        gop = torch.from_numpy(np.ascontiguousarray(clip[:, : args.h, : args.w]))
+        gop = gop.permute(0, 3, 1, 2)
+    spec, trained = load_model(args.codec, args.level, dtype, args.device, views)
+    gop = gop.to(args.device, dtype).contiguous()
     device = (torch.cuda.get_device_name(0) if gop.device.type == "cuda" else "cpu")
     t0 = time.perf_counter()
     codecs = codecs_of(spec)
-    print(f"{args.codec} {'trained' if trained else 'seeded'} {args.h}x{args.w} GOP{args.gop} "
-          f"{args.dtype} on {device}; tables {time.perf_counter() - t0:.3f} s", flush=True)
+    what = f"{views} views (mask {mask.tolist()}) of " if mcvc else ""
+    print(f"{args.codec} {'trained' if trained else 'seeded'} {what}{args.h}x{args.w} "
+          f"GOP{args.gop} {args.dtype} on {device}; tables {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
-    frames = args.gop - 1 if spec.family == "lsvc" else args.gop
+    frames = (args.gop - 1 if spec.family == "lsvc" else args.gop) * views
     results = []
     for rep in range(args.reps + 1):
-        r = code_gop(spec, gop, codecs)
+        r = code_gop(spec, gop, codecs, mask)
         if not r["identical"]:
             raise SystemExit(f"run {rep}: decode != encode recon")
         line = (f"enc {r['enc_s']:.3f} s (AC {r['enc_ac_s']:.3f} s) dec {r['dec_s']:.3f} s "
@@ -144,7 +184,8 @@ def main(argv=None) -> int:
     enc = min(r["enc_s"] for r in results)
     dec = min(r["dec_s"] for r in results)
     best = min(results, key=lambda r: r["enc_s"] + r["dec_s"])
-    print(f"real-bits fps (best of {args.reps}): encode {frames / enc:.2f}, decode "
+    print(f"real-bits fps (best of {args.reps}, view-frames for MCVC): encode "
+          f"{frames / enc:.2f}, decode "
           f"{frames / dec:.2f}, encode+decode {frames / (best['enc_s'] + best['dec_s']):.2f} "
           f"(bpp {best['bpp']:.6f}, trained={trained})", flush=True)
     if args.json:
@@ -152,6 +193,7 @@ def main(argv=None) -> int:
             f.write(json.dumps({
                 "tool": "fastvideocodec_torch.tools.real_bits_fps", "codec": args.codec,
                 "device": device, "dtype": args.dtype, "h": args.h, "w": args.w,
+                "views": views, "mask": None if mask is None else mask.tolist(),
                 "gop": args.gop, "level": args.level, "trained": trained,
                 "enc_s": best["enc_s"], "dec_s": best["dec_s"], "enc_ac_s": best["enc_ac_s"],
                 "dec_ac_s": best["dec_ac_s"], "bpp": best["bpp"], "identity": True,

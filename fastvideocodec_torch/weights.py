@@ -145,7 +145,8 @@ def seeded_flat(name: str, seed: int) -> dict:
     (softplus-inverse matrices, U(-0.5, 0.5) biases, zero factors,
     quantiles (-10, 0, 10)). Returns {'params/...': float32 array} in flax
     layout, for ``load_flat`` here and for the JAX package's ``apply``."""
-    shapes = flax_shapes(get_codec_model(name, device="meta").module)
+    # the weights of MCVC do not depend on its number of views
+    shapes = flax_shapes(get_codec_model(name, device="meta", num_views=1).module)
     rng = np.random.default_rng(seed)
     init_scale = 10.0
     K = len(FILTERS) + 1

@@ -1,7 +1,8 @@
 """The warp kernels' wrappers: their autograd Function, the dispatch rule and
 the host-side tile rule on the CPU; on a CUDA card, the tiled kernels'
-exactness (NaN flows included), the Function's gradients, and one
-ELFVC-SP-TPU-TINY P-frame through both pixel kernels.
+exactness (NaN flows included), the Function's gradients (pixel_warp also
+at MCVC's 18 channels on 4 views), one ELFVC-SP-TPU-TINY P-frame through
+both pixel kernels and one MCVC-IA-TINY P-frame through pixel_warp.
 
 The file imports nothing of JAX, so its ``gpu`` tests run on a card whose
 machine has none (the suite's conftest imports JAX):
@@ -35,10 +36,11 @@ TILED = tuple(SHAPES)  # every kernel is tiled, and equals its plain version bit
 S2D = ("flow_warp_s2d", "pixel_warp_s2d", "pixel_warp_s2d_sflow")  # s2d images, one body
 
 
-def inputs(name, rng, dtype=torch.float32, device="cpu", spread=150.0):
+def inputs(name, rng, dtype=torch.float32, device="cpu", spread=150.0, shapes=None):
     """Image in [0, 1), a flow of small motion plus up to +-spread px
-    (samples off the frame), float32 for the pixel warps, and a cotangent."""
-    img_shape, flow_shape = SHAPES[name]
+    (samples off the frame), float32 for the pixel warps, and a cotangent;
+    at SHAPES[name] unless ``shapes`` (image, flow) are given."""
+    img_shape, flow_shape = shapes or SHAPES[name]
     img = torch.from_numpy(rng.random(img_shape, dtype=np.float32))
     flow = rng.normal(0, 3, flow_shape) + rng.uniform(-spread, spread, flow_shape)
     flow = torch.from_numpy(flow.astype(np.float32))
@@ -223,9 +225,12 @@ def card():
 RAGGED = {
     "flow_warp": [(2, 3, 37, 141), (1, 3, 40, 268), (3, 3, 18, 34), (1, 3, 64, 512)],
     "flow_warp_s2d": [(2, 3, 38, 150), (1, 3, 40, 264), (3, 3, 18, 36), (1, 3, 64, 512)],
-    # 15 and 7 channels: kPwChunk at a time and a remainder
-    "pixel_warp": [(2, 15, 37, 141), (1, 7, 40, 268), (3, 3, 18, 34), (1, 15, 64, 512)],
+    # 15 and 7 channels: kPwChunk at a time and a remainder; 18 (MCVC's
+    # full-resolution volume) on a batch of 4 views
+    "pixel_warp": [(2, 15, 37, 141), (1, 7, 40, 268), (3, 3, 18, 34), (1, 15, 64, 512),
+                   (4, 18, 37, 141)],
 }
+C18 = (4, 18, 37, 141)  # MCVC's volume warp: 6 levels x 3 colours, 4 views
 RAGGED["pixel_warp_s2d"] = RAGGED["pixel_warp_s2d_sflow"] = RAGGED["flow_warp_s2d"]
 
 
@@ -248,6 +253,25 @@ def test_tiled_kernels_are_exact(card, name, kind, dtype):
         torch.cuda.synchronize()
         want = twarp.PLAIN[name](img, flow)
         assert torch.equal(got, want), (shape, (got.float() - want.float()).abs().max())
+
+
+@pytest.mark.gpu
+def test_pixel_warp_c18_nan_flow(card):
+    """MCVC's shape (18 channels, 4 views, ragged): NaN flows at (5, 7) of
+    view 0 and (30, 100) of view 3 give NaN in all 18 channels of those
+    outputs, exactly where the plain version has NaN, in float32 and
+    bfloat16; every other output equals it bit for bit."""
+    rng = np.random.default_rng(47)
+    for dtype in (torch.float32, torch.bfloat16):
+        img, flow = tiled_case("pixel_warp", C18, "smooth", rng, dtype, "cuda")
+        flow[0, :, 5, 7] = flow[3, :, 30, 100] = float("nan")
+        got = kwarp.launch_pixel_warp(img, flow)
+        torch.cuda.synchronize()
+        want = twarp.plain_pixel_warp(img, flow)
+        nan = want.isnan()
+        assert int(nan.sum()) == 2 * 18
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(got[~nan], want[~nan])
 
 
 @pytest.mark.gpu
@@ -287,8 +311,20 @@ def test_gradients_on_the_card(card, name, dtype):
     +-8 px: the image gradient is a bf16 scatter-add rounded in its atomic
     order, and +-150 px flows pile hundreds of samples onto the border
     pixels, whose sums that order then moves by several ulps."""
+    check_card_gradients(name, SHAPES[name], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pixel_warp_c18_gradients_on_the_card(card, dtype):
+    """As test_gradients_on_the_card, at MCVC's 18 channels on 4 views."""
+    B, C, H, W = C18
+    check_card_gradients("pixel_warp", ((B, C, H, W), (B, 2, H, W)), dtype)
+
+
+def check_card_gradients(name, shapes, dtype):
     spread = 150.0 if dtype == torch.float32 else 8.0
-    img, flow, g = inputs(name, np.random.default_rng(44), dtype, "cuda", spread)
+    img, flow, g = inputs(name, np.random.default_rng(44), dtype, "cuda", spread, shapes)
     kwarp.reset_launches()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -336,3 +372,57 @@ def test_elfvc_p_frame_launches_both_pixel_kernels_on_the_card(card):
     assert set(cpu_launches.values()) == {0}
     assert float((card - cpu).abs().mean()) <= 1e-4
     assert abs(card_bpp - cpu_bpp) <= 1e-3 * cpu_bpp
+
+
+@pytest.mark.gpu
+def test_mcvc_p_frame_launches_pixel_warp_once_on_the_card(card):
+    """MCVC-IA-TINY (tiny_mcvc_l3), 3 views of 64x64 with view 1 failed, a
+    keyframe and one P-frame in float32, TF32 off: on the card pixel_warp
+    launches once (the P-frame's volume warp, C = 18 on 3 views) and
+    nothing else does; on the CPU nothing launches. The card's recon is
+    within 1e-4 mean abs of the CPU's and its bpp within 1e-3 relative."""
+    import fastvideocodec_torch as ft
+    from fastvideocodec_torch.data.synthetic import synth_mv_gop
+
+    clip = synth_mv_gop(np.random.default_rng(0), views=3, size=64, gop=2)
+    gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))
+    mask = np.asarray([1.0, 0.0, 1.0], np.float32)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            spec = ft.get_codec_model("MCVC-IA-TINY", device=device, num_views=3)
+            ft.load_asset(spec.module, "tiny_mcvc_l3")
+            kwarp.reset_launches()
+            recon, metrics = ft.rollout(spec, gop.to(device), mask)
+            out[device] = (recon.cpu(), float(metrics["bpp_est"].sum()), dict(kwarp.LAUNCHES))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (card, card_bpp, launches), (cpu, cpu_bpp, cpu_launches) = out["cuda"], out["cpu"]
+    assert launches == {**{k: 0 for k in launches}, "pixel_warp": 1}
+    assert set(cpu_launches.values()) == {0}
+    assert float((card - cpu).abs().mean()) <= 1e-4
+    assert abs(card_bpp - cpu_bpp) <= 1e-3 * cpu_bpp
+
+
+@pytest.mark.gpu
+def test_mcvc_compress_takes_a_card_mask(card):
+    """MCVC-IA-TINY real bits with the view mask a CUDA tensor, as a caller
+    on the card holds it: the streams carry the mask, decode == encode bit
+    for bit, and each side's P-frame launches pixel_warp once."""
+    import fastvideocodec_torch as ft
+    from fastvideocodec_torch.coder import video as tv
+    from fastvideocodec_torch.data.synthetic import synth_mv_gop
+
+    clip = synth_mv_gop(np.random.default_rng(0), views=3, size=64, gop=2)
+    gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3))).cuda()
+    spec = ft.get_codec_model("MCVC-IA-TINY", device="cuda", num_views=3)
+    ft.load_asset(spec.module, "tiny_mcvc_l3")
+    mask = torch.tensor([1.0, 0.0, 1.0], device="cuda")
+    kwarp.reset_launches()
+    streams, recon, bits = tv.mcvc_compress_gop(spec, gop, mask)
+    decoded = tv.mcvc_decompress_gop(spec, streams)
+    assert streams["mask"] == [1.0, 0.0, 1.0] and bits > 0
+    assert torch.equal(decoded, recon)
+    assert dict(kwarp.LAUNCHES) == {**{k: 0 for k in kwarp.LAUNCHES}, "pixel_warp": 2}

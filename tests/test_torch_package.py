@@ -9,9 +9,13 @@
 - The weight loader raises on unknown and on missing parameters.
 - Entry points default to the card, and a CUDA-side tensor never reaches
   a warp's plain version (on the ELFVC path too).
-- ``seeded_flat`` gives the keys and shapes of the JAX modules' ``init``,
-  and its SSF-TPU draws are those of the slice before ELFVC's.
+- ``seeded_flat`` gives the keys and shapes of the JAX modules' ``init``
+  (MCVC's too), its SSF-TPU draws are those of the slice before ELFVC's
+  and its ELFVC-SP-TPU draws those of the slice before MCVC's.
 - The s2d=1 ELFVC forms are not ported yet and say so.
+- MCVC runs without JAX, defaults to the card, sends its volume warp to
+  the pixel_warp kernel once a P-frame off the CPU, and maps the shipped
+  tiny_mcvc_l{0,3,6} completely.
 - The port holds only small text files, and builds its kernels with nvcc
   alone: no PyTorch extension builder, no PyTorch C++ headers.
 """
@@ -32,6 +36,7 @@ from fastvideocodec_torch.ops.kernels import build
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "fastvideocodec_torch"
+ELFVC_SP_TPU_SEEDED_SHA256 = "1d5b44f2e39bd50fdb17b75d90a53736fe236cfaf3bf44b27a23eb6576d6f5ce"
 
 BLOCKER = """
 import sys
@@ -58,6 +63,7 @@ def test_port_imports_without_jax():
         "import pkgutil, importlib, fastvideocodec_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'fastvideocodec_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'fastvideocodec_torch.models.mcvc' in sys.modules\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
         "assert not bad, bad\n"
@@ -232,7 +238,8 @@ def test_shipped_ssf_weights_map_completely():
         "params/res_hyperprior/bottleneck/matrix_4"] == (48, 1, 3)
 
 
-@pytest.mark.parametrize("name", ["SSF-TPU", "SSF-TPU-TINY", "ELFVC-SP-TPU", "ELFVC-TPU-TINY"])
+@pytest.mark.parametrize("name", ["SSF-TPU", "SSF-TPU-TINY", "ELFVC-SP-TPU", "ELFVC-TPU-TINY",
+                                  "MCVC-IA", "MCVC-IA-TINY"])
 def test_seeded_flat_has_the_jax_init_keys_and_shapes(name):
     """Keys and shapes equal those of the JAX module's init (traced with
     eval_shape, which computes nothing); the deterministic initialisers
@@ -245,9 +252,14 @@ def test_seeded_flat_has_the_jax_init_keys_and_shapes(name):
     from fastvideocodec_tpu.entropy.factorized import EntropyBottleneck
     from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 
-    module = jax_get_codec_model(name).module
-    shapes = jax.eval_shape(lambda k, f: module.init(k, f),
-                            jax.random.PRNGKey(0), jnp.zeros((2, 1, 32, 64, 3)))
+    module = jax_get_codec_model(name, num_views=1).module
+    if name.startswith("MCVC"):  # a view mask, and its weights do not depend on the views
+        def init(k, f):
+            return module.init(k, f, jnp.ones((1,)), training=False)
+    else:
+        def init(k, f):
+            return module.init(k, f)
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), jnp.zeros((2, 1, 32, 64, 3)))
     want = {"/".join(path): leaf.shape for path, leaf in _paths(shapes)}
     flat = ft.weights.seeded_flat(name, 0)
     assert {k: v.shape for k, v in flat.items()} == want
@@ -431,3 +443,89 @@ def test_seeded_ssf_weights_are_unchanged():
         h.update(np.ascontiguousarray(flat[key], np.float32).tobytes())
     assert len(flat) == 141
     assert h.hexdigest() == "b0fd06ea58fc48050865cd7aee59ad3ddce4cc9b75eb7a81f0cc76b791ed9dcc"
+
+
+def test_mcvc_rollout_and_real_bits_run_without_jax():
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.coder import video as cv\n"
+        "from fastvideocodec_torch.data.synthetic import synth_mv_gop\n"
+        "spec = ft.get_codec_model('MCVC-IA-TINY', device='cpu', num_views=3)\n"
+        "ft.load_asset(spec.module, 'tiny_mcvc_l3')\n"
+        "clip = synth_mv_gop(np.random.default_rng(0), views=3, size=32, gop=2)\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))\n"
+        "mask = np.asarray([1, 0, 1], np.float32)\n"
+        "recon, m = ft.rollout(spec, gop, mask)\n"
+        "assert recon.shape == (2, 3, 3, 32, 32) and bool(torch.isfinite(recon).all())\n"
+        "assert float(m['bpp_est'][1]) > 0 and abs(float(m['completeness']) - 2 / 3) < 1e-6\n"
+        "streams, rec, bits = cv.mcvc_compress_gop(spec, gop, mask)\n"
+        "assert torch.equal(cv.mcvc_decompress_gop(spec, streams), rec) and bits > 0\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+@pytest.mark.parametrize("name", ["MCVC", "MCVC-IA", "MCVC-IA-OLFT", "MCVC-IA-TINY"])
+def test_mcvc_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        spec = ft.get_codec_model(name, num_views=2)
+        assert next(spec.module.parameters()).device.type == "cuda"
+    else:
+        with (pytest.raises((RuntimeError, AssertionError))):
+            ft.get_codec_model(name, num_views=2)
+
+
+def test_mcvc_path_off_cpu_launches_pixel_warp_once_a_p_frame(monkeypatch):
+    """One MCVC-IA-TINY P-frame on meta tensors (not the CPU), 2 items of 3
+    views: the volume warp goes to pixel_warp's launcher once, with all 18
+    channels of the 6 folded views, and no warp reaches a plain version.
+    The launchers are stood in for by ones that count and return empty
+    outputs, since there is no card here."""
+    from fastvideocodec_torch.ops import warp as twarp
+    from fastvideocodec_torch.ops.kernels import warp as kwarp
+
+    calls, reached = [], []
+    for name in twarp.PLAIN:
+        monkeypatch.setitem(twarp.PLAIN, name, lambda *a, n=name: reached.append(n))
+        monkeypatch.setattr(kwarp, f"launch_{name}",
+                            lambda img, flow, n=name: calls.append((n, tuple(img.shape)))
+                            or torch.empty_like(img))
+    m = ft.get_codec_model("MCVC-IA-TINY", device="meta", num_views=3).module
+    x = torch.empty(6, 3, 32, 64, device="meta")
+    with torch.inference_mode():
+        rec, enh, _ = m.forward_inter(x, x, torch.ones(6, device="meta"))
+    assert rec.shape == enh.shape == x.shape
+    assert calls == [("pixel_warp", (6, 18, 32, 64))]
+    assert not reached
+
+
+@pytest.mark.parametrize("level", [0, 3, 6])
+def test_shipped_mcvc_weights_map_completely(level):
+    """tiny_mcvc_l{0,3,6}: MCVC-IA-TINY, every one of the 169 keys mapped
+    and every parameter set (the loader raises otherwise)."""
+    spec = ft.get_codec_model("MCVC-IA-TINY", device="cpu", num_views=3)
+    with np.load(ft.weights.asset_path(f"tiny_mcvc_l{level}")) as data:
+        assert len(data.files) == 169
+        ft.weights.load_flat(spec.module, {k: data[k] for k in data.files})
+        w = data["params/backup_res_decoder/ConvAttention_0/Conv_0/kernel"]
+    got = spec.module.backup_res_decoder.ConvAttention_0.Conv_0.weight
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  w.astype(np.float32).transpose(3, 2, 0, 1))
+    assert set(ft.weights.flax_shapes(spec.module)) == set(data.files)
+
+
+def test_seeded_elfvc_weights_are_unchanged():
+    """seeded_flat("ELFVC-SP-TPU", 0): a sha256 over its sorted keys and
+    float32 bytes, taken on the tree before the MCVC slice (its transforms
+    gained the s2d=1 form without moving a draw)."""
+    import hashlib
+
+    flat = ft.weights.seeded_flat("ELFVC-SP-TPU", 0)
+    h = hashlib.sha256()
+    for key in sorted(flat):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(flat[key], np.float32).tobytes())
+    assert h.hexdigest() == ELFVC_SP_TPU_SEEDED_SHA256
