@@ -106,13 +106,35 @@ Phases, each timed on its own line:
 22. MCVC real bits: 4 views of 256x256, view 2 failed, through
    mcvc_compress_gop and mcvc_decompress_gop as in phase 12: launches
    exactly 15 + 15, decode == encode bit for bit, real bpp within 5% of
-   the model's estimate over the same GOP and mask.
+   the model's estimate over the same GOP and mask;
+23. stock card vs CPU: the stock (s2d=1) tiny models SSF-TINY
+   (tiny_ssf_l2) and ELFVC-SP-TINY (tiny_elfvc_l3, sp_stage 2) as in
+   phase 8, with bars of their own for bf16 (STOCK_*: the stock forms'
+   rates and PSNR move more in bf16, in JAX too);
+24. SSF-Official rollout: full widths, seeded_flat("SSF-Official", 0),
+   bf16, 1024x2048, GOP 16, the clip of phase 5: one run with the launch
+   counts zeroed (exactly 15 pixel_warp at C = 18 full resolution, no
+   other warp), then 3 timed runs with their host enqueue times and peak
+   memory;
+25. pixel_warp on SSF-Official's own volume (1 x 18 x 1024x2048), as in
+   phase 7: warm and L2-flushed against its byte bound and F.grid_sample;
+26. SSF-Official real bits as in phase 13: launches exactly 15 + 15,
+   decode == encode, real bpp within 5% of the forward's estimate;
+27. ELFVC-SP (sp_stage 2) at full widths, seeded, the same clip: the
+   rollout (exactly 30 pixel_warp), the full-resolution flow predictor
+   alone with and without deterministic_convs, and real bits (launches
+   exactly 30 + 15);
+28. MCVC-Original: stock SSF over the 4 views of 256x256 of phase 18 as a
+   batch, seeded: the rollout (15 pixel_warp over the 4 views), the
+   keyframe-coded forward timed, and real bits (15 + 15).
 
-It then prints a JSON line of MCVC's numbers, a JSON line of the kernels
+It then prints a JSON line of MCVC's numbers, a JSON line of the stock
+codecs' numbers, a JSON line of the kernels
 (each with its launches on every path it was counted on; ``launches`` and
 the times are those of the newest path that runs it: the ELFVC rollout
 for the two s2d pixel warps, MCVC-IA at 4 x 1024x2048 for pixel_warp,
-whose SSF-TPU and 4 x 256x256 timings stand beside them), the card's name
+whose SSF-TPU and 4 x 256x256 timings stand beside them, with
+SSF-Official's under ``timing_by_path``), the card's name
 and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -144,6 +166,14 @@ ELFVC_BF16_BPP_REL = 0.05
 ELFVC_SEEDED_BF16_PSNR_DB = 0.25
 ELFVC_SEEDED_BF16_BPP_REL = 0.1
 ELFVC_SP_STAGE = 2
+# the stock tiny models' bf16 against f32 (SSF-TINY tiny_ssf_l2, ELFVC-SP-TINY
+# tiny_elfvc_l3): their rates and PSNR move more in bf16 than the -TPU forms'
+# (the CPU port measured 0.015 dB and 0.107 for SSF-TINY, 0.238 dB and 0 for
+# ELFVC-SP-TINY; JAX's own bf16 rollout sits 6.7-18% in rate per P-frame from
+# its f32 for SSF-TINY, 0.10-0.37 dB in PSNR for ELFVC-SP-TINY)
+STOCK_SSF_BF16_PSNR_DB = SSF_BF16_PSNR_DB
+STOCK_SSF_BF16_BPP_REL = 0.15
+STOCK_ELFVC_BF16_PSNR_DB = 0.4
 # MCVC-IA-TINY (tiny_mcvc_l3) bf16 against f32, 3 views of 64x64, GOP 4 (the
 # CPU port measured 0.0094 dB and 0.0048, an H100 0.0056 dB and 0.0028)
 MCVC_BF16_PSNR_DB = 0.03
@@ -953,8 +983,8 @@ def main() -> int:
                 f"bit; launches encode {r['enc_launches']} decode {r['dec_launches']}")
         recon = r["recon"]
         require(bool(torch.isfinite(recon).all()), "real-bits recon not finite")
-        frames, what = (GOP - 1, "P-frames") if mask is None else (GOP * len(mask),
-                                                                     "view-frames")
+        views = clip.shape[1] if clip.dim() == 5 else 1
+        frames, what = (GOP - 1, "P-frames") if views == 1 else (GOP * views, "view-frames")
         log(f"real bits: encode ms/GOP {[round(x['enc_s'] * 1e3, 3) for x in runs]}, decode "
             f"ms/GOP {[round(x['dec_s'] * 1e3, 3) for x in runs]}, encode+decode fps of the "
             f"{what} {[round(frames / (x['enc_s'] + x['dec_s']), 3) for x in runs]}; peak "
@@ -1292,6 +1322,166 @@ def main() -> int:
                                     "random_ms", "library_ms")}
         for k, v in mcvc_timing.items()}}}))
 
+    # -- the stock (s2d=1) scale-space codecs: SSF-Official, ELFVC-SP and
+    # MCVC-Original, full resolution through pixel_warp at C = 18
+    from fastvideocodec_torch.coder.video import deterministic_convs
+
+    with phase("stock ssf/elfvc card vs cpu port"):
+        chain_card_vs_cpu("ssf stock", "SSF-TINY", "tiny_ssf_l2", STOCK_SSF_BF16_PSNR_DB,
+                          STOCK_SSF_BF16_BPP_REL)
+        chain_card_vs_cpu("elfvc stock", "ELFVC-SP-TINY", "tiny_elfvc_l3",
+                          STOCK_ELFVC_BF16_PSNR_DB, ELFVC_BF16_BPP_REL, norms=("pred_err_norm",))
+
+    stock_rows, stock_want = {}, {**zero_counts, "pixel_warp": GOP - 1}
+
+    def stock_model(name):
+        spec = get_codec_model(name, dtype=torch.bfloat16, device="cuda",
+                               sp_stage=ELFVC_SP_STAGE)
+        t0 = time.perf_counter()
+        load_flat(spec.module, seeded_flat(name, 0))
+        log(f"{name} seeded weights: {sum(p.numel() for p in spec.module.parameters())} "
+            f"parameters in {time.perf_counter() - t0:.3f} s")
+        return spec
+
+    def stock_rollout(label, spec, frames, per_frame):
+        """One run with the launch counts zeroed (exactly ``per_frame``
+        pixel_warp a P-frame, no other warp), then 3 timed runs beside their
+        host enqueue ms; frames [T, 3, H, W] or a batch of views."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        com, m = rollout(spec, frames)
+        torch.cuda.synchronize()
+        launches = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {**zero_counts, "pixel_warp": per_frame * (GOP - 1)}
+        require(launches == want, f"{label}: launches {launches}, want {want}")
+        psnr, bpp = m["psnr"].float().cpu(), m["bpp_est"].float().cpu()
+        require(tuple(com.shape) == (GOP - 1, *frames.shape[1:]),
+                f"{label}: recon {tuple(com.shape)}")
+        require(bool(torch.isfinite(com).all()), f"{label}: recon not finite")
+        require(bool(torch.isfinite(psnr).all() and torch.isfinite(bpp).all())
+                and float(bpp.min()) > 0.0, f"{label}: psnr {psnr.tolist()} bpp {bpp.tolist()}")
+        extra = ""
+        if "pred_err_norm" in m:
+            pred_err = m["pred_err_norm"].float().cpu()
+            require(bool(torch.isfinite(pred_err).all()), f"{label}: pred_err_norm")
+            extra = f"; pred_err_norm mean {float(pred_err.mean()):.4f}"
+        del com, m
+        times, enqueue = timed_runs(rollout, spec, frames)
+        ms = sum(times) / len(times)
+        pixels = (GOP - 1) * frames[0].numel() // 3
+        stock_rows[label] = {"ms_per_gop": times, "ms": ms, "enqueue_ms": enqueue,
+                             "peak_gib": peak, "launches": launches["pixel_warp"],
+                             "bpp": float(bpp.mean()), "psnr": float(psnr.mean())}
+        log(f"{label} rollout: ms/GOP {times} mean {ms:.3f}; host enqueue ms/GOP "
+            f"{[round(t, 3) for t in enqueue]}; P-frame pixels/s {pixels / ms * 1e3:.4e}; bpp "
+            f"(random weights, not gated) mean {float(bpp.mean()):.6f}; psnr mean "
+            f"{float(psnr.mean()):.4f}{extra}; peak memory {peak:.3f} GiB; launches {launches}")
+        return launches
+
+    def stock_real_bits(label, spec, frames, per_frame_enc, per_frame_dec):
+        """Real bits of ``frames`` (a warm-up GOP and 3), held within 5% of the
+        model's estimate over the same GOP, keyframe coded as the coder codes
+        it; returns the last run's encode and decode launches."""
+        batch = frames if frames.dim() == 5 else frames[:, None]
+        with torch.inference_mode():
+            _, liks = spec.module(batch)
+        est = estimated_bits(liks) / (GOP * batch[0].numel() // 3)
+        del liks
+        runs = real_bits(spec, codecs_of(spec), {"pixel_warp": per_frame_enc * (GOP - 1)},
+                         {"pixel_warp": per_frame_dec * (GOP - 1)}, est,
+                         lambda r: f" over {GOP} frames, {r['bpp_inter']:.6f} over the P-frames",
+                         clip=frames)
+        recon = runs[-1]["recon"]
+        require(tuple(recon.shape) == tuple(batch.shape), f"{label}: recon {tuple(recon.shape)}")
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"{label} real bits (seeded weights): bpp {runs[-1]['bpp']:.6f} vs the model's "
+            f"estimate {est:.6f} over the same {GOP} frames (rel {rel:.4f}, tolerance 0.05)")
+        require(rel < 0.05, f"{label} real bits far from the model's estimate")
+        stock_rows[label]["real_bits"] = {
+            "enc_ms": [r["enc_s"] * 1e3 for r in runs], "dec_ms": [r["dec_s"] * 1e3 for r in runs],
+            "bpp": runs[-1]["bpp"], "est_bpp": est}
+        return runs[-1]["enc_launches"], runs[-1]["dec_launches"]
+
+    stock_launches = {}
+    ospec = stock_model("SSF-Official")
+    with phase(f"ssf-official rollout {H}x{W} GOP16 bf16"):
+        stock_launches["ssf_official_rollout"] = stock_rollout("ssf-official", ospec, gop, 1)
+
+    stock_timing = {}
+    with phase("ssf-official kernel timing (bf16, one GOP's pixel_warp launches at C = 18)"):
+        captured = {}
+        with capture_warp_inputs(captured):
+            rollout(ospec, gop)
+        require(len(captured.get("pixel_warp", [])) == GOP - 1
+                and all(tuple(img.shape) == (1, 18, H, W) for img, _ in captured["pixel_warp"]),
+                f"captured {[(k, len(v)) for k, v in captured.items()]}")
+        orows, olib = {}, {}
+        time_kernels(("pixel_warp",), captured, orows, olib, ssf_library)
+        r = orows["pixel_warp"]
+        stock_timing["ssf_official_rollout"] = {**r, "library_ms": olib["pixel_warp"],
+                                                "launches": GOP - 1}
+        log(f"pixel_warp C = 18 at 1 x {H}x{W} (SSF-Official): kernel {r['ms']:.4f} ms/GOP "
+            f"(L2 flushed {r['cold_ms']:.4f}) against its byte bound {r['bound_ms']:.4f} "
+            f"({r['bound_ms'] / r['ms']:.3f} of it), plain {r['plain_ms']:.4f} and "
+            f"F.grid_sample {olib['pixel_warp']:.4f}")
+        del captured
+
+    with phase(f"ssf-official real bits {H}x{W} GOP16 bf16"):
+        enc, dec = stock_real_bits("ssf-official", ospec, gop, 1, 1)
+        stock_launches.update(ssf_official_real_bits_encode=enc, ssf_official_real_bits_decode=dec)
+    del ospec
+
+    xspec = stock_model("ELFVC-SP")
+    with phase(f"elfvc-sp rollout {H}x{W} GOP16 bf16 (sp_stage {ELFVC_SP_STAGE})"):
+        stock_launches["elfvc_sp_rollout"] = stock_rollout("elfvc-sp", xspec, gop, 2)
+        # the full-resolution flow predictor alone, 9 -> 128 -> 128 -> 128 -> 3
+        # 5x5 convs at 1024x2048: about 3.6 TFLOP a call, once a P-frame
+        fp = xspec.module.flow_predictor
+        ctx = torch.rand((1, 9, H, W), generator=gen, device="cuda").to(torch.bfloat16)
+        flops = 2 * 25 * H * W * sum(c.in_channels * c.out_channels
+                                     for c in (fp.Conv_0, fp.Conv_1, fp.Conv_2, fp.Conv_3))
+        with torch.inference_mode():
+            free_ms = cuda_ms(torch, fp, ctx, iters=5)
+            with deterministic_convs():
+                det_ms = cuda_ms(torch, fp, ctx, iters=5)
+        stock_rows["elfvc-sp"]["flow_predictor"] = {"ms": free_ms, "deterministic_ms": det_ms,
+                                                    "tflop": flops / 1e12}
+        log(f"flow predictor (1, 9, {H}, {W}) bf16: {flops / 1e12:.3f} TFLOP a call; "
+            f"{free_ms:.3f} ms ({flops / free_ms / 1e9:.1f} TFLOP/s), under "
+            f"deterministic_convs (the real bits') {det_ms:.3f} ms "
+            f"({flops / det_ms / 1e9:.1f} TFLOP/s); {GOP - 1} calls a GOP")
+        del ctx
+
+    with phase(f"elfvc-sp real bits {H}x{W} GOP16 bf16"):
+        enc, dec = stock_real_bits("elfvc-sp", xspec, gop, 2, 1)
+        stock_launches.update(elfvc_sp_real_bits_encode=enc, elfvc_sp_real_bits_decode=dec)
+    del xspec
+
+    gspec = stock_model("MCVC-Original")
+    with phase(f"mcvc-original rollout {MCVC_VIEWS}x{MCVC_SIZE}x{MCVC_SIZE} GOP16 bf16"):
+        # stock SSF with the views as the batch: the rollout predicts from
+        # frame 0; the forward codes the keyframe, as MCVC's phase does
+        label = f"mcvc-original {MCVC_VIEWS}x{MCVC_SIZE}"
+        stock_launches["mcvc_original_rollout"] = stock_rollout(label, gspec, mv_small, 1)
+        kw.reset_launches()
+        with torch.inference_mode():
+            times, enqueue = timed_runs(gspec.module, mv_small)
+        require(dict(kw.LAUNCHES) == {**zero_counts, "pixel_warp": 3 * (GOP - 1)},
+                f"{label} forward: launches {kw.LAUNCHES}")
+        ms = sum(times) / len(times)
+        stock_rows[label]["keyframe_coded_ms"] = times
+        log(f"{label} forward, keyframe coded: ms/GOP {times} mean {ms:.3f}; ms per view-frame "
+            f"{ms / (GOP * MCVC_VIEWS):.4f}; host enqueue ms/GOP {[round(t, 3) for t in enqueue]}")
+
+    with phase(f"mcvc-original real bits {MCVC_VIEWS}x{MCVC_SIZE}x{MCVC_SIZE} GOP16 bf16"):
+        enc, dec = stock_real_bits(label, gspec, mv_small, 1, 1)
+        stock_launches.update(mcvc_original_real_bits_encode=enc,
+                              mcvc_original_real_bits_decode=dec)
+    del gspec, mv_small
+    log(json.dumps({"stock": stock_rows}))
+
     by_path = {name: {"lsvc_rollout": rollout_launches[name],
                       "lsvc_decode_graph": decode_launches[name],
                       "ssf_rollout": ssf_launches[name],
@@ -1300,7 +1490,9 @@ def main() -> int:
                       "elfvc_real_bits_decode": elfvc_dec[name],
                       "mcvc_rollout": mcvc_launches[name],
                       "mcvc_real_bits_encode": mcvc_enc[name],
-                      "mcvc_real_bits_decode": mcvc_dec[name]} for name in kernels}
+                      "mcvc_real_bits_decode": mcvc_dec[name],
+                      **{path: n[name] for path, n in stock_launches.items()}}
+                for name in kernels}
     # each kernel's top-level numbers stay on the path that defined them in
     # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
     # timing and ELFVC-SP-TPU's launches for the pixel warps); pixel_warp's
@@ -1309,6 +1501,7 @@ def main() -> int:
                 **{k: elfvc_launches[k] for k in SSF_KERNELS}}
     timing = {f"mcvc_rollout_{k}": {**v, "launches": mcvc_rows[f"{k} alive"]["launches"]}
               for k, v in mcvc_timing.items()}
+    timing.update(stock_timing)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "launches")
     report = {"kernels": [
         {

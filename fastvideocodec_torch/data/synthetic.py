@@ -1,8 +1,11 @@
-"""Seeded synthetic clips (numpy only): copies of ``synth_mv_gop`` and
-``synth_gop_multi`` from fastvideocodec_tpu/data/synthetic.py, with the
-same draw order, so that the port imports nothing of the JAX package and
-both packages see identical clips from one seed; and ``row_views``, the
-port's multi-view clips at sizes ``synth_mv_gop`` does not make."""
+"""Seeded synthetic clips (numpy only): copies of ``synth_gop``,
+``synth_mv_gop``, ``synth_gop_multi`` and ``synth_gop_lowrate`` from
+fastvideocodec_tpu/data/synthetic.py, with the same draw order, so that
+the port imports nothing of the JAX package and both packages see
+identical clips from one seed; and ``row_views``, the port's multi-view
+clips at sizes ``synth_mv_gop`` does not make. The golden RD tests draw
+their held-out clips from seed 123; the shipped tiny checkpoints were
+trained on seed 0."""
 
 from __future__ import annotations
 
@@ -17,6 +20,24 @@ def _smooth(base: np.ndarray, rounds: int = 3) -> np.ndarray:
             + np.roll(base, 1, 1) + np.roll(base, -1, 1)
         ) / 5.0
     return (base - base.min()) / (base.max() - base.min() + 1e-6)
+
+
+def synth_gop(rng: np.random.Generator, size: int = 64, gop: int = 4):
+    """Smooth translating texture plus light noise: the training
+    distribution of the shipped tiny checkpoints. Returns [T, H, W, 3]
+    float32 in [0, 1]."""
+    H = W = size
+    T = gop
+    base = rng.random((H * 2, W * 2, 3)).astype(np.float32)
+    base = _smooth(base)
+    dx, dy = rng.integers(-3, 4, size=2)
+    frames = []
+    ox, oy = H // 2, W // 2
+    for t in range(T):
+        f = base[ox + t * dy : ox + t * dy + H, oy + t * dx : oy + t * dx + W]
+        f = np.clip(f + rng.normal(0, 0.01, f.shape).astype(np.float32), 0, 1)
+        frames.append(f)
+    return np.stack(frames)
 
 
 def synth_mv_gop(rng: np.random.Generator, views: int = 3, size: int = 64,
@@ -110,6 +131,13 @@ def synth_gop_multi(rng: np.random.Generator, size: int = 128, gop: int = 8,
             f = f + rng.normal(0, noise, f.shape).astype(np.float32)
         frames.append(np.clip(f, 0, 1))
     return np.stack(frames)
+
+
+def synth_gop_lowrate(rng: np.random.Generator, size: int = 128, gop: int = 8):
+    """The low-entropy form of ``synth_gop_multi``: the same scene, without
+    noise and smoothed over 8 rounds, so that trained codecs run at low
+    rates (the low-rate golden rung, lr_* checkpoints)."""
+    return synth_gop_multi(rng, size=size, gop=gop, noise=0.0, smooth_rounds=8)
 
 
 def row_views(clip: np.ndarray, views: int, h: int) -> np.ndarray:

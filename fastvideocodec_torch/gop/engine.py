@@ -1,6 +1,7 @@
 """GOP rollouts of the port, from fastvideocodec_tpu/gop/engine.py: the
 LSVC whole-GOP call (``lsvc_gop``), the SSF chain of inter frames
-(``ssf_gop``), the ELFVC chain with its temporal state (``elfvc_gop``) and
+(``ssf_gop``; SSF-Official, SSF-TPU, MCVC-Original), the ELFVC chain with
+its temporal state (``elfvc_gop``), both over a batch, and
 the MCVC multi-view GOP with its view mask (``mcvc_gop``), dispatched by
 family in ``rollout``."""
 
@@ -10,7 +11,6 @@ import torch
 
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.math import bits_estimate, psnr_from_mse
-from fastvideocodec_torch.ops.warp import depth_to_space, space_to_depth
 
 
 @torch.inference_mode()
@@ -31,8 +31,9 @@ def lsvc_gop(spec: CodecSpec, gop: torch.Tensor):
 
 
 def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
-    """Per-frame metrics of an s2d frame [B, 12, H/2, W/2], float32: bpp
-    is per full-resolution pixel."""
+    """Per-frame metrics of a frame in the codec's domain ([B, 3, H, W], or
+    [B, 12, H/2, W/2] in the s2d form), float32: bpp is per full-resolution
+    pixel over the B items."""
     B, C, H, W = x_cur.shape
     denom = B * H * W * (C // 3)
     mot = bits_estimate(lik["motion"]["y"]) + bits_estimate(lik["motion"]["z"])
@@ -46,50 +47,65 @@ def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
     }
 
 
+def _fold(module, gop: torch.Tensor) -> torch.Tensor:
+    """gop [T, 3, H, W] (batch 1) or [T, B, 3, H, W] -> the codec's domain,
+    [T, B, ...] in the model dtype, folded once."""
+    frames = gop[:, None] if gop.dim() == 4 else gop
+    return module.fold_gop(frames.to(module.dtype))
+
+
+def _unfold(module, recons: list, gop: torch.Tensor) -> torch.Tensor:
+    """The P-frames' recons, unfolded once, at the rank of ``gop``."""
+    recon = module.unfold_gop(torch.stack(recons))
+    return recon[:, 0] if gop.dim() == 4 else recon
+
+
+def _stack(per_frame: list) -> dict:
+    return {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
+
+
 @torch.inference_mode()
 def ssf_gop(spec: CodecSpec, gop: torch.Tensor):
-    """gop [T, 3, H, W] with frame 0 the (uncoded) reference -> (recon
-    [T-1, 3, H, W], metrics). The GOP folds into the s2d domain once, the
-    P-frames run a chain of ``forward_inter`` calls (batch 1), and the
-    recon unfolds once. Metrics are float32 [T-1] stacks of ``img_loss``,
-    ``psnr``, ``bpp_est`` and ``bpp_res_est``."""
+    """gop [T, 3, H, W] or [T, B, 3, H, W] with frame 0 the (uncoded)
+    reference -> (recon [T-1, (B,) 3, H, W], metrics): the GOP folds into
+    the codec's domain once (the s2d domain for SSF-TPU), the P-frames run
+    a chain of ``forward_inter`` calls, and the recon unfolds once.
+    MCVC-Original runs here with the views as the batch. Metrics are
+    float32 [T-1] stacks of ``img_loss``, ``psnr``, ``bpp_est`` and
+    ``bpp_res_est``."""
     module = spec.module
-    frames = space_to_depth(gop.to(module.dtype), module.S2D)
-    x_prev = frames[0:1]
+    x = _fold(module, gop)
+    x_prev = x[0]
     recons, per_frame = [], []
-    for i in range(1, frames.shape[0]):
-        x_cur = frames[i:i + 1]
-        x_prev, lik = module.forward_inter(x_cur, x_prev)
+    for i in range(1, x.shape[0]):
+        x_prev, lik = module.forward_inter(x[i], x_prev)
         recons.append(x_prev)
-        per_frame.append(_ssf_metrics(x_cur, x_prev, lik))
-    metrics = {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
-    return depth_to_space(torch.cat(recons), module.S2D), metrics
+        per_frame.append(_ssf_metrics(x[i], x_prev, lik))
+    return _unfold(module, recons, gop), _stack(per_frame)
 
 
 @torch.inference_mode()
 def elfvc_gop(spec: CodecSpec, gop: torch.Tensor):
-    """gop [T, 3, H, W] with frame 0 the (uncoded) reference -> (recon
-    [T-1, 3, H, W], metrics). As ``ssf_gop``, with the ELFVC state starting
-    at zeros; with ``super_prec`` the metrics add ``pred_err_norm`` and
-    ``Q_err_norm``, the sums over the frame's hyperpriors of the L2 norms
-    of pred_y - y and of round(y - means) + means - y. All float32 [T-1]."""
+    """As ``ssf_gop``, with the ELFVC state starting at zeros; with
+    ``super_prec`` the metrics add ``pred_err_norm`` and ``Q_err_norm``,
+    the sums over the frame's hyperpriors of the L2 norms of pred_y - y
+    and of round(y - means) + means - y. All float32 [T-1]."""
     module = spec.module
-    frames = space_to_depth(gop.to(module.dtype), module.S2D)
-    x_prev = frames[0:1]
-    state = module.init_state(1, *frames.shape[2:])
+    x = _fold(module, gop)
+    x_prev = x[0]
+    B, _, h, w = x_prev.shape
+    state = module.init_state(B, h, w)
     recons, per_frame = [], []
-    for i in range(1, frames.shape[0]):
-        x_cur = frames[i:i + 1]
-        x_prev, out, state = module.forward_inter(x_cur, x_prev, state)
+    for i in range(1, x.shape[0]):
+        x_prev, out, state = module.forward_inter(x[i], x_prev, state)
         recons.append(x_prev)
-        metrics = _ssf_metrics(x_cur, x_prev, out)
+        metrics = _ssf_metrics(x[i], x_prev, out)
         if module.super_prec:
             for key in ("pred_err", "Q_err"):
                 metrics[f"{key}_norm"] = sum(torch.linalg.vector_norm(e.float())
                                              for e in out[key])
         per_frame.append(metrics)
-    metrics = {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
-    return depth_to_space(torch.cat(recons), module.S2D), metrics
+    return _unfold(module, recons, gop), _stack(per_frame)
 
 
 @torch.inference_mode()

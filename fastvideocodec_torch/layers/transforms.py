@@ -1,6 +1,7 @@
 """Analysis/synthesis transforms (NCHW), ported from
 fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU, SSF-TPU,
-ELFVC(-SP)-TPU and MCVC configurations.
+ELFVC(-SP)-TPU and MCVC configurations, and stock SSF's and ELFVC's
+(``s2d=1``).
 
 Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
 ``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
@@ -260,25 +261,31 @@ class SSFHyperDecoderQReLU(SSFHyperDecoder):
 
 
 class FlowPredictor(nn.Module):
-    """ELFVC's local motion prediction from the decoded context, in the
-    ``s2d=2, input_s2d, output_s2d, quarter_trunk`` branch (the only one
-    the '-TPU' codecs build): a 5x5 stride-2 stem from the s2d context to
-    /4 of full resolution, two 5x5 convs there (ReLU after each), and a 5x5
-    conv to ``4*f*f*out_planes`` channels whose depth-to-space by 2 (the
-    JAX (ry, rx, c) order) gives the /2 motion field in s2d form."""
+    """ELFVC's local motion prediction from the decoded context (four 5x5
+    convs, ReLU after the first three). ``s2d=2``: the ``input_s2d,
+    output_s2d, quarter_trunk`` branch of the '-TPU' codecs: a stride-2
+    stem from the s2d context to /4 of full resolution, two convs there,
+    and a conv to ``4*f*f*out_planes`` channels whose depth-to-space by 2
+    (the JAX (ry, rx, c) order) gives the /2 motion field in s2d form.
+    ``s2d=1``: the stock branch, all four stride-1 at full resolution, to
+    ``out_planes`` channels."""
 
-    S2D = 2
-
-    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 3):
+    def __init__(self, in_channels: int, mid_planes: int = 128, out_planes: int = 3,
+                 s2d: int = 2):
         super().__init__()
-        m, f = mid_planes, self.S2D
-        self.Conv_0 = conv(in_channels, m, 5, 2)
+        if s2d not in (1, 2):
+            raise ValueError(f"s2d must be 1 or 2, got {s2d}")
+        m = mid_planes
+        self.s2d = s2d
+        self.Conv_0 = conv(in_channels, m, 5, s2d)
         self.Conv_1 = conv(m, m, 5)
         self.Conv_2 = conv(m, m, 5)
-        self.Conv_3 = conv(m, 4 * f * f * out_planes, 5)
+        # s2d=2: 4 phases of the s2d motion field's 4 * out_planes channels
+        self.Conv_3 = conv(m, 16 * out_planes if s2d == 2 else out_planes, 5)
 
     def forward(self, x):
         x = F.relu(self.Conv_0(x))
         x = F.relu(self.Conv_1(x))
         x = F.relu(self.Conv_2(x))
-        return depth_to_space(self.Conv_3(x), 2)
+        x = self.Conv_3(x)
+        return depth_to_space(x, 2) if self.s2d == 2 else x

@@ -1,9 +1,8 @@
-"""ELFVC / ELFVC-SP ("Vesper") in the '-TPU' configuration
-(``pipeline_s2d``), ported from fastvideocodec_tpu/models/elfvc.py
-(reference models.py:1866-2124).
+"""ELFVC / ELFVC-SP ("Vesper"), ported from fastvideocodec_tpu/models/elfvc.py
+(reference models.py:1866-2124), in the stock form (``s2d=1``: ELFVC,
+ELFVC-SP) and the '-TPU' form (``s2d=2``, ``pipeline_s2d``).
 
-On top of the SSF-TPU skeleton (the s2d domain, the pyramid scale-space
-prediction through the two pixel warps), per P-frame:
+On top of the SSF skeleton of the same form (models/ssf.py), per P-frame:
 
   motion_info_local = flow_predictor(cat(x_ref, x_ref_ref, motion_prior))
   volume = make_volume(x_ref)                       built once, warped twice
@@ -19,8 +18,10 @@ round-y priors for the SPnets) is an ``ElfvcState`` carried from frame to
 frame; it starts at zeros at each GOP. With ``super_prec`` the motion and
 residual hyperpriors hold SPnets; ``sp_stage`` >= 1 lets the motion SPnet
 replace y_motion_hat, >= 2 the residual one as well. The motion tensors
-(the predictor's output, the prior, the decoded delta) are in the warp's
-c-major phase form. Eval only.
+(the predictor's output, the prior, the decoded delta) are the stock
+form's [B, 3, H, W] (flow x, flow y, scale; the flow normalized) and the
+'-TPU' form's [B, 12, H/2, W/2] in the warp's c-major phase form. Eval
+only.
 """
 
 from __future__ import annotations
@@ -35,29 +36,31 @@ from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 
 
 class ElfvcState(NamedTuple):
-    """The carry between P-frames, in the carried (s2d) dims."""
+    """The carry between P-frames, in the carried dims: [B, 3, H, W] in the
+    stock form, [B, 12, H/2, W/2] in the '-TPU' form."""
 
-    x_ref_ref: torch.Tensor  # [B, 12, H/2, W/2]
-    motion_info_prior: torch.Tensor  # [B, 12, H/2, W/2]
+    x_ref_ref: torch.Tensor
+    motion_info_prior: torch.Tensor
     q_y_prior_motion: torch.Tensor  # [B, planes, H/16, W/16]
     q_y_prior_res: torch.Tensor
 
 
 class ELFVC(ScaleSpaceFlow):
     def __init__(self, mid_planes: int = 128, planes: int = 192, super_prec: bool = False,
-                 sp_stage: int = 1, sp_dim: int = 64, dtype: torch.dtype = torch.float32):
-        super().__init__(mid_planes, planes, dtype)
+                 sp_stage: int = 1, sp_dim: int = 64, s2d: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(mid_planes, planes, s2d, dtype)
         self.planes = planes
         self.super_prec, self.sp_stage = super_prec, sp_stage
-        img_c = 3 * self.S2D * self.S2D
-        self.flow_predictor = FlowPredictor(3 * img_c, mid_planes)
+        self.flow_predictor = FlowPredictor(9 * s2d * s2d, mid_planes, s2d=s2d)
         self.motion_hyperprior = SSFHyperprior(planes, super_prec, sp_stage >= 1, sp_dim)
         self.res_hyperprior = SSFHyperprior(planes, super_prec, sp_stage >= 2, sp_dim)
 
     def init_state(self, batch: int, height: int, width: int) -> ElfvcState:
-        """Zeros, with (height, width) the dims of the s2d tensors as
-        carried; the latent grid lies at /16 of full resolution."""
-        c, lat = 3 * self.S2D * self.S2D, 16 // self.S2D
+        """Zeros, with (height, width) the dims of the tensors as carried
+        (full resolution, or the s2d dims); the latent grid lies at /16 of
+        full resolution."""
+        c, lat = 3 * self.s2d * self.s2d, 16 // self.s2d
         device = self.flow_predictor.Conv_0.weight.device
 
         def zeros(*shape):
@@ -68,7 +71,7 @@ class ELFVC(ScaleSpaceFlow):
                           zeros(batch, self.planes, height // lat, width // lat))
 
     def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, state: ElfvcState):
-        """x_cur, x_ref [B, 12, H/2, W/2] in the model dtype -> (x_rec,
+        """x_cur, x_ref in the form's domain and the model dtype -> (x_rec,
         {"motion": lik, "residual": lik, "pred_err": [...], "Q_err": [...]},
         the next state); each lik as ``SSFHyperprior.forward_with_prior``
         gives it."""

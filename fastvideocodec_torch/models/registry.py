@@ -1,4 +1,4 @@
-"""Codec registry of the port: the LSVC-TPU, SSF-TPU, ELFVC(-SP)-TPU and
+"""Codec registry of the port: the LSVC-TPU branch and the SSF, ELFVC and
 MCVC branches of fastvideocodec_tpu/models/registry.py.
 
 ``get_codec_model`` builds the module on ``device`` (the card unless the
@@ -29,10 +29,6 @@ class CodecSpec:
     module: nn.Module
 
 
-# MCVC-IA-OLFT's online fine-tuning changes training only: it serves as MCVC-IA
-MCVC_NAMES = ("MCVC", "MCVC-IA", "MCVC-IA-OLFT")
-
-
 def _build(name: str, dtype: torch.dtype, sp_stage: int,
            num_views: int) -> tuple[str, nn.Module]:
     if name == "LSVC-TPU":
@@ -45,41 +41,39 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int,
         # the flagship's architecture at golden-RD scale
         return "lsvc", LSVC(channels=48, conv_channels=32, spynet_widths=(8, 16, 8, 4),
                             spynet_kernels=(5, 5, 5, 5), warp_width=32, dtype=dtype)
-    if name == "SSF-TPU":
-        # the whole inter pipeline in the s2d domain, pyramid scale-space
-        # warp; compressai's widths (mid 128, planes 192)
-        return "ssf", ScaleSpaceFlow(mid_planes=128, planes=192, dtype=dtype)
-    if name == "SSF-TPU-TINY":
-        # SSF-TPU at golden-RD scale
-        return "ssf", ScaleSpaceFlow(mid_planes=32, planes=48, dtype=dtype)
-    if name in ("ELFVC-TPU", "ELFVC-SP-TPU"):
-        # SSF-TPU's widths, a quarter-resolution flow predictor, and with -SP
-        # an SPnet (trunk 8 * 64 = 512 wide) in the motion and residual
-        # hyperpriors
-        return "elfvc", ELFVC(mid_planes=128, planes=192, super_prec="-SP" in name,
-                              sp_stage=sp_stage, sp_dim=64, dtype=dtype)
-    if name in ("ELFVC-TPU-TINY", "ELFVC-SP-TPU-TINY"):
-        # at golden-RD scale; tiny_elfvctpu_l{0,3,6} are ELFVC-SP-TPU-TINY
-        # trained at sp_stage=2
-        return "elfvc", ELFVC(mid_planes=32, planes=48, super_prec="-SP" in name,
-                              sp_stage=sp_stage, sp_dim=16, dtype=dtype)
-    if name.removesuffix("-TINY") in MCVC_NAMES:
+    # the SSF, ELFVC and MCVC branches take the names JAX's do, by the same
+    # tests of the name: '-TPU' the s2d form, '-TINY' the golden-RD widths
+    s2d = 2 if "-TPU" in name else 1
+    tiny = "-TINY" in name
+    if (name.startswith("SSF") and tiny) or name in ("SSF-Official", "SSF-TPU",
+                                                     "MCVC-Original"):
+        # compressai's widths (mid 128, planes 192); tiny_ssf_l{0,2,4} and
+        # tiny_ssftpu_l{0,2,4} are the -TINY forms. SSF-TPU: the whole inter
+        # pipeline in the s2d domain, pyramid scale-space warp.
+        # MCVC-Original: stock SSF with the views as the batch
+        widths = dict(mid_planes=32, planes=48) if tiny else {}
+        return "ssf", ScaleSpaceFlow(s2d=s2d, dtype=dtype, **widths)
+    if name.startswith("ELFVC"):
+        # SSF's widths and a flow predictor (full resolution in the stock
+        # form, a quarter-resolution trunk in -TPU); with -SP an SPnet
+        # (trunk 8 * 64 = 512 wide) in the motion and residual hyperpriors.
+        # tiny_elfvc_l{0,3,6} and tiny_elfvctpu_l{0,3,6} are the -SP-TINY
+        # forms trained at sp_stage=2
+        widths = dict(mid_planes=32, planes=48, sp_dim=16) if tiny else {}
+        return "elfvc", ELFVC(super_prec="-SP" in name, sp_stage=sp_stage, s2d=s2d,
+                              dtype=dtype, **widths)
+    if name.startswith("MCVC"):
         # stock SSF's full-resolution transforms and volume warp over the
         # views folded into the batch; -IA adds the cross-view attention
-        # backup decoders; -TINY at golden-RD scale (tiny_mcvc_l{0,3,6})
-        widths = dict(planes=48, mid_planes=32) if name.endswith("-TINY") else {}
+        # backup decoders; -TINY at golden-RD scale (tiny_mcvc_l{0,3,6});
+        # OLFT's online fine-tuning changes training only
+        widths = dict(planes=48, mid_planes=32) if tiny else {}
         return "mcvc", MCVC(num_views, imbalanced_correlation="-IA" in name, dtype=dtype,
                             **widths)
-    if name.startswith(("ELFVC", "SSF", "MCVC-Original")):
-        raise ValueError(
-            f"codec {name!r} is not ported yet: the s2d=1 SSF forms (SSF-Official, "
-            f"MCVC-Original, the s2d=1 ELFVC forms) wait for the SSF-Official slice, "
-            f"which their transforms and warp_volume now serve (have SSF-TPU, ELFVC-TPU, "
-            f"ELFVC-SP-TPU, MCVC, MCVC-IA, MCVC-IA-OLFT and their -TINY forms)"
-        )
     raise ValueError(
-        f"codec {name!r} is not ported yet (have LSVC-TPU, SSF-TPU, ELFVC-TPU, "
-        f"ELFVC-SP-TPU, MCVC, MCVC-IA, MCVC-IA-OLFT and their -TINY forms)"
+        f"codec {name!r} is not ported yet (have LSVC-TPU and the SSF, ELFVC and MCVC "
+        f"families: SSF-Official, SSF-TPU, ELFVC, ELFVC-SP, ELFVC-TPU, ELFVC-SP-TPU, MCVC, "
+        f"MCVC-IA, MCVC-IA-OLFT and their -TINY forms, and MCVC-Original)"
     )
 
 
@@ -87,7 +81,8 @@ def get_codec_model(name: str, dtype: torch.dtype = torch.float32, device="cuda"
                     sp_stage: int = 1, num_views: int = 0) -> CodecSpec:
     """``sp_stage`` (ELFVC-SP only): 1 lets the motion SPnet replace the
     motion latent, 2 the residual SPnet as well. ``num_views`` (MCVC only,
-    at least 1 there): the views folded into each batch item."""
+    at least 1 there): the views folded into each batch item; MCVC-Original
+    takes the views as the batch of its rollout and needs none."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     family, module = _build(name, dtype, sp_stage, num_views)

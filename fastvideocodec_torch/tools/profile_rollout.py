@@ -1,15 +1,16 @@
 """Where a rollout's time goes on one CUDA card: by module, and by kernel.
 
     python -m fastvideocodec_torch.tools.profile_rollout
-        [--codec ELFVC-SP-TPU|SSF-TPU|LSVC-TPU|MCVC-IA] [--views 4] [--h 256 --w 256]
-        [--json PATH]
+        [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|MCVC-IA|MCVC-Original]
+        [--views 4] [--h 256 --w 256] [--json PATH]
 
 The cell of ``chip_smoke.py``: bf16, 1024x2048, GOP 16, synth_gop_multi
-seed 0, with ``real_bits_fps``'s weights (seeded full widths for SSF-TPU,
-ELFVC-SP-TPU at sp_stage 2 and MCVC-IA, hd_lsvctpuf2_l2 for LSVC-TPU);
-MCVC-IA's is ``--views`` views of --h x --w (256x256 unless given) from
+seed 0, with ``real_bits_fps``'s weights (seeded full widths, the
+ELFVC-SP forms at sp_stage 2; hd_lsvctpuf2_l2 for LSVC-TPU); MCVC's is
+``--views`` views of --h x --w (256x256 unless given) from
 ``real_bits_fps.mcvc_clip`` with seed 0, all alive (``--views 4 --h 1024
---w 2048``: chip_smoke.py's 4 x 1024x2048). After a warm-up rollout it
+--w 2048``: chip_smoke.py's 4 x 1024x2048), MCVC-Original's the same
+views as a batch. After a warm-up rollout it
 reports:
 
 - the GOP's card ms by CUDA events beside its host enqueue ms;
@@ -24,7 +25,7 @@ reports:
   (the union of kernel intervals over the GOP's wall time), the number of
   kernels launched, and the kernels with the most device time; then the
   kernels of one call of the module with the most card time (the SPnet on
-  ELFVC-SP-TPU) in launch order, with the profiler's durations beside the
+  the ELFVC-SP forms) in launch order, with the profiler's durations beside the
   call's time by CUDA events without the profiler.
 
 A number the profiler did not give is printed as "not measured".
@@ -41,7 +42,7 @@ import torch
 
 import fastvideocodec_torch as ft
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
-from fastvideocodec_torch.tools.real_bits_fps import load_model, mcvc_clip
+from fastvideocodec_torch.tools.real_bits_fps import CODECS, load_model, mcvc_clip
 
 GOP, H, W = 16, 1024, 2048
 TOP = 15  # kernels listed by device time
@@ -148,11 +149,10 @@ def call_kernels(module, args, kwargs) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU", "MCVC-IA"),
-                    default="ELFVC-SP-TPU")
-    ap.add_argument("--views", type=int, default=4, help="MCVC-IA's views")
-    ap.add_argument("--h", type=int, default=256, help="MCVC-IA's view height")
-    ap.add_argument("--w", type=int, default=256, help="MCVC-IA's view width")
+    ap.add_argument("--codec", choices=CODECS, default="ELFVC-SP-TPU")
+    ap.add_argument("--views", type=int, default=4, help="MCVC's views")
+    ap.add_argument("--h", type=int, default=256, help="MCVC's view height")
+    ap.add_argument("--w", type=int, default=256, help="MCVC's view width")
     ap.add_argument("--json", default="", help="append the summary as one JSON line here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -163,6 +163,7 @@ def main(argv=None) -> int:
     if args.codec.startswith("MCVC"):
         views, h, w = args.views, args.h, args.w
         gop, mask = mcvc_clip(0, views, h, w, GOP)
+        mask = mask if args.codec == "MCVC-IA" else None  # MCVC-Original: a batch
         what = f"{views} views of "
     else:
         views, h, w, mask, what = 1, H, W, None, ""

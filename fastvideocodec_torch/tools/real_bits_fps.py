@@ -1,22 +1,25 @@
-"""Real-bits throughput of the port on one CUDA card: LSVC-TPU, SSF-TPU or
-ELFVC-SP-TPU at 1024x2048, or MCVC-IA on views of 256x256, GOP 16, through
+"""Real-bits throughput of the port on one CUDA card: LSVC-TPU, SSF-Official,
+SSF-TPU, ELFVC-SP or ELFVC-SP-TPU at 1024x2048, or MCVC-IA or MCVC-Original
+on views of 256x256, GOP 16, through
 the real bitstream encode AND decode (the networks on the card, range
 coding on host threads), with decode == encode checked bit for bit and
 the host coder's seconds apart from the rest.
 
     python -m fastvideocodec_torch.tools.real_bits_fps
-        [--codec LSVC-TPU|SSF-TPU|ELFVC-SP-TPU|MCVC-IA] [--gop 16] [--h H] [--w W]
+        [--codec LSVC-TPU|SSF-Official|SSF-TPU|ELFVC-SP|ELFVC-SP-TPU|MCVC-IA|MCVC-Original]
+        [--gop 16] [--h H] [--w W]
         [--views 4] [--failed 2] [--reps 3] [--level 2] [--dtype f32|bf16]
         [--json PATH] [--device cuda|cpu]
 
 Weights: LSVC-TPU reads fastvideocodec_tpu/assets/hd_lsvctpuf2_l{level}.npz
-by path; SSF-TPU, ELFVC-SP-TPU and MCVC-IA ship no full-width checkpoint
-and run ``seeded_flat(codec, 0)`` (flagged ``trained: false``),
-ELFVC-SP-TPU at sp_stage 2 (both SPnets replace y). The clip is
-synth_gop_multi with numpy seed 123 (1024x2048 unless --h/--w say
-otherwise); MCVC-IA's (``mcvc_clip``, 256x256 unless given) is
-``--views`` views with the same seed, with the views listed in
-``--failed`` (comma-separated indexes) zeroed. One warm-up run,
+by path; the others ship no full-width checkpoint and run
+``seeded_flat(codec, 0)`` (flagged ``trained: false``), the ELFVC-SP
+forms at sp_stage 2 (both SPnets replace y). The clip is synth_gop_multi
+with numpy seed 123 (1024x2048 unless --h/--w say otherwise); MCVC's
+(``mcvc_clip``, 256x256 unless given) is ``--views`` views with the same
+seed: MCVC-IA's with the views listed in ``--failed`` (comma-separated
+indexes) zeroed, MCVC-Original's coded by stock SSF as a batch of views
+(it takes no mask). One warm-up run,
 then ``--reps`` timed runs, each printing encode and decode seconds (host
 clock around the call, the card synchronised at its end, range coding
 included), the AC seconds of each, real bpp and the identity check.
@@ -41,7 +44,9 @@ from fastvideocodec_torch.data.synthetic import row_views, synth_gop_multi, synt
 from fastvideocodec_torch.ops.kernels import warp as kw
 
 
-SP_STAGE = 2  # ELFVC-SP-TPU's stage, the one its tiny checkpoints were trained at
+SP_STAGE = 2  # ELFVC-SP's stage, the one its tiny checkpoints were trained at
+CODECS = ("LSVC-TPU", "SSF-Official", "SSF-TPU", "ELFVC-SP", "ELFVC-SP-TPU", "MCVC-IA",
+          "MCVC-Original")
 CODERS = {  # family: (tables, encode, decode)
     "lsvc": (cv.lsvc_codecs, cv.lsvc_compress, cv.lsvc_decompress),
     "ssf": (cv.ssf_codecs, cv.ssf_compress_gop, cv.ssf_decompress_gop),
@@ -57,8 +62,9 @@ def codecs_of(spec):
 
 def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
     """Encode, then decode, one GOP: [T, 3, H, W] (frame 0 the I-frame for
-    LSVC, the keyframe SSF and ELFVC code), or MCVC's [T, V, 3, H, W] with
-    its view mask [V]; seconds by the host clock with the card synchronised
+    LSVC, the keyframe SSF and ELFVC code), or views [T, V, 3, H, W]: MCVC's
+    with its view mask [V], or a batch of views for the SSF family (as
+    MCVC-Original); seconds by the host clock with the card synchronised
     at the end of each, the warp launches of each, bits and whether the
     decode equals the encode recon bit for bit."""
     on_card = gop.device.type == "cuda"
@@ -69,9 +75,9 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
 
     T, H, W = gop.shape[0], gop.shape[-2], gop.shape[-1]
     lsvc, mcvc = spec.family == "lsvc", spec.family == "mcvc"
-    views = gop.shape[1] if mcvc else 1
+    views = gop.shape[1] if gop.dim() == 5 else 1
     _, compress, decompress = CODERS[spec.family]
-    args = (gop,) if lsvc else (gop, mask) if mcvc else (gop[:, None],)
+    args = (gop,) if lsvc else (gop, mask) if mcvc else (gop if views > 1 else gop[:, None],)
     sync()
     kw.reset_launches()
     t0 = time.perf_counter()
@@ -104,8 +110,8 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
 
 
 def load_model(codec: str, level: int, dtype: torch.dtype, device: str, views: int = 1):
-    """(spec, trained): LSVC-TPU's shipped weights by path, SSF-TPU's,
-    ELFVC-SP-TPU's and MCVC-IA's (on ``views`` views) seeded."""
+    """(spec, trained): LSVC-TPU's shipped weights by path, every other
+    codec's (MCVC-IA on ``views`` views) seeded."""
     spec = ft.get_codec_model(codec, dtype=dtype, device=device, sp_stage=SP_STAGE,
                               num_views=views)
     if codec == "LSVC-TPU":
@@ -135,12 +141,11 @@ def mcvc_clip(seed: int, views: int, h: int, w: int, gop: int, failed: str = "")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--codec", choices=("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU", "MCVC-IA"),
-                    default="LSVC-TPU")
+    ap.add_argument("--codec", choices=CODECS, default="LSVC-TPU")
     ap.add_argument("--gop", type=int, default=16)
-    ap.add_argument("--h", type=int, default=None, help="1024 (MCVC-IA: 256)")
-    ap.add_argument("--w", type=int, default=None, help="2048 (MCVC-IA: 256)")
-    ap.add_argument("--views", type=int, default=4, help="MCVC-IA's views")
+    ap.add_argument("--h", type=int, default=None, help="1024 (MCVC: 256)")
+    ap.add_argument("--w", type=int, default=None, help="2048 (MCVC: 256)")
+    ap.add_argument("--views", type=int, default=4, help="MCVC's views")
     ap.add_argument("--failed", default="", help="MCVC-IA's failed views, e.g. 2 or 1,3")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--level", type=int, default=2, help="LSVC-TPU's weights level")
@@ -151,9 +156,12 @@ def main(argv=None) -> int:
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     mcvc = args.codec.startswith("MCVC")
+    if args.failed and args.codec != "MCVC-IA":
+        raise SystemExit(f"{args.codec} takes no view mask (--failed)")
     if mcvc:
         args.h, args.w, views = args.h or 256, args.w or 256, args.views
         gop, mask = mcvc_clip(123, views, args.h, args.w, args.gop, args.failed)
+        mask = mask if args.codec == "MCVC-IA" else None
     else:
         args.h, args.w, views, mask = args.h or 1024, args.w or 2048, 1, None
         clip = synth_gop_multi(np.random.default_rng(123), size=max(args.h, args.w),
@@ -165,7 +173,8 @@ def main(argv=None) -> int:
     device = (torch.cuda.get_device_name(0) if gop.device.type == "cuda" else "cpu")
     t0 = time.perf_counter()
     codecs = codecs_of(spec)
-    what = f"{views} views (mask {mask.tolist()}) of " if mcvc else ""
+    what = "" if not mcvc else (f"{views} views (mask {mask.tolist()}) of " if mask is not None
+                                else f"a batch of {views} views of ")
     print(f"{args.codec} {'trained' if trained else 'seeded'} {what}{args.h}x{args.w} "
           f"GOP{args.gop} {args.dtype} on {device}; tables {time.perf_counter() - t0:.3f} s",
           flush=True)

@@ -426,3 +426,45 @@ def test_mcvc_compress_takes_a_card_mask(card):
     assert streams["mask"] == [1.0, 0.0, 1.0] and bits > 0
     assert torch.equal(decoded, recon)
     assert dict(kwarp.LAUNCHES) == {**{k: 0 for k in kwarp.LAUNCHES}, "pixel_warp": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, asset, per_frame", [("SSF-TINY", "tiny_ssf_l2", 1),
+                                                    ("ELFVC-SP-TINY", "tiny_elfvc_l3", 2)])
+def test_stock_p_frame_launches_pixel_warp_on_the_card(card, name, asset, per_frame):
+    """The stock (s2d=1) tiny models, one P-frame at 64x128 in float32, TF32
+    off: on the card pixel_warp launches once (SSF) or twice (ELFVC's local
+    prediction and decoded motion) on the full-resolution volume, and
+    nothing else does; on the CPU nothing launches. The card's recon is
+    within 1e-4 mean abs of the CPU's and its bpp within 1e-3 relative; its
+    real bits decode to its encode recon bit for bit."""
+    import fastvideocodec_torch as ft
+    from fastvideocodec_torch.coder import video as tv
+    from fastvideocodec_torch.data.synthetic import synth_gop_multi
+
+    clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=2)[:, :64, :128]
+    gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            spec = ft.get_codec_model(name, device=device, sp_stage=2)
+            ft.load_asset(spec.module, asset)
+            kwarp.reset_launches()
+            recon, metrics = ft.rollout(spec, gop.to(device))
+            out[device] = (recon.cpu(), float(metrics["bpp_est"][0]), dict(kwarp.LAUNCHES))
+        compress, decompress = ((tv.elfvc_compress_gop, tv.elfvc_decompress_gop)
+                                if spec.family == "elfvc" else
+                                (tv.ssf_compress_gop, tv.ssf_decompress_gop))
+        spec = ft.get_codec_model(name, sp_stage=2)
+        ft.load_asset(spec.module, asset)
+        streams, recon, _ = compress(spec, gop.cuda()[:, None])
+        assert torch.equal(decompress(spec, streams), recon)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (card, card_bpp, launches), (cpu, cpu_bpp, cpu_launches) = out["cuda"], out["cpu"]
+    assert launches == {**{k: 0 for k in launches}, "pixel_warp": per_frame}
+    assert set(cpu_launches.values()) == {0}
+    assert float((card - cpu).abs().mean()) <= 1e-4
+    assert abs(card_bpp - cpu_bpp) <= 1e-3 * cpu_bpp

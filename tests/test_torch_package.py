@@ -12,7 +12,9 @@
 - ``seeded_flat`` gives the keys and shapes of the JAX modules' ``init``
   (MCVC's too), its SSF-TPU draws are those of the slice before ELFVC's
   and its ELFVC-SP-TPU draws those of the slice before MCVC's.
-- The s2d=1 ELFVC forms are not ported yet and say so.
+- The stock (s2d=1) SSF, ELFVC and MCVC-Original names build, default to
+  the card, map their shipped weights completely, and run their rollouts
+  and real bits without JAX.
 - MCVC runs without JAX, defaults to the card, sends its volume warp to
   the pixel_warp kernel once a P-frame off the CPU, and maps the shipped
   tiny_mcvc_l{0,3,6} completely.
@@ -239,7 +241,8 @@ def test_shipped_ssf_weights_map_completely():
 
 
 @pytest.mark.parametrize("name", ["SSF-TPU", "SSF-TPU-TINY", "ELFVC-SP-TPU", "ELFVC-TPU-TINY",
-                                  "MCVC-IA", "MCVC-IA-TINY"])
+                                  "MCVC-IA", "MCVC-IA-TINY", "SSF-Official", "MCVC-Original",
+                                  "ELFVC-SP", "ELFVC-TINY"])
 def test_seeded_flat_has_the_jax_init_keys_and_shapes(name):
     """Keys and shapes equal those of the JAX module's init (traced with
     eval_shape, which computes nothing); the deterministic initialisers
@@ -253,7 +256,7 @@ def test_seeded_flat_has_the_jax_init_keys_and_shapes(name):
     from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 
     module = jax_get_codec_model(name, num_views=1).module
-    if name.startswith("MCVC"):  # a view mask, and its weights do not depend on the views
+    if name.startswith("MCVC-IA"):  # a view mask; its weights do not depend on the views
         def init(k, f):
             return module.init(k, f, jnp.ones((1,)), training=False)
     else:
@@ -378,8 +381,14 @@ def test_elfvc_entry_points_default_to_the_card(name):
 
 @pytest.mark.parametrize("name", ["ELFVC", "ELFVC-SP", "ELFVC-TINY", "ELFVC-SP-TINY"])
 def test_s2d1_elfvc_is_not_ported_yet(name):
-    with pytest.raises(ValueError, match="not ported yet"):
-        ft.get_codec_model(name, device="cpu")
+    """The name is the slice's before the stock forms: each s2d=1 ELFVC
+    name now builds, in family elfvc, with the full-resolution flow
+    predictor (9 -> mid channels, stride 1)."""
+    spec = ft.get_codec_model(name, device="meta", sp_stage=2)
+    assert spec.family == "elfvc" and spec.module.s2d == 1
+    assert spec.module.super_prec == ("-SP" in name)
+    conv0 = spec.module.flow_predictor.Conv_0
+    assert conv0.in_channels == 9 and conv0.stride == (1, 1)
 
 
 def test_elfvc_path_off_cpu_launches_both_pixel_kernels_twice(monkeypatch):
@@ -529,3 +538,72 @@ def test_seeded_elfvc_weights_are_unchanged():
         h.update(key.encode())
         h.update(np.ascontiguousarray(flat[key], np.float32).tobytes())
     assert h.hexdigest() == ELFVC_SP_TPU_SEEDED_SHA256
+
+
+STOCK = ["SSF-Official", "SSF-TINY", "MCVC-Original", "ELFVC", "ELFVC-SP", "ELFVC-TINY",
+         "ELFVC-SP-TINY"]
+
+
+@pytest.mark.parametrize("name", STOCK)
+def test_stock_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        spec = ft.get_codec_model(name)
+        assert next(spec.module.parameters()).device.type == "cuda"
+    else:
+        with (pytest.raises((RuntimeError, AssertionError))):
+            ft.get_codec_model(name)
+
+
+@pytest.mark.parametrize("asset, name, n_keys", [
+    *[(f"tiny_ssf_l{lv}", "SSF-TINY", 147) for lv in (0, 2, 4)],
+    *[(f"lr_ssf_l{lv}", "SSF-TINY", 147) for lv in (0, 2, 4)],
+    *[(f"tiny_elfvc_l{lv}", "ELFVC-SP-TINY", 223) for lv in (0, 3, 6)],
+])
+def test_shipped_stock_weights_map_completely(asset, name, n_keys):
+    """Every key of the shipped stock checkpoints maps, and every parameter
+    is set (the loader raises otherwise); the stock flow predictor's first
+    kernel is (5, 5, 9, 32)."""
+    spec = ft.get_codec_model(name, device="cpu", sp_stage=2)
+    with np.load(ft.weights.asset_path(asset)) as data:
+        assert len(data.files) == n_keys
+        ft.weights.load_flat(spec.module, {k: data[k] for k in data.files})
+        key = "params/res_decoder/PolyphaseDeconv_3/kernel"
+        w = data[key].astype(np.float32)
+        if name.startswith("ELFVC"):
+            assert data["params/flow_predictor/Conv_0/kernel"].shape == (5, 5, 9, 32)
+    got = spec.module.res_decoder.PolyphaseDeconv_3.weight.detach().numpy()
+    np.testing.assert_array_equal(got, w.transpose(2, 3, 0, 1))
+    assert set(ft.weights.flax_shapes(spec.module)) == set(data.files)
+
+
+def test_stock_rollouts_and_real_bits_run_without_jax():
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.coder import video as cv\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop, synth_mv_gop\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(\n"
+        "    synth_gop(np.random.default_rng(0), size=32, gop=2).transpose(0, 3, 1, 2)))\n"
+        "for name, asset, fns in (\n"
+        "        ('SSF-TINY', 'tiny_ssf_l2', (cv.ssf_compress_gop, cv.ssf_decompress_gop)),\n"
+        "        ('ELFVC-SP-TINY', 'tiny_elfvc_l3',\n"
+        "         (cv.elfvc_compress_gop, cv.elfvc_decompress_gop))):\n"
+        "    spec = ft.get_codec_model(name, device='cpu', sp_stage=2)\n"
+        "    ft.load_asset(spec.module, asset)\n"
+        "    recon, m = ft.rollout(spec, gop)\n"
+        "    assert recon.shape == (1, 3, 32, 32) and bool(torch.isfinite(recon).all())\n"
+        "    assert float(m['bpp_est'][0]) > 0\n"
+        "    streams, rec, bits = fns[0](spec, gop[:, None])\n"
+        "    assert torch.equal(fns[1](spec, streams), rec) and bits > 0\n"
+        "views = torch.from_numpy(np.ascontiguousarray(\n"
+        "    synth_mv_gop(np.random.default_rng(0), views=2, size=32, gop=2)\n"
+        "    .transpose(0, 1, 4, 2, 3)))\n"
+        "spec = ft.get_codec_model('MCVC-Original', device='cpu')\n"
+        "ft.load_flat(spec.module, ft.seeded_flat('MCVC-Original', 0))\n"
+        "recon, m = ft.rollout(spec, views)\n"
+        "assert spec.family == 'ssf' and recon.shape == (1, 2, 3, 32, 32)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
