@@ -126,16 +126,36 @@ Phases, each timed on its own line:
    exactly 30 + 15);
 28. MCVC-Original: stock SSF over the 4 views of 256x256 of phase 18 as a
    batch, seeded: the rollout (15 pixel_warp over the 4 views), the
-   keyframe-coded forward timed, and real bits (15 + 15).
+   keyframe-coded forward timed, and real bits (15 + 15);
+29. DVC family card vs CPU: DVC-TINY (tiny_dvc_l2), RLVC-TINY
+   (tiny_rlvc_l2) and Base-ER-TINY (tiny_base_l2) at 64x64 (JAX's golden
+   size) as in phase 8, with bars of their own for bf16 (DVC_BF16_*);
+30. DVC at full widths, seeded_flat("DVC", 0) with the pretrained
+   spynet.npz in its SpyNet (real motion on the clip), bf16, 1024x2048,
+   GOP 16, the clip of phase 5: one run with the launch counts zeroed
+   (exactly 75 flow_warp: 4 SpyNet levels and the MC warp a P-frame, no
+   other warp), then 3 timed runs with their host enqueue times and peak
+   memory;
+31. flow_warp on DVC's own inputs, all 75 launches of one GOP and the 15
+   full-resolution MC warps (1 x 3 x 1024x2048) apart, as in phase 7:
+   warm and L2-flushed against the byte bound, the plain version and
+   F.grid_sample;
+32. DVC real bits at 1024x2048 (a warm-up GOP and one timed): launches
+   exactly 75 + 15, decode == encode bit for bit, real bpp within 5% of
+   the rollout's estimate on the same P-frames;
+33. RLVC the same (rollout 3 timed runs, real bits at 1024x2048);
+34-36. RLVC-HP, RLVC2 and Base-EC-ER: the rollout (75 flow_warp, one
+   timed run), and real bits at 256x512 (the clip's top-left crop) for
+   RLVC-HP and Base-EC-ER (RLVC2 has no real-bits path).
 
 It then prints a JSON line of MCVC's numbers, a JSON line of the stock
-codecs' numbers, a JSON line of the kernels
-(each with its launches on every path it was counted on; ``launches`` and
-the times are those of the newest path that runs it: the ELFVC rollout
-for the two s2d pixel warps, MCVC-IA at 4 x 1024x2048 for pixel_warp,
-whose SSF-TPU and 4 x 256x256 timings stand beside them, with
-SSF-Official's under ``timing_by_path``), the card's name
-and power limit,
+codecs' numbers, a JSON line of the DVC family's, a JSON line of the
+kernels (each with its launches on every path it was counted on;
+``launches`` and the times stay those of the path that defined them in
+earlier slices: LSVC-TPU's rollout for the two flow warps, SSF-TPU's
+timing and ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's
+MCVC-IA and SSF-Official timings and flow_warp's on DVC's inputs stand
+under ``timing_by_path``), the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
 nothing of the JAX package; it exits non-zero when no CUDA device is found.
@@ -181,6 +201,11 @@ MCVC_BF16_BPP_REL = 0.01
 MCVC_SIZE = 256  # the multi-view dataset's frame size (data/multiview.py)
 MCVC_VIEWS = 4
 MCVC_FAILED = 2  # the view that fails in the masked runs
+# DVC-TINY, RLVC-TINY and Base-ER-TINY (tiny_{dvc,rlvc,base}_l2) bf16 against
+# f32 at 64x64, GOP 4: the CPU port measured 0.0055, 0.0067 and 0.0129 dB and
+# 0.0021, 0.0074 and 0.0016 of bpp
+DVC_BF16_PSNR_DB = 0.05
+DVC_BF16_BPP_REL = 0.03
 C18_RAGGED = (4, 18, 37, 141)  # MCVC's volume warp: 6 levels x 3 colours, 4 views
 GOP, H, W = 16, 1024, 2048
 SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
@@ -281,12 +306,15 @@ def bound_ms(img, flow) -> float:
 @contextlib.contextmanager
 def capture_warp_inputs(captured: dict):
     """Record a clone of the inputs of every warp the models call, by kernel
-    name (the attributes the LSVC and SSF paths look the dispatchers up by)."""
+    name (the attributes the LSVC, SSF, DVC, Base and RLVC paths look the
+    dispatchers up by)."""
     from fastvideocodec_torch.layers import spynet
-    from fastvideocodec_torch.models import lsvc
+    from fastvideocodec_torch.models import dvc, lsvc, rlvc
     from fastvideocodec_torch.ops import warp
 
     sites = [(spynet, "flow_warp", "flow_warp"),
+             (dvc, "flow_warp", "flow_warp"),
+             (rlvc, "flow_warp", "flow_warp"),
              (lsvc, "flow_warp_fullres_s2d", "flow_warp_s2d"),
              (warp, "pixel_warp", "pixel_warp"),
              (warp, "pixel_warp_s2d_sflow", "pixel_warp_s2d_sflow")]
@@ -959,17 +987,19 @@ def main() -> int:
         log(f"bucketing of {scales.size} scales on the card equals the host's "
             f"(f16, bf16, f32; Laplace and Gaussian codecs)")
 
-    def real_bits(spec, codecs, want_enc, want_dec, est_bpp, key, clip=None, mask=None):
-        """A warm-up GOP, then 3: launch counts, times, bpp, identity; of
-        the rollouts' clip unless ``clip`` (MCVC's views, with their
+    def real_bits(spec, codecs, want_enc, want_dec, est_bpp, key, clip=None, mask=None,
+                  runs=3):
+        """A warm-up GOP, then ``runs``: launch counts, times, bpp, identity;
+        of the rollouts' clip unless ``clip`` (MCVC's views, with their
         ``mask``) is given."""
         clip = gop if clip is None else clip
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         r = code_gop(spec, clip, codecs, mask)
         require(r["identical"], "warm-up: decode != encode recon")
+        timed = runs
         runs = []
-        for i in range(3):
+        for i in range(timed):
             r = code_gop(spec, clip, codecs, mask)
             runs.append(r)
             require(r["identical"], f"run {i}: decode != encode recon")
@@ -1343,10 +1373,12 @@ def main() -> int:
             f"parameters in {time.perf_counter() - t0:.3f} s")
         return spec
 
-    def stock_rollout(label, spec, frames, per_frame):
+    def stock_rollout(label, spec, frames, per_frame, kernel="pixel_warp", runs=3, rows=None):
         """One run with the launch counts zeroed (exactly ``per_frame``
-        pixel_warp a P-frame, no other warp), then 3 timed runs beside their
-        host enqueue ms; frames [T, 3, H, W] or a batch of views."""
+        launches of ``kernel`` a P-frame, no other warp), then ``runs`` timed
+        runs beside their host enqueue ms, into ``rows`` (stock_rows);
+        frames [T, 3, H, W] or a batch of views."""
+        rows = stock_rows if rows is None else rows
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kw.reset_launches()
@@ -1354,7 +1386,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(kw.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        want = {**zero_counts, "pixel_warp": per_frame * (GOP - 1)}
+        want = {**zero_counts, kernel: per_frame * (GOP - 1)}
         require(launches == want, f"{label}: launches {launches}, want {want}")
         psnr, bpp = m["psnr"].float().cpu(), m["bpp_est"].float().cpu()
         require(tuple(com.shape) == (GOP - 1, *frames.shape[1:]),
@@ -1368,12 +1400,12 @@ def main() -> int:
             require(bool(torch.isfinite(pred_err).all()), f"{label}: pred_err_norm")
             extra = f"; pred_err_norm mean {float(pred_err.mean()):.4f}"
         del com, m
-        times, enqueue = timed_runs(rollout, spec, frames)
+        times, enqueue = timed_runs(rollout, spec, frames, runs=runs)
         ms = sum(times) / len(times)
         pixels = (GOP - 1) * frames[0].numel() // 3
-        stock_rows[label] = {"ms_per_gop": times, "ms": ms, "enqueue_ms": enqueue,
-                             "peak_gib": peak, "launches": launches["pixel_warp"],
-                             "bpp": float(bpp.mean()), "psnr": float(psnr.mean())}
+        rows[label] = {"ms_per_gop": times, "ms": ms, "enqueue_ms": enqueue,
+                       "peak_gib": peak, "launches": launches[kernel],
+                       "bpp": float(bpp.mean()), "psnr": float(psnr.mean())}
         log(f"{label} rollout: ms/GOP {times} mean {ms:.3f}; host enqueue ms/GOP "
             f"{[round(t, 3) for t in enqueue]}; P-frame pixels/s {pixels / ms * 1e3:.4e}; bpp "
             f"(random weights, not gated) mean {float(bpp.mean()):.6f}; psnr mean "
@@ -1482,6 +1514,114 @@ def main() -> int:
     del gspec, mv_small
     log(json.dumps({"stock": stock_rows}))
 
+    # -- DVC, RLVC (RLVC2, RLVC-HP) and Base (-EC-ER): chains of P-frames on
+    # the previous recon, through flow_warp: 4 SpyNet levels and the MC warp
+    # of the full-resolution frame a P-frame, 75 a GOP
+    from fastvideocodec_torch.layers.spynet import load_pretrained_spynet
+
+    with phase("dvc/rlvc/base card vs cpu port"):
+        for label, name, asset in (("dvc tiny", "DVC-TINY", "tiny_dvc_l2"),
+                                   ("rlvc tiny", "RLVC-TINY", "tiny_rlvc_l2"),
+                                   ("base-er tiny", "Base-ER-TINY", "tiny_base_l2")):
+            chain_card_vs_cpu(label, name, asset, DVC_BF16_PSNR_DB, DVC_BF16_BPP_REL,
+                              size=(64, 64))
+
+    chain_rows, chain_launches, chain_timing = {}, {}, {}
+
+    def chain_model(name):
+        """Full widths on seeded_flat(name, 0), the pretrained SpyNet."""
+        spec = get_codec_model(name, dtype=torch.bfloat16, device="cuda")
+        t0 = time.perf_counter()
+        load_flat(spec.module, seeded_flat(name, 0))
+        load_pretrained_spynet(spec.module.optic_flow)
+        log(f"{name} seeded weights, pretrained SpyNet: "
+            f"{sum(p.numel() for p in spec.module.parameters())} parameters in "
+            f"{time.perf_counter() - t0:.3f} s")
+        return spec
+
+    def chain_real_bits(label, spec, frames):
+        """A warm-up GOP and one timed: launches 5 + 1 a P-frame, decode ==
+        encode, real bpp within 5% of the rollout's estimate on the same
+        frames."""
+        _, m = rollout(spec, frames)
+        est = float(m["bpp_est"].float().mean())
+        del m
+        five = {"flow_warp": 5 * (GOP - 1)}
+        runs = real_bits(spec, codecs_of(spec), five, {"flow_warp": GOP - 1}, est,
+                         lambda r: f" ({tuple(frames.shape[-2:])})", clip=frames, runs=1)
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"{label} real bits (seeded weights): bpp {runs[-1]['bpp']:.6f} vs the rollout's "
+            f"estimate {est:.6f} over the same P-frames (rel {rel:.4f}, tolerance 0.05)")
+        require(rel < 0.05, f"{label} real bits far from the rollout's estimate")
+        chain_rows.setdefault(label, {})["real_bits"] = {
+            "hw": list(frames.shape[-2:]), "enc_ms": [r["enc_s"] * 1e3 for r in runs],
+            "dec_ms": [r["dec_s"] * 1e3 for r in runs], "enc_ac_s": runs[-1]["enc_ac_s"],
+            "dec_ac_s": runs[-1]["dec_ac_s"], "bpp": runs[-1]["bpp"], "est_bpp": est}
+        return runs[-1]["enc_launches"], runs[-1]["dec_launches"]
+
+    small_gop = gop[:, :, :256, :512].contiguous()  # the small real-bits cell
+    dspec = chain_model("DVC")
+    with phase(f"dvc rollout {H}x{W} GOP16 bf16"):
+        chain_launches["dvc_rollout"] = stock_rollout("dvc", dspec, gop, 5, "flow_warp",
+                                                      rows=chain_rows)
+
+    with phase("flow_warp on DVC's inputs (bf16, one GOP's 75 launches)"):
+        captured = {}
+        with capture_warp_inputs(captured):
+            rollout(dspec, gop)
+        warps = captured.get("flow_warp", [])
+        require(len(warps) == 5 * (GOP - 1) and set(captured) == {"flow_warp"},
+                f"captured {[(k, len(v)) for k, v in captured.items()]}")
+        # each P-frame warps 4 SpyNet levels, coarsest first (the finest at
+        # full resolution too), then the MC warp
+        mc = warps[4::5]
+        require(all(tuple(img.shape) == (1, 3, H, W) for img, _ in mc),
+                f"MC warps {[tuple(img.shape) for img, _ in mc]}")
+        for what, inputs in (("dvc_rollout", warps), ("dvc_rollout_mc_warp", mc)):
+            drows, dlib = {}, {}
+            time_kernels(("flow_warp",), {"flow_warp": inputs}, drows, dlib, lsvc_library)
+            chain_timing[what] = {**drows["flow_warp"], "library_ms": dlib["flow_warp"],
+                                  "launches": len(inputs)}
+        r, q = chain_timing["dvc_rollout"], chain_timing["dvc_rollout_mc_warp"]
+        log(f"flow_warp on DVC's 75 launches a GOP: kernel {r['ms']:.4f} ms/GOP (L2 flushed "
+            f"{r['cold_ms']:.4f}) against its byte bound {r['bound_ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, F.grid_sample {r['library_ms']:.4f}; of it the 15 MC warps "
+            f"(1 x 3 x {H}x{W}) {q['ms']:.4f} (L2 flushed {q['cold_ms']:.4f}, bound "
+            f"{q['bound_ms']:.4f}, F.grid_sample {q['library_ms']:.4f})")
+        del captured, warps, mc
+
+    with phase(f"dvc real bits {H}x{W} GOP16 bf16"):
+        enc, dec = chain_real_bits("dvc", dspec, gop)
+        chain_launches.update(dvc_real_bits_encode=enc, dvc_real_bits_decode=dec)
+    del dspec
+
+    rspec = chain_model("RLVC")
+    with phase(f"rlvc rollout {H}x{W} GOP16 bf16"):
+        chain_launches["rlvc_rollout"] = stock_rollout("rlvc", rspec, gop, 5, "flow_warp",
+                                                       rows=chain_rows)
+    with phase(f"rlvc real bits {H}x{W} GOP16 bf16"):
+        enc, dec = chain_real_bits("rlvc", rspec, gop)
+        chain_launches.update(rlvc_real_bits_encode=enc, rlvc_real_bits_decode=dec)
+    del rspec
+
+    for name, bits_too in (("RLVC-HP", True), ("RLVC2", False), ("Base-EC-ER", True)):
+        label, path = name.lower(), name.lower().replace("-", "_")
+        cspec = chain_model(name)
+        with phase(f"{label} rollout {H}x{W} GOP16 bf16"):
+            chain_launches[f"{path}_rollout"] = stock_rollout(label, cspec, gop, 5, "flow_warp",
+                                                              runs=1, rows=chain_rows)
+        if bits_too:  # RLVC2 has no real-bits path
+            with phase(f"{label} real bits 256x512 GOP16 bf16"):
+                enc, dec = chain_real_bits(label, cspec, small_gop)
+                chain_launches.update({f"{path}_real_bits_encode": enc,
+                                       f"{path}_real_bits_decode": dec})
+        del cspec
+    del small_gop
+    log(json.dumps({"dvc_family": chain_rows, "flow_warp": {
+        k: {key: v[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "smooth_ms",
+                                    "random_ms", "library_ms", "launches")}
+        for k, v in chain_timing.items()}}))
+
     by_path = {name: {"lsvc_rollout": rollout_launches[name],
                       "lsvc_decode_graph": decode_launches[name],
                       "ssf_rollout": ssf_launches[name],
@@ -1491,7 +1631,8 @@ def main() -> int:
                       "mcvc_rollout": mcvc_launches[name],
                       "mcvc_real_bits_encode": mcvc_enc[name],
                       "mcvc_real_bits_decode": mcvc_dec[name],
-                      **{path: n[name] for path, n in stock_launches.items()}}
+                      **{path: n[name] for path, n in stock_launches.items()},
+                      **{path: n[name] for path, n in chain_launches.items()}}
                 for name in kernels}
     # each kernel's top-level numbers stay on the path that defined them in
     # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
@@ -1503,6 +1644,7 @@ def main() -> int:
               for k, v in mcvc_timing.items()}
     timing.update(stock_timing)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "launches")
+    by_kernel_timing = {"pixel_warp": timing, "flow_warp": chain_timing}
     report = {"kernels": [
         {
             "name": name,
@@ -1517,8 +1659,9 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": lib[name],
             "launches_by_path": by_path[name],
-            **({"timing_by_path": {path: {k: t[k] for k in keys} for path, t in timing.items()}}
-               if name == "pixel_warp" else {}),
+            **({"timing_by_path": {path: {k: t[k] for k in keys}
+                                   for path, t in by_kernel_timing[name].items()}}
+               if name in by_kernel_timing else {}),
         }
         for name in kernels
     ]}

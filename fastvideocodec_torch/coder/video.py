@@ -1,5 +1,6 @@
-"""Whole-GOP real-bitstream encode and decode of LSVC-TPU, SSF-TPU,
-ELFVC(-SP)-TPU and MCVC(-IA), ported from fastvideocodec_tpu/coder/video.py.
+"""Whole-GOP real-bitstream encode and decode of LSVC-TPU, the SSF, ELFVC
+and MCVC families, DVC, Base(-EC/-ER) and RLVC (RLVC, RLVC-HP), ported
+from fastvideocodec_tpu/coder/video.py.
 
 LSVC (tree codec):
   encode: flow + mv analysis for all P-frames in one batch -> mv symbols to
@@ -18,6 +19,15 @@ MCVC (chain codec over views folded into the batch): as SSF with the
   keyframe coded, the failed views zeroed before analysis and the view
   mask carried in the streams; with -IA both sides run the backup
   cross-view-attention decoders on the decoded masked latents.
+DVC and Base (chain of P-frames on the previous recon, frame 0 uncoded):
+  three streams a frame, mv and z by their BitEstimators, the residual
+  features by the Laplace coder with the scales decoded from z; Base's
+  ER and EC corrections come from the decoded symbols on both sides.
+RLVC (chain with recurrent state): per frame the mv and the residual
+  latents of the two Coder2Ds, factorized on the first P-frame and
+  Gaussian with the RPM's (sigma, mu) after ('rpm'), or z by its
+  factorized tables and the latent Gaussian ('mshyper', RLVC-HP); the
+  decoder rebuilds the LSTM, RPM and prior state from decoded latents.
 
 The decoder sees only the bitstreams, so ``decode == encode recon`` bit
 for bit is the correctness invariant. Both sides take every tensor they
@@ -51,6 +61,7 @@ from fastvideocodec_torch.coder.service import (
     GaussianCodec,
     LaplaceCodec,
 )
+from fastvideocodec_torch.entropy.rpm import rpm_sigma
 from fastvideocodec_torch.models.mcvc import mask_views
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.warp import avg_pool2, depth_to_space, space_to_depth
@@ -129,8 +140,8 @@ def _resolve(obj):
 
 
 def lsvc_codecs(module):
-    """(mv, z, feature) codecs: the two BitEstimators' tables and the
-    Laplace scale table."""
+    """(mv, z, feature) codecs of LSVC, DVC and Base: the two BitEstimators'
+    tables and the Laplace scale table."""
     return (BitEstimatorCodec(module.bit_estimator_mv.numpy_params()),
             BitEstimatorCodec(module.bit_estimator_z.numpy_params()),
             LaplaceCodec())
@@ -487,3 +498,244 @@ def mcvc_decompress_gop(spec: CodecSpec, streams: dict, codecs=None) -> torch.Te
             x_ref = x_pred + m.res_decoder(torch.cat([y_res_hat, y_mot_hat], dim=1))
             frames.append(m.enhance_inter(x_ref, x_pred, y_res_hat, y_mot_hat, alive))
     return torch.stack(frames)
+
+
+# ---------------------------------------------------------------------------
+# DVC and Base: mv and z through their BitEstimators, the features through
+# the Laplace coder (reference DVC/net.py:121-205, models.py:1722-1806)
+# ---------------------------------------------------------------------------
+
+
+def _chain_gop(spec: CodecSpec, gop: torch.Tensor) -> torch.Tensor:
+    """gop [T, 3, H, W] (batch 1) on the model's device, in its dtype,
+    contiguous (the warp kernel takes contiguous frames)."""
+    if gop.dim() != 4:
+        raise ValueError(f"gop must be [T, 3, H, W], got {tuple(gop.shape)}")
+    return gop.to(_device(spec), spec.module.dtype).contiguous()
+
+
+def _int_symbols(q: torch.Tensor) -> HostCopy:
+    return HostCopy(nhwc(q.to(torch.int32)))
+
+
+def _symbols_in(a: np.ndarray, device, dtype) -> torch.Tensor:
+    return from_nhwc(a.astype(np.int32), device).to(dtype)
+
+
+@torch.inference_mode()
+def dvc_compress_gop(spec: CodecSpec, gop: torch.Tensor, codecs=None):
+    """DVC or Base, gop [T, 3, H, W] with frame 0 the uncoded reference ->
+    (streams, recon [T-1, 3, H, W] in the model dtype, bits). Each frame
+    codes against the previous recon; its mv, z and feature symbols code
+    on AsyncCoder threads while the card goes on. The features' scales are
+    the decode side's (``sigma`` of the z symbols, Base's ER applied), and
+    the residual is taken against the decode side's motion compensation
+    (``mc`` of the mv symbols). ``codecs`` from ``lsvc_codecs``."""
+    m = spec.module
+    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    x = _chain_gop(spec, gop)
+    x_ref = x[0:1]
+    recon, frames, shapes = [], [], []
+    with deterministic_convs(), AsyncCoder(workers=3) as coder:
+        for t in range(1, x.shape[0]):
+            mv_q = m.mv_symbols(x[t:t + 1], x_ref)
+            mv_host = _int_symbols(mv_q)
+            x_mc = m.mc(x_ref, mv_q)
+            z_q, feat_q = m.analyze(x[t:t + 1], x_mc)
+            z_host, feat_host = _int_symbols(z_q), _int_symbols(feat_q)
+            sigma, correction = m.sigma(z_q)
+            idx_host = HostCopy(nhwc(feat_codec.bucket(sigma)))
+            frames.append({
+                "mv": coder.submit(lambda h=mv_host: mv_codec.compress(h.numpy())),
+                "z": coder.submit(lambda h=z_host: z_codec.compress(h.numpy())),
+                "feat": coder.submit(
+                    lambda f=feat_host, i=idx_host: feat_codec.encode(f.numpy(), i.numpy())),
+            })
+            shapes.append({"mv": nhwc_shape(mv_q), "z": nhwc_shape(z_q),
+                           "feat": nhwc_shape(feat_q)})
+            x_ref = m.reconstruct(x_mc, feat_q, correction)
+            recon.append(x_ref[0])
+        streams = {"frames": _resolve(frames), "shapes": shapes}
+    bits = 8 * sum(len(f["mv"]) + len(f["z"]) + len(f["feat"]) for f in streams["frames"])
+    return streams, torch.stack(recon), bits
+
+
+@torch.inference_mode()
+def dvc_decompress_gop(spec: CodecSpec, iframe: torch.Tensor, streams: dict,
+                       codecs=None) -> torch.Tensor:
+    """The P-frames [T-1, 3, H, W] from (frame 0 [3, H, W], streams) only.
+    Every mv and z stream starts decoding at once; each frame's features
+    follow its scales."""
+    m = spec.module
+    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    device = _device(spec)
+    x_ref = iframe[None].to(device, m.dtype).contiguous()
+    recon = []
+    with deterministic_convs(), AsyncCoder(workers=3) as coder:
+        pending = [(coder.submit(mv_codec.decompress, f["mv"], sh["mv"]),
+                    coder.submit(z_codec.decompress, f["z"], sh["z"]))
+                   for f, sh in zip(streams["frames"], streams["shapes"])]
+        for f, (mv_f, z_f) in zip(streams["frames"], pending):
+            z_q = _symbols_in(z_f.result(), device, m.dtype)
+            sigma, correction = m.sigma(z_q)
+            idx_host = HostCopy(nhwc(feat_codec.bucket(sigma)))
+            feat = coder.submit(lambda d=f["feat"], i=idx_host: feat_codec.decode(d, i.numpy()))
+            x_mc = m.mc(x_ref, _symbols_in(mv_f.result(), device, m.dtype))
+            x_ref = m.reconstruct(x_mc, _symbols_in(feat.result(), device, m.dtype), correction)
+            recon.append(x_ref[0])
+    return torch.stack(recon)
+
+
+base_compress_gop = dvc_compress_gop
+base_decompress_gop = dvc_decompress_gop
+
+
+# ---------------------------------------------------------------------------
+# RLVC: recurrent state rebuilt from decoded latents on both sides
+# (reference entropy_models.py:97-148 compress_slow / decompress_slow)
+# ---------------------------------------------------------------------------
+
+
+class Coder2DCoder:
+    """Real coding of one Coder2D's latent: 'rpm' (RLVC) factorized on the
+    first P-frame, then Gaussian with the RPM's (sigma, mu) from the
+    previous frame's decoded latent; 'mshyper' (RLVC-HP) z by its
+    factorized tables, the latent Gaussian with the hyper decoder's
+    (sigma, mu). The next prior is round(latent_hat), the decoded latent
+    (the rollout takes round(latent)): both sides then run the RPM on the
+    same input. The symbol round(latent - mu) is taken in the model
+    dtype."""
+
+    def __init__(self, codec, dtype: torch.dtype):
+        if codec.entropy_type == "rpm2":
+            raise ValueError("RLVC2 ('rpm2') has no real-bits path: the JAX package codes "
+                             "only RLVC ('rpm') and RLVC-HP ('mshyper')")
+        self.codec, self.dtype = codec, dtype
+        self.bottleneck = codec.entropy.bottleneck
+        self.fcodec = FactorizedCodec(self.bottleneck.numpy_params())
+        self.gcodec = GaussianCodec()
+
+    def _gaussian(self, latent, sigma, mu, coder):
+        q = torch.round(latent - mu)
+        q_host, idx_host = _int_symbols(q), HostCopy(nhwc(self.gcodec.bucket(sigma)))
+        return coder.submit(lambda: self.gcodec.encode(q_host.numpy(), idx_host.numpy())), q + mu
+
+    def compress(self, x, state, dec4, rpm_flag: bool, coder: AsyncCoder):
+        """x -> (hat, new state, stream future(s), the latent's NHWC shape);
+        ``state`` (rae_hidden, rpm_hidden, prior_latent)."""
+        rae, rpm_hidden, prior = state
+        state_enc, state_dec = rae.chunk(2, dim=1)
+        latent, state_enc = self.codec.encode(x, state_enc)
+        if self.codec.entropy_type == "mshyper":
+            hp = self.codec.entropy
+            z = hp.hyper_encode(latent)
+            z_host = HostCopy(nhwc(z.float()))
+            z_stream = coder.submit(lambda: self.fcodec.compress(z_host.numpy()))
+            sigma, mu = hp.hyper_decode(self.bottleneck.dequantize(z).to(latent.dtype))
+            y_stream, latent_hat = self._gaussian(latent, sigma, mu, coder)
+            stream = {"z": z_stream, "y": y_stream, "z_shape": nhwc_shape(z)}
+        elif rpm_flag:
+            sigma, mu, rpm_hidden = self._rpm(prior, rpm_hidden)
+            stream, latent_hat = self._gaussian(latent, sigma, mu, coder)
+        else:
+            l_host = HostCopy(nhwc(latent.float()))
+            stream = coder.submit(lambda: self.fcodec.compress(l_host.numpy()))
+            latent_hat = self.bottleneck.dequantize(latent)
+        hat, state_dec = self.codec.decode(latent_hat.to(self.dtype), state_dec, dec4)
+        state = (torch.cat([state_enc, state_dec], dim=1), rpm_hidden, torch.round(latent_hat))
+        return hat, state, stream, nhwc_shape(latent)
+
+    def _rpm(self, prior, rpm_hidden):
+        sigma_raw, mu, rpm_hidden = self.codec.entropy.rpm(prior.to(self.dtype), rpm_hidden)
+        return rpm_sigma(sigma_raw), mu, rpm_hidden
+
+    def decompress(self, stream, shape, state_dec, rpm_hidden, prior, dec4, rpm_flag: bool):
+        """The decoder's mirror of ``compress``: (hat, state_dec, rpm_hidden,
+        prior). Each latent's scales need the last one's decoded latent, so
+        the range decode runs on this thread."""
+        device = state_dec.device
+        if self.codec.entropy_type == "mshyper":
+            z_hat = from_nhwc(self.fcodec.decompress(stream["z"], stream["z_shape"]), device)
+            sigma, mu = self.codec.entropy.hyper_decode(z_hat.to(self.dtype))
+            latent_hat = self._gaussian_decode(stream["y"], sigma, mu)
+        elif rpm_flag:
+            sigma, mu, rpm_hidden = self._rpm(prior, rpm_hidden)
+            latent_hat = self._gaussian_decode(stream, sigma, mu)
+        else:
+            latent_hat = from_nhwc(self.fcodec.decompress(stream, shape), device)
+        hat, state_dec = self.codec.decode(latent_hat.to(self.dtype), state_dec, dec4)
+        return hat, state_dec, rpm_hidden, torch.round(latent_hat)
+
+    def _gaussian_decode(self, data, sigma, mu):
+        q = self.gcodec.decode(data, nhwc(self.gcodec.bucket(sigma)).cpu().numpy())
+        return _symbols_in(q, sigma.device, mu.dtype) + mu
+
+
+def rlvc_codecs(module):
+    """The mv and the residual Coder2Ds' coders."""
+    return (Coder2DCoder(module.mv_codec, module.dtype),
+            Coder2DCoder(module.res_codec, module.dtype))
+
+
+def _stream_len(s) -> int:
+    """Bytes of one latent's stream: {z, y} for RLVC-HP, else bytes."""
+    return len(s["z"]) + len(s["y"]) if isinstance(s, dict) else len(s)
+
+
+@torch.inference_mode()
+def rlvc_compress_gop(spec: CodecSpec, gop: torch.Tensor, codecs=None):
+    """RLVC or RLVC-HP, gop [T, 3, H, W] with frame 0 the uncoded reference
+    -> (streams, recon [T-1, 3, H, W] in the model dtype, bits). The
+    streams hold each frame's {"mv", "res"} and the latents' NHWC shapes.
+    RLVC2 raises. ``codecs`` from ``rlvc_codecs``."""
+    m = spec.module
+    mv_coder, res_coder = codecs or rlvc_codecs(m)
+    x = _chain_gop(spec, gop)
+    _, _, H, W = x.shape
+    hid = m.init_hidden(1, H, W, x.device)
+    mv_state = (hid.rae_mv, hid.rpm_mv, hid.mv_prior)
+    res_state = (hid.rae_res, hid.rpm_res, hid.res_prior)
+    x_ref = x[0:1]
+    recon, frames = [], []
+    with deterministic_convs(), AsyncCoder(workers=4) as coder:
+        for t in range(1, x.shape[0]):
+            mv = m.optic_flow(x[t:t + 1], x_ref)
+            mv_hat, mv_state, mv_stream, mv_shape = mv_coder.compress(
+                mv, mv_state, m.mv_dec4, t > 1, coder)
+            x_mc, _ = m.motion_compensation(x_ref, mv_hat)
+            res_hat, res_state, res_stream, res_shape = res_coder.compress(
+                x[t:t + 1] - x_mc, res_state, m.res_dec4, t > 1, coder)
+            x_ref = torch.clamp(res_hat + x_mc, 0.0, 1.0)
+            recon.append(x_ref[0])
+            frames.append({"mv": mv_stream, "res": res_stream})
+        streams = {"frames": _resolve(frames), "shapes": {"mv": mv_shape, "res": res_shape}}
+    bits = 8 * sum(_stream_len(f["mv"]) + _stream_len(f["res"]) for f in streams["frames"])
+    return streams, torch.stack(recon), bits
+
+
+@torch.inference_mode()
+def rlvc_decompress_gop(spec: CodecSpec, iframe: torch.Tensor, streams: dict,
+                        codecs=None) -> torch.Tensor:
+    """The P-frames [T-1, 3, H, W] from (frame 0 [3, H, W], streams) only:
+    the decoder's LSTM, RPM and prior state start at zeros and follow the
+    decoded latents."""
+    m = spec.module
+    mv_coder, res_coder = codecs or rlvc_codecs(m)
+    device = _device(spec)
+    x_ref = iframe[None].to(device, m.dtype).contiguous()
+    _, _, H, W = x_ref.shape
+    hid = m.init_hidden(1, H, W, device)
+    mv_state = [hid.rae_mv.chunk(2, dim=1)[1], hid.rpm_mv, hid.mv_prior]
+    res_state = [hid.rae_res.chunk(2, dim=1)[1], hid.rpm_res, hid.res_prior]
+    shapes = streams["shapes"]
+    recon = []
+    with deterministic_convs():
+        for t, f in enumerate(streams["frames"], start=1):
+            mv_hat, *mv_state = mv_coder.decompress(f["mv"], shapes["mv"], *mv_state,
+                                                    m.mv_dec4, t > 1)
+            x_mc, _ = m.motion_compensation(x_ref, mv_hat)
+            res_hat, *res_state = res_coder.decompress(f["res"], shapes["res"], *res_state,
+                                                       m.res_dec4, t > 1)
+            x_ref = torch.clamp(res_hat + x_mc, 0.0, 1.0)
+            recon.append(x_ref[0])
+    return torch.stack(recon)

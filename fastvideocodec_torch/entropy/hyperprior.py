@@ -1,7 +1,15 @@
-"""The SSF-family hyperprior at eval time, ported from
-fastvideocodec_tpu/entropy/hyperprior.py (``SSFHyperprior``; reference
-models.py:1958-1999).
+"""The hyperpriors at eval time, ported from
+fastvideocodec_tpu/entropy/hyperprior.py: ``MeanScaleHyperPriors``, RLVC-HP's
+(reference entropy_models.py:150-324), and the SSF family's
+``SSFHyperprior`` (reference models.py:1958-1999).
 
+MeanScaleHyperPriors: a stride-1 hyper analysis (four 3x3 convs,
+LeakyReLU(0.01) between) gives z at x's size, coded by a factorized
+bottleneck; the hyper synthesis (three convs with LeakyReLU(0.01), a conv
+to 2C) gives (sigma_raw, mu), sigma = exp(max(sigma_raw, -7)) (no /10,
+unlike the RPM's), and x is coded Gaussian with those means.
+
+SSFHyperprior:
 y -> hyper encoder -> z; z is coded by the factorized bottleneck; the mean
 and QReLU-scale hyper decoders give the Gaussian parameters of y, cropped
 to y's size (the three stride-2 deconvs emit 8*ceil(y/8) pixels); y_hat is
@@ -18,17 +26,53 @@ prediction in place of y_hat. ``forward_with_prior`` is the JAX module's
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fastvideocodec_torch.entropy.factorized import EntropyBottleneck
 from fastvideocodec_torch.entropy.gaussian import GaussianConditional
-from fastvideocodec_torch.layers.blocks import SPnet
+from fastvideocodec_torch.layers.blocks import SPnet, conv
 from fastvideocodec_torch.layers.transforms import (
     SSFEncoder,
     SSFHyperDecoder,
     SSFHyperDecoderQReLU,
 )
 from fastvideocodec_torch.ops.math import quantize
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.01)
+
+
+class MeanScaleHyperPriors(nn.Module):
+    def __init__(self, channels: int = 128):
+        super().__init__()
+        c = channels
+        self.bottleneck = EntropyBottleneck(c)
+        self.gaussian = GaussianConditional()
+        for i in range(4):
+            self.add_module(f"h_a_{i}", conv(c, c, 3))
+            self.add_module(f"h_s_{i}", conv(c, 2 * c if i == 3 else c, 3))
+
+    def hyper_encode(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            x = _lrelu(getattr(self, f"h_a_{i}")(x))
+        return self.h_a_3(x)
+
+    def hyper_decode(self, z_hat: torch.Tensor):
+        """z_hat (in the model dtype) -> (sigma, mu)."""
+        for i in range(3):
+            z_hat = _lrelu(getattr(self, f"h_s_{i}")(z_hat))
+        sigma_raw, mu = self.h_s_3(z_hat).chunk(2, dim=1)
+        return torch.exp(torch.clamp(sigma_raw, min=-7.0)), mu
+
+    def forward(self, x: torch.Tensor):
+        """x -> (x_hat in x's dtype, (x likelihoods, z likelihoods), sigma,
+        mu); the likelihoods float32, both of x's shape."""
+        z_hat, z_lik = self.bottleneck(self.hyper_encode(x))
+        sigma, mu = self.hyper_decode(z_hat.to(x.dtype))
+        x_hat, x_lik = self.gaussian(x, sigma, mu)
+        return x_hat, (x_lik, z_lik), sigma, mu
 
 
 class SSFHyperprior(nn.Module):

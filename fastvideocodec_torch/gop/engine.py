@@ -1,5 +1,7 @@
 """GOP rollouts of the port, from fastvideocodec_tpu/gop/engine.py: the
-LSVC whole-GOP call (``lsvc_gop``), the SSF chain of inter frames
+LSVC whole-GOP call (``lsvc_gop``), the chain of DVC and Base P-frames on
+the previous recon (``sequential_gop``), RLVC's chain with its recurrent
+state (``rlvc_gop``), the SSF chain of inter frames
 (``ssf_gop``; SSF-Official, SSF-TPU, MCVC-Original), the ELFVC chain with
 its temporal state (``elfvc_gop``), both over a batch, and
 the MCVC multi-view GOP with its view mask (``mcvc_gop``), dispatched by
@@ -28,6 +30,53 @@ def lsvc_gop(spec: CodecSpec, gop: torch.Tensor):
     metrics["mc_psnr"] = per_frame_psnr(mc)
     metrics["warp_psnr"] = per_frame_psnr(warped)
     return com, metrics
+
+
+def _batched(gop: torch.Tensor) -> torch.Tensor:
+    """gop [T, 3, H, W] (batch 1) or [T, B, 3, H, W] -> [T, B, 3, H, W]."""
+    return gop[:, None] if gop.dim() == 4 else gop
+
+
+def _at_rank(recons: list, gop: torch.Tensor) -> torch.Tensor:
+    recon = torch.stack(recons)
+    return recon[:, 0] if gop.dim() == 4 else recon
+
+
+@torch.inference_mode()
+def sequential_gop(spec: CodecSpec, gop: torch.Tensor):
+    """DVC and Base: gop [T, 3, H, W] or [T, B, 3, H, W] with frame 0 the
+    (uncoded) reference; each P-frame is coded against the previous recon.
+    Returns (recon [T-1, (B,) 3, H, W] in the model dtype, metrics): float32
+    [T-1] stacks of the model's metrics and ``psnr`` from ``img_loss``."""
+    frames = _batched(gop)
+    x_prev = frames[0]
+    recons, per_frame = [], []
+    for t in range(1, frames.shape[0]):
+        x_prev, metrics = spec.module(frames[t], x_prev)
+        metrics["psnr"] = psnr_from_mse(metrics["img_loss"])
+        recons.append(x_prev)
+        per_frame.append(metrics)
+    return _at_rank(recons, gop), _stack(per_frame)
+
+
+@torch.inference_mode()
+def rlvc_gop(spec: CodecSpec, gop: torch.Tensor):
+    """RLVC, RLVC2, RLVC-HP: as ``sequential_gop``, the recurrent state
+    starting at zeros and carried from frame to frame; the entropy model is
+    the factorized one on the first P-frame and the RPM's after
+    (rpm_flag = t > 1)."""
+    module = spec.module
+    frames = _batched(gop)
+    T, B, _, H, W = frames.shape
+    hidden = module.init_hidden(B, H, W, frames.device)
+    x_prev = frames[0]
+    recons, per_frame = [], []
+    for t in range(1, T):
+        x_prev, hidden, metrics = module(x_prev, frames[t], hidden, t > 1)
+        metrics["psnr"] = psnr_from_mse(metrics["img_loss"])
+        recons.append(x_prev)
+        per_frame.append(metrics)
+    return _at_rank(recons, gop), _stack(per_frame)
 
 
 def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
@@ -142,7 +191,8 @@ def estimated_bits(liks) -> float:
                if name in ("keyframe", "motion", "residual") for key in ("y", "z"))
 
 
-ROLLOUTS = {"lsvc": lsvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
+ROLLOUTS = {"lsvc": lsvc_gop, "dvc": sequential_gop, "base": sequential_gop,
+            "rlvc": rlvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
 
 
 def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None):

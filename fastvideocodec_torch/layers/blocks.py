@@ -1,6 +1,7 @@
 """Building blocks (NCHW), ported from fastvideocodec_tpu/layers/blocks.py:
 ResBlock, the WarpNet motion-compensation U-net and the MEBasic SpyNet
-level of the LSVC-TPU path, the forward of QReLU for the SSF hyper
+level of the LSVC-TPU path, RLVC's ConvLSTM and flax's transposed conv
+with ``padding="SAME"`` (``SameConvTranspose``), the forward of QReLU for the SSF hyper
 decoders, the super-precision SPnet of ELFVC-SP with its blocks
 (ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention), and
 ConvAttention across views for MCVC-IA.
@@ -24,6 +25,56 @@ from fastvideocodec_torch.ops.warp import avg_pool2, bilinear_upsample_x2_ac
 def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     """k x k conv with the flax ``padding=k//2`` geometry."""
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+
+
+def same_transpose_padding(k: int, s: int) -> tuple:
+    """(before, after) padding of the stride-dilated input in flax's
+    ``ConvTranspose(padding="SAME")`` (jax.lax's conv_transpose)."""
+    pad_len = k + s - 2
+    before = k - 1 if s > k - 1 else -(-pad_len // 2)
+    return before, pad_len - before
+
+
+class SameConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose((k, k), strides=(s, s), padding="SAME")``:
+    the stride-dilated input padded (before, after) and correlated with the
+    kernel as it is, unflipped; s*H x s*W out. Not ``polyphase_deconv``
+    (torch's padding k//2 with output_padding 1), which is another map: at
+    stride 2 flax pads (ceil(k/2), floor(k/2)). Computed as torch's
+    transposed conv of the spatially flipped kernel, whose full output is
+    the dilated input padded k-1 on each side, cropped to start at
+    k-1-before. The weight is torch's [in, out, k, k], the flax kernel
+    [k, k, in, out] transposed, as ``weights.load_flat`` maps it."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 2):
+        super().__init__(cin, cout, k, stride=stride)
+        self.crop = k - 1 - same_transpose_padding(k, stride)[0]
+
+    def forward(self, x):
+        H, W = x.shape[-2:]
+        s, c = self.stride[0], self.crop
+        y = F.conv_transpose2d(x, self.weight.flip(-1, -2), self.bias, stride=s)
+        return y[..., c:c + s * H, c:c + s * W].contiguous()
+
+
+class ConvLSTM(nn.Module):
+    """Convolutional LSTM cell: one 3x3 conv over cat(x, h) to 4C channels
+    split (j, i, f, o), the forget gate biased by ``forget_bias``; the
+    state is cat(c, h) on the channel axis. ``forward(x, state)`` returns
+    (h, new state)."""
+
+    def __init__(self, in_channels: int, channels: int, forget_bias: float = 1.0):
+        super().__init__()
+        self.forget_bias = forget_bias
+        self.Conv_0 = conv(in_channels + channels, 4 * channels, 3)
+
+    def forward(self, x, state):
+        c, h = state.chunk(2, dim=1)
+        j, i, f, o = self.Conv_0(torch.cat([x, h.to(x.dtype)], dim=1)).chunk(4, dim=1)
+        f = torch.sigmoid(f + self.forget_bias)
+        c = c * f + torch.sigmoid(i) * F.relu(j)
+        h = torch.sigmoid(o) * F.relu(c)
+        return h, torch.cat([c, h], dim=1)
 
 
 class ResBlock(nn.Module):

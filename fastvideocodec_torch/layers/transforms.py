@@ -1,7 +1,8 @@
 """Analysis/synthesis transforms (NCHW), ported from
 fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU, SSF-TPU,
-ELFVC(-SP)-TPU and MCVC configurations, and stock SSF's and ELFVC's
-(``s2d=1``).
+ELFVC(-SP)-TPU and MCVC configurations, stock SSF's and ELFVC's
+(``s2d=1``), and the stock DVC transforms of DVC and Base (``stages=4``,
+the mv decoder without a polyphase output: ``polyphase_factor=None``).
 
 Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
 ``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
@@ -25,8 +26,8 @@ from fastvideocodec_torch.ops.warp import depth_to_space
 OUT_CHANNEL_N = 64
 OUT_CHANNEL_M = 96
 OUT_CHANNEL_MV = 128
-STAGES = 3  # stride-2 stages of each transform in the LSVC-TPU s2d domain
-POLYPHASE_FACTOR = 4  # the mv decoder emits the full-resolution flow
+STAGES = 3  # the default: stride-2 stages of each transform in the LSVC-TPU s2d domain
+POLYPHASE_FACTOR = 4  # the default: LSVC-TPU's mv decoder emits the full-resolution flow
 
 
 def polyphase_deconv(cin: int, cout: int, k: int) -> nn.ConvTranspose2d:
@@ -39,53 +40,55 @@ def leaky01(x: torch.Tensor) -> torch.Tensor:
 
 
 class AnalysisNet(nn.Module):
-    """STAGES x (5x5 s2 conv + GDN), no GDN after the last conv."""
+    """``stages`` x (5x5 s2 conv + GDN), no GDN after the last conv."""
 
     def __init__(self, in_channels: int, conv_channels: int = OUT_CHANNEL_N,
-                 out_channels: int = OUT_CHANNEL_M):
+                 out_channels: int = OUT_CHANNEL_M, stages: int = STAGES):
         super().__init__()
+        self.stages = stages
         cin = in_channels
-        for i in range(STAGES - 1):
+        for i in range(stages - 1):
             self.add_module(f"Conv_{i}", conv(cin, conv_channels, 5, 2))
             self.add_module(f"GDN_{i}", GDN(conv_channels))
             cin = conv_channels
-        self.add_module(f"Conv_{STAGES - 1}", conv(cin, out_channels, 5, 2))
+        self.add_module(f"Conv_{stages - 1}", conv(cin, out_channels, 5, 2))
 
     def forward(self, x):
-        for i in range(STAGES - 1):
+        for i in range(self.stages - 1):
             x = getattr(self, f"GDN_{i}")(getattr(self, f"Conv_{i}")(x))
-        return getattr(self, f"Conv_{STAGES - 1}")(x)
+        return getattr(self, f"Conv_{self.stages - 1}")(x)
 
 
 class SynthesisNet(nn.Module):
-    """STAGES x (5x5 s2 deconv + inverse GDN), no GDN after the last."""
+    """``stages`` x (5x5 s2 deconv + inverse GDN), no GDN after the last."""
 
     def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N,
-                 out_channels: int = 3):
+                 out_channels: int = 3, stages: int = STAGES):
         super().__init__()
+        self.stages = stages
         cin = in_channels
-        for i in range(STAGES - 1):
+        for i in range(stages - 1):
             self.add_module(f"PolyphaseDeconv_{i}", polyphase_deconv(cin, conv_channels, 5))
             self.add_module(f"GDN_{i}", GDN(conv_channels, inverse=True))
             cin = conv_channels
         self.add_module(
-            f"PolyphaseDeconv_{STAGES - 1}", polyphase_deconv(cin, out_channels, 5)
+            f"PolyphaseDeconv_{stages - 1}", polyphase_deconv(cin, out_channels, 5)
         )
 
     def forward(self, x):
-        for i in range(STAGES - 1):
+        for i in range(self.stages - 1):
             x = getattr(self, f"GDN_{i}")(getattr(self, f"PolyphaseDeconv_{i}")(x))
-        return getattr(self, f"PolyphaseDeconv_{STAGES - 1}")(x)
+        return getattr(self, f"PolyphaseDeconv_{self.stages - 1}")(x)
 
 
 class AnalysisMVNet(nn.Module):
-    """3x3 convs with LeakyReLU(0.1): strides [2, 1] * (STAGES-1) + [2],
+    """3x3 convs with LeakyReLU(0.1): strides [2, 1] * (stages-1) + [2],
     then a stride-1 output conv."""
 
     def __init__(self, in_channels: int = 2, conv_channels: int = OUT_CHANNEL_MV,
-                 out_channels: int = OUT_CHANNEL_MV):
+                 out_channels: int = OUT_CHANNEL_MV, stages: int = STAGES):
         super().__init__()
-        strides = [2, 1] * (STAGES - 1) + [2]
+        strides = [2, 1] * (stages - 1) + [2]
         self.n = len(strides)
         cin = in_channels
         for i, s in enumerate(strides):
@@ -100,15 +103,21 @@ class AnalysisMVNet(nn.Module):
 
 
 class SynthesisMVNet(nn.Module):
-    """Motion synthesis with a polyphase output: the mirrored stack stops
-    one doubling short, and a final 3x3 conv emits f*f*out_channels
-    channels in (ry, rx, c) order that depth-to-space by POLYPHASE_FACTOR
-    into the full-resolution flow."""
+    """Motion synthesis, the mirrored stack of 3x3 layers with
+    LeakyReLU(0.1). With a ``polyphase_factor`` f (LSVC-TPU's 4) the stack
+    stops one doubling short, and a final 3x3 conv emits f*f*out_channels
+    channels in (ry, rx, c) order that depth-to-space by f into the
+    full-resolution flow; with None (stock DVC and Base) the last stride-2
+    deconv runs too and a 3x3 conv emits ``out_channels``."""
 
     def __init__(self, in_channels: int = OUT_CHANNEL_MV, conv_channels: int = OUT_CHANNEL_MV,
-                 out_channels: int = 2):
+                 out_channels: int = 2, stages: int = STAGES,
+                 polyphase_factor: int | None = POLYPHASE_FACTOR):
         super().__init__()
-        self.ups = ([True, False] * (STAGES - 1) + [True])[:-1]
+        self.factor = polyphase_factor
+        self.ups = [True, False] * (stages - 1) + [True]
+        if polyphase_factor is not None:
+            self.ups = self.ups[:-1]
         cin, n_deconv, n_conv = in_channels, 0, 0
         for up in self.ups:
             if up:
@@ -121,7 +130,7 @@ class SynthesisMVNet(nn.Module):
                 n_conv += 1
             cin = conv_channels
         self.n_conv = n_conv
-        f = POLYPHASE_FACTOR
+        f = polyphase_factor or 1
         self.add_module(f"Conv_{n_conv}", conv(cin, f * f * out_channels, 3))
 
     def forward(self, x):
@@ -133,7 +142,8 @@ class SynthesisMVNet(nn.Module):
             else:
                 x = leaky01(getattr(self, f"Conv_{n_conv}")(x))
                 n_conv += 1
-        return depth_to_space(getattr(self, f"Conv_{self.n_conv}")(x), POLYPHASE_FACTOR)
+        x = getattr(self, f"Conv_{self.n_conv}")(x)
+        return x if self.factor is None else depth_to_space(x, self.factor)
 
 
 class AnalysisPriorNet(nn.Module):

@@ -1,0 +1,101 @@
+"""Base (+'-EC', +'-ER'), the reference's experimental DVC-skeleton codec
+(models.py:1550-1835), ported at eval time from
+fastvideocodec_tpu/models/base.py.
+
+- EC ("error concealment"): the prior decoder emits 2x the channels; the
+  second half becomes sigmoid(x) - 0.5, a feature correction concatenated
+  into the residual decoder's input.
+- ER ("error restoration"): CodecNet stacks predict the quantization error
+  of the mv, residual-feature and z latents from their rounded values; at
+  eval the decoders take gen(round(l)) + round(l). The soft2hard schedule
+  (``s2h_stage``) and the detach topology are training knobs and wait for
+  training.
+
+DVC's pieces of the real-bits coder carry the corrections, so both sides
+recompute them from the decoded symbols alone.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fastvideocodec_torch.layers.codecnet import CodecNet, er_gen_config
+from fastvideocodec_torch.layers.transforms import OUT_CHANNEL_M, OUT_CHANNEL_MV, OUT_CHANNEL_N
+from fastvideocodec_torch.models.dvc import DVC, as_frames, mse
+from fastvideocodec_torch.ops import quantize
+
+
+class Base(DVC):
+    def __init__(self, use_ec: bool = False, use_er: bool = False,
+                 channels_n: int = OUT_CHANNEL_N, channels_m: int = OUT_CHANNEL_M,
+                 channels_mv: int = OUT_CHANNEL_MV, gen_width_mv: int = 192,
+                 gen_width: int = 128, spynet_widths: tuple = (32, 64, 32, 16),
+                 spynet_kernel: int = 7, warp_width: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        cm = channels_m
+        super().__init__(channels_n, cm, channels_mv, spynet_widths, spynet_kernel, warp_width,
+                         dtype, res_decoder_in=2 * cm if use_ec else cm,
+                         prior_out=2 * cm if use_ec else cm)
+        self.use_ec, self.use_er = use_ec, use_er
+        if use_er:
+            self.mv_gen = CodecNet(er_gen_config(channels_mv, gen_width_mv), channels_mv)
+            self.res_gen = CodecNet(er_gen_config(cm, gen_width), cm)
+            self.z_gen = CodecNet(er_gen_config(channels_n, gen_width), channels_n)
+
+    def _restore(self, gen_name: str, q: torch.Tensor) -> torch.Tensor:
+        """The decoders' input from a rounded latent: gen(q) + q with ER."""
+        return getattr(self, gen_name)(q) + q if self.use_er else q
+
+    def mc(self, x_ref, mv_q):
+        return self.motion_compensation(x_ref, self.mv_decoder(self._restore("mv_gen", mv_q)))[0]
+
+    def _split(self, sigma_out):
+        if not self.use_ec:
+            return sigma_out, None
+        sigma, correction = sigma_out.chunk(2, dim=1)
+        return sigma, torch.sigmoid(correction) - 0.5
+
+    def sigma(self, z_q):
+        return self._split(self.prior_decoder(self._restore("z_gen", z_q)))
+
+    def _res_decode(self, feat_in, correction):
+        if correction is not None:
+            feat_in = torch.cat([feat_in, correction], dim=1)
+        return self.res_decoder(feat_in)
+
+    def reconstruct(self, x_mc, feat_q, correction):
+        return torch.clamp(x_mc + self._res_decode(self._restore("res_gen", feat_q), correction),
+                           0.0, 1.0)
+
+    def forward(self, x_cur: torch.Tensor, x_ref: torch.Tensor):
+        x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
+        B, _, H, W = x_cur.shape
+        mv_latent = self.mv_encoder(self.optic_flow(x_cur, x_ref))
+        mv_q = quantize(mv_latent)
+        mv_in = self._restore("mv_gen", mv_q)
+        x_mc = self.motion_compensation(x_ref, self.mv_decoder(mv_in))[0]
+        feature = self.res_encoder(x_cur - x_mc)
+        feature_q = quantize(feature)
+        z = self.prior_encoder(feature)
+        z_q = quantize(z)
+        z_in = self._restore("z_gen", z_q)
+        sigma, correction = self._split(self.prior_decoder(z_in))
+        feat_in = self._restore("res_gen", feature_q)
+        x_rec = x_mc + self._res_decode(feat_in, correction)
+
+        def mean_abs(a, b):
+            return torch.mean(torch.abs(a.float() - b.float()))
+
+        pred_err = torch.zeros((), dtype=torch.float32, device=x_cur.device)
+        if self.use_er:  # the ER prediction's error against the latent
+            for restored, latent in ((mv_in, mv_latent), (feat_in, feature), (z_in, z)):
+                pred_err = pred_err + mean_abs(restored, latent)
+        metrics = {
+            "img_loss": mse(x_rec, x_cur),
+            "inter_loss": mse(x_mc, x_cur),
+            **self.rates(mv_q, z_q, feature_q, sigma, B * H * W),
+            "Q_err": (mean_abs(mv_latent, mv_q) + mean_abs(feature, feature_q)
+                      + mean_abs(z, z_q)),
+            "pred_err": pred_err,
+        }
+        return torch.clamp(x_rec, 0.0, 1.0), metrics

@@ -1,5 +1,5 @@
-"""Codec registry of the port: the LSVC-TPU branch and the SSF, ELFVC and
-MCVC branches of fastvideocodec_tpu/models/registry.py.
+"""Codec registry of the port: the LSVC-TPU branch and the DVC, RLVC, Base,
+SSF, ELFVC and MCVC branches of fastvideocodec_tpu/models/registry.py.
 
 ``get_codec_model`` builds the module on ``device`` (the card unless the
 caller passes ``device="cpu"``) in eval mode. With ``dtype=torch.bfloat16``
@@ -16,9 +16,12 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from fastvideocodec_torch.models.base import Base
+from fastvideocodec_torch.models.dvc import DVC
 from fastvideocodec_torch.models.elfvc import ELFVC
 from fastvideocodec_torch.models.lsvc import LSVC
 from fastvideocodec_torch.models.mcvc import MCVC
+from fastvideocodec_torch.models.rlvc import RLVC
 from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 
 
@@ -41,6 +44,29 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int,
         # the flagship's architecture at golden-RD scale
         return "lsvc", LSVC(channels=48, conv_channels=32, spynet_widths=(8, 16, 8, 4),
                             spynet_kernels=(5, 5, 5, 5), warp_width=32, dtype=dtype)
+    # DVC, RLVC and Base: the reference's widths (SpyNet 32/64/32/16 at 7x7,
+    # the stock transforms), or with -TINY the golden-RD widths of
+    # tiny_{dvc,rlvc,base}_l{0,2,4}. DVC-pretrained builds DVC's module
+    # (its reference checkpoints are not in the repo)
+    tiny_widths = dict(spynet_widths=(8, 16, 8, 4), spynet_kernel=5, warp_width=16)
+    if name in ("DVC", "DVC-pretrained"):
+        return "dvc", DVC(dtype=dtype)
+    if name == "DVC-TINY":
+        return "dvc", DVC(channels_n=32, channels_m=48, channels_mv=32, dtype=dtype,
+                          **tiny_widths)
+    if name.startswith("RLVC") and "-TINY" in name:
+        ent = ("mshyper" if name.startswith("RLVC-HP")
+               else "rpm2" if name.startswith("RLVC2") else "rpm")
+        return "rlvc", RLVC(channels=32, entropy_type=ent, dtype=dtype, **tiny_widths)
+    if name in ("RLVC", "RLVC2", "RLVC-HP"):
+        ent = {"RLVC": "rpm", "RLVC2": "rpm2", "RLVC-HP": "mshyper"}[name]
+        return "rlvc", RLVC(entropy_type=ent, dtype=dtype)
+    if name.startswith("Base"):
+        flags = dict(use_ec="-EC" in name, use_er="-ER" in name, dtype=dtype)
+        if "-TINY" in name:
+            return "base", Base(channels_n=32, channels_m=48, channels_mv=32, gen_width_mv=48,
+                                gen_width=32, **flags, **tiny_widths)
+        return "base", Base(**flags)
     # the SSF, ELFVC and MCVC branches take the names JAX's do, by the same
     # tests of the name: '-TPU' the s2d form, '-TINY' the golden-RD widths
     s2d = 2 if "-TPU" in name else 1
@@ -71,9 +97,11 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int,
         return "mcvc", MCVC(num_views, imbalanced_correlation="-IA" in name, dtype=dtype,
                             **widths)
     raise ValueError(
-        f"codec {name!r} is not ported yet (have LSVC-TPU and the SSF, ELFVC and MCVC "
-        f"families: SSF-Official, SSF-TPU, ELFVC, ELFVC-SP, ELFVC-TPU, ELFVC-SP-TPU, MCVC, "
-        f"MCVC-IA, MCVC-IA-OLFT and their -TINY forms, and MCVC-Original)"
+        f"codec {name!r} is not ported yet (have LSVC-TPU and the DVC, RLVC, Base, SSF, "
+        f"ELFVC and MCVC families: DVC, DVC-pretrained, RLVC, RLVC2, RLVC-HP, Base, "
+        f"Base-EC, Base-ER, Base-EC-ER, SSF-Official, SSF-TPU, ELFVC, ELFVC-SP, ELFVC-TPU, "
+        f"ELFVC-SP-TPU, MCVC, MCVC-IA, MCVC-IA-OLFT and their -TINY forms, and "
+        f"MCVC-Original)"
     )
 
 

@@ -1,12 +1,14 @@
 """Where a rollout's time goes on one CUDA card: by module, and by kernel.
 
     python -m fastvideocodec_torch.tools.profile_rollout
-        [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|MCVC-IA|MCVC-Original]
+        [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|MCVC-IA|MCVC-Original
+                 |DVC|RLVC|RLVC-HP|Base-EC-ER]
         [--views 4] [--h 256 --w 256] [--json PATH]
 
 The cell of ``chip_smoke.py``: bf16, 1024x2048, GOP 16, synth_gop_multi
 seed 0, with ``real_bits_fps``'s weights (seeded full widths, the
-ELFVC-SP forms at sp_stage 2; hd_lsvctpuf2_l2 for LSVC-TPU); MCVC's is
+ELFVC-SP forms at sp_stage 2, the pretrained SpyNet in DVC's, RLVC's and
+Base's; hd_lsvctpuf2_l2 for LSVC-TPU); MCVC's is
 ``--views`` views of --h x --w (256x256 unless given) from
 ``real_bits_fps.mcvc_clip`` with seed 0, all alive (``--views 4 --h 1024
 --w 2048``: chip_smoke.py's 4 x 1024x2048), MCVC-Original's the same
@@ -14,8 +16,9 @@ views as a batch. After a warm-up rollout it
 reports:
 
 - the GOP's card ms by CUDA events beside its host enqueue ms;
-- by module: every child of the codec, every child of its hyperpriors
-  and every module of their SPnets is hooked during one rollout, and each call's
+- by module: every child of the codec, every child of its hyperpriors and
+  of RLVC's Coder2Ds (``*_codec``, whose own methods are not forward) and
+  every module of their SPnets is hooked during one rollout, and each call's
   inputs are kept; each module is then run again alone on the inputs of
   its calls, and its card ms (CUDA events around the whole set of calls)
   and its host ms (the host clock around the same calls, with a
@@ -50,11 +53,12 @@ TOP = 15  # kernels listed by device time
 
 def hooked_calls(module: torch.nn.Module, run):
     """{name: [(args, kwargs), ...]} of every call, during ``run()``, of the
-    codec's children, of its hyperpriors' children and of every module of
-    their SPnets."""
+    codec's children, of its hyperpriors' and Coder2Ds' children and of
+    every module of their SPnets."""
     names = {name: m for name, m in module.named_modules()
              if name and (name.count(".") == 0 or ".y_predictor" in name
-                          or name.split(".")[0].endswith("hyperprior") and name.count(".") == 1)}
+                          or name.split(".")[0].endswith(("hyperprior", "_codec"))
+                          and name.count(".") == 1)}
     calls = {name: [] for name in names}
     handles = [m.register_forward_hook(
         lambda _m, args, kwargs, _out, n=name: calls[n].append((args, kwargs)), with_kwargs=True)

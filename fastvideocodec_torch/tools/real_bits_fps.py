@@ -1,12 +1,13 @@
 """Real-bits throughput of the port on one CUDA card: LSVC-TPU, SSF-Official,
-SSF-TPU, ELFVC-SP or ELFVC-SP-TPU at 1024x2048, or MCVC-IA or MCVC-Original
-on views of 256x256, GOP 16, through
+SSF-TPU, ELFVC-SP, ELFVC-SP-TPU, DVC, RLVC, RLVC-HP or Base-EC-ER at
+1024x2048, or MCVC-IA or MCVC-Original on views of 256x256, GOP 16, through
 the real bitstream encode AND decode (the networks on the card, range
 coding on host threads), with decode == encode checked bit for bit and
 the host coder's seconds apart from the rest.
 
     python -m fastvideocodec_torch.tools.real_bits_fps
-        [--codec LSVC-TPU|SSF-Official|SSF-TPU|ELFVC-SP|ELFVC-SP-TPU|MCVC-IA|MCVC-Original]
+        [--codec LSVC-TPU|SSF-Official|SSF-TPU|ELFVC-SP|ELFVC-SP-TPU|MCVC-IA|MCVC-Original
+                 |DVC|RLVC|RLVC-HP|Base-EC-ER]
         [--gop 16] [--h H] [--w W]
         [--views 4] [--failed 2] [--reps 3] [--level 2] [--dtype f32|bf16]
         [--json PATH] [--device cuda|cpu]
@@ -14,7 +15,8 @@ the host coder's seconds apart from the rest.
 Weights: LSVC-TPU reads fastvideocodec_tpu/assets/hd_lsvctpuf2_l{level}.npz
 by path; the others ship no full-width checkpoint and run
 ``seeded_flat(codec, 0)`` (flagged ``trained: false``), the ELFVC-SP
-forms at sp_stage 2 (both SPnets replace y). The clip is synth_gop_multi
+forms at sp_stage 2 (both SPnets replace y), DVC, RLVC and Base with the
+pretrained spynet.npz in their SpyNet. The clip is synth_gop_multi
 with numpy seed 123 (1024x2048 unless --h/--w say otherwise); MCVC's
 (``mcvc_clip``, 256x256 unless given) is ``--views`` views with the same
 seed: MCVC-IA's with the views listed in ``--failed`` (comma-separated
@@ -24,8 +26,8 @@ then ``--reps`` timed runs, each printing encode and decode seconds (host
 clock around the call, the card synchronised at its end, range coding
 included), the AC seconds of each, real bpp and the identity check.
 SSF's, ELFVC's and MCVC's bits include their coded keyframe, so their bpp
-is over all GOP frames (and all views); LSVC's is over the P-frames
-(frame 0 is taken as already coded).
+is over all GOP frames (and all views); LSVC's, DVC's, RLVC's and Base's
+is over the P-frames (frame 0 is taken as already coded).
 """
 
 from __future__ import annotations
@@ -41,17 +43,22 @@ import fastvideocodec_torch as ft
 from fastvideocodec_torch.coder import measure_ac_time
 from fastvideocodec_torch.coder import video as cv
 from fastvideocodec_torch.data.synthetic import row_views, synth_gop_multi, synth_mv_gop
+from fastvideocodec_torch.layers.spynet import load_pretrained_spynet
 from fastvideocodec_torch.ops.kernels import warp as kw
 
 
 SP_STAGE = 2  # ELFVC-SP's stage, the one its tiny checkpoints were trained at
 CODECS = ("LSVC-TPU", "SSF-Official", "SSF-TPU", "ELFVC-SP", "ELFVC-SP-TPU", "MCVC-IA",
-          "MCVC-Original")
+          "MCVC-Original", "DVC", "RLVC", "RLVC-HP", "Base-EC-ER")
+CHAINS = ("dvc", "base", "rlvc")  # P-frames coded on the previous recon, frame 0 uncoded
 CODERS = {  # family: (tables, encode, decode)
     "lsvc": (cv.lsvc_codecs, cv.lsvc_compress, cv.lsvc_decompress),
     "ssf": (cv.ssf_codecs, cv.ssf_compress_gop, cv.ssf_decompress_gop),
     "elfvc": (cv.ssf_codecs, cv.elfvc_compress_gop, cv.elfvc_decompress_gop),
     "mcvc": (cv.ssf_codecs, cv.mcvc_compress_gop, cv.mcvc_decompress_gop),
+    "dvc": (cv.lsvc_codecs, cv.dvc_compress_gop, cv.dvc_decompress_gop),
+    "base": (cv.lsvc_codecs, cv.base_compress_gop, cv.base_decompress_gop),
+    "rlvc": (cv.rlvc_codecs, cv.rlvc_compress_gop, cv.rlvc_decompress_gop),
 }
 
 
@@ -62,7 +69,7 @@ def codecs_of(spec):
 
 def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
     """Encode, then decode, one GOP: [T, 3, H, W] (frame 0 the I-frame for
-    LSVC, the keyframe SSF and ELFVC code), or views [T, V, 3, H, W]: MCVC's
+    LSVC, DVC, RLVC and Base, the keyframe SSF and ELFVC code), or views [T, V, 3, H, W]: MCVC's
     with its view mask [V], or a batch of views for the SSF family (as
     MCVC-Original); seconds by the host clock with the card synchronised
     at the end of each, the warp launches of each, bits and whether the
@@ -74,7 +81,7 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
             torch.cuda.synchronize()
 
     T, H, W = gop.shape[0], gop.shape[-2], gop.shape[-1]
-    lsvc, mcvc = spec.family == "lsvc", spec.family == "mcvc"
+    lsvc, mcvc = spec.family in ("lsvc", *CHAINS), spec.family == "mcvc"
     views = gop.shape[1] if gop.dim() == 5 else 1
     _, compress, decompress = CODERS[spec.family]
     args = (gop,) if lsvc else (gop, mask) if mcvc else (gop if views > 1 else gop[:, None],)
@@ -89,8 +96,10 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
     kw.reset_launches()
     t0 = time.perf_counter()
     with measure_ac_time() as dec_ac:
-        if lsvc:
+        if spec.family == "lsvc":
             decoded = decompress(spec, gop[0], streams, T - 1, codecs)
+        elif lsvc:
+            decoded = decompress(spec, gop[0], streams, codecs)
         else:
             decoded = decompress(spec, streams, codecs)
         sync()
@@ -111,13 +120,16 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
 
 def load_model(codec: str, level: int, dtype: torch.dtype, device: str, views: int = 1):
     """(spec, trained): LSVC-TPU's shipped weights by path, every other
-    codec's (MCVC-IA on ``views`` views) seeded."""
+    codec's (MCVC-IA on ``views`` views) seeded, with the pretrained
+    SpyNet in DVC's, RLVC's and Base's."""
     spec = ft.get_codec_model(codec, dtype=dtype, device=device, sp_stage=SP_STAGE,
                               num_views=views)
     if codec == "LSVC-TPU":
         ft.load_asset(spec.module, f"hd_lsvctpuf2_l{level}")
         return spec, True
     ft.load_flat(spec.module, ft.seeded_flat(codec, 0))
+    if spec.family in CHAINS:
+        load_pretrained_spynet(spec.module.optic_flow)
     return spec, False
 
 
@@ -179,7 +191,7 @@ def main(argv=None) -> int:
           f"GOP{args.gop} {args.dtype} on {device}; tables {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    frames = (args.gop - 1 if spec.family == "lsvc" else args.gop) * views
+    frames = (args.gop - 1 if spec.family in ("lsvc", *CHAINS) else args.gop) * views
     results = []
     for rep in range(args.reps + 1):
         r = code_gop(spec, gop, codecs, mask)

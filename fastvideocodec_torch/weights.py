@@ -134,6 +134,15 @@ def _lecun_normal(rng: np.random.Generator, shape: tuple) -> np.ndarray:
     return v * (np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNCATED_STD)
 
 
+def _xavier_normal(rng: np.random.Generator, shape: tuple) -> np.ndarray:
+    """flax variance_scaling(2.0, "fan_avg", "normal") of an HWIO (or a
+    transposed conv's [k, k, in, out]) kernel: untruncated, variance
+    2 / fan_avg."""
+    receptive = np.prod(shape[:-2])
+    fan_avg = 0.5 * receptive * (shape[-2] + shape[-1])
+    return rng.standard_normal(shape) * np.sqrt(2.0 / fan_avg)
+
+
 def seeded_flat(name: str, seed: int) -> dict:
     """Random parameters for the registry codec ``name``, drawn from
     ``np.random.default_rng(seed)`` in sorted key order with the JAX
@@ -141,19 +150,28 @@ def seeded_flat(name: str, seed: int) -> dict:
     weight-standardized kernels, zero conv biases, U(-fan_in^-1/2,
     +fan_in^-1/2) for the WSConvBlock biases (blocks.py:362-370 of the JAX
     package), ones for GroupNorm ``scale`` and ChannelLayerNorm ``g``, zero
-    GroupNorm biases, and EntropyBottleneck.setup's formulas
+    GroupNorm biases, EntropyBottleneck.setup's formulas
     (softplus-inverse matrices, U(-0.5, 0.5) biases, zero factors,
-    quantiles (-10, 0, 10)). Returns {'params/...': float32 array} in flax
+    quantiles (-10, 0, 10)), GDN's sqrt(1 + pedestal) ``beta`` and
+    sqrt(0.1 I + pedestal) ``gamma``, N(0, 0.01) BitEstimator ``h``, ``b``
+    and ``a``, and the CodecNet convs' Xavier-normal (gain sqrt 2) kernels
+    with 0.01 biases. Returns {'params/...': float32 array} in flax
     layout, for ``load_flat`` here and for the JAX package's ``apply``."""
     # the weights of MCVC do not depend on its number of views
-    shapes = flax_shapes(get_codec_model(name, device="meta", num_views=1).module)
+    module = get_codec_model(name, device="meta", num_views=1).module
+    shapes = flax_shapes(module)
+    xavier = {"params/" + path.replace(".", "/") for path, sub in module.named_modules()
+              if getattr(sub, "xavier_init", False)}
     rng = np.random.default_rng(seed)
     init_scale = 10.0
     K = len(FILTERS) + 1
+    pedestal = (2.0 ** -18) ** 2
     flat = {}
     for key in sorted(shapes):
-        shape, leaf = shapes[key], key.rsplit("/", 1)[1]
-        if leaf == "kernel":
+        shape, (parent, leaf) = shapes[key], key.rsplit("/", 1)
+        if parent in xavier:
+            value = _xavier_normal(rng, shape) if leaf == "kernel" else np.full(shape, 0.01)
+        elif leaf == "kernel":
             value = _lecun_normal(rng, shape)
         elif leaf.startswith("matrix_"):
             scale = init_scale ** (1.0 / K)
@@ -162,13 +180,19 @@ def seeded_flat(name: str, seed: int) -> dict:
             value = rng.uniform(-0.5, 0.5, shape)
         elif leaf == "quantiles":
             value = np.tile(np.asarray([-init_scale, 0.0, init_scale]), (shape[0], 1, 1))
-        elif leaf == "bias" and key.rsplit("/", 2)[1].startswith("WSConvBlock_"):
+        elif leaf == "bias" and parent.rsplit("/", 1)[1].startswith("WSConvBlock_"):
             bound = float(np.prod(shapes[key[: -len("bias")] + "kernel"][:-1])) ** -0.5
             value = rng.uniform(-bound, bound, shape)
         elif leaf in ("scale", "g"):
             value = np.ones(shape)
         elif leaf in ("bias",) or leaf.startswith("factor_"):
             value = np.zeros(shape)
+        elif leaf == "beta":
+            value = np.sqrt(np.ones(shape) + pedestal)
+        elif leaf == "gamma":
+            value = np.sqrt(0.1 * np.eye(shape[0]) + pedestal)
+        elif leaf in ("h", "b", "a"):
+            value = rng.normal(0.0, 0.01, shape)
         else:
             raise KeyError(f"no initialiser for {key!r}")
         flat[key] = value.astype(np.float32)

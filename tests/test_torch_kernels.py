@@ -2,7 +2,8 @@
 the host-side tile rule on the CPU; on a CUDA card, the tiled kernels'
 exactness (NaN flows included), the Function's gradients (pixel_warp also
 at MCVC's 18 channels on 4 views), one ELFVC-SP-TPU-TINY P-frame through
-both pixel kernels and one MCVC-IA-TINY P-frame through pixel_warp.
+both pixel kernels, one MCVC-IA-TINY P-frame through pixel_warp, and one
+DVC-TINY and one RLVC-TINY P-frame through flow_warp (5 launches each).
 
 The file imports nothing of JAX, so its ``gpu`` tests run on a card whose
 machine has none (the suite's conftest imports JAX):
@@ -465,6 +466,50 @@ def test_stock_p_frame_launches_pixel_warp_on_the_card(card, name, asset, per_fr
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     (card, card_bpp, launches), (cpu, cpu_bpp, cpu_launches) = out["cuda"], out["cpu"]
     assert launches == {**{k: 0 for k in launches}, "pixel_warp": per_frame}
+    assert set(cpu_launches.values()) == {0}
+    assert float((card - cpu).abs().mean()) <= 1e-4
+    assert abs(card_bpp - cpu_bpp) <= 1e-3 * cpu_bpp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, asset", [("DVC-TINY", "tiny_dvc_l2"),
+                                         ("RLVC-TINY", "tiny_rlvc_l2")])
+def test_dvc_family_p_frame_launches_flow_warp_on_the_card(card, name, asset):
+    """One P-frame of the tiny model at 64x128 in float32, TF32 off: on the
+    card flow_warp launches 5 times (4 SpyNet levels and the MC warp) and
+    nothing else does; on the CPU nothing launches. The card's recon is
+    within 1e-4 mean abs of the CPU's and its bpp within 1e-3 relative; its
+    real bits decode to its encode recon bit for bit (5 + 1 launches)."""
+    import fastvideocodec_torch as ft
+    from fastvideocodec_torch.coder import video as tv
+    from fastvideocodec_torch.data.synthetic import synth_gop_multi
+
+    clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=2)[:, :64, :128]
+    gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            spec = ft.get_codec_model(name, device=device)
+            ft.load_asset(spec.module, asset)
+            kwarp.reset_launches()
+            recon, metrics = ft.rollout(spec, gop.to(device))
+            out[device] = (recon.cpu(), float(metrics["bpp_est"][0]), dict(kwarp.LAUNCHES))
+        compress, decompress = ((tv.rlvc_compress_gop, tv.rlvc_decompress_gop)
+                                if spec.family == "rlvc" else
+                                (tv.dvc_compress_gop, tv.dvc_decompress_gop))
+        spec = ft.get_codec_model(name)
+        ft.load_asset(spec.module, asset)
+        kwarp.reset_launches()
+        streams, recon, _ = compress(spec, gop.cuda())
+        assert torch.equal(decompress(spec, gop[0].cuda(), streams), recon)
+        coded = dict(kwarp.LAUNCHES)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (card, card_bpp, launches), (cpu, cpu_bpp, cpu_launches) = out["cuda"], out["cpu"]
+    assert launches == {**{k: 0 for k in launches}, "flow_warp": 5}
+    assert coded == {**{k: 0 for k in launches}, "flow_warp": 6}
     assert set(cpu_launches.values()) == {0}
     assert float((card - cpu).abs().mean()) <= 1e-4
     assert abs(card_bpp - cpu_bpp) <= 1e-3 * cpu_bpp

@@ -20,6 +20,14 @@
   tiny_mcvc_l{0,3,6} completely.
 - The port holds only small text files, and builds its kernels with nvcc
   alone: no PyTorch extension builder, no PyTorch C++ headers.
+- DVC, RLVC (RLVC2, RLVC-HP) and Base (-EC, -ER) build under every name
+  the JAX registry gives them, on the card by default; their shipped
+  tiny_{dvc,rlvc,base}_l{0,2,4} map completely; ``seeded_flat`` gives the
+  keys and shapes of the JAX modules' init and their initialisers' values
+  (GDN, BitEstimator, CodecNet's Xavier convs); their rollouts and real
+  bits run without JAX; one DVC, Base-EC-ER and RLVC P-frame on meta
+  tensors sends exactly 5 warps to flow_warp's launcher (4 SpyNet levels,
+  the MC warp) and none to a plain version.
 """
 
 import inspect
@@ -66,6 +74,9 @@ def test_port_imports_without_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'fastvideocodec_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'fastvideocodec_torch.models.mcvc' in sys.modules\n"
+        "for name in ('models.dvc', 'models.base', 'models.rlvc', 'entropy.rpm',\n"
+        "             'layers.codecnet'):\n"
+        "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
         "assert not bad, bad\n"
@@ -312,7 +323,7 @@ def test_bf16_model_keeps_rate_and_gdn_params_in_float32():
 
 def test_unported_codec_raises():
     with pytest.raises(ValueError):
-        ft.get_codec_model("DVC", device="cpu")
+        ft.get_codec_model("LSVC-128", device="cpu")
 
 
 def test_kernel_library_path_keys_source_and_flags():
@@ -607,3 +618,170 @@ def test_stock_rollouts_and_real_bits_run_without_jax():
         "print('ok')\n"
     )
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+DVC_FAMILY = ["DVC", "DVC-TINY", "DVC-pretrained", "RLVC", "RLVC2", "RLVC-HP", "RLVC-TINY",
+              "RLVC2-TINY", "RLVC-HP-TINY", "Base", "Base-EC", "Base-ER", "Base-EC-ER",
+              "Base-ER-TINY"]
+
+
+@pytest.mark.parametrize("name", DVC_FAMILY)
+def test_dvc_family_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        spec = ft.get_codec_model(name)
+        assert next(spec.module.parameters()).device.type == "cuda"
+    else:
+        with (pytest.raises((RuntimeError, AssertionError))):
+            ft.get_codec_model(name)
+    spec = ft.get_codec_model(name, device="meta")
+    assert spec.family == name.split("-")[0].rstrip("2").lower()
+
+
+@pytest.mark.parametrize("asset, name, n_keys", [
+    *[(f"tiny_dvc_l{lv}", "DVC-TINY", 162) for lv in (0, 2, 4)],
+    *[(f"tiny_rlvc_l{lv}", "RLVC-TINY", 196) for lv in (0, 2, 4)],
+    *[(f"tiny_base_l{lv}", "Base-ER-TINY", 186) for lv in (0, 2, 4)],
+])
+def test_shipped_dvc_family_weights_map_completely(asset, name, n_keys):
+    """Every key of the shipped checkpoints maps and every parameter is set
+    (the loader raises otherwise); a flax-SAME transposed conv's kernel
+    [k, k, in, out] lands as torch's [in, out, k, k], unflipped."""
+    spec = ft.get_codec_model(name, device="cpu")
+    with np.load(ft.weights.asset_path(asset)) as data:
+        assert len(data.files) == n_keys
+        ft.weights.load_flat(spec.module, {k: data[k] for k in data.files})
+        assert set(ft.weights.flax_shapes(spec.module)) == set(data.files)
+        key = "params/res_dec4/kernel" if name.startswith("RLVC") else (
+            "params/mv_decoder/PolyphaseDeconv_3/kernel")
+        w = data[key].astype(np.float32)
+    sub = spec.module.res_dec4 if name.startswith("RLVC") else (
+        spec.module.mv_decoder.PolyphaseDeconv_3)
+    np.testing.assert_array_equal(sub.weight.detach().numpy(), w.transpose(2, 3, 0, 1))
+
+
+@pytest.mark.parametrize("name", ["DVC", "RLVC", "RLVC2", "RLVC-HP", "Base-EC-ER",
+                                  "Base-ER-TINY", "RLVC-HP-TINY"])
+def test_dvc_family_seeded_flat_has_the_jax_init(name):
+    """Keys and shapes of the JAX module's init (eval_shape, nothing
+    computed), and the values of its deterministic initialisers: GDN's
+    beta and gamma; the CodecNet convs' 0.01 biases and Xavier-normal
+    kernels (variance 2 / fan_avg, untruncated); BitEstimator N(0, 0.01)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
+
+    module = jax_get_codec_model(name).module
+    x = jnp.zeros((1, 64, 64, 3))
+    if name.startswith("RLVC"):
+        hidden = module.init_hidden(1, 64, 64)
+        shapes = jax.eval_shape(lambda k: module.init(k, x, x, hidden, True, training=False),
+                                jax.random.PRNGKey(0))
+    else:
+        shapes = jax.eval_shape(lambda k: module.init(k, x, x, training=False),
+                                jax.random.PRNGKey(0))
+    want = {"/".join(path): leaf.shape for path, leaf in _paths(shapes)}
+    flat = ft.weights.seeded_flat(name, 0)
+    assert {k: v.shape for k, v in flat.items()} == want
+    from fastvideocodec_tpu.layers.codecnet import CodecNet, er_gen_config
+    from fastvideocodec_tpu.ops.gdn import GDN
+
+    gdn = [k for k in flat if k.endswith("/gamma")]
+    assert gdn
+    for key in gdn:  # GDN's own init, at the layer's width
+        ch = flat[key].shape[0]
+        want = GDN(ch).init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 1, ch)))["params"]
+        for leaf in ("beta", "gamma"):
+            np.testing.assert_array_equal(flat[key[: -len("gamma")] + leaf],
+                                          np.asarray(want[leaf]))
+    gens = sorted({k.split("/")[1] for k in flat if k.split("/")[1].endswith("_gen")})
+    assert bool(gens) == ("-ER" in name)
+    for gen in gens:  # the ER stacks: CodecNet's Xavier-normal kernels, 0.01 biases
+        cin = flat[f"params/{gen}/conv_0/kernel"].shape[2]
+        hidden_w = flat[f"params/{gen}/conv_0/kernel"].shape[3]
+        want = CodecNet(er_gen_config(cin, hidden_w)).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 1, 1, cin)))["params"]
+        for conv in want:
+            np.testing.assert_array_equal(flat[f"params/{gen}/{conv}/bias"],
+                                          np.asarray(want[conv]["bias"]))
+            kernel = flat[f"params/{gen}/{conv}/kernel"]
+            k_, ci, co = kernel.shape[0], *kernel.shape[2:]
+            std = np.sqrt(2.0 / (0.5 * k_ * k_ * (ci + co)))
+            assert abs(kernel.std() / std - 1) < 0.1, (gen, conv)
+            assert np.abs(kernel).max() > 2.5 * std  # untruncated
+    h = [v for k, v in flat.items() if k.endswith(("/h", "/b", "/a"))]
+    if "-HP" not in name and name != "RLVC" and name != "RLVC-TINY":  # BitEstimators
+        assert h and 0.005 < np.concatenate(h).std() < 0.015
+
+
+def test_dvc_family_rollouts_and_real_bits_run_without_jax():
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.coder import video as cv\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(\n"
+        "    synth_gop(np.random.default_rng(0), size=64, gop=3).transpose(0, 3, 1, 2)))\n"
+        "for name, asset, fns in (\n"
+        "        ('DVC-TINY', 'tiny_dvc_l2', (cv.dvc_compress_gop, cv.dvc_decompress_gop)),\n"
+        "        ('Base-ER-TINY', 'tiny_base_l2', (cv.base_compress_gop, cv.base_decompress_gop)),\n"
+        "        ('RLVC-TINY', 'tiny_rlvc_l2', (cv.rlvc_compress_gop, cv.rlvc_decompress_gop))):\n"
+        "    spec = ft.get_codec_model(name, device='cpu')\n"
+        "    ft.load_asset(spec.module, asset)\n"
+        "    recon, m = ft.rollout(spec, gop)\n"
+        "    assert recon.shape == (2, 3, 64, 64) and bool(torch.isfinite(recon).all())\n"
+        "    assert float(m['bpp_est'][0]) > 0\n"
+        "    streams, rec, bits = fns[0](spec, gop)\n"
+        "    assert torch.equal(fns[1](spec, gop[0], streams), rec) and bits > 0\n"
+        "from fastvideocodec_torch.layers.spynet import load_pretrained_spynet\n"
+        "spec = ft.get_codec_model('RLVC-HP', device='cpu')\n"
+        "ft.load_flat(spec.module, ft.seeded_flat('RLVC-HP', 0))\n"
+        "load_pretrained_spynet(spec.module.optic_flow)\n"
+        "recon, m = ft.rollout(spec, gop)\n"
+        "assert spec.family == 'rlvc' and recon.shape == (2, 3, 64, 64)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+@pytest.mark.parametrize("name", ["DVC", "Base-EC-ER", "RLVC", "RLVC-HP", "RLVC2"])
+def test_dvc_family_p_frame_off_cpu_launches_flow_warp_five_times(monkeypatch, name):
+    """One full-width P-frame on meta tensors (not the CPU), 2 items of
+    64x128 given as a permuted (not contiguous) view (RLVC's second
+    P-frame, the RPM's branch, too): the four SpyNet levels and the MC warp
+    go to flow_warp's launcher with contiguous tensors, the MC warp with
+    the 3-channel frame at full resolution, and no warp reaches a plain
+    version. The launchers are stood in for by ones that count and return
+    empty outputs, since there is no card here."""
+    from fastvideocodec_torch.ops import warp as twarp
+    from fastvideocodec_torch.ops.kernels import warp as kwarp
+
+    calls, reached = [], []
+
+    def launcher(img, flow, n):
+        assert img.is_contiguous() and flow.is_contiguous(), n
+        calls.append((n, tuple(img.shape)))
+        return torch.empty_like(img)
+
+    for kname in twarp.PLAIN:
+        monkeypatch.setitem(twarp.PLAIN, kname, lambda *a, n=kname: reached.append(n))
+        monkeypatch.setattr(kwarp, f"launch_{kname}",
+                            lambda img, flow, n=kname: launcher(img, flow, n))
+    spec = ft.get_codec_model(name, device="meta")
+    m = spec.module
+    x = torch.empty(2, 64, 128, 3, device="meta").permute(0, 3, 1, 2)
+    levels = [("flow_warp", (2, 3, 64 // f, 128 // f)) for f in (8, 4, 2, 1)]
+    with torch.inference_mode():
+        if spec.family == "rlvc":
+            hidden = m.init_hidden(2, 64, 128)
+            for flag in (False, True):
+                calls.clear()
+                rec, hidden, _ = m(x, x, hidden, flag)
+                assert calls == levels + [("flow_warp", (2, 3, 64, 128))]
+        else:
+            rec, _ = m(x, x)
+            assert calls == levels + [("flow_warp", (2, 3, 64, 128))]
+    assert rec.shape == x.shape
+    assert not reached

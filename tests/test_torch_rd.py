@@ -20,6 +20,12 @@ codecs are the port's, on the CPU, in float32.
 - The low-rate rung: SSF-TINY on lr_ssf_l{0,2,4} over three
   ``synth_gop_lowrate`` clips of 64x64, GOP 4: the endpoints ordered in
   rate and quality, the lowest rate under 0.9 bpp.
+- RLVC-TINY (tiny_rlvc_l{0,2,4}), DVC-TINY (tiny_dvc_l{0,2,4}) and
+  Base-ER-TINY (tiny_base_l{0,2,4}), JAX's TestGoldenRDRLVC, -DVC and
+  -Base: real-bits bpp and PSNR of the P-frames rise with the level;
+  decode equals encode; the real bits within 64 bits a stream plus 8% of
+  the rollout's estimate (2 streams a P-frame for RLVC, 3 for DVC and
+  Base); the top level's PSNR above 15 dB.
 """
 
 import functools
@@ -229,3 +235,26 @@ def test_ssf_lowrate_points():
     bpps, psnrs = curve("SSF-TINY", [f"lr_ssf_l{lv}" for lv in (0, 2, 4)], clips)
     assert bpps[0] < bpps[2] and psnrs[0] < psnrs[2], (bpps, psnrs)
     assert min(bpps) < 0.9, bpps  # below the noisy rung's floor
+
+
+@pytest.mark.parametrize("name, asset, n_streams", [("RLVC-TINY", "tiny_rlvc", 2),
+                                                    ("DVC-TINY", "tiny_dvc", 3),
+                                                    ("Base-ER-TINY", "tiny_base", 3)])
+def test_p_frame_chain_monotone_bpp_psnr_across_levels_real_bits(name, asset, n_streams):
+    """JAX's TestGoldenRDRLVC, TestGoldenRDDVC and TestGoldenRDBase."""
+    gop = held_out_clip()
+    compress, decompress = {
+        "rlvc": (tv.rlvc_compress_gop, tv.rlvc_decompress_gop),
+        "dvc": (tv.dvc_compress_gop, tv.dvc_decompress_gop),
+        "base": (tv.base_compress_gop, tv.base_decompress_gop)}[model(name, f"{asset}_l0").family]
+    bpps, psnrs = [], []
+    for level in (0, 2, 4):
+        spec = model(name, f"{asset}_l{level}")
+        streams, recon, bits = compress(spec, gop)
+        assert torch.equal(decompress(spec, gop[0], streams), recon)
+        _, metrics = ft.rollout(spec, gop)
+        est = float(metrics["bpp_est"].sum()) * H * W
+        assert abs(bits - est) < n_streams * (T - 1) * 64 + 0.08 * est, (level, bits, est)
+        bpps.append(bits / ((T - 1) * H * W))
+        psnrs.append(psnr(recon, gop[1:]))
+    assert_monotone(bpps, psnrs)
