@@ -136,10 +136,12 @@ Phases, each timed on its own line:
    (exactly 75 flow_warp: 4 SpyNet levels and the MC warp a P-frame, no
    other warp), then 3 timed runs with their host enqueue times and peak
    memory;
-31. flow_warp on DVC's own inputs, all 75 launches of one GOP and the 15
-   full-resolution MC warps (1 x 3 x 1024x2048) apart, as in phase 7:
-   warm and L2-flushed against the byte bound, the plain version and
-   F.grid_sample;
+31. flow_warp on DVC's own inputs, the 75 launches of one GOP by shape
+   (each SpyNet level, 1 x 3 x 128x256 .. 1024x2048, and the 15
+   full-resolution MC warps) and in all, as in phase 7: warm and
+   L2-flushed against the byte bound, the plain version and
+   F.grid_sample, and beside them the device time of the kernel and of
+   F.grid_sample under torch.profiler and the host's enqueue time of each;
 32. DVC real bits at 1024x2048 (a warm-up GOP and one timed): launches
    exactly 75 + 15, decode == encode bit for bit, real bpp within 5% of
    the rollout's estimate on the same P-frames;
@@ -278,6 +280,44 @@ def cold_ms(torch, fn, *args, flush, reps: int = 5) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(torch, fn, inputs, reps: int = 3):
+    """(mean device milliseconds of one pass of fn(*args) over ``inputs``,
+    kernels a call): under torch.profiler, the sum of the spans of the
+    kernels the calls launch on the card, the host's calls left out; None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for args in inputs:
+                fn(*args)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None, 0.0
+    return sum(spans) / 1e3 / reps, len(spans) / (reps * len(inputs))
+
+
+def host_ms(torch, fn, inputs, reps: int = 20) -> float:
+    """Mean host milliseconds to enqueue one pass of fn(*args) over
+    ``inputs``: the host clock around ``reps`` passes, the card
+    synchronised before the start only (the queue holds them all)."""
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for args in inputs:
+            fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
 
 
 def ptxas_report(build_log: str, part: str) -> list:
@@ -799,6 +839,7 @@ def main() -> int:
                 r["smooth_ms"] += cuda_ms(torch, kernels[name], img, sflow)
                 rimg, rflow = warp_inputs(torch, gen, img.shape, flow.shape, img.dtype,
                                           flow.dtype)
+                hold_exact(name, rimg, rflow, f"{name} on random flows of main-path shapes")
                 r["random_ms"] += cuda_ms(torch, kernels[name], rimg, rflow)
                 t = library_call(name, img, flow) if library_call else None
                 if t is not None:
@@ -1577,18 +1618,45 @@ def main() -> int:
         mc = warps[4::5]
         require(all(tuple(img.shape) == (1, 3, H, W) for img, _ in mc),
                 f"MC warps {[tuple(img.shape) for img, _ in mc]}")
-        for what, inputs in (("dvc_rollout", warps), ("dvc_rollout_mc_warp", mc)):
+        # by shape: the 4 SpyNet levels (H/8 .. H), then the MC warp; each
+        # group's device time under the profiler beside its time by CUDA
+        # events and the host's enqueue time, against F.grid_sample's (the
+        # grid built beforehand)
+        groups = {f"dvc_rollout_spynet_{H >> (3 - k)}x{W >> (3 - k)}": warps[k::5]
+                  for k in range(4)}
+        groups["dvc_rollout_mc_warp"] = mc
+        for what, inputs in groups.items():
             drows, dlib = {}, {}
             time_kernels(("flow_warp",), {"flow_warp": inputs}, drows, dlib, lsvc_library)
-            chain_timing[what] = {**drows["flow_warp"], "library_ms": dlib["flow_warp"],
-                                  "launches": len(inputs)}
-        r, q = chain_timing["dvc_rollout"], chain_timing["dvc_rollout_mc_warp"]
+            grids = [(img, sample_grid(flow)) for img, flow in inputs]
+            dev, per_call = device_ms(torch, kernels["flow_warp"], inputs)
+            ldev, lper_call = device_ms(torch, grid_sample, grids)
+            t = chain_timing[what] = {
+                **drows["flow_warp"], "library_ms": dlib["flow_warp"], "launches": len(inputs),
+                "device_ms": dev, "library_device_ms": ldev,
+                "host_ms": host_ms(torch, kernels["flow_warp"], inputs),
+                "library_host_ms": host_ms(torch, grid_sample, grids)}
+            log(f"flow_warp {what}, {len(inputs)} launches of {tuple(inputs[0][0].shape)}: "
+                f"by CUDA events kernel {t['ms']:.4f} / F.grid_sample {t['library_ms']:.4f} "
+                f"ms/GOP; device time under the profiler kernel {dev} ({per_call} kernels "
+                f"a call) / F.grid_sample {ldev} ({lper_call} a call); host enqueue kernel "
+                f"{t['host_ms']:.4f} / F.grid_sample {t['library_host_ms']:.4f}; bound "
+                f"{t['bound_ms']:.4f}")
+        sums = ("ms", "cold_ms", "plain_ms", "bound_ms", "smooth_ms", "random_ms",
+                "library_ms", "device_ms", "library_device_ms", "host_ms",
+                "library_host_ms", "launches")
+        r = chain_timing["dvc_rollout"] = {
+            key: (None if any(t[key] is None for t in chain_timing.values())
+                  else sum(t[key] for t in chain_timing.values())) for key in sums}
+        q = chain_timing["dvc_rollout_mc_warp"]
+        require(r["launches"] == 5 * (GOP - 1), f"timed {r['launches']} launches")
         log(f"flow_warp on DVC's 75 launches a GOP: kernel {r['ms']:.4f} ms/GOP (L2 flushed "
-            f"{r['cold_ms']:.4f}) against its byte bound {r['bound_ms']:.4f}, plain "
-            f"{r['plain_ms']:.4f}, F.grid_sample {r['library_ms']:.4f}; of it the 15 MC warps "
-            f"(1 x 3 x {H}x{W}) {q['ms']:.4f} (L2 flushed {q['cold_ms']:.4f}, bound "
+            f"{r['cold_ms']:.4f}; device {r['device_ms']}) against its byte bound "
+            f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, F.grid_sample "
+            f"{r['library_ms']:.4f} (device {r['library_device_ms']}); of it the 15 MC "
+            f"warps (1 x 3 x {H}x{W}) {q['ms']:.4f} (L2 flushed {q['cold_ms']:.4f}, bound "
             f"{q['bound_ms']:.4f}, F.grid_sample {q['library_ms']:.4f})")
-        del captured, warps, mc
+        del captured, warps, mc, groups, inputs, grids  # the captured frames
 
     with phase(f"dvc real bits {H}x{W} GOP16 bf16"):
         enc, dec = chain_real_bits("dvc", dspec, gop)
@@ -1618,9 +1686,7 @@ def main() -> int:
         del cspec
     del small_gop
     log(json.dumps({"dvc_family": chain_rows, "flow_warp": {
-        k: {key: v[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "smooth_ms",
-                                    "random_ms", "library_ms", "launches")}
-        for k, v in chain_timing.items()}}))
+        k: {key: v[key] for key in sums} for k, v in chain_timing.items()}}))
 
     by_path = {name: {"lsvc_rollout": rollout_launches[name],
                       "lsvc_decode_graph": decode_launches[name],

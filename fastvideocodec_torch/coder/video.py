@@ -139,9 +139,9 @@ def _resolve(obj):
     return obj
 
 
-def lsvc_codecs(module):
-    """(mv, z, feature) codecs of LSVC, DVC and Base: the two BitEstimators'
-    tables and the Laplace scale table."""
+def bit_estimator_laplace_codecs(module):
+    """(mv, z, feature) codecs of LSVC, DVC and Base: the tables of the
+    module's two BitEstimators (mv and z) and the Laplace scale table."""
     return (BitEstimatorCodec(module.bit_estimator_mv.numpy_params()),
             BitEstimatorCodec(module.bit_estimator_z.numpy_params()),
             LaplaceCodec())
@@ -151,9 +151,9 @@ def lsvc_codecs(module):
 def lsvc_compress(spec: CodecSpec, gop: torch.Tensor, codecs=None):
     """gop [T, 3, H, W] with frame 0 already I-coded -> (streams, recon
     [T-1, 3, H, W] in the model dtype, bits). ``codecs`` (from
-    ``lsvc_codecs``) spares a caller that codes many GOPs the tables."""
+    ``bit_estimator_laplace_codecs``) spares a caller that codes many GOPs the tables."""
     m = spec.module
-    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    mv_codec, z_codec, feat_codec = codecs or bit_estimator_laplace_codecs(m)
     x = gop.to(_device(spec), m.dtype)
     bs = x.shape[0] - 1
     sched = m.schedule(bs)
@@ -202,7 +202,7 @@ def lsvc_decompress(spec: CodecSpec, iframe: torch.Tensor, streams: dict, num_p_
                     codecs=None) -> torch.Tensor:
     """P-frames [num_p_frames, 3, H, W] from (I-frame [3, H, W], streams) only."""
     m = spec.module
-    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    mv_codec, z_codec, feat_codec = codecs or bit_estimator_laplace_codecs(m)
     device = _device(spec)
     sched = m.schedule(num_p_frames)
     iframe = space_to_depth(iframe[None].to(device, m.dtype), m.S2D)[0]
@@ -530,9 +530,9 @@ def dvc_compress_gop(spec: CodecSpec, gop: torch.Tensor, codecs=None):
     on AsyncCoder threads while the card goes on. The features' scales are
     the decode side's (``sigma`` of the z symbols, Base's ER applied), and
     the residual is taken against the decode side's motion compensation
-    (``mc`` of the mv symbols). ``codecs`` from ``lsvc_codecs``."""
+    (``mc`` of the mv symbols). ``codecs`` from ``bit_estimator_laplace_codecs``."""
     m = spec.module
-    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    mv_codec, z_codec, feat_codec = codecs or bit_estimator_laplace_codecs(m)
     x = _chain_gop(spec, gop)
     x_ref = x[0:1]
     recon, frames, shapes = [], [], []
@@ -567,7 +567,7 @@ def dvc_decompress_gop(spec: CodecSpec, iframe: torch.Tensor, streams: dict,
     Every mv and z stream starts decoding at once; each frame's features
     follow its scales."""
     m = spec.module
-    mv_codec, z_codec, feat_codec = codecs or lsvc_codecs(m)
+    mv_codec, z_codec, feat_codec = codecs or bit_estimator_laplace_codecs(m)
     device = _device(spec)
     x_ref = iframe[None].to(device, m.dtype).contiguous()
     recon = []

@@ -44,7 +44,7 @@ class RPM(nn.Module):
         c = channels
         for i in range(7):
             self.add_module(f"Conv_{i}", conv(c, c, 3))
-        self.ConvLSTM_0 = ConvLSTM(c, c)
+        self.ConvLSTM_0 = ConvLSTM(c)
         self.add_module("Conv_7", conv(c, 2 * c, 3))
 
     def forward(self, x, hidden):

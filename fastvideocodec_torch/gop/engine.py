@@ -32,53 +32,6 @@ def lsvc_gop(spec: CodecSpec, gop: torch.Tensor):
     return com, metrics
 
 
-def _batched(gop: torch.Tensor) -> torch.Tensor:
-    """gop [T, 3, H, W] (batch 1) or [T, B, 3, H, W] -> [T, B, 3, H, W]."""
-    return gop[:, None] if gop.dim() == 4 else gop
-
-
-def _at_rank(recons: list, gop: torch.Tensor) -> torch.Tensor:
-    recon = torch.stack(recons)
-    return recon[:, 0] if gop.dim() == 4 else recon
-
-
-@torch.inference_mode()
-def sequential_gop(spec: CodecSpec, gop: torch.Tensor):
-    """DVC and Base: gop [T, 3, H, W] or [T, B, 3, H, W] with frame 0 the
-    (uncoded) reference; each P-frame is coded against the previous recon.
-    Returns (recon [T-1, (B,) 3, H, W] in the model dtype, metrics): float32
-    [T-1] stacks of the model's metrics and ``psnr`` from ``img_loss``."""
-    frames = _batched(gop)
-    x_prev = frames[0]
-    recons, per_frame = [], []
-    for t in range(1, frames.shape[0]):
-        x_prev, metrics = spec.module(frames[t], x_prev)
-        metrics["psnr"] = psnr_from_mse(metrics["img_loss"])
-        recons.append(x_prev)
-        per_frame.append(metrics)
-    return _at_rank(recons, gop), _stack(per_frame)
-
-
-@torch.inference_mode()
-def rlvc_gop(spec: CodecSpec, gop: torch.Tensor):
-    """RLVC, RLVC2, RLVC-HP: as ``sequential_gop``, the recurrent state
-    starting at zeros and carried from frame to frame; the entropy model is
-    the factorized one on the first P-frame and the RPM's after
-    (rpm_flag = t > 1)."""
-    module = spec.module
-    frames = _batched(gop)
-    T, B, _, H, W = frames.shape
-    hidden = module.init_hidden(B, H, W, frames.device)
-    x_prev = frames[0]
-    recons, per_frame = [], []
-    for t in range(1, T):
-        x_prev, hidden, metrics = module(x_prev, frames[t], hidden, t > 1)
-        metrics["psnr"] = psnr_from_mse(metrics["img_loss"])
-        recons.append(x_prev)
-        per_frame.append(metrics)
-    return _at_rank(recons, gop), _stack(per_frame)
-
-
 def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
     """Per-frame metrics of a frame in the codec's domain ([B, 3, H, W], or
     [B, 12, H/2, W/2] in the s2d form), float32: bpp is per full-resolution
@@ -98,19 +51,64 @@ def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
 
 def _fold(module, gop: torch.Tensor) -> torch.Tensor:
     """gop [T, 3, H, W] (batch 1) or [T, B, 3, H, W] -> the codec's domain,
-    [T, B, ...] in the model dtype, folded once."""
-    frames = gop[:, None] if gop.dim() == 4 else gop
-    return module.fold_gop(frames.to(module.dtype))
+    [T, B, ...] in the model dtype, folded once by the codec's ``fold_gop``
+    where it has one (SSF's s2d form; DVC, Base and RLVC have none)."""
+    frames = (gop[:, None] if gop.dim() == 4 else gop).to(module.dtype)
+    return module.fold_gop(frames) if hasattr(module, "fold_gop") else frames
 
 
 def _unfold(module, recons: list, gop: torch.Tensor) -> torch.Tensor:
     """The P-frames' recons, unfolded once, at the rank of ``gop``."""
-    recon = module.unfold_gop(torch.stack(recons))
+    recon = torch.stack(recons)
+    if hasattr(module, "unfold_gop"):
+        recon = module.unfold_gop(recon)
     return recon[:, 0] if gop.dim() == 4 else recon
 
 
 def _stack(per_frame: list) -> dict:
     return {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
+
+
+def _chain(module, gop: torch.Tensor, step):
+    """The P-frames of gop [T, 3, H, W] or [T, B, 3, H, W], frame 0 the
+    (uncoded) reference, each coded by ``step(t, x_cur, x_prev)`` ->
+    (recon, metrics) against the previous recon. Returns (recon
+    [T-1, (B,) 3, H, W] in the model dtype, metrics): float32 [T-1] stacks
+    of the model's metrics and ``psnr`` from ``img_loss``."""
+    x = _fold(module, gop)
+    x_prev = x[0]
+    recons, per_frame = [], []
+    for t in range(1, x.shape[0]):
+        x_prev, metrics = step(t, x[t], x_prev)
+        metrics["psnr"] = psnr_from_mse(metrics["img_loss"])
+        recons.append(x_prev)
+        per_frame.append(metrics)
+    return _unfold(module, recons, gop), _stack(per_frame)
+
+
+@torch.inference_mode()
+def sequential_gop(spec: CodecSpec, gop: torch.Tensor):
+    """DVC and Base: each P-frame coded against the previous recon, as
+    ``_chain``."""
+    return _chain(spec.module, gop, lambda t, x_cur, x_prev: spec.module(x_cur, x_prev))
+
+
+@torch.inference_mode()
+def rlvc_gop(spec: CodecSpec, gop: torch.Tensor):
+    """RLVC, RLVC2, RLVC-HP: as ``sequential_gop``, the recurrent state
+    starting at zeros and carried from frame to frame; the entropy model is
+    the factorized one on the first P-frame and the RPM's after
+    (rpm_flag = t > 1)."""
+    module = spec.module
+    hidden = module.init_hidden(gop.shape[1] if gop.dim() == 5 else 1, *gop.shape[-2:],
+                                gop.device)
+
+    def step(t, x_cur, x_prev):
+        nonlocal hidden
+        x_prev, hidden, metrics = module(x_prev, x_cur, hidden, t > 1)
+        return x_prev, metrics
+
+    return _chain(module, gop, step)
 
 
 @torch.inference_mode()

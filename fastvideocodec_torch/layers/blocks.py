@@ -57,21 +57,23 @@ class SameConvTranspose(nn.ConvTranspose2d):
         return y[..., c:c + s * H, c:c + s * W].contiguous()
 
 
-class ConvLSTM(nn.Module):
-    """Convolutional LSTM cell: one 3x3 conv over cat(x, h) to 4C channels
-    split (j, i, f, o), the forget gate biased by ``forget_bias``; the
-    state is cat(c, h) on the channel axis. ``forward(x, state)`` returns
-    (h, new state)."""
+LSTM_FORGET_BIAS = 1.0
 
-    def __init__(self, in_channels: int, channels: int, forget_bias: float = 1.0):
+
+class ConvLSTM(nn.Module):
+    """Convolutional LSTM cell of C channels in and out: one 3x3 conv over
+    cat(x, h) (2C) to 4C channels split (j, i, f, o), the forget gate
+    biased by LSTM_FORGET_BIAS; the state is cat(c, h) on the channel axis.
+    ``forward(x, state)`` returns (h, new state)."""
+
+    def __init__(self, channels: int):
         super().__init__()
-        self.forget_bias = forget_bias
-        self.Conv_0 = conv(in_channels + channels, 4 * channels, 3)
+        self.Conv_0 = conv(2 * channels, 4 * channels, 3)
 
     def forward(self, x, state):
         c, h = state.chunk(2, dim=1)
         j, i, f, o = self.Conv_0(torch.cat([x, h.to(x.dtype)], dim=1)).chunk(4, dim=1)
-        f = torch.sigmoid(f + self.forget_bias)
+        f = torch.sigmoid(f + LSTM_FORGET_BIAS)
         c = c * f + torch.sigmoid(i) * F.relu(j)
         h = torch.sigmoid(o) * F.relu(c)
         return h, torch.cat([c, h], dim=1)

@@ -72,12 +72,12 @@ class SpyNet(nn.Module):
         return flow
 
 
-def load_pretrained_spynet(spynet: SpyNet, npz_path=None) -> SpyNet:
-    """Copy the pretrained weights onto ``spynet`` (4 levels, 7x7, widths
-    32/64/32/16, no s2d level): the npz maps 'L{level}_F{conv}_{weight,
-    bias}' (level 1..4, conv 1..5, weights OIHW, as the port holds them) to
-    ``level{level}.Conv_{conv - 1}``."""
-    with np.load(npz_path or PRETRAINED) as data:
+def load_pretrained_spynet(spynet: SpyNet) -> SpyNet:
+    """Copy the weights of PRETRAINED onto ``spynet`` (4 levels, 7x7,
+    widths 32/64/32/16, no s2d level): the npz maps 'L{level}_F{conv}_
+    {weight,bias}' (level 1..4, conv 1..5, weights OIHW, as the port holds
+    them) to ``level{level}.Conv_{conv - 1}``."""
+    with np.load(PRETRAINED) as data:
         with torch.no_grad():
             for lvl in range(1, 5):
                 for ci in range(1, 6):

@@ -64,8 +64,8 @@ class Coder2D(nn.Module):
             self.add_module(f"gdn{i}", GDN(c))
             self.add_module(f"dec{i}", SameConvTranspose(c, c, k, 2))
             self.add_module(f"igdn{i}", GDN(c, inverse=True))
-        self.enc_lstm = ConvLSTM(c, c)
-        self.dec_lstm = ConvLSTM(c, c)
+        self.enc_lstm = ConvLSTM(c)
+        self.dec_lstm = ConvLSTM(c)
         if entropy_type == "rpm":
             self.entropy = RecProbModel(c)
         elif entropy_type == "rpm2":

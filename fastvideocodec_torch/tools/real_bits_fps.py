@@ -50,14 +50,15 @@ from fastvideocodec_torch.ops.kernels import warp as kw
 SP_STAGE = 2  # ELFVC-SP's stage, the one its tiny checkpoints were trained at
 CODECS = ("LSVC-TPU", "SSF-Official", "SSF-TPU", "ELFVC-SP", "ELFVC-SP-TPU", "MCVC-IA",
           "MCVC-Original", "DVC", "RLVC", "RLVC-HP", "Base-EC-ER")
-CHAINS = ("dvc", "base", "rlvc")  # P-frames coded on the previous recon, frame 0 uncoded
+CHAINS = ("dvc", "base", "rlvc")  # P-frames coded on the previous recon
+IFRAME_GIVEN = ("lsvc", *CHAINS)  # frame 0 taken as already coded, given to the decoder
 CODERS = {  # family: (tables, encode, decode)
-    "lsvc": (cv.lsvc_codecs, cv.lsvc_compress, cv.lsvc_decompress),
+    "lsvc": (cv.bit_estimator_laplace_codecs, cv.lsvc_compress, cv.lsvc_decompress),
     "ssf": (cv.ssf_codecs, cv.ssf_compress_gop, cv.ssf_decompress_gop),
     "elfvc": (cv.ssf_codecs, cv.elfvc_compress_gop, cv.elfvc_decompress_gop),
     "mcvc": (cv.ssf_codecs, cv.mcvc_compress_gop, cv.mcvc_decompress_gop),
-    "dvc": (cv.lsvc_codecs, cv.dvc_compress_gop, cv.dvc_decompress_gop),
-    "base": (cv.lsvc_codecs, cv.base_compress_gop, cv.base_decompress_gop),
+    "dvc": (cv.bit_estimator_laplace_codecs, cv.dvc_compress_gop, cv.dvc_decompress_gop),
+    "base": (cv.bit_estimator_laplace_codecs, cv.base_compress_gop, cv.base_decompress_gop),
     "rlvc": (cv.rlvc_codecs, cv.rlvc_compress_gop, cv.rlvc_decompress_gop),
 }
 
@@ -81,10 +82,11 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
             torch.cuda.synchronize()
 
     T, H, W = gop.shape[0], gop.shape[-2], gop.shape[-1]
-    lsvc, mcvc = spec.family in ("lsvc", *CHAINS), spec.family == "mcvc"
+    iframe_given, mcvc = spec.family in IFRAME_GIVEN, spec.family == "mcvc"
     views = gop.shape[1] if gop.dim() == 5 else 1
     _, compress, decompress = CODERS[spec.family]
-    args = (gop,) if lsvc else (gop, mask) if mcvc else (gop if views > 1 else gop[:, None],)
+    args = ((gop,) if iframe_given else (gop, mask) if mcvc
+            else (gop if views > 1 else gop[:, None],))
     sync()
     kw.reset_launches()
     t0 = time.perf_counter()
@@ -96,22 +98,22 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
     kw.reset_launches()
     t0 = time.perf_counter()
     with measure_ac_time() as dec_ac:
-        if spec.family == "lsvc":
+        if spec.family == "lsvc":  # the whole-GOP decoder takes the P-frame count
             decoded = decompress(spec, gop[0], streams, T - 1, codecs)
-        elif lsvc:
+        elif iframe_given:
             decoded = decompress(spec, gop[0], streams, codecs)
         else:
             decoded = decompress(spec, streams, codecs)
         sync()
     dec_s = time.perf_counter() - t0
-    frames = T - 1 if lsvc else T
+    frames = T - 1 if iframe_given else T
     out = {
         "enc_s": enc_s, "dec_s": dec_s, "enc_ac_s": enc_ac["seconds"],
         "dec_ac_s": dec_ac["seconds"], "bits": bits, "bpp": bits / (frames * views * H * W),
         "identical": bool(torch.equal(decoded, recon)), "enc_launches": enc_launches,
         "dec_launches": dict(kw.LAUNCHES), "recon": recon,
     }
-    if not lsvc:  # the P-frames' rate, as the rollout estimates it
+    if not iframe_given:  # the P-frames' rate, as the rollout estimates it
         inter = sum(len(s[k]["z"]) + len(s[k]["y"])
                     for s in streams["inter"] for k in ("motion", "residual"))
         out["bpp_inter"] = 8 * inter / ((T - 1) * views * H * W)
@@ -191,7 +193,7 @@ def main(argv=None) -> int:
           f"GOP{args.gop} {args.dtype} on {device}; tables {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    frames = (args.gop - 1 if spec.family in ("lsvc", *CHAINS) else args.gop) * views
+    frames = (args.gop - 1 if spec.family in IFRAME_GIVEN else args.gop) * views
     results = []
     for rep in range(args.reps + 1):
         r = code_gop(spec, gop, codecs, mask)

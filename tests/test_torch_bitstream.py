@@ -160,7 +160,7 @@ def recorded_codecs(spec):
     """The port's codecs with every decoded symbol array recorded, and the
     stream lists of each recorder: (codecs, {key path: recorder})."""
     if spec.family == "lsvc":
-        mv, z, feat = (Recorder(c) for c in tv.lsvc_codecs(spec.module))
+        mv, z, feat = (Recorder(c) for c in tv.bit_estimator_laplace_codecs(spec.module))
         return (mv, z, feat), {"mv": mv, "z": z, "features": feat}
     hps = tv.ssf_codecs(spec.module)
     recs = {}

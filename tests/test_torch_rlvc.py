@@ -116,7 +116,7 @@ def test_conv_lstm_matches_jax():
     x, state = rand((2, 6, 10, C)), rand((2, 6, 10, 2 * C), seed=2)
     params = seeded_like(jax.eval_shape(jmod.init, jax.random.PRNGKey(0), x, state))
     h, new = apply(jmod, params, jnp.asarray(x), jnp.asarray(state))
-    tmod = tblocks.ConvLSTM(C, C)
+    tmod = tblocks.ConvLSTM(C)
     load_params(tmod, params)
     with torch.no_grad():
         th, tnew = tmod(nchw(x), nchw(state))
