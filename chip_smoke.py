@@ -148,16 +148,46 @@ Phases, each timed on its own line:
 33. RLVC the same (rollout 3 timed runs, real bits at 1024x2048);
 34-36. RLVC-HP, RLVC2 and Base-EC-ER: the rollout (75 flow_warp, one
    timed run), and real bits at 256x512 (the clip's top-left crop) for
-   RLVC-HP and Base-EC-ER (RLVC2 has no real-bits path).
+   RLVC-HP and Base-EC-ER (RLVC2 has no real-bits path);
+37. the rest of LSVC, card vs CPU in float32 at 64x128, GOP 4: LSVC-TINY
+   (tiny_lsvc_l2, then bfloat16 against that float32 result, LSVC_BF16_*),
+   the full-width LSVC-128 (hd_lsvc128_l2), the tiny -RW and -HF forms and
+   the tiny flagship with -A and -S at attn_depth 2 (seeded), with the
+   fused attention's backend;
+38. LSVC-128 (hd_lsvc128_l2, the s2d=1 reference structure: the stock
+   SpyNet over all 15 P-frames in one batch, the full-resolution WarpNet)
+   at 1024x2048, GOP 16, bf16: the rollout (launches exactly 4 + 4
+   flow_warp, 3 timed runs with their enqueue ms, peak memory), the decode
+   graph (4 flow_warp), real bits (a warm-up GOP and 3: decode == encode,
+   8 and 4 flow_warp, bpp within 5% of the rollout's estimate and PSNR
+   within 0.1 dB), and flow_warp on its 8 inputs (the 4 SpyNet levels,
+   15 frames a launch, and the 4 layers' MC warps) as in phase 31;
+39. LSVC-TPU-RW, -HF, -WT, -QU (their shipped level-2 checkpoints), -HU,
+   -A and -S (seeded; attn_depth 12) the same way, the launches of each
+   exact (4 flow_warp and 4 MC warps: flow_warp at C = 12 for -RW,
+   flow_warp_s2d for the others); the trained forms' real bpp within 5%
+   of the estimate; flow_warp on -RW's 4 MC warps ([n, 12, 512, 1024])
+   and flow_warp_s2d on -HF's, as in phase 31;
+40. the graphs on hd_lsvctpuf2_l2: -L (a chain of 15 layers, GOP 16) and
+   -O (one layer; the one-hop graph reaches 14 P-frames, in JAX too, so
+   GOP 15): the rollout, its launches exact;
+41. JAX's HD head-to-head (tests/test_rd.py:TestHDHeadToHead) on the card
+   in float32: LSVC-128, LSVC-TPU, -HF and -RW on hd_*_l{0,2,4}, four
+   held-out synth_gop_multi clips (seed 123) of 128x128, GOP 8, real
+   bits with decode == encode on each: every curve monotone, LSVC-TPU's
+   BD-rate against LSVC-128 under 10% and its BD-PSNR above -0.6 dB, and
+   full < half-res < rigid with rigid under 32% and half-res under 16%.
 
 It then prints a JSON line of MCVC's numbers, a JSON line of the stock
-codecs' numbers, a JSON line of the DVC family's, a JSON line of the
+codecs' numbers, a JSON line of the DVC family's, a JSON line of the LSVC
+forms', a JSON line of the
 kernels (each with its launches on every path it was counted on;
 ``launches`` and the times stay those of the path that defined them in
 earlier slices: LSVC-TPU's rollout for the two flow warps, SSF-TPU's
 timing and ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's
-MCVC-IA and SSF-Official timings and flow_warp's on DVC's inputs stand
-under ``timing_by_path``), the card's name and power limit,
+MCVC-IA and SSF-Official timings, flow_warp's on DVC's, LSVC-128's and
+-RW's inputs and flow_warp_s2d's on -HF's stand under ``timing_by_path``),
+the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
 nothing of the JAX package; it exits non-zero when no CUDA device is found.
@@ -208,6 +238,22 @@ MCVC_FAILED = 2  # the view that fails in the masked runs
 # 0.0021, 0.0074 and 0.0016 of bpp
 DVC_BF16_PSNR_DB = 0.05
 DVC_BF16_BPP_REL = 0.03
+# LSVC-TINY (tiny_lsvc_l2) bf16 against f32 at 64x128, GOP 4: the CPU port
+# measured 0.0040 dB and 0.0029 of bpp
+LSVC_BF16_PSNR_DB = 0.05
+LSVC_BF16_BPP_REL = 0.01
+# the tiny widths of the flagship's architecture (the registry's -TINY branch)
+TINY_TPU = dict(channels=48, conv_channels=32, s2d=2, spynet_widths=(8, 16, 8, 4),
+                spynet_kernel=5, spynet_s2d_levels=2, mv_polyphase_out=True, warp_width=32,
+                full_res_warp=True, mv_full_res_out=True)
+# the LSVC-TPU forms at full width: (name, weights), trained where shipped
+LSVC_VARIANTS = [("LSVC-TPU-RW", "hd_lsvctpu_l2"), ("LSVC-TPU-HF", "hd_lsvctpuf_l2"),
+                 ("LSVC-TPU-WT", "hd_lsvctpuwt_l2"), ("LSVC-TPU-QU", "hd_lsvctpuqu_l2"),
+                 ("LSVC-TPU-HU", "seeded"), ("LSVC-TPU-A", "seeded"), ("LSVC-TPU-S", "seeded")]
+# JAX's TestHDHeadToHead: (name, checkpoint family) of each curve
+HD_CURVES = [("LSVC-128", "lsvc128"), ("LSVC-TPU", "lsvctpuf2"), ("LSVC-TPU-HF", "lsvctpuf"),
+             ("LSVC-TPU-RW", "lsvctpu")]
+HD_SIZE, HD_GOP = 128, 8
 C18_RAGGED = (4, 18, 37, 141)  # MCVC's volume warp: 6 levels x 3 colours, 4 views
 GOP, H, W = 16, 1024, 2048
 SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
@@ -355,6 +401,7 @@ def capture_warp_inputs(captured: dict):
     sites = [(spynet, "flow_warp", "flow_warp"),
              (dvc, "flow_warp", "flow_warp"),
              (rlvc, "flow_warp", "flow_warp"),
+             (lsvc, "flow_warp", "flow_warp"),
              (lsvc, "flow_warp_fullres_s2d", "flow_warp_s2d"),
              (warp, "pixel_warp", "pixel_warp"),
              (warp, "pixel_warp_s2d_sflow", "pixel_warp_s2d_sflow")]
@@ -1688,6 +1735,296 @@ def main() -> int:
     log(json.dumps({"dvc_family": chain_rows, "flow_warp": {
         k: {key: v[key] for key in sums} for k, v in chain_timing.items()}}))
 
+    # -- The rest of LSVC: the s2d=1 LSVC-128 (the stock SpyNet over all 15
+    # P-frames in one batch, flow_warp at full resolution), the LSVC-TPU
+    # warp ablations, the -A/-S attention, the -L/-O graphs, and JAX's HD
+    # head-to-head on the card
+    from fastvideocodec_torch.analysis import bd_psnr, bd_rate
+    from fastvideocodec_torch.coder import video as cv
+    from fastvideocodec_torch.models.lsvc import LSVC
+    from fastvideocodec_torch.models.registry import CodecSpec, place
+    from fastvideocodec_torch.weights import seeded_params
+
+    lsvc_rows, lsvc_launches = {}, {}
+    lsvc_timing = {"flow_warp": {}, "flow_warp_s2d": {}}
+
+    def lsvc_model(name, weights, dtype=torch.bfloat16, device="cuda"):
+        """A registry LSVC form on its shipped checkpoint, or seeded_flat."""
+        spec = get_codec_model(name, dtype=dtype, device=device)
+        if weights == "seeded":
+            load_flat(spec.module, seeded_flat(name, 0))
+        else:
+            load_asset(spec.module, weights)
+        return spec
+
+    def narrow_attention(dtype, device):
+        """The tiny flagship with -A and -S at attn_depth 2, seeded."""
+        module = LSVC(**TINY_TPU, use_attn=True, use_syn_attn=True, attn_depth=2, dtype=dtype)
+        load_flat(module, seeded_params(module, 0))
+        return CodecSpec("LSVC-TPU-TINY -A -S", "lsvc", place(module, dtype, device))
+
+    def lsvc_warps(module, n_p):
+        """(rollout and encode launches, decode launches) of an LSVC form
+        over n_p P-frames: SpyNet's 4 levels (one batch of every P-frame) and
+        one MC warp a graph layer, flow_warp for s2d=1 and the rigid -RW
+        warp, flow_warp_s2d for the full-resolution warps of the s2d forms."""
+        layers = len(module.schedule(n_p).layers)
+        mc = "flow_warp_s2d" if module.s2d > 1 and module.full_res_warp else "flow_warp"
+        enc = {"flow_warp": 4}
+        enc[mc] = enc.get(mc, 0) + layers
+        return enc, {mc: layers}
+
+    def lsvc_card_vs_cpu(label, make, bf16=None):
+        """An LSVC form (``make(dtype, device)``) in float32 at 64x128, GOP 4,
+        on the card against the CPU port; with ``bf16`` (PSNR dB, bpp rel)
+        bars, bfloat16 on the card against that float32 result."""
+        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+        small = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2).contiguous()
+        runs = [("cuda", torch.float32), ("cpu", torch.float32)]
+        runs += [("cuda", torch.bfloat16)] if bf16 else []
+        res, seen = {}, {}
+        for device, dtype in runs:
+            spec = make(dtype, device)
+            with attention_backends(seen):
+                com, m = rollout(spec, small.to(device, dtype))
+            res[device, dtype] = (com.float().cpu(), m["psnr"].float().cpu(), float(m["bpp"]))
+        (cg, pg, bg), (cc, pc, bc) = res["cuda", torch.float32], res["cpu", torch.float32]
+        dmax = (cg - cc).abs().max().item()
+        dmean = (cg - cc).abs().mean().item()
+        dpsnr = (pg - pc).abs().max().item()
+        dbpp = abs(bg - bc) / bc
+        log(f"{label} card vs cpu: recon max abs {dmax:.3e} mean abs {dmean:.3e} (tolerance "
+            f"mean 1e-4); psnr card {pg.tolist()} cpu {pc.tolist()} max diff {dpsnr:.2e} dB "
+            f"(tolerance 0.01); bpp card {bg:.6f} cpu {bc:.6f} rel {dbpp:.2e} (tolerance "
+            f"1e-3){f'; attention backend on the card {seen}' if seen else ''}")
+        require(dmean <= 1e-4 and dpsnr <= 0.01 and dbpp <= 1e-3, f"{label} card disagrees")
+        row = lsvc_rows.setdefault(label, {})
+        row["card_vs_cpu"] = {"max_abs": dmax, "mean_abs": dmean, "psnr_db": dpsnr,
+                              "bpp_rel": dbpp}
+        if bf16:
+            _, pb, bb = res["cuda", torch.bfloat16]
+            dpsnr, dbpp = (pb - pc).abs().max().item(), abs(bb - bc) / bc
+            log(f"{label} bf16 card vs f32 cpu: psnr {pb.tolist()} max diff {dpsnr:.4f} dB "
+                f"(tolerance {bf16[0]}); bpp {bb:.6f} rel {dbpp:.3e} (tolerance {bf16[1]})")
+            require(dpsnr <= bf16[0] and dbpp <= bf16[1], f"{label} bf16 far from f32")
+            row["bf16_vs_f32"] = {"psnr_db": dpsnr, "bpp_rel": dbpp}
+
+    def lsvc_rollout(label, spec, frames, trained, runs=3):
+        """One run with the launch counts zeroed (exactly ``lsvc_warps``),
+        then ``runs`` timed runs beside their host enqueue ms; peak memory.
+        Returns (launches, bpp, mean PSNR)."""
+        n_p = frames.shape[0] - 1
+        want = {**zero_counts, **lsvc_warps(spec.module, n_p)[0]}
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        with attention_backends(seen):
+            com, m = rollout(spec, frames)
+        torch.cuda.synchronize()
+        launches = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(launches == want, f"{label}: launches {launches}, want {want}")
+        psnr, bpp = m["psnr"].float().cpu(), float(m["bpp"])
+        require(tuple(com.shape) == (n_p, 3, H, W), f"{label}: recon {tuple(com.shape)}")
+        require(bool(torch.isfinite(com).all()), f"{label}: recon not finite")
+        require(bool(torch.isfinite(psnr).all()) and np.isfinite(bpp) and bpp > 0.0,
+                f"{label}: psnr {psnr.tolist()} bpp {bpp}")
+        if trained:
+            require(float(psnr.min()) > 20.0, f"{label}: psnr {psnr.tolist()}")
+        del com, m
+        times, enqueue = timed_runs(rollout, spec, frames, runs=runs)
+        ms = sum(times) / len(times)
+        lsvc_rows.setdefault(label, {})["rollout"] = {
+            "gop": n_p + 1, "ms_per_gop": times, "ms": ms, "enqueue_ms": enqueue,
+            "peak_gib": peak, "bpp": bpp, "psnr": float(psnr.mean()), "trained": trained,
+            "attention": seen}
+        log(f"{label} rollout ({'trained' if trained else 'seeded'} weights, GOP {n_p + 1}): "
+            f"ms/GOP {times} mean {ms:.3f}; host enqueue ms/GOP "
+            f"{[round(t, 3) for t in enqueue]}; fps {1000.0 * n_p / ms:.3f}; bpp {bpp:.6f}; "
+            f"psnr mean {float(psnr.mean()):.4f}; peak memory {peak:.3f} GiB; launches "
+            f"{launches}{f'; attention backends {seen}' if seen else ''}")
+        return launches, bpp, float(psnr.mean())
+
+    def lsvc_real_bits(label, spec, est, psnr_est, trained):
+        """A warm-up GOP and 3 (real_bits): decode == encode, the launches of
+        ``lsvc_warps``; trained weights: real bpp within 5% of the rollout's
+        estimate and PSNR within 0.1 dB of its."""
+        enc, dec = lsvc_warps(spec.module, GOP - 1)
+        runs = real_bits(spec, codecs_of(spec), enc, dec, est, lambda r: "")
+        recon = runs[-1]["recon"]
+        mse = torch.mean((recon.float() - gop[1:].float()) ** 2, dim=(1, 2, 3))
+        psnr = float((10 * torch.log10(1 / mse)).mean())
+        rel = abs(runs[-1]["bpp"] - est) / est
+        log(f"{label} real bits ({'trained' if trained else 'seeded, not gated'}): bpp "
+            f"{runs[-1]['bpp']:.6f} vs the rollout's estimate {est:.6f} (rel {rel:.4f}, "
+            f"tolerance 0.05); psnr mean {psnr:.4f} vs the rollout's {psnr_est:.4f} "
+            f"(tolerance 0.1 dB)")
+        if trained:
+            require(rel < 0.05 and abs(psnr - psnr_est) < 0.1,
+                    f"{label} real bits far from the rollout")
+        lsvc_rows[label]["real_bits"] = {
+            "enc_ms": [r["enc_s"] * 1e3 for r in runs], "dec_ms": [r["dec_s"] * 1e3 for r in runs],
+            "enc_ac_s": runs[-1]["enc_ac_s"], "dec_ac_s": runs[-1]["dec_ac_s"],
+            "bpp": runs[-1]["bpp"], "est_bpp": est, "psnr": psnr}
+        return runs[-1]["enc_launches"], runs[-1]["dec_launches"]
+
+    def time_path(kernel, what, inputs):
+        """``kernel`` on one GOP's captured ``inputs`` as time_kernels times
+        it (each held bit for bit against its plain version), beside its
+        byte bound and, for flow_warp, F.grid_sample."""
+        trows, tlib = {}, {}
+        time_kernels((kernel,), {kernel: inputs}, trows, tlib, lsvc_library)
+        t = lsvc_timing[kernel][what] = {**trows[kernel], "library_ms": tlib[kernel],
+                                         "launches": len(inputs)}
+        log(f"{kernel} {what}, {len(inputs)} launches of "
+            f"{sorted({tuple(img.shape) for img, _ in inputs})}: kernel {t['ms']:.4f} ms/GOP "
+            f"(L2 flushed {t['cold_ms']:.4f}) against its byte bound {t['bound_ms']:.4f}, "
+            f"plain {t['plain_ms']:.4f}, library {t['library_ms']}")
+
+    def captured_warps(spec, frames):
+        captured = {}
+        with capture_warp_inputs(captured):
+            rollout(spec, frames)
+        return captured
+
+    with phase("lsvc forms card vs cpu port"):
+        lsvc_card_vs_cpu("lsvc-tiny", lambda dt, dev: lsvc_model("LSVC-TINY", "tiny_lsvc_l2",
+                                                                 dt, dev),
+                         bf16=(LSVC_BF16_PSNR_DB, LSVC_BF16_BPP_REL))
+        lsvc_card_vs_cpu("lsvc-128", lambda dt, dev: lsvc_model("LSVC-128", "hd_lsvc128_l2",
+                                                                dt, dev))
+        for name in ("LSVC-TPU-RW-TINY", "LSVC-TPU-HF-TINY"):
+            lsvc_card_vs_cpu(name.lower(), lambda dt, dev, n=name: lsvc_model(n, "seeded",
+                                                                                dt, dev))
+        lsvc_card_vs_cpu("lsvc-tpu-tiny -a -s (attn_depth 2)", narrow_attention)
+
+    l128 = lsvc_model("LSVC-128", "hd_lsvc128_l2")
+    with phase(f"lsvc-128 rollout {H}x{W} GOP16 bf16"):
+        lsvc_launches["lsvc128_rollout"], est, psnr_est = lsvc_rollout("lsvc-128", l128, gop,
+                                                                       trained=True)
+
+    with phase(f"lsvc-128 decode graph {H}x{W} GOP16 bf16"):
+        decode, (mv_q, z_qs, feat_qs) = build_lsvc_decode(l128.module, GOP, H, W)
+        iframe = gop[0].contiguous()  # s2d=1: the I-frame as it is
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw.reset_launches()
+        mean, sigma, out = decode(iframe, mv_q, z_qs, feat_qs)
+        torch.cuda.synchronize()
+        launches = lsvc_launches["lsvc128_decode_graph"] = dict(kw.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(launches == {**zero_counts, "flow_warp": 4},
+                f"lsvc-128 decode launches {launches}, want flow_warp 4")
+        require(tuple(out.shape) == (GOP - 1, 3, H, W) and bool(torch.isfinite(out).all()),
+                "lsvc-128 decode output not finite or misshapen")
+        del out
+        times, enqueue = timed_runs(decode, iframe, mv_q, z_qs, feat_qs)
+        ms = sum(times) / len(times)
+        lsvc_rows["lsvc-128"]["decode_graph"] = {"ms_per_gop": times, "ms": ms,
+                                                 "enqueue_ms": enqueue, "peak_gib": peak}
+        log(f"lsvc-128 decode graph: ms/GOP {times} mean {ms:.3f}; host enqueue ms/GOP "
+            f"{[round(t, 3) for t in enqueue]}; fps {1000.0 * (GOP - 1) / ms:.3f}; peak "
+            f"memory {peak:.3f} GiB; launches {launches}")
+        del decode, mv_q, z_qs, feat_qs
+
+    with phase(f"lsvc-128 real bits {H}x{W} GOP16 bf16"):
+        enc, dec = lsvc_real_bits("lsvc-128", l128, est, psnr_est, trained=True)
+        lsvc_launches.update(lsvc128_real_bits_encode=enc, lsvc128_real_bits_decode=dec)
+
+    with phase("flow_warp on LSVC-128's inputs (bf16, one GOP's 8 launches)"):
+        warps = captured_warps(l128, gop)
+        fw = warps.get("flow_warp", [])
+        require(len(fw) == 8 and set(warps) == {"flow_warp"},
+                f"captured {[(k, len(v)) for k, v in warps.items()]}")
+        # SpyNet's 4 levels, each one launch over the 15 P-frames, then the
+        # MC warp of each tree layer's frames at full resolution
+        require([tuple(img.shape) for img, _ in fw] ==
+                [(GOP - 1, 3, H >> k, W >> k) for k in (3, 2, 1, 0)]
+                + [(n, 3, H, W) for n in (1, 2, 4, 8)],
+                f"LSVC-128's warps {[tuple(img.shape) for img, _ in fw]}")
+        time_path("flow_warp", "lsvc128_rollout_spynet", fw[:4])
+        time_path("flow_warp", "lsvc128_rollout_mc_warp", fw[4:])
+        del warps, fw
+    del l128
+
+    for name, weights in LSVC_VARIANTS:
+        label, path = name.lower(), name.lower().replace("-", "_")
+        trained = weights != "seeded"
+        vspec = lsvc_model(name, weights)
+        with phase(f"{label} rollout {H}x{W} GOP16 bf16"):
+            lsvc_launches[f"{path}_rollout"], est, psnr_est = lsvc_rollout(label, vspec, gop,
+                                                                           trained)
+        if name in ("LSVC-TPU-RW", "LSVC-TPU-HF"):
+            kernel = "flow_warp" if name == "LSVC-TPU-RW" else "flow_warp_s2d"
+            with phase(f"{kernel} on {name}'s MC inputs (bf16, one GOP's 4 launches)"):
+                mc = captured_warps(vspec, gop)[kernel][-4:]
+                require([tuple(img.shape) for img, _ in mc] ==
+                        [(n, 12, H // 2, W // 2) for n in (1, 2, 4, 8)],
+                        f"{name}'s MC warps {[tuple(img.shape) for img, _ in mc]}")
+                time_path(kernel, f"{path}_rollout_mc_warp", mc)
+                del mc
+        with phase(f"{label} real bits {H}x{W} GOP16 bf16"):
+            enc, dec = lsvc_real_bits(label, vspec, est, psnr_est, trained)
+            lsvc_launches.update({f"{path}_real_bits_encode": enc,
+                                  f"{path}_real_bits_decode": dec})
+        del vspec
+
+    # the graphs: the chain codes 15 layers of one frame; the one-hop graph
+    # reaches 14 P-frames (in JAX too), so it codes a GOP of 15
+    for name, frames in (("LSVC-TPU-L", gop), ("LSVC-TPU-O", gop[:GOP - 1])):
+        label, path = name.lower(), name.lower().replace("-", "_")
+        gspec = lsvc_model(name, "hd_lsvctpuf2_l2")
+        with phase(f"{label} rollout {H}x{W} GOP{frames.shape[0]} bf16"):
+            lsvc_launches[f"{path}_rollout"], *_ = lsvc_rollout(label, gspec, frames, True)
+        del gspec
+
+    with phase(f"hd head-to-head {HD_SIZE}x{HD_SIZE} GOP{HD_GOP} f32 real bits"):
+        # JAX's TestHDHeadToHead on the card: four held-out clips (seed 123;
+        # the checkpoints trained on seed 0), levels 0, 2, 4, real bits,
+        # decode == encode on every GOP
+        rng = np.random.default_rng(123)
+        clips = [torch.from_numpy(np.ascontiguousarray(
+            synth_gop_multi(rng, size=HD_SIZE, gop=HD_GOP))).permute(0, 3, 1, 2)
+            .contiguous().cuda() for _ in range(4)]
+        curves = {}
+        for name, family in HD_CURVES:
+            bpps, psnrs = [], []
+            for level in (0, 2, 4):
+                hspec = lsvc_model(name, f"hd_{family}_l{level}", torch.float32)
+                codecs = codecs_of(hspec)
+                bs, ps = [], []
+                for c in clips:
+                    streams, recon, bits = cv.lsvc_compress(hspec, c, codecs)
+                    decoded = cv.lsvc_decompress(hspec, c[0], streams, HD_GOP - 1, codecs)
+                    require(torch.equal(decoded, recon), f"hd {name} l{level}: decode != encode")
+                    bs.append(bits / ((HD_GOP - 1) * HD_SIZE * HD_SIZE))
+                    mse = float(torch.mean((recon.float() - c[1:].float()) ** 2))
+                    ps.append(10 * np.log10(1.0 / max(mse, 1e-12)))
+                bpps.append(float(np.mean(bs)))
+                psnrs.append(float(np.mean(ps)))
+            require(bpps[0] < bpps[1] < bpps[2] and psnrs[0] < psnrs[1] < psnrs[2],
+                    f"hd {name}: curve not monotone {bpps} {psnrs}")
+            curves[name] = (bpps, psnrs)
+            log(f"hd {name} (hd_{family}_l0/2/4): bpp {bpps} psnr {psnrs}")
+        ref = curves["LSVC-128"]
+        bdr = {name: bd_rate(*ref, *curves[name]) for name, _ in HD_CURVES[1:]}
+        bdp = bd_psnr(*ref, *curves["LSVC-TPU"])
+        full, halfres, rigid = bdr["LSVC-TPU"], bdr["LSVC-TPU-HF"], bdr["LSVC-TPU-RW"]
+        log(f"hd head-to-head: BD-rate against LSVC-128: LSVC-TPU {full:+.2f}% (bound < 10), "
+            f"-HF {halfres:+.2f}% (< 16), -RW {rigid:+.2f}% (< 32); LSVC-TPU's BD-PSNR "
+            f"{bdp:+.3f} dB (bound > -0.6)")
+        require(full < 10.0 and bdp > -0.6, "the flagship's BD-rate bound")
+        require(full < halfres < rigid and rigid < 32.0 and halfres < 16.0,
+                "the ablation chain")
+        lsvc_rows["hd_head_to_head"] = {"curves": curves, "bd_rate": bdr, "bd_psnr": bdp}
+        del clips
+
+    log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
+        k: {path: {key: t[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                                           "library_ms", "launches")}
+            for path, t in v.items()} for k, v in lsvc_timing.items()}}))
+
     by_path = {name: {"lsvc_rollout": rollout_launches[name],
                       "lsvc_decode_graph": decode_launches[name],
                       "ssf_rollout": ssf_launches[name],
@@ -1698,7 +2035,8 @@ def main() -> int:
                       "mcvc_real_bits_encode": mcvc_enc[name],
                       "mcvc_real_bits_decode": mcvc_dec[name],
                       **{path: n[name] for path, n in stock_launches.items()},
-                      **{path: n[name] for path, n in chain_launches.items()}}
+                      **{path: n[name] for path, n in chain_launches.items()},
+                      **{path: n[name] for path, n in lsvc_launches.items()}}
                 for name in kernels}
     # each kernel's top-level numbers stay on the path that defined them in
     # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
@@ -1710,7 +2048,9 @@ def main() -> int:
               for k, v in mcvc_timing.items()}
     timing.update(stock_timing)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "launches")
-    by_kernel_timing = {"pixel_warp": timing, "flow_warp": chain_timing}
+    by_kernel_timing = {"pixel_warp": timing,
+                        "flow_warp": {**chain_timing, **lsvc_timing["flow_warp"]},
+                        "flow_warp_s2d": lsvc_timing["flow_warp_s2d"]}
     report = {"kernels": [
         {
             "name": name,

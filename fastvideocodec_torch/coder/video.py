@@ -1,13 +1,18 @@
-"""Whole-GOP real-bitstream encode and decode of LSVC-TPU, the SSF, ELFVC
-and MCVC families, DVC, Base(-EC/-ER) and RLVC (RLVC, RLVC-HP), ported
-from fastvideocodec_tpu/coder/video.py.
+"""Whole-GOP real-bitstream encode and decode of LSVC (every form: s2d=1
+and s2d=2, every graph), the SSF, ELFVC and MCVC families, DVC,
+Base(-EC/-ER) and RLVC (RLVC, RLVC-HP), ported from
+fastvideocodec_tpu/coder/video.py.
 
 LSVC (tree codec):
   encode: flow + mv analysis for all P-frames in one batch -> mv symbols to
-          the host BitEstimator coder; then per tree layer: motion
-          compensation, residual analysis -> z symbols (BitEstimator coder)
-          and f16 sigmas -> feature symbols (Laplace coder) -> recon,
-          which feeds the next layer.
+          the host BitEstimator coder; then per graph layer, the whole
+          layer in one batch: motion compensation, residual analysis -> z
+          symbols (BitEstimator coder) and f16 sigmas (one prior-decoder
+          call on the layer's z) -> feature symbols (Laplace coder) ->
+          recon, which feeds the next layer. These are the rollout's
+          batches, and JAX's coder's, for every registry name; a module
+          built with ``per_layer_mv`` or ``layer_chunk`` batches its
+          rollout otherwise, which changes the result of an -A/-S form.
   decode: the mirror image, from (I-frame, bitstreams) only.
 SSF (chain codec): keyframe, then per P-frame the motion and the residual
   hyperpriors (z: factorized tables; y: Gaussian scale-table coder).
@@ -64,7 +69,6 @@ from fastvideocodec_torch.coder.service import (
 from fastvideocodec_torch.entropy.rpm import rpm_sigma
 from fastvideocodec_torch.models.mcvc import mask_views
 from fastvideocodec_torch.models.registry import CodecSpec
-from fastvideocodec_torch.ops.warp import avg_pool2, depth_to_space, space_to_depth
 
 
 @contextlib.contextmanager
@@ -120,8 +124,12 @@ def nhwc_shape(t: torch.Tensor) -> tuple:
 def from_nhwc(a: np.ndarray, device) -> torch.Tensor:
     """A decoded NHWC array -> a contiguous NCHW tensor on ``device``: the
     memory layout the encoder's tensor had, so the convs pick the same
-    algorithms on both sides."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device).permute(0, 3, 1, 2).contiguous()
+    algorithms on both sides. A copy with fresh strides: where H and W are
+    1, the permuted view already counts as contiguous, and its strides
+    would send the convs down another path than the encoder's (a sigma an
+    ulp away on the CPU)."""
+    nchw = torch.from_numpy(np.ascontiguousarray(a)).to(device).permute(0, 3, 1, 2)
+    return nchw.clone(memory_format=torch.contiguous_format)
 
 
 def _device(spec: CodecSpec) -> torch.device:
@@ -157,8 +165,7 @@ def lsvc_compress(spec: CodecSpec, gop: torch.Tensor, codecs=None):
     x = gop.to(_device(spec), m.dtype)
     bs = x.shape[0] - 1
     sched = m.schedule(bs)
-    x_flow = avg_pool2(x)
-    x = space_to_depth(x, m.S2D)
+    x, x_flow = m.fold(x)
     target = x[1:]
     with deterministic_convs(), AsyncCoder(workers=len(sched.layers) + 1) as coder:
         mv_q = m.mv_encode(x_flow[1:], x_flow[list(sched.ref_index)])
@@ -183,7 +190,7 @@ def lsvc_compress(spec: CodecSpec, gop: torch.Tensor, codecs=None):
             com_frames = m.layer_recon(feat_q, mc)
             for i, f in enumerate(layer):
                 com[f - 1] = com_frames[i]
-        recon = depth_to_space(torch.stack(com), m.S2D)
+        recon = m.unfold(torch.stack(com))
         streams = {
             "mv": mv_future.result(),
             "mv_shape": nhwc_shape(mv_q),
@@ -205,7 +212,7 @@ def lsvc_decompress(spec: CodecSpec, iframe: torch.Tensor, streams: dict, num_p_
     mv_codec, z_codec, feat_codec = codecs or bit_estimator_laplace_codecs(m)
     device = _device(spec)
     sched = m.schedule(num_p_frames)
-    iframe = space_to_depth(iframe[None].to(device, m.dtype), m.S2D)[0]
+    iframe = m.fold(iframe[None].to(device, m.dtype))[0][0]
     layers = range(len(sched.layers))
     # Nothing in the entropy decode depends on the tree recursion: a layer's
     # features need only its sigmas, which need only its z. So the mv stream
@@ -235,7 +242,7 @@ def lsvc_decompress(spec: CodecSpec, iframe: torch.Tensor, streams: dict, num_p_
             com_frames = m.layer_recon(from_nhwc(feat_futures[li].result(), device), mc)
             for i, f in enumerate(layer):
                 com[f - 1] = com_frames[i]
-    return depth_to_space(torch.stack(com), m.S2D)
+    return m.unfold(torch.stack(com))
 
 
 class HyperpriorCoder:

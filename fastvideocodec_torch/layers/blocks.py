@@ -1,7 +1,10 @@
 """Building blocks (NCHW), ported from fastvideocodec_tpu/layers/blocks.py:
-ResBlock, the WarpNet motion-compensation U-net and the MEBasic SpyNet
-level of the LSVC-TPU path, RLVC's ConvLSTM and flax's transposed conv
-with ``padding="SAME"`` (``SameConvTranspose``), the forward of QReLU for the SSF hyper
+ResBlock, the WarpNet motion-compensation U-net, the strided-trunk
+WarpNetTPU (LSVC-TPU-WT) and the MEBasic SpyNet level of the LSVC path,
+the factorized space/time attention of LSVC's -A/-S forms
+(SpaceTimeAttention over TokenAttention and GEGLUFeedForward), RLVC's
+ConvLSTM and flax's transposed conv with ``padding="SAME"``
+(``SameConvTranspose``), the forward of QReLU for the SSF hyper
 decoders, the super-precision SPnet of ELFVC-SP with its blocks
 (ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention), and
 ConvAttention across views for MCVC-IA.
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fastvideocodec_torch.ops.warp import avg_pool2, bilinear_upsample_x2_ac
+from fastvideocodec_torch.ops.warp import avg_pool2, bilinear_upsample_x2_ac, depth_to_space
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -119,6 +122,29 @@ class WarpNet(nn.Module):
         c4_u = c0 + bilinear_upsample_x2_ac(c4)
         c5 = self.ResBlock_5(c4_u)
         return self.Conv_1(c5)
+
+
+class WarpNetTPU(nn.Module):
+    """The strided-trunk motion-compensation refinement of LSVC-TPU-WT: a
+    5x5 stem conv of stride ``stem_stride`` (symmetric padding 2) and ReLU,
+    ``depth`` ResBlocks of ``width`` at 1/stem_stride of the input, and a
+    3x3 conv to out_channels * s * s channels depth-to-spaced by s in the
+    (ry, rx, c) order back to the input's resolution."""
+
+    def __init__(self, in_channels: int, out_channels: int = 12, width: int = 128,
+                 depth: int = 4, stem_stride: int = 4):
+        super().__init__()
+        self.depth, self.stride = depth, stem_stride
+        self.Conv_0 = nn.Conv2d(in_channels, width, 5, stride=stem_stride, padding=2)
+        for i in range(depth):
+            self.add_module(f"ResBlock_{i}", ResBlock(width, width))
+        self.Conv_1 = conv(width, out_channels * stem_stride ** 2, 3)
+
+    def forward(self, x):
+        c = F.relu(self.Conv_0(x))
+        for i in range(self.depth):
+            c = getattr(self, f"ResBlock_{i}")(c)
+        return depth_to_space(self.Conv_1(c), self.stride)
 
 
 class MEBasic(nn.Module):
@@ -246,6 +272,100 @@ def attention(q, k, v):
     if q.device.type == "cpu":
         return plain_attention(q, k, v)
     return F.scaled_dot_product_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# Factorized space/time attention (LSVC's -A and -S forms)
+# ---------------------------------------------------------------------------
+
+LAYER_NORM_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis, with its params ``scale``
+    and ``bias``: float32 statistics with the fast variance
+    max(E[x^2] - E[x]^2, 0), eps 1e-6, the result in x's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + LAYER_NORM_EPS) * self.scale) + self.bias
+        return y.to(x.dtype)
+
+
+class GEGLUFeedForward(nn.Module):
+    """Dense to 2 * mult * dim, split in (h, gates), h * gelu(gates) with
+    the tanh approximation (``jax.nn.gelu``'s default), Dense back to dim.
+    A flax ``Dense`` is an ``nn.Linear``: weights.load_flat transposes its
+    kernel [in, out] into the weight [out, in]."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.Dense_0 = nn.Linear(dim, dim * mult * 2)
+        self.Dense_1 = nn.Linear(dim * mult, dim)
+
+    def forward(self, x):
+        h, gates = self.Dense_0(x).chunk(2, dim=-1)
+        return self.Dense_1(h * F.gelu(gates, approximate="tanh"))
+
+
+class TokenAttention(nn.Module):
+    """Multi-head attention over the token axis of [B, N, dim]: a qkv
+    Dense without bias to 3 * heads * dim_head (channel head * dim_head + i
+    of each third), ``attention`` (q scaled by dim_head^-1/2), and an output
+    Dense with bias."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.Dense_0 = nn.Linear(dim, 3 * inner, bias=False)
+        self.Dense_1 = nn.Linear(inner, dim)
+
+    def forward(self, x):
+        B, N, _ = x.shape
+        qkv = self.Dense_0(x).reshape(B, N, 3, self.heads, self.dim_head)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)  # [B, heads, N, d]
+        out = attention(q, k, v).transpose(1, 2).reshape(B, N, -1)
+        return self.Dense_1(out)
+
+
+class SpaceTimeAttention(nn.Module):
+    """``depth`` steps over a feature map [F, dim, H, W], F the frames of the
+    batch: time attention (tokens = the F frames, batched over the H*W
+    pixels), space attention (tokens = the pixels, batched over the frames)
+    and a GEGLU feed-forward, each after a LayerNorm and added back. The
+    frames of one call attend to each other, so the batch a caller forms is
+    part of the result."""
+
+    def __init__(self, dim: int, depth: int = 12, heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        self.depth = depth
+        for d in range(depth):
+            for i in range(3):
+                self.add_module(f"LayerNorm_{3 * d + i}", LayerNorm(dim))
+            for i in range(2):
+                self.add_module(f"TokenAttention_{2 * d + i}",
+                                TokenAttention(dim, heads, dim_head))
+            self.add_module(f"GEGLUFeedForward_{d}", GEGLUFeedForward(dim))
+
+    def forward(self, x):
+        F_, C, H, W = x.shape
+        t = x.reshape(F_, C, H * W).transpose(1, 2)  # [F, HW, C]
+        for d in range(self.depth):
+            norm = [getattr(self, f"LayerNorm_{3 * d + i}") for i in range(3)]
+            time_attn, space_attn = (getattr(self, f"TokenAttention_{2 * d + i}")
+                                     for i in range(2))
+            t = t + time_attn(norm[0](t).transpose(0, 1)).transpose(0, 1)
+            t = t + space_attn(norm[1](t))
+            t = t + getattr(self, f"GEGLUFeedForward_{d}")(norm[2](t))
+        return t.transpose(1, 2).reshape(F_, C, H, W).contiguous()
 
 
 class ConvAttention(nn.Module):

@@ -1,8 +1,16 @@
 """Analysis/synthesis transforms (NCHW), ported from
-fastvideocodec_tpu/layers/transforms.py for the LSVC-TPU, SSF-TPU,
+fastvideocodec_tpu/layers/transforms.py for the LSVC, SSF-TPU,
 ELFVC(-SP)-TPU and MCVC configurations, stock SSF's and ELFVC's
-(``s2d=1``), and the stock DVC transforms of DVC and Base (``stages=4``,
-the mv decoder without a polyphase output: ``polyphase_factor=None``).
+(``s2d=1``), and the stock DVC transforms of DVC, Base and LSVC's ``s2d=1``
+form (``stages=4``, the mv decoder without a polyphase output:
+``polyphase_factor=None``).
+
+With ``attn_depth`` > 0 (LSVC's -A analysis and -S synthesis forms) each of
+the six LSVC transforms holds a ``SpaceTimeAttention_0`` of that depth
+where the JAX package places it: after the last conv of AnalysisNet and
+AnalysisMVNet, before the first deconv of SynthesisNet and
+SynthesisMVNet, after the first conv of AnalysisPriorNet, and between the
+two deconvs of SynthesisPriorNet.
 
 Child modules carry the flax auto-names of the JAX modules (``Conv_0``,
 ``GDN_1``, ``PolyphaseDeconv_2``...), so a flax parameter path maps onto
@@ -19,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fastvideocodec_torch.layers.blocks import conv, qrelu
+from fastvideocodec_torch.layers.blocks import SpaceTimeAttention, conv, qrelu
 from fastvideocodec_torch.ops.gdn import GDN
 from fastvideocodec_torch.ops.warp import depth_to_space
 
@@ -39,11 +47,22 @@ def leaky01(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
 
 
+def _attend(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x through the module's SpaceTimeAttention_0 where it has one."""
+    attn = getattr(module, "SpaceTimeAttention_0", None)
+    return x if attn is None else attn(x)
+
+
+def _add_attention(module: nn.Module, dim: int, depth: int) -> None:
+    if depth:
+        module.add_module("SpaceTimeAttention_0", SpaceTimeAttention(dim, depth))
+
+
 class AnalysisNet(nn.Module):
     """``stages`` x (5x5 s2 conv + GDN), no GDN after the last conv."""
 
     def __init__(self, in_channels: int, conv_channels: int = OUT_CHANNEL_N,
-                 out_channels: int = OUT_CHANNEL_M, stages: int = STAGES):
+                 out_channels: int = OUT_CHANNEL_M, stages: int = STAGES, attn_depth: int = 0):
         super().__init__()
         self.stages = stages
         cin = in_channels
@@ -52,20 +71,22 @@ class AnalysisNet(nn.Module):
             self.add_module(f"GDN_{i}", GDN(conv_channels))
             cin = conv_channels
         self.add_module(f"Conv_{stages - 1}", conv(cin, out_channels, 5, 2))
+        _add_attention(self, out_channels, attn_depth)
 
     def forward(self, x):
         for i in range(self.stages - 1):
             x = getattr(self, f"GDN_{i}")(getattr(self, f"Conv_{i}")(x))
-        return getattr(self, f"Conv_{self.stages - 1}")(x)
+        return _attend(self, getattr(self, f"Conv_{self.stages - 1}")(x))
 
 
 class SynthesisNet(nn.Module):
     """``stages`` x (5x5 s2 deconv + inverse GDN), no GDN after the last."""
 
     def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N,
-                 out_channels: int = 3, stages: int = STAGES):
+                 out_channels: int = 3, stages: int = STAGES, attn_depth: int = 0):
         super().__init__()
         self.stages = stages
+        _add_attention(self, in_channels, attn_depth)
         cin = in_channels
         for i in range(stages - 1):
             self.add_module(f"PolyphaseDeconv_{i}", polyphase_deconv(cin, conv_channels, 5))
@@ -76,6 +97,7 @@ class SynthesisNet(nn.Module):
         )
 
     def forward(self, x):
+        x = _attend(self, x)
         for i in range(self.stages - 1):
             x = getattr(self, f"GDN_{i}")(getattr(self, f"PolyphaseDeconv_{i}")(x))
         return getattr(self, f"PolyphaseDeconv_{self.stages - 1}")(x)
@@ -86,7 +108,7 @@ class AnalysisMVNet(nn.Module):
     then a stride-1 output conv."""
 
     def __init__(self, in_channels: int = 2, conv_channels: int = OUT_CHANNEL_MV,
-                 out_channels: int = OUT_CHANNEL_MV, stages: int = STAGES):
+                 out_channels: int = OUT_CHANNEL_MV, stages: int = STAGES, attn_depth: int = 0):
         super().__init__()
         strides = [2, 1] * (stages - 1) + [2]
         self.n = len(strides)
@@ -95,11 +117,12 @@ class AnalysisMVNet(nn.Module):
             self.add_module(f"Conv_{i}", conv(cin, conv_channels, 3, s))
             cin = conv_channels
         self.add_module(f"Conv_{self.n}", conv(cin, out_channels, 3))
+        _add_attention(self, out_channels, attn_depth)
 
     def forward(self, x):
         for i in range(self.n):
             x = leaky01(getattr(self, f"Conv_{i}")(x))
-        return getattr(self, f"Conv_{self.n}")(x)
+        return _attend(self, getattr(self, f"Conv_{self.n}")(x))
 
 
 class SynthesisMVNet(nn.Module):
@@ -112,9 +135,10 @@ class SynthesisMVNet(nn.Module):
 
     def __init__(self, in_channels: int = OUT_CHANNEL_MV, conv_channels: int = OUT_CHANNEL_MV,
                  out_channels: int = 2, stages: int = STAGES,
-                 polyphase_factor: int | None = POLYPHASE_FACTOR):
+                 polyphase_factor: int | None = POLYPHASE_FACTOR, attn_depth: int = 0):
         super().__init__()
         self.factor = polyphase_factor
+        _add_attention(self, in_channels, attn_depth)
         self.ups = [True, False] * (stages - 1) + [True]
         if polyphase_factor is not None:
             self.ups = self.ups[:-1]
@@ -134,6 +158,7 @@ class SynthesisMVNet(nn.Module):
         self.add_module(f"Conv_{n_conv}", conv(cin, f * f * out_channels, 3))
 
     def forward(self, x):
+        x = _attend(self, x)
         n_deconv = n_conv = 0
         for up in self.ups:
             if up:
@@ -149,15 +174,17 @@ class SynthesisMVNet(nn.Module):
 class AnalysisPriorNet(nn.Module):
     """abs -> conv3 s1 -> relu -> conv5 s2 -> relu -> conv5 s2."""
 
-    def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N):
+    def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N,
+                 attn_depth: int = 0):
         super().__init__()
         c = conv_channels
         self.Conv_0 = conv(in_channels, c, 3)
+        _add_attention(self, c, attn_depth)
         self.Conv_1 = conv(c, c, 5, 2)
         self.Conv_2 = conv(c, c, 5, 2)
 
     def forward(self, x):
-        x = F.relu(self.Conv_0(torch.abs(x)))
+        x = _attend(self, F.relu(self.Conv_0(torch.abs(x))))
         x = F.relu(self.Conv_1(x))
         return self.Conv_2(x)
 
@@ -165,15 +192,17 @@ class AnalysisPriorNet(nn.Module):
 class SynthesisPriorNet(nn.Module):
     """deconv5 s2 -> relu -> deconv5 s2 -> relu -> conv3 -> exp (sigma)."""
 
-    def __init__(self, conv_channels: int = OUT_CHANNEL_N, out_channels: int = OUT_CHANNEL_M):
+    def __init__(self, conv_channels: int = OUT_CHANNEL_N, out_channels: int = OUT_CHANNEL_M,
+                 attn_depth: int = 0):
         super().__init__()
         c = conv_channels
         self.PolyphaseDeconv_0 = polyphase_deconv(c, c, 5)
+        _add_attention(self, c, attn_depth)
         self.PolyphaseDeconv_1 = polyphase_deconv(c, c, 5)
         self.Conv_0 = conv(c, out_channels, 3)
 
     def forward(self, x):
-        x = F.relu(self.PolyphaseDeconv_0(x))
+        x = _attend(self, F.relu(self.PolyphaseDeconv_0(x)))
         x = F.relu(self.PolyphaseDeconv_1(x))
         return torch.exp(self.Conv_0(x))
 

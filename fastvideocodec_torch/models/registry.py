@@ -1,5 +1,6 @@
-"""Codec registry of the port: the LSVC-TPU branch and the DVC, RLVC, Base,
-SSF, ELFVC and MCVC branches of fastvideocodec_tpu/models/registry.py.
+"""Codec registry of the port: the LSVC, DVC, RLVC, Base, SSF, ELFVC and
+MCVC branches of fastvideocodec_tpu/models/registry.py, which take the
+same names by the same tests of the name.
 
 ``get_codec_model`` builds the module on ``device`` (the card unless the
 caller passes ``device="cpu"``) in eval mode. With ``dtype=torch.bfloat16``
@@ -32,18 +33,45 @@ class CodecSpec:
     module: nn.Module
 
 
+def _lsvc(name: str, dtype: torch.dtype) -> LSVC:
+    """The JAX registry's LSVC branch. -L/-O pick the chain/one-hop graph;
+    -TINY the golden-RD widths (with -TPU the flagship's s2d architecture);
+    -TPU the flagship (s2d codec domain, pooled-RGB SpyNet with 5x5/3x3
+    kernels, 128-wide transforms), whose default warp is the full-res warp
+    by the decoder's full-res flow, with the ablations -HF (half-res flow
+    upsampled), -RW (rigid s2d warp), -WT (WarpNetTPU, stride-2 stem,
+    128 wide), -HU (32-wide U-net) and -QU (U-net on the pooled input);
+    -A/-S attention in the analysis/synthesis transforms, -D the
+    stop-gradient between layers (a training knob). Any other LSVC name
+    is the reference-structure s2d=1 LSVC-128 (LSVC and LSVC-128 among
+    them). -F/-F2 name the default. The TPU kernel's displacement bound
+    (``mc_displacement``) is no part of the port's semantics."""
+    graph = "chain" if "-L" in name else ("onehop" if "-O" in name else "tree")
+    if "-TINY" in name:
+        tpu = "-TPU" in name
+        rigid, halfres = "-RW" in name, "-HF" in name
+        return LSVC(channels=48, conv_channels=32, s2d=2 if tpu else 1,
+                    spynet_widths=(8, 16, 8, 4), spynet_kernel=5,
+                    spynet_s2d_levels=2 if tpu else 0, mv_polyphase_out=tpu,
+                    warp_width=32 if tpu else 16, full_res_warp=tpu and not rigid,
+                    mv_full_res_out=tpu and not (rigid or halfres), graph=graph, dtype=dtype)
+    flags = dict(use_attn="-A" in name, use_syn_attn="-S" in name, graph=graph,
+                 detach_tree="-D" in name, dtype=dtype)
+    if "-TPU" in name:
+        rigid, halfres = "-RW" in name, "-HF" in name
+        wt, hu = "-WT" in name, "-HU" in name
+        return LSVC(channels=128, conv_channels=128, s2d=2, spynet_widths=(32, 64, 32, 16),
+                    spynet_kernels=(5, 5, 3, 3), spynet_s2d_levels=2, mv_polyphase_out=True,
+                    warp_tpu=wt, warp_stride=2, warp_width=128 if wt else (32 if hu else 64),
+                    warp_pooled="-QU" in name, full_res_warp=not rigid,
+                    mv_full_res_out=not (rigid or halfres), **flags)
+    return LSVC(channels=128, **flags)
+
+
 def _build(name: str, dtype: torch.dtype, sp_stage: int,
            num_views: int) -> tuple[str, nn.Module]:
-    if name == "LSVC-TPU":
-        # the flagship: s2d codec domain, pooled-RGB SpyNet with 5x5/3x3
-        # kernels, 128-wide transforms, full-res flow and full-res MC warp
-        return "lsvc", LSVC(channels=128, conv_channels=128,
-                            spynet_widths=(32, 64, 32, 16), spynet_kernels=(5, 5, 3, 3),
-                            warp_width=64, dtype=dtype)
-    if name == "LSVC-TPU-TINY":
-        # the flagship's architecture at golden-RD scale
-        return "lsvc", LSVC(channels=48, conv_channels=32, spynet_widths=(8, 16, 8, 4),
-                            spynet_kernels=(5, 5, 5, 5), warp_width=32, dtype=dtype)
+    if name.startswith("LSVC"):
+        return "lsvc", _lsvc(name, dtype)
     # DVC, RLVC and Base: the reference's widths (SpyNet 32/64/32/16 at 7x7,
     # the stock transforms), or with -TINY the golden-RD widths of
     # tiny_{dvc,rlvc,base}_l{0,2,4}. DVC-pretrained builds DVC's module
@@ -96,13 +124,7 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int,
         widths = dict(planes=48, mid_planes=32) if tiny else {}
         return "mcvc", MCVC(num_views, imbalanced_correlation="-IA" in name, dtype=dtype,
                             **widths)
-    raise ValueError(
-        f"codec {name!r} is not ported yet (have LSVC-TPU and the DVC, RLVC, Base, SSF, "
-        f"ELFVC and MCVC families: DVC, DVC-pretrained, RLVC, RLVC2, RLVC-HP, Base, "
-        f"Base-EC, Base-ER, Base-EC-ER, SSF-Official, SSF-TPU, ELFVC, ELFVC-SP, ELFVC-TPU, "
-        f"ELFVC-SP-TPU, MCVC, MCVC-IA, MCVC-IA-OLFT and their -TINY forms, and "
-        f"MCVC-Original)"
-    )
+    raise ValueError(f"Cannot recognize codec: {name}")
 
 
 def get_codec_model(name: str, dtype: torch.dtype = torch.float32, device="cuda",
@@ -114,8 +136,15 @@ def get_codec_model(name: str, dtype: torch.dtype = torch.float32, device="cuda"
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     family, module = _build(name, dtype, sp_stage, num_views)
+    return CodecSpec(name=name, family=family, module=place(module, dtype, device))
+
+
+def place(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
+    """``module`` on ``device`` for eval, its conv and Dense weights in
+    ``dtype`` (everything else float32), as ``get_codec_model`` builds
+    its codecs; for a module built from its arguments."""
     module = module.to(device).eval().requires_grad_(False)
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             m.to(dtype)
-    return CodecSpec(name=name, family=family, module=module)
+    return module

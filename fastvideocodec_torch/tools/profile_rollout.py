@@ -1,14 +1,16 @@
 """Where a rollout's time goes on one CUDA card: by module, and by kernel.
 
     python -m fastvideocodec_torch.tools.profile_rollout
-        [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|MCVC-IA|MCVC-Original
-                 |DVC|RLVC|RLVC-HP|Base-EC-ER]
+        [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|LSVC-128|LSVC-TPU-RW
+                 |...|MCVC-IA|MCVC-Original|DVC|RLVC|RLVC-HP|Base-EC-ER]
         [--views 4] [--h 256 --w 256] [--json PATH]
 
 The cell of ``chip_smoke.py``: bf16, 1024x2048, GOP 16, synth_gop_multi
 seed 0, with ``real_bits_fps``'s weights (seeded full widths, the
 ELFVC-SP forms at sp_stage 2, the pretrained SpyNet in DVC's, RLVC's and
-Base's; hd_lsvctpuf2_l2 for LSVC-TPU); MCVC's is
+Base's; the shipped level-2 checkpoint of an LSVC form that has one,
+``real_bits_fps.LSVC_ASSETS``; the one-hop -O forms run GOP 15, the
+graph's reach); MCVC's is
 ``--views`` views of --h x --w (256x256 unless given) from
 ``real_bits_fps.mcvc_clip`` with seed 0, all alive (``--views 4 --h 1024
 --w 2048``: chip_smoke.py's 4 x 1024x2048), MCVC-Original's the same
@@ -174,10 +176,12 @@ def main(argv=None) -> int:
         clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=GOP)
         gop = torch.from_numpy(np.ascontiguousarray(clip[:, :H, :W])).permute(0, 3, 1, 2)
     spec, trained = load_model(args.codec, 2, torch.bfloat16, "cuda", views)
+    if spec.family == "lsvc" and spec.module.graph == "onehop":
+        gop = gop[:15]  # the one-hop graph reaches 14 P-frames
     gop = gop.to("cuda", torch.bfloat16).contiguous()
     name = torch.cuda.get_device_name(0)
-    print(f"{args.codec} {'trained' if trained else 'seeded'} {what}{h}x{w} GOP{GOP} bf16 on "
-          f"{name}", flush=True)
+    print(f"{args.codec} {'trained' if trained else 'seeded'} {what}{h}x{w} GOP{gop.shape[0]} "
+          f"bf16 on {name}", flush=True)
 
     def run():
         return ft.rollout(spec, gop, mask)
@@ -230,7 +234,8 @@ def main(argv=None) -> int:
         with open(args.json, "a") as f:
             f.write(json.dumps({
                 "tool": "fastvideocodec_torch.tools.profile_rollout", "codec": args.codec,
-                "device": name, "dtype": "bf16", "h": h, "w": w, "views": views, "gop": GOP,
+                "device": name, "dtype": "bf16", "h": h, "w": w, "views": views,
+                "gop": gop.shape[0],
                 "gop_ms": gop_ms, "enqueue_ms": enqueue_ms,
                 "modules": [dict(zip(("name", "calls", "card_ms", "host_ms"), r)) for r in rows],
                 **k}) + "\n")

@@ -1,19 +1,24 @@
-"""Real-bits throughput of the port on one CUDA card: LSVC-TPU, SSF-Official,
-SSF-TPU, ELFVC-SP, ELFVC-SP-TPU, DVC, RLVC, RLVC-HP or Base-EC-ER at
-1024x2048, or MCVC-IA or MCVC-Original on views of 256x256, GOP 16, through
+"""Real-bits throughput of the port on one CUDA card: every LSVC form
+(LSVC-TPU, its ablations -HF, -RW, -WT, -HU, -QU, attention -A/-S, graphs
+-L/-O; the s2d=1 LSVC-128), SSF-Official, SSF-TPU, ELFVC-SP,
+ELFVC-SP-TPU, DVC, RLVC, RLVC-HP or Base-EC-ER at 1024x2048, or MCVC-IA
+or MCVC-Original on views of 256x256, GOP 16, through
 the real bitstream encode AND decode (the networks on the card, range
 coding on host threads), with decode == encode checked bit for bit and
 the host coder's seconds apart from the rest.
 
     python -m fastvideocodec_torch.tools.real_bits_fps
-        [--codec LSVC-TPU|SSF-Official|SSF-TPU|ELFVC-SP|ELFVC-SP-TPU|MCVC-IA|MCVC-Original
-                 |DVC|RLVC|RLVC-HP|Base-EC-ER]
+        [--codec LSVC-TPU|LSVC-128|LSVC-TPU-RW|...|SSF-Official|SSF-TPU|ELFVC-SP
+                 |ELFVC-SP-TPU|MCVC-IA|MCVC-Original|DVC|RLVC|RLVC-HP|Base-EC-ER]
         [--gop 16] [--h H] [--w W]
         [--views 4] [--failed 2] [--reps 3] [--level 2] [--dtype f32|bf16]
         [--json PATH] [--device cuda|cpu]
 
-Weights: LSVC-TPU reads fastvideocodec_tpu/assets/hd_lsvctpuf2_l{level}.npz
-by path; the others ship no full-width checkpoint and run
+Weights: an LSVC form with a shipped checkpoint reads
+fastvideocodec_tpu/assets/<LSVC_ASSETS[codec]>_l{level}.npz by path
+(LSVC-TPU, -L, -O hd_lsvctpuf2; LSVC-128 hd_lsvc128; -RW hd_lsvctpu; -HF
+hd_lsvctpuf; -WT hd_lsvctpuwt; -QU hd_lsvctpuqu); -HU, -A, -S and the
+others ship no full-width checkpoint and run
 ``seeded_flat(codec, 0)`` (flagged ``trained: false``), the ELFVC-SP
 forms at sp_stage 2 (both SPnets replace y), DVC, RLVC and Base with the
 pretrained spynet.npz in their SpyNet. The clip is synth_gop_multi
@@ -27,7 +32,8 @@ clock around the call, the card synchronised at its end, range coding
 included), the AC seconds of each, real bpp and the identity check.
 SSF's, ELFVC's and MCVC's bits include their coded keyframe, so their bpp
 is over all GOP frames (and all views); LSVC's, DVC's, RLVC's and Base's
-is over the P-frames (frame 0 is taken as already coded).
+is over the P-frames (frame 0 is taken as already coded). The one-hop
+graph (-O) reaches 14 P-frames: give it ``--gop 15``.
 """
 
 from __future__ import annotations
@@ -48,8 +54,17 @@ from fastvideocodec_torch.ops.kernels import warp as kw
 
 
 SP_STAGE = 2  # ELFVC-SP's stage, the one its tiny checkpoints were trained at
-CODECS = ("LSVC-TPU", "SSF-Official", "SSF-TPU", "ELFVC-SP", "ELFVC-SP-TPU", "MCVC-IA",
-          "MCVC-Original", "DVC", "RLVC", "RLVC-HP", "Base-EC-ER")
+# the LSVC forms with a shipped full-width checkpoint: its name without the level
+LSVC_ASSETS = {"LSVC-TPU": "hd_lsvctpuf2", "LSVC-TPU-F": "hd_lsvctpuf2",
+               "LSVC-TPU-F2": "hd_lsvctpuf2", "LSVC-TPU-L": "hd_lsvctpuf2",
+               "LSVC-TPU-O": "hd_lsvctpuf2", "LSVC-TPU-D": "hd_lsvctpuf2",
+               "LSVC": "hd_lsvc128", "LSVC-128": "hd_lsvc128", "LSVC-TPU-RW": "hd_lsvctpu",
+               "LSVC-TPU-HF": "hd_lsvctpuf", "LSVC-TPU-WT": "hd_lsvctpuwt",
+               "LSVC-TPU-QU": "hd_lsvctpuqu"}
+LSVC_SEEDED = ("LSVC-TPU-HU", "LSVC-TPU-A", "LSVC-TPU-S", "LSVC-A", "LSVC-S", "LSVC-L",
+               "LSVC-O")
+CODECS = (*LSVC_ASSETS, *LSVC_SEEDED, "SSF-Official", "SSF-TPU", "ELFVC-SP", "ELFVC-SP-TPU",
+          "MCVC-IA", "MCVC-Original", "DVC", "RLVC", "RLVC-HP", "Base-EC-ER")
 CHAINS = ("dvc", "base", "rlvc")  # P-frames coded on the previous recon
 IFRAME_GIVEN = ("lsvc", *CHAINS)  # frame 0 taken as already coded, given to the decoder
 CODERS = {  # family: (tables, encode, decode)
@@ -121,13 +136,13 @@ def code_gop(spec, gop: torch.Tensor, codecs, mask=None) -> dict:
 
 
 def load_model(codec: str, level: int, dtype: torch.dtype, device: str, views: int = 1):
-    """(spec, trained): LSVC-TPU's shipped weights by path, every other
+    """(spec, trained): an LSVC form's shipped weights by path, every other
     codec's (MCVC-IA on ``views`` views) seeded, with the pretrained
     SpyNet in DVC's, RLVC's and Base's."""
     spec = ft.get_codec_model(codec, dtype=dtype, device=device, sp_stage=SP_STAGE,
                               num_views=views)
-    if codec == "LSVC-TPU":
-        ft.load_asset(spec.module, f"hd_lsvctpuf2_l{level}")
+    if codec in LSVC_ASSETS:
+        ft.load_asset(spec.module, f"{LSVC_ASSETS[codec]}_l{level}")
         return spec, True
     ft.load_flat(spec.module, ft.seeded_flat(codec, 0))
     if spec.family in CHAINS:
@@ -162,7 +177,7 @@ def main(argv=None) -> int:
     ap.add_argument("--views", type=int, default=4, help="MCVC's views")
     ap.add_argument("--failed", default="", help="MCVC-IA's failed views, e.g. 2 or 1,3")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--level", type=int, default=2, help="LSVC-TPU's weights level")
+    ap.add_argument("--level", type=int, default=2, help="an LSVC checkpoint's level")
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     ap.add_argument("--json", default="", help="append the summary as one JSON line here")
     ap.add_argument("--device", default="cuda")

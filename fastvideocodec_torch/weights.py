@@ -10,8 +10,11 @@ names, so a path maps to a ``state_dict`` key by its leaf alone:
   ``ConvTranspose2d`` ``weight`` [I, O, k, k], with no spatial flip;
 - a ``WSConvBlock`` ``kernel`` (HWIO) becomes its ``weight`` (OIHW), like a
   conv's;
+- a ``Dense`` ``kernel`` [in, out] becomes the ``nn.Linear`` ``weight``
+  [out, in]: the leaf alone does not say which, the module type does;
 - ``bias``, GDN ``beta``/``gamma``, BitEstimator ``h``/``b``/``a``, GroupNorm
-  ``scale``/``bias`` and ChannelLayerNorm ``g`` keep their names and shapes.
+  and LayerNorm ``scale``/``bias`` and ChannelLayerNorm ``g`` keep their
+  names and shapes.
 
 Loading raises on any key that maps nowhere and on any parameter left
 unset. ``seeded_flat`` makes a flax-keyed, flax-layout checkpoint of
@@ -71,6 +74,8 @@ def load_flat(module: nn.Module, flat: Mapping) -> nn.Module:
                 arr = arr.transpose(2, 3, 0, 1)
             elif isinstance(sub, CONVS):
                 arr = arr.transpose(3, 2, 0, 1)
+            elif isinstance(sub, nn.Linear):
+                arr = arr.T
             else:
                 raise KeyError(f"unmapped parameter {key!r}: {type(sub).__name__}")
             leaf = "weight"
@@ -114,6 +119,8 @@ def flax_shapes(module: nn.Module) -> dict:
                 shape = (shape[2], shape[3], shape[0], shape[1])  # [k, k, I, O]
             elif isinstance(sub, CONVS):
                 shape = (shape[2], shape[3], shape[1], shape[0])  # HWIO
+            elif isinstance(sub, nn.Linear):
+                shape = (shape[1], shape[0])  # [in, out]
             else:
                 raise KeyError(f"no flax layout for {tkey!r}: {type(sub).__name__}")
             leaf = "kernel"
@@ -144,21 +151,25 @@ def _xavier_normal(rng: np.random.Generator, shape: tuple) -> np.ndarray:
 
 
 def seeded_flat(name: str, seed: int) -> dict:
-    """Random parameters for the registry codec ``name``, drawn from
+    """``seeded_params`` of the registry codec ``name``."""
+    # the weights of MCVC do not depend on its number of views
+    return seeded_params(get_codec_model(name, device="meta", num_views=1).module, seed)
+
+
+def seeded_params(module: nn.Module, seed: int) -> dict:
+    """Random parameters for ``module``, drawn from
     ``np.random.default_rng(seed)`` in sorted key order with the JAX
-    modules' own initialisers: flax ``lecun_normal`` for conv, deconv and
-    weight-standardized kernels, zero conv biases, U(-fan_in^-1/2,
+    modules' own initialisers: flax ``lecun_normal`` for conv, deconv,
+    Dense and weight-standardized kernels, zero conv and Dense biases, U(-fan_in^-1/2,
     +fan_in^-1/2) for the WSConvBlock biases (blocks.py:362-370 of the JAX
-    package), ones for GroupNorm ``scale`` and ChannelLayerNorm ``g``, zero
-    GroupNorm biases, EntropyBottleneck.setup's formulas
+    package), ones for GroupNorm and LayerNorm ``scale`` and ChannelLayerNorm
+    ``g``, zero GroupNorm and LayerNorm biases, EntropyBottleneck.setup's formulas
     (softplus-inverse matrices, U(-0.5, 0.5) biases, zero factors,
     quantiles (-10, 0, 10)), GDN's sqrt(1 + pedestal) ``beta`` and
     sqrt(0.1 I + pedestal) ``gamma``, N(0, 0.01) BitEstimator ``h``, ``b``
     and ``a``, and the CodecNet convs' Xavier-normal (gain sqrt 2) kernels
     with 0.01 biases. Returns {'params/...': float32 array} in flax
     layout, for ``load_flat`` here and for the JAX package's ``apply``."""
-    # the weights of MCVC do not depend on its number of views
-    module = get_codec_model(name, device="meta", num_views=1).module
     shapes = flax_shapes(module)
     xavier = {"params/" + path.replace(".", "/") for path, sub in module.named_modules()
               if getattr(sub, "xavier_init", False)}
@@ -180,7 +191,7 @@ def seeded_flat(name: str, seed: int) -> dict:
             value = rng.uniform(-0.5, 0.5, shape)
         elif leaf == "quantiles":
             value = np.tile(np.asarray([-init_scale, 0.0, init_scale]), (shape[0], 1, 1))
-        elif leaf == "bias" and parent.rsplit("/", 1)[1].startswith("WSConvBlock_"):
+        elif leaf == "bias" and parent.rsplit("/", 1)[-1].startswith("WSConvBlock_"):
             bound = float(np.prod(shapes[key[: -len("bias")] + "kernel"][:-1])) ** -0.5
             value = rng.uniform(-bound, bound, shape)
         elif leaf in ("scale", "g"):

@@ -1,7 +1,9 @@
 """Real bitstreams of the port against the JAX package's, on the CPU.
 
-LSVC-TPU-TINY (tiny_lsvctpu_l2) and LSVC-TPU (hd_lsvctpuf2_l2) code the
-synth_gop_multi clip (numpy seed 0) at 64x128, GOP 4; SSF-TPU-TINY
+LSVC-TPU-TINY (tiny_lsvctpu_l2), LSVC-TPU (hd_lsvctpuf2_l2), the s2d=1
+LSVC-128 (hd_lsvc128_l2), LSVC-TPU-RW (hd_lsvctpu_l2) and the chain
+LSVC-TPU-L (hd_lsvctpuf2_l2) code the synth_gop_multi clip (numpy seed 0)
+at 64x128, GOP 4; SSF-TPU-TINY
 (tiny_ssftpu_l2) codes it at 128x128, GOP 3, batch 1; ELFVC-SP-TPU-TINY
 (tiny_elfvctpu_l3, sp_stage 2: both SPnets replace y) at 64x128, GOP 3,
 and ELFVC-TPU-TINY (no SPnet) and ELFVC-SP-TPU-TINY at sp_stage 2 and 1,
@@ -71,6 +73,9 @@ SP_STAGE = 2  # ELFVC-SP's: both SPnets replace y (ignored by the other codecs)
 CONFIGS = {  # case: (registry name, weights, gop, h, w, sp_stage)
     "LSVC-TPU-TINY": ("LSVC-TPU-TINY", "tiny_lsvctpu_l2", 4, 64, 128, SP_STAGE),
     "LSVC-TPU": ("LSVC-TPU", "hd_lsvctpuf2_l2", 4, 64, 128, SP_STAGE),
+    "LSVC-128": ("LSVC-128", "hd_lsvc128_l2", 4, 64, 128, SP_STAGE),
+    "LSVC-TPU-RW": ("LSVC-TPU-RW", "hd_lsvctpu_l2", 4, 64, 128, SP_STAGE),
+    "LSVC-TPU-L": ("LSVC-TPU-L", "hd_lsvctpuf2_l2", 4, 64, 128, SP_STAGE),
     "SSF-TPU-TINY": ("SSF-TPU-TINY", "tiny_ssftpu_l2", 3, 128, 128, SP_STAGE),
     "ELFVC-SP-TPU-TINY": ("ELFVC-SP-TPU-TINY", "tiny_elfvctpu_l3", 3, 64, 128, SP_STAGE),
     "ELFVC-TPU-TINY": ("ELFVC-TPU-TINY", "seeded 0", 3, 128, 256, SP_STAGE),

@@ -1,7 +1,9 @@
 """The warp kernels' wrappers: their autograd Function, the dispatch rule and
 the host-side tile rule on the CPU; on a CUDA card, the tiled kernels'
 exactness (NaN flows included), the Function's gradients (pixel_warp also
-at MCVC's 18 channels on 4 views), one ELFVC-SP-TPU-TINY P-frame through
+at MCVC's 18 channels on 4 views), flow_warp at LSVC-TPU-RW's 12
+channels and on LSVC-128's 15-frame SpyNet batch, one ELFVC-SP-TPU-TINY
+P-frame through
 both pixel kernels, one MCVC-IA-TINY P-frame through pixel_warp, and one
 DVC-TINY and one RLVC-TINY P-frame through flow_warp (5 launches each).
 
@@ -254,6 +256,39 @@ def test_tiled_kernels_are_exact(card, name, kind, dtype):
         torch.cuda.synchronize()
         want = twarp.PLAIN[name](img, flow)
         assert torch.equal(got, want), (shape, (got.float() - want.float()).abs().max())
+
+
+# flow_warp's new callers: LSVC-TPU-RW's rigid MC warp of the s2d reference
+# (12 channels at half resolution) and LSVC-128's stock SpyNet over all 15
+# P-frames of a GOP in one batch
+FLOW_WARP_BATCHES = {"c12": (8, 12, 64, 128), "15_frames": (15, 3, 64, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", list(FLOW_WARP_BATCHES))
+def test_flow_warp_new_batches_are_exact(card, batch, dtype):
+    """flow_warp at C = 12 on [8, 12, 64, 128] and on a 15-frame batch
+    equals its plain version bit for bit on smooth, random and mixed flows;
+    with NaN flows at (5, 7) of the first item and (30, 100) of the last,
+    NaN in every channel of those outputs exactly where the plain version
+    has NaN, every other output equal."""
+    rng = np.random.default_rng(48)
+    shape = FLOW_WARP_BATCHES[batch]
+    B, C = shape[:2]
+    for kind in FLOWS:
+        img, flow = tiled_case("flow_warp", shape, kind, rng, dtype, "cuda")
+        got = kwarp.launch_flow_warp(img, flow)
+        torch.cuda.synchronize()
+        assert torch.equal(got, twarp.plain_flow_warp(img, flow)), kind
+    flow[0, :, 5, 7] = flow[B - 1, :, 30, 100] = float("nan")
+    got = kwarp.launch_flow_warp(img, flow)
+    torch.cuda.synchronize()
+    want = twarp.plain_flow_warp(img, flow)
+    nan = want.isnan()
+    assert int(nan.sum()) == 2 * C
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
 
 
 @pytest.mark.gpu

@@ -28,6 +28,12 @@
   bits run without JAX; one DVC, Base-EC-ER and RLVC P-frame on meta
   tensors sends exactly 5 warps to flow_warp's launcher (4 SpyNet levels,
   the MC warp) and none to a plain version.
+- Every LSVC form (s2d=1, the LSVC-TPU ablations, attention, the -L/-O
+  graphs) defaults to the card, runs its rollout, real bits and decode
+  graph without JAX, and off the CPU sends SpyNet's four levels to
+  flow_warp and each layer's MC warp to the kernel of its branch:
+  flow_warp for s2d=1 (3 channels) and -RW (12 channels at half
+  resolution), flow_warp_s2d for the full-resolution s2d warps.
 """
 
 import inspect
@@ -322,8 +328,10 @@ def test_bf16_model_keeps_rate_and_gdn_params_in_float32():
 
 
 def test_unported_codec_raises():
-    with pytest.raises(ValueError):
-        ft.get_codec_model("LSVC-128", device="cpu")
+    """Every name of the JAX registry builds in the port now; a name that
+    JAX's registry does not recognize raises as there."""
+    with pytest.raises(ValueError, match="Cannot recognize codec"):
+        ft.get_codec_model("H265", device="cpu")
 
 
 def test_kernel_library_path_keys_source_and_flags():
@@ -785,3 +793,92 @@ def test_dvc_family_p_frame_off_cpu_launches_flow_warp_five_times(monkeypatch, n
             assert calls == levels + [("flow_warp", (2, 3, 64, 128))]
     assert rec.shape == x.shape
     assert not reached
+
+
+LSVC_FORMS = ["LSVC", "LSVC-128", "LSVC-TINY", "LSVC-TPU-RW", "LSVC-TPU-HF", "LSVC-TPU-WT",
+              "LSVC-TPU-HU", "LSVC-TPU-QU", "LSVC-TPU-A", "LSVC-TPU-S", "LSVC-TPU-L",
+              "LSVC-TPU-O", "LSVC-TPU-D"]
+
+
+@pytest.mark.parametrize("name", LSVC_FORMS)
+def test_lsvc_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        spec = ft.get_codec_model(name)
+        assert next(spec.module.parameters()).device.type == "cuda"
+    else:
+        with (pytest.raises((RuntimeError, AssertionError))):
+            ft.get_codec_model(name)
+    assert ft.get_codec_model(name, device="meta").family == "lsvc"
+
+
+@pytest.mark.parametrize("name", ["LSVC-128", "LSVC-TPU-RW", "LSVC-TPU-HF", "LSVC-TPU-QU",
+                                  "LSVC-TPU-S", "LSVC-TPU-L", "LSVC-TPU-O"])
+def test_lsvc_forward_off_cpu_sends_each_warp_to_its_kernel(monkeypatch, name):
+    """The full-width forward of 3 P-frames of 64x128 on meta tensors (not
+    the CPU): SpyNet's 4 levels, all P-frames in one batch, go to
+    flow_warp's launcher; each graph layer's MC warp to flow_warp (s2d=1:
+    the 3-channel frame; -RW: the 12-channel s2d frame at half resolution)
+    or to flow_warp_s2d; no warp reaches a plain version. The launchers are
+    stood in for by ones that record and return empty outputs."""
+    from fastvideocodec_torch.ops import warp as twarp
+    from fastvideocodec_torch.ops.kernels import warp as kwarp
+
+    calls, reached = [], []
+
+    def launcher(img, flow, n):
+        assert img.is_contiguous() and flow.is_contiguous(), n
+        calls.append((n, tuple(img.shape)))
+        return torch.empty_like(img)
+
+    for kname in twarp.PLAIN:
+        monkeypatch.setitem(twarp.PLAIN, kname, lambda *a, n=kname: reached.append(n))
+        monkeypatch.setattr(kwarp, f"launch_{kname}",
+                            lambda img, flow, n=kname: launcher(img, flow, n))
+    m = ft.get_codec_model(name, device="meta").module
+    with torch.inference_mode():
+        com, *_ = m(torch.empty(4, 3, 64, 128, device="meta"))
+    s2d = m.s2d
+    h, w = 64 // s2d, 128 // s2d
+    spynet = [("flow_warp", (3, 3, h // f, w // f)) for f in (8, 4, 2, 1)]
+    layers = [len(layer) for layer in m.schedule(3).layers]
+    if s2d == 1:
+        mc = [("flow_warp", (n, 3, 64, 128)) for n in layers]
+    elif name == "LSVC-TPU-RW":
+        mc = [("flow_warp", (n, 12, 32, 64)) for n in layers]
+    else:
+        mc = [("flow_warp_s2d", (n, 12, 32, 64)) for n in layers]
+    assert calls == spynet + mc
+    assert com.shape == (3, 3, 64, 128)
+    assert not reached
+
+
+def test_lsvc_forms_run_without_jax():
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.coder import video as cv\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(\n"
+        "    synth_gop(np.random.default_rng(0), size=64, gop=3).transpose(0, 3, 1, 2)))\n"
+        "for name, weights in (('LSVC-TINY', 'tiny_lsvc_l2'), ('LSVC-TPU-HF-TINY', None),\n"
+        "                      ('LSVC-TPU-TINY-L', 'tiny_lsvctpu_l2')):\n"
+        "    spec = ft.get_codec_model(name, device='cpu')\n"
+        "    if weights:\n"
+        "        ft.load_asset(spec.module, weights)\n"
+        "    else:\n"
+        "        ft.load_flat(spec.module, ft.seeded_flat(name, 0))\n"
+        "    recon, m = ft.rollout(spec, gop)\n"
+        "    assert recon.shape == (2, 3, 64, 64) and bool(torch.isfinite(recon).all())\n"
+        "    streams, rec, bits = cv.lsvc_compress(spec, gop)\n"
+        "    assert torch.equal(cv.lsvc_decompress(spec, gop[0], streams, 2), rec) and bits > 0\n"
+        "    decode, (mv, zs, fs) = ft.build_lsvc_decode(spec.module, 3, 64, 64)\n"
+        "    iframe = spec.module.fold(gop[:1])[0][0]\n"
+        "    assert decode(iframe, mv, zs, fs)[2].shape == (2, 3, 64, 64)\n"
+        "from fastvideocodec_torch.analysis import bd_rate\n"
+        "curve = ([1, 2, 3, 4], [30, 32, 33, 34])\n"
+        "assert abs(bd_rate(*curve, *curve)) < 1e-9\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

@@ -12,8 +12,17 @@ codecs are the port's, on the CPU, in float32.
   less than 64 bits a stream plus 5%; the top level's PSNR is above 15 dB.
   MCVC-IA-TINY with view 2 failed rebuilds it through the backup decoders
   to under 0.8 of the MSE of a zeroed view.
-- LSVC-TPU-TINY (tiny_lsvctpu_l{0,2,4}): monotone, decode equals encode,
-  real bits within 5% of the rollout's estimate.
+- LSVC-TPU-TINY (tiny_lsvctpu_l{0,2,4}) and LSVC-TINY (tiny_lsvc_l{0,2,4},
+  JAX's TestGoldenRD, the s2d=1 form): monotone, decode equals encode,
+  real bits within 5% of the rollout's estimate; LSVC-TINY's top level
+  above 17 dB.
+- JAX's TestHDHeadToHead: the full-width LSVC-128 (hd_lsvc128_l{0,2,4})
+  against LSVC-TPU (hd_lsvctpuf2), -HF (hd_lsvctpuf) and -RW (hd_lsvctpu)
+  on four held-out synth_gop_multi clips (numpy seed 123) of 128x128,
+  GOP 8, real bits: all four curves monotone; LSVC-TPU's BD-rate against
+  LSVC-128 under 10% and its BD-PSNR above -0.6 dB; the ablation chain
+  full < half-res < rigid in BD-rate, rigid under 32% and half-res under
+  16%. About a minute on one thread, LSVC-128 most of it.
 - SSF-TPU-TINY and ELFVC-SP-TPU-TINY, each against the stock curve on
   three clips: matched-rate quality (within 0.5 dB where the two ladders'
   rates meet), as JAX's TestGoldenRDSSFTPU and TestGoldenRDELFVCTPU hold.
@@ -35,8 +44,14 @@ import pytest
 import torch
 
 import fastvideocodec_torch as ft
+from fastvideocodec_torch.analysis import bd_psnr, bd_rate
 from fastvideocodec_torch.coder import video as tv
-from fastvideocodec_torch.data.synthetic import synth_gop, synth_gop_lowrate, synth_mv_gop
+from fastvideocodec_torch.data.synthetic import (
+    synth_gop,
+    synth_gop_lowrate,
+    synth_gop_multi,
+    synth_mv_gop,
+)
 from fastvideocodec_torch.gop.engine import estimated_bits
 
 T, H, W = 4, 64, 64
@@ -150,13 +165,14 @@ def test_mcvc_failed_view_reconstructed_by_backup_decoders():
     assert mse_backup < 0.8 * mse_zero, (mse_backup, mse_zero)
 
 
-def test_lsvc_tpu_monotone_bpp_psnr_across_levels_real_bits():
-    """JAX's TestGoldenRDLSVCTPU: the real bits within 5% of the rollout's
-    estimate at every level."""
+def lsvc_golden(name: str, asset: str, floor: float = 15.0):
+    """An LSVC model's real bits over the held-out clip at levels 0, 2, 4:
+    decode equals encode, the bits within 5% of the rollout's estimate at
+    every level, the curve monotone with its top above ``floor`` dB."""
     gop = held_out_clip()
     bpps, psnrs = [], []
     for level in (0, 2, 4):
-        spec = model("LSVC-TPU-TINY", f"tiny_lsvctpu_l{level}")
+        spec = model(name, f"{asset}_l{level}")
         streams, recon, bits = tv.lsvc_compress(spec, gop)
         assert torch.equal(tv.lsvc_decompress(spec, gop[0], streams, T - 1), recon)
         _, metrics = ft.rollout(spec, gop)
@@ -164,7 +180,70 @@ def test_lsvc_tpu_monotone_bpp_psnr_across_levels_real_bits():
         assert abs(bits - est) / est < 0.05, (level, bits, est)
         bpps.append(bits / ((T - 1) * H * W))
         psnrs.append(psnr(recon, gop[1:]))
-    assert_monotone(bpps, psnrs)
+    assert_monotone(bpps, psnrs, floor)
+
+
+def test_lsvc_tpu_monotone_bpp_psnr_across_levels_real_bits():
+    """JAX's TestGoldenRDLSVCTPU."""
+    lsvc_golden("LSVC-TPU-TINY", "tiny_lsvctpu")
+
+
+def test_lsvc_tiny_monotone_bpp_psnr_across_levels_real_bits():
+    """JAX's TestGoldenRD: the s2d=1 LSVC-TINY, its top level above 17 dB
+    (17.5/18.4/18.8 dB at the checkpoints' training)."""
+    lsvc_golden("LSVC-TINY", "tiny_lsvc", floor=17.0)
+
+
+HD_SIZE, HD_GOP = 128, 8
+
+
+@functools.lru_cache(maxsize=None)
+def hd_curve(name: str, family: str):
+    """(bpp, PSNR) at levels 0, 2, 4 of hd_{family}_l*, each the mean over
+    the four held-out 128x128 clips, real bits; decode equals encode."""
+    rng = np.random.default_rng(123)  # held out: training used seed 0
+    clips = [tensor(synth_gop_multi(rng, size=HD_SIZE, gop=HD_GOP)) for _ in range(4)]
+    bpps, psnrs = [], []
+    for level in (0, 2, 4):
+        spec = model(name, f"hd_{family}_l{level}")
+        codecs = tv.bit_estimator_laplace_codecs(spec.module)
+        bs, ps = [], []
+        for i, gop in enumerate(clips):
+            streams, recon, bits = tv.lsvc_compress(spec, gop, codecs)
+            if i == 0:
+                decoded = tv.lsvc_decompress(spec, gop[0], streams, HD_GOP - 1, codecs)
+                assert torch.equal(decoded, recon)
+            bs.append(bits / ((HD_GOP - 1) * HD_SIZE * HD_SIZE))
+            ps.append(psnr(recon, gop[1:]))
+        bpps.append(float(np.mean(bs)))
+        psnrs.append(float(np.mean(ps)))
+    return bpps, psnrs
+
+
+def test_hd_flagship_bd_rate_bounded_vs_parity_config():
+    """JAX's TestHDHeadToHead::test_flagship_bd_rate_bounded_vs_parity_config:
+    both curves monotone; LSVC-TPU's BD-rate against LSVC-128 under 10%
+    and its BD-PSNR above -0.6 dB."""
+    ref = hd_curve("LSVC-128", "lsvc128")
+    tpu = hd_curve("LSVC-TPU", "lsvctpuf2")
+    for bpps, psnrs in (ref, tpu):
+        assert bpps[0] < bpps[1] < bpps[2], bpps
+        assert psnrs[0] < psnrs[1] < psnrs[2], psnrs
+    bdr, bdp = bd_rate(*ref, *tpu), bd_psnr(*ref, *tpu)
+    assert bdr < 10.0, (bdr, ref, tpu)
+    assert bdp > -0.6, (bdp, ref, tpu)
+
+
+def test_hd_warp_ablation_attribution():
+    """JAX's TestHDHeadToHead::test_warp_ablation_attribution: BD-rate
+    against LSVC-128 orders full-res flow < half-res flow (-HF) < rigid
+    s2d warp (-RW), with rigid under 32% and half-res under 16%."""
+    ref = hd_curve("LSVC-128", "lsvc128")
+    rigid = bd_rate(*ref, *hd_curve("LSVC-TPU-RW", "lsvctpu"))
+    halfres = bd_rate(*ref, *hd_curve("LSVC-TPU-HF", "lsvctpuf"))
+    full = bd_rate(*ref, *hd_curve("LSVC-TPU", "lsvctpuf2"))
+    assert full < halfres < rigid, (full, halfres, rigid)
+    assert rigid < 32.0 and halfres < 16.0, (rigid, halfres)
 
 
 def curve(name: str, assets, clips):
