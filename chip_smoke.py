@@ -19,7 +19,11 @@ Phases, each timed on its own line:
    half and random on the other (both in one launch); and with two NaN
    flow pixels, which must give NaN exactly where the plain version does;
    then each kernel's gradient (its autograd Function) against autograd
-   through its plain version;
+   through its plain version (flow_warp and flow_warp_s2d launching their
+   backward kernel once a backward), and the two backward kernels against
+   the plain version's vjp at GRAD_TOL on the ragged shapes with smooth,
+   random, mixed and NaN flows, with the image gradient on and off (the
+   image gradient's float32 atomics change order from run to run);
 4. card vs CPU: LSVC-TPU in float32 at 64x128, GOP 4, shipped weights, on
    the card (kernels) and on the CPU (plain versions); then bfloat16 on the
    card against that float32 result;
@@ -176,17 +180,44 @@ Phases, each timed on its own line:
    held-out synth_gop_multi clips (seed 123) of 128x128, GOP 8, real
    bits with decode == encode on each: every curve monotone, LSVC-TPU's
    BD-rate against LSVC-128 under 10% and its BD-PSNR above -0.6 dB, and
-   full < half-res < rigid with rigid under 32% and half-res under 16%.
+   full < half-res < rigid with rigid under 32% and half-res under 16%;
+42. LSVC-TPU training, card vs CPU: one step of the full-width model
+   (hd_lsvctpuf2_l2) in float32 at 64x128, GOP 4 (phase 4's clip), the
+   same noise on both devices: loss and metrics, each parameter's gradient
+   (the worst max abs / max |grad| named) and the parameters after one
+   Adam step, at the TRAIN_CPU_* bars;
+43. LSVC-TPU train at 256x256, GOP 16, float32 (tools/train_tiny.py's
+   lsvctpu256_hd rung): 20 steps of make_train_step from
+   hd_lsvctpuf2_l2, one synth_gop_multi clip a step from default_rng(0),
+   lr 1e-4: ms/step by CUDA events (median and range over steps 5-20),
+   host enqueue ms/step, peak GiB, loss/PSNR/bpp/grad_norm of the first
+   and last step; the launches exact (a step: 4 + 4 forward warps, 3
+   flow_warp and 4 flow_warp_s2d backward kernels), no plain warp called
+   (PLAIN and PLAIN_BACKWARD wrapped with counters), every value finite,
+   the parameters moved; then one more step with the backward kernels'
+   inputs captured;
+44. the batched train, 4 clips x 7 frames x 256x256 float32 (cli/train.py's
+   default shape), 10 steps under a staircase exponential decay, launches
+   exact, no plain warp; then save_checkpoint/load_checkpoint in a
+   temporary directory: parameters, optimizer state, epoch and score equal
+   bit for bit, and the next step runs; ms/step and peak GiB (the batch is
+   not shrunk to fit: an out-of-memory error fails the phase);
+45. backward kernel timing on the captured step's inputs: each backward
+   kernel's ms per step's launches (warm, and with the L2 flushed), its
+   byte bound at 3.35 TB/s, the plain vjp's time and, for flow_warp,
+   F.grid_sample's forward and backward on the same inputs.
 
-It then prints a JSON line of MCVC's numbers, a JSON line of the stock
-codecs' numbers, a JSON line of the DVC family's, a JSON line of the LSVC
-forms', a JSON line of the
-kernels (each with its launches on every path it was counted on;
-``launches`` and the times stay those of the path that defined them in
-earlier slices: LSVC-TPU's rollout for the two flow warps, SSF-TPU's
-timing and ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's
-MCVC-IA and SSF-Official timings, flow_warp's on DVC's, LSVC-128's and
--RW's inputs and flow_warp_s2d's on -HF's stand under ``timing_by_path``),
+Along the way it prints a JSON line of MCVC's numbers, one of the stock
+codecs', one of the DVC family's, one of the training numbers and one of
+the LSVC forms'; then a JSON line of the kernels (the five warps, each
+with its launches on every path it was counted on; ``launches`` and the
+times stay those of the path that defined them in earlier slices:
+LSVC-TPU's rollout for the two flow warps, SSF-TPU's timing and
+ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's MCVC-IA and
+SSF-Official timings, flow_warp's on DVC's, LSVC-128's and -RW's inputs
+and flow_warp_s2d's on -HF's stand under ``timing_by_path``; and the two
+backward kernels, their launches those of phase 43's 20 training steps,
+their times those of phase 45),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -201,6 +232,7 @@ import os
 import platform
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -268,7 +300,31 @@ REPLACES = {
     "pixel_warp": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:577",
     "pixel_warp_s2d": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:618",
     "pixel_warp_s2d_sflow": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:673",
+    # the custom_vjp backwards (the vjp of the XLA exact path)
+    "flow_warp_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:522",
+    "flow_warp_s2d_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:567",
 }
+BACKWARD = {"flow_warp_backward": "flow_warp", "flow_warp_s2d_backward": "flow_warp_s2d"}
+# LSVC-TPU training on the card (train_tiny.py's lsvctpu256_hd rung, and
+# cli/train.py's default batch): full width, float32, hd_lsvctpuf2_l2
+TRAIN_SIZE, TRAIN_GOP, TRAIN_STEPS, TRAIN_LR = 256, 16, 20, 1e-4
+BATCH_CLIPS, BATCH_GOP, BATCH_STEPS = 4, 7, 10
+# card vs CPU, one training step at 64x128, GOP 4 (float32, TF32 off): the
+# loss and metrics within 1e-4 relative, each parameter's gradient within
+# 5e-3 of its max |grad| (cuDNN's algorithms and the backward's atomics
+# sum in other orders than the CPU), the parameters after one Adam step
+# within 2 lr + 1e-6: a gradient near 0 that differs in sign between the
+# devices moves its parameter 2 lr the other way
+TRAIN_CPU_METRIC_REL, TRAIN_CPU_GRAD_REL = 1e-4, 5e-3
+# the launches of one LSVC-TPU training step on a GOP whose tree has
+# ``layers`` layers (4 at GOP 16, 2 at GOP 7): each forward warp once a
+# SpyNet level and once a tree layer; flow_warp's backward at the 3 finer
+# levels (the coarsest level's flow is zeros: nothing of it needs a
+# gradient), flow_warp_s2d's at each layer (the flow always, the reference
+# from layer 1 on: layer 0's parents are the input I-frame)
+def train_launches_of(layers: int) -> dict:
+    return {"flow_warp": 4, "flow_warp_s2d": layers, "flow_warp_backward": 3,
+            "flow_warp_s2d_backward": layers}
 LSVC_KERNELS = ("flow_warp", "flow_warp_s2d")
 SSF_KERNELS = ("pixel_warp", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
 S2D_KERNELS = ("flow_warp_s2d", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
@@ -559,10 +615,15 @@ def main() -> int:
         "pixel_warp_s2d": ow.pixel_warp_s2d,
         "pixel_warp_s2d_sflow": ow.pixel_warp_s2d_sflow,
     }
-    require(set(kernels) == set(kw.LAUNCHES) == set(REPLACES) == set(dispatchers),
-            "kernel tables disagree")
-    max_err = {k: 0.0 for k in kernels}
-    zero_counts = {k: 0 for k in kernels}
+    # the backward kernels of flow_warp and flow_warp_s2d, by launch-count
+    # name, and their plain versions (the plain forward's vjp)
+    backward_kernels = {b: getattr(kw, f"launch_{b}") for b in BACKWARD}
+    backward_plains = {b: ow.PLAIN_BACKWARD[f] for b, f in BACKWARD.items()}
+    require(set(kernels) == set(REPLACES) - set(BACKWARD) == set(dispatchers)
+            and set(kw.LAUNCHES) == set(REPLACES)
+            and set(ow.PLAIN_BACKWARD) == set(BACKWARD.values()), "kernel tables disagree")
+    max_err = {k: 0.0 for k in REPLACES}
+    zero_counts = {k: 0 for k in kw.LAUNCHES}
 
     with phase("device"):
         smi = subprocess.run(
@@ -731,10 +792,15 @@ def main() -> int:
                     i = img.detach().requires_grad_()
                     f = flow.detach().requires_grad_()
                     (fn(i, f).float() * g.float()).sum().backward()
-                    res[how] = (i.grad, f.grad, kw.LAUNCHES[name])
+                    res[how] = (i.grad, f.grad, dict(kw.LAUNCHES))
                 torch.cuda.synchronize()
                 (gi, gf, n), (pi, pf, _) = res["kernel"], res["plain"]
-                require(n == 1, f"{name}: the forward launched its kernel {n} times")
+                # the forward's kernel once, and for flow_warp and
+                # flow_warp_s2d their backward kernel once
+                want_n = {**zero_counts, name: 1}
+                if name in ow.PLAIN_BACKWARD:
+                    want_n[f"{name}_backward"] = 1
+                require(n == want_n, f"{name}: launches {n}, want {want_n}")
                 rtol, atol = GRAD_TOL[dname]
                 errs = []
                 for got, want in ((gi, pi), (gf, pf)):
@@ -747,8 +813,73 @@ def main() -> int:
                 log(f"{name} {dname} {img_shape} gradients of image and flow vs plain: max "
                     f"abs / max "
                     f"|grad| {errs[0]:.2e} and {errs[1]:.2e} (rtol {rtol:.0e}, atol "
-                    f"{atol:.0e} x max |grad|)")
+                    f"{atol:.0e} x max |grad|); launches {n}")
     torch.use_deterministic_algorithms(False)
+
+    def hold_backward(bname, img, flow, g, need_img, what, dname="float32"):
+        """A backward kernel against its plain version (the plain forward's
+        vjp) on the card, at GRAD_TOL: NaN where the plain vjp has NaN; the
+        image gradient None when not asked for. A bfloat16 kernel sums in
+        float32 and rounds once: it is held to the plain vjp of the same
+        inputs widened to float32 (exactly), rounded to bfloat16, since the
+        bfloat16 plain vjp scatter-adds bfloat16 terms (random +-200 px
+        flows pile hundreds onto a border pixel). Returns the max abs error
+        over the two gradients."""
+        got = backward_kernels[bname](img, flow, g, need_img, True)
+        want = [None if w is None else w.to(img.dtype) for w in backward_plains[bname](
+            img.float(), flow.float(), g.float(), need_img, True)]
+        torch.cuda.synchronize()
+        require((got[0] is None) == (not need_img), f"{what}: image gradient {got[0] is None}")
+        rtol, atol = GRAD_TOL[dname]
+        worst = 0.0
+        for t, w in zip(got, want):
+            if w is None:
+                continue
+            require(t.dtype == w.dtype and t.shape == w.shape, f"{what}: {t.dtype} {t.shape}")
+            nan = w.isnan()
+            require(torch.equal(t.isnan(), nan), f"{what}: NaN where the plain vjp has none")
+            d = (t[~nan].float() - w[~nan].float()).abs()
+            scale = w[~nan].float().abs().max().item() if bool((~nan).any()) else 0.0
+            require(bool((d <= atol * max(scale, 1.0) + rtol * w[~nan].float().abs()).all()),
+                    f"{what}: max abs {d.max().item()}")
+            worst = max(worst, d.max().item() if d.numel() else 0.0)
+        if dname == "float32":
+            max_err[bname] = max(max_err[bname], worst)
+        return worst
+
+    with phase("backward kernels vs the plain vjp: ragged shapes, smooth, random, mixed and "
+               "NaN flows, image gradient on and off"):
+        log(f"tolerance GRAD_TOL {GRAD_TOL} (rtol, atol x max(max |grad|, 1)): the image "
+            f"gradient is a scatter-add of float32 atomics whose order changes from run to "
+            f"run, so it is not bit-reproducible; a bfloat16 kernel is held to the float32 "
+            f"plain vjp of its inputs rounded to bfloat16 (the bfloat16 plain vjp "
+            f"scatter-adds bfloat16 terms)")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for bname, name in BACKWARD.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                for pattern, make in flows.items():
+                    for need_img in (True, False):
+                        worst = 0.0
+                        for shape in ragged[name]:
+                            img, flow = tiled_case(gen, name, shape, make, dtype)
+                            g = torch.randn(img.shape, generator=gen, device="cuda").to(dtype)
+                            kw.reset_launches()
+                            worst = max(worst, hold_backward(
+                                bname, img, flow, g, need_img,
+                                f"{bname} {dname} {pattern} {shape} image grad {need_img}",
+                                dname))
+                            require(kw.LAUNCHES[bname] == 1, f"{bname}: {kw.LAUNCHES}")
+                        log(f"{bname} {dname} {pattern} flows on {len(ragged[name])} shapes, "
+                            f"image gradient {'on' if need_img else 'off'}: max abs {worst:.3e} "
+                            f"(GRAD_TOL {GRAD_TOL[dname]})")
+                img, flow = tiled_case(gen, name, (1, 3, 64, 512), smooth_flow, dtype,
+                                       nan_at=((5, 7), (37, 300)))
+                g = torch.randn(img.shape, generator=gen, device="cuda").to(dtype)
+                worst = hold_backward(bname, img, flow, g, True, f"{bname} {dname} NaN flow",
+                                      dname)
+                log(f"{bname} {dname} NaN flow at 2 pixels: NaN where the plain vjp has NaN, "
+                    f"max abs {worst:.3e} elsewhere")
 
     with phase("card vs cpu port"):
         clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
@@ -2020,6 +2151,299 @@ def main() -> int:
         lsvc_rows["hd_head_to_head"] = {"curves": curves, "bd_rate": bdr, "bd_psnr": bdp}
         del clips
 
+    # ---- training: LSVC-TPU at full width, float32 ----
+    from fastvideocodec_torch.ops.math import UniformNoise
+    from fastvideocodec_torch.train import (
+        TrainConfig,
+        apply_updates,
+        exponential_decay,
+        gop_loss,
+        load_checkpoint,
+        make_optimizer,
+        make_train_step,
+        ready_for_training,
+        save_checkpoint,
+    )
+
+    def nchw_clip(frames) -> "torch.Tensor":
+        return torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2).contiguous()
+
+    def train_spec(device):
+        """LSVC-TPU on hd_lsvctpuf2_l2, readied for training: (spec, params)."""
+        spec = get_codec_model("LSVC-TPU", device=device)
+        load_asset(spec.module, "hd_lsvctpuf2_l2")
+        return spec, ready_for_training(spec)
+
+    def grads_of(params):
+        return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                for n, p in params.items()}
+
+    training = {"card": smi}
+    with phase("lsvc-tpu training step, card vs cpu, 64x128 GOP4 f32"):
+        # the clip of phase 4; the same noise on both devices (drawn on the
+        # host from one seed, copied to the card)
+        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+        small = nchw_clip(clip)
+        cfg = TrainConfig(learning_rate=TRAIN_LR)
+        res = {}
+        for device in ("cuda", "cpu"):
+            spec, params = train_spec(device)
+            loss, m = gop_loss(spec, small.to(device), True, UniformNoise(0, device="cpu"), cfg)
+            loss.backward()
+            grads = grads_of(params)
+            tx = make_optimizer(cfg)
+            updates, _ = tx.update(grads, tx.init(params), params)
+            apply_updates(params, updates)
+            res[device] = ({k: float(v.detach()) for k, v in m.items()},
+                           {n: g.detach().float().cpu() for n, g in grads.items()},
+                           {n: p.detach().cpu() for n, p in params.items()})
+            del spec, params, grads, updates, loss
+        (mg, gg, pg), (mc, gc, pc) = res["cuda"], res["cpu"]
+        metric_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
+        grad_rel, grad_name = max(
+            ((gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30), n)
+            for n in gc)
+        param_abs, param_name = max(((pg[n] - pc[n]).abs().max().item(), n) for n in pc)
+        log(f"training step card vs cpu ({smi}): loss card {mg['loss']:.6f} cpu "
+            f"{mc['loss']:.6f}; metrics max rel {max(metric_rel.values()):.2e} "
+            f"{ {k: f'{v:.1e}' for k, v in metric_rel.items()} } (tolerance "
+            f"{TRAIN_CPU_METRIC_REL}); worst gradient max abs / max |grad| {grad_rel:.2e} at "
+            f"{grad_name} (tolerance {TRAIN_CPU_GRAD_REL}); parameters after one Adam step "
+            f"max abs {param_abs:.2e} at {param_name} (tolerance 2 lr + 1e-6 = "
+            f"{2 * TRAIN_LR + 1e-6:.2e}: a gradient near 0 of another sign moves 2 lr)")
+        require(max(metric_rel.values()) <= TRAIN_CPU_METRIC_REL, "training metrics card vs cpu")
+        require(grad_rel <= TRAIN_CPU_GRAD_REL, f"gradient card vs cpu at {grad_name}")
+        require(param_abs <= 2 * TRAIN_LR + 1e-6, f"parameters card vs cpu at {param_name}")
+        training["card_vs_cpu"] = {"metric_rel": metric_rel, "grad_rel": grad_rel,
+                                   "grad_rel_at": grad_name, "param_abs": param_abs}
+        del res, gg, gc, pg, pc
+
+    def count_calls(table, calls):
+        """``table``'s functions wrapped to count their calls in ``calls``."""
+        def counted(name, fn):
+            def wrapped(*args, **kwargs):
+                calls[name] = calls.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return wrapped
+        return {name: counted(name, fn) for name, fn in table.items()}
+
+    def train_run(label, step_fn, params, opt_state, batches, noise):
+        """Every step of ``batches`` timed: CUDA events around each step,
+        and the host clock until the step returns (its enqueue); the
+        launch counts zeroed before the run and the plain warps' calls
+        counted in it. Returns (params, opt_state, per-step metrics,
+        times, enqueue, launches, plain calls, peak GiB)."""
+        plain_calls = {}
+        saved = dict(ow.PLAIN), dict(ow.PLAIN_BACKWARD)
+        ow.PLAIN.update(count_calls(saved[0], plain_calls))
+        ow.PLAIN_BACKWARD.update(count_calls(saved[1], plain_calls))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kw.reset_launches()
+            marks, enqueue, metrics = [], [], []
+            for gop_i in batches:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, gop_i, noise)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                marks.append((start, end))
+                metrics.append(m)
+            torch.cuda.synchronize()
+            launches = dict(kw.LAUNCHES)
+        finally:
+            ow.PLAIN.update(saved[0])
+            ow.PLAIN_BACKWARD.update(saved[1])
+        times = [a.elapsed_time(b) for a, b in marks]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        require(all(np.isfinite(v) for m in metrics for v in m.values()),
+                f"{label}: a metric is not finite")
+        require(all(bool(torch.isfinite(p).all()) for p in params.values()),
+                f"{label}: a parameter is not finite")
+        return params, opt_state, metrics, times, enqueue, launches, plain_calls, peak
+
+    def run_summary(label, metrics, times, enqueue, peak, skip):
+        steady = sorted(times[skip:])
+        row = {"ms_per_step": times, "ms_median": float(np.median(steady)),
+               "ms_range": [steady[0], steady[-1]], "enqueue_ms": enqueue,
+               "enqueue_median": float(np.median(enqueue[skip:])), "peak_gib": peak,
+               "first": metrics[0], "last": metrics[-1]}
+        log(f"{label} ({smi}): ms/step by CUDA events, median {row['ms_median']:.3f} range "
+            f"{steady[0]:.3f}-{steady[-1]:.3f} over steps {skip + 1}-{len(times)}; host "
+            f"enqueue ms/step median {row['enqueue_median']:.3f}; peak {peak:.3f} GiB; first "
+            f"step {metrics[0]}; last step {metrics[-1]}")
+        log(f"{label}: ms/step {[round(t, 3) for t in times]}; enqueue "
+            f"{[round(t, 3) for t in enqueue]}")
+        return row
+
+    with phase(f"lsvc-tpu train {TRAIN_SIZE}x{TRAIN_SIZE} GOP{TRAIN_GOP} f32, "
+               f"{TRAIN_STEPS} steps"):
+        # tools/train_tiny.py's lsvctpu256_hd rung: one synth_gop_multi clip
+        # a step from default_rng(0), constant lr 1e-4, from hd_lsvctpuf2_l2
+        rng = np.random.default_rng(0)
+        clips = [nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=TRAIN_GOP)).cuda()
+                 for _ in range(TRAIN_STEPS + 1)]
+        spec, params = train_spec("cuda")
+        cfg = TrainConfig(learning_rate=TRAIN_LR)
+        init_fn, step_fn = make_train_step(spec, cfg)
+        start_params = {n: p.detach().clone() for n, p in params.items()}
+        noise = UniformNoise(0)
+        params, opt_state, metrics, times, enqueue, train_launches, plain_calls, peak = \
+            train_run("train", step_fn, params, init_fn(params), clips[:TRAIN_STEPS], noise)
+        per_step = train_launches_of(spec.module.schedule(TRAIN_GOP - 1).depth)
+        want = {**zero_counts, **{k: n * TRAIN_STEPS for k, n in per_step.items()}}
+        log(f"launches in {TRAIN_STEPS} steps: {train_launches}; a step: "
+            f"{ {k: v / TRAIN_STEPS for k, v in train_launches.items() if v} } (want "
+            f"{per_step}); plain warp calls {plain_calls} (want none)")
+        require(train_launches == want, f"training launches {train_launches}, want {want}")
+        require(not plain_calls, f"the training steps called plain warps: {plain_calls}")
+        moved = sum(not torch.equal(p.detach(), start_params[n]) for n, p in params.items())
+        log(f"parameters moved: {moved} of {len(params)}")
+        require(moved > 0.9 * len(params), "the parameters did not move")
+        training["train_256_gop16"] = {**run_summary("train", metrics, times, enqueue, peak, 4),
+                                       "launches": train_launches, "moved": moved}
+        del start_params
+
+        # one more step with the backward kernels' inputs captured
+        captured = {b: [] for b in BACKWARD}
+        saved = {b: backward_kernels[b] for b in BACKWARD}
+
+        def capture(bname):
+            def wrapped(img, flow, grad, need_img=True, need_flow=True):
+                captured[bname].append((img.clone(), flow.clone(), grad.clone(), need_img,
+                                        need_flow))
+                return saved[bname](img, flow, grad, need_img, need_flow)
+            return wrapped
+
+        for b in BACKWARD:
+            setattr(kw, f"launch_{b}", capture(b))
+        try:
+            step_fn(params, opt_state, clips[TRAIN_STEPS], noise)
+        finally:
+            for b in BACKWARD:
+                setattr(kw, f"launch_{b}", saved[b])
+        del spec, params, opt_state, clips
+        torch.cuda.empty_cache()
+
+    with phase(f"lsvc-tpu batched train {BATCH_CLIPS} x {BATCH_GOP} x {TRAIN_SIZE}x{TRAIN_SIZE} "
+               f"f32, {BATCH_STEPS} steps, checkpoint round trip"):
+        # cli/train.py's default batch, under its staircase decay (one
+        # "epoch" of half the steps)
+        rng = np.random.default_rng(1)
+        batches = [torch.stack([nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=BATCH_GOP))
+                                for _ in range(BATCH_CLIPS)]).cuda()
+                   for _ in range(BATCH_STEPS + 1)]
+        spec, params = train_spec("cuda")
+        cfg = TrainConfig(learning_rate=TRAIN_LR)
+        tx = make_optimizer(cfg, learning_rate=exponential_decay(
+            TRAIN_LR, BATCH_STEPS // 2, 0.5, staircase=True))
+        init_fn, step_fn = make_train_step(spec, cfg, optimizer=tx, batched=True)
+        noise = UniformNoise(1)
+        try:
+            params, opt_state, metrics, times, enqueue, launches, plain_calls, peak = train_run(
+                "batched train", step_fn, params, init_fn(params), batches[:BATCH_STEPS], noise)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"batched train does not fit ({smi}): {e}")
+            raise
+        per_clip = train_launches_of(spec.module.schedule(BATCH_GOP - 1).depth)
+        want = {**zero_counts, **{k: n * BATCH_STEPS * BATCH_CLIPS for k, n in per_clip.items()}}
+        log(f"launches in {BATCH_STEPS} steps of {BATCH_CLIPS} clips: {launches}; plain warp "
+            f"calls {plain_calls}")
+        require(launches == want, f"batched launches {launches}, want {want}")
+        require(not plain_calls, f"the batched steps called plain warps: {plain_calls}")
+        require(opt_state["main"]["count"] == BATCH_STEPS, "optimizer count")
+        training["batched_4x7x256"] = run_summary("batched train", metrics, times, enqueue,
+                                                  peak, 2)
+        score = metrics[-1]["bpp"] + metrics[-1]["img_loss"]
+        state = {"params": {n: p.detach() for n, p in params.items()}, "opt_state": opt_state,
+                 "epoch": 0, "score": score}
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, state, best=True)
+            loaded = load_checkpoint(d)
+
+        def equal_trees(a, b):
+            if isinstance(a, dict):
+                return a.keys() == b.keys() and all(equal_trees(a[k], b[k]) for k in a)
+            if isinstance(a, torch.Tensor):
+                return torch.equal(a.cpu(), b.cpu())
+            return a == b
+
+        require(equal_trees(loaded, state), "the checkpoint did not round-trip bit for bit")
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(loaded["params"][n])
+        opt_state = {g: {"count": s["count"], **{k: {n: t.cuda() for n, t in s[k].items()}
+                                                   for k in ("mu", "nu")}}
+                     for g, s in loaded["opt_state"].items()}
+        params, opt_state, m = step_fn(params, opt_state, batches[BATCH_STEPS], noise)
+        m = {k: float(v) for k, v in m.items()}
+        require(all(np.isfinite(v) for v in m.values()), f"step after the round trip {m}")
+        log(f"checkpoint: params, optimizer state, epoch and score equal bit for bit after "
+            f"save_checkpoint/load_checkpoint; the next step ran: {m}")
+        del spec, params, opt_state, batches, state, loaded
+        torch.cuda.empty_cache()
+
+    def backward_bound_ms(img, flow, need_img, need_flow) -> float:
+        """Least milliseconds for one backward: the image, the flow and the
+        incoming gradient read once, the asked-for gradients written once
+        (each in its dtype), over the HBM rate; its flops (about 40 a pixel
+        and 30 a pixel and channel) are far below the float32 rate."""
+        esize = img.element_size()
+        nbytes = (2 + int(need_img)) * img.numel() * esize + \
+            (1 + int(need_flow)) * flow.numel() * flow.element_size()
+        pixels = flow.numel() // 2
+        flops = pixels * (40 + 30 * img.numel() // pixels)
+        require(flops / F32_FLOPS < nbytes / HBM_BYTES_PER_S, "backward bound by operations")
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    def grid_sample_fb(img, grid, grad, need_img, need_flow):
+        """F.grid_sample's forward and backward on the same inputs (the
+        flow's sampling grid built beforehand): the gradients of the image
+        and of the grid."""
+        i = img.detach().requires_grad_(need_img)
+        g = grid.detach().requires_grad_(need_flow)
+        wrt = [t for t in (i, g) if t.requires_grad]
+        return torch.autograd.grad(grid_sample(i, g), wrt, grad)
+
+    with phase("backward kernel timing (f32, one training step's launches)"):
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+        for bname, name in BACKWARD.items():
+            inputs = captured[bname]
+            require(len(inputs) == per_step[bname],
+                    f"{bname}: captured {len(inputs)} launches")
+            r = rows[bname] = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                               "launches": []}
+            lib[bname] = 0.0 if name == "flow_warp" else None
+            for img, flow, grad, need_img, need_flow in inputs:
+                hold_backward(bname, img, flow, grad, need_img, f"{bname} on training inputs")
+                warm = cuda_ms(torch, backward_kernels[bname], img, flow, grad, need_img,
+                               need_flow)
+                cold = cold_ms(torch, backward_kernels[bname], img, flow, grad, need_img,
+                               need_flow, flush=flush)
+                r["ms"] += warm
+                r["cold_ms"] += cold
+                r["plain_ms"] += cuda_ms(torch, backward_plains[bname], img, flow, grad,
+                                         need_img, need_flow, iters=5)
+                r["bound_ms"] += backward_bound_ms(img, flow, need_img, need_flow)
+                r["launches"].append(f"{tuple(img.shape)} image grad {need_img}: "
+                                     f"{warm:.4f} / {cold:.4f}")
+                if name == "flow_warp":
+                    lib[bname] += cuda_ms(torch, grid_sample_fb, img, sample_grid(flow), grad,
+                                          need_img, need_flow)
+            log(f"{bname} ({smi}): kernel {r['ms']:.4f} ms per training step's "
+                f"{len(inputs)} launches (L2 flushed before each: {r['cold_ms']:.4f}), plain "
+                f"vjp {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} (bytes at 3.35 TB/s), "
+                f"library {lib[bname]} "
+                f"({'F.grid_sample forward + backward' if lib[bname] is not None else 'none'})")
+            log(f"{bname} per launch, img shape: warm / L2-flushed ms: {r['launches']}")
+        del captured, flush
+    training["backward_timing"] = {b: {**rows[b], "library_ms": lib[b]} for b in BACKWARD}
+    log(json.dumps({"training": training}))
+
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
         k: {path: {key: t[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms",
                                            "library_ms", "launches")}
@@ -2070,6 +2494,24 @@ def main() -> int:
                if name in by_kernel_timing else {}),
         }
         for name in kernels
+    ] + [
+        # the backward kernels: launches over the LSVC-TPU training run (its
+        # 20 steps), times per step's launches on one step's inputs
+        {
+            "name": bname,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": REPLACES[bname],
+            "launches": train_launches[bname],
+            "max_abs_err": max_err[bname],
+            "ms": rows[bname]["ms"],
+            "plain_ms": rows[bname]["plain_ms"],
+            "bound_ms": rows[bname]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": lib[bname],
+            "launches_per_training_step": per_step[bname],
+        }
+        for bname in BACKWARD
     ]}
     log(json.dumps(report))
     log(smi)

@@ -1,3 +1,4 @@
+from fastvideocodec_torch.data.loader import prefetch_batches
 from fastvideocodec_torch.data.synthetic import (
     row_views,
     synth_gop,
@@ -5,5 +6,7 @@ from fastvideocodec_torch.data.synthetic import (
     synth_gop_multi,
     synth_mv_gop,
 )
+from fastvideocodec_torch.data.vimeo import FrameDataset
 
-__all__ = ["row_views", "synth_gop", "synth_gop_lowrate", "synth_gop_multi", "synth_mv_gop"]
+__all__ = ["FrameDataset", "prefetch_batches", "row_views", "synth_gop", "synth_gop_lowrate",
+           "synth_gop_multi", "synth_mv_gop"]

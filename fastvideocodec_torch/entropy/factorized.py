@@ -6,7 +6,10 @@ Eval rounds to the channel median; the likelihood is the sigmoid
 difference of the cumulative logits with the sign trick, bounded below at
 1e-9. Parameters keep the flax names and shapes (``matrix_i``, ``bias_i``,
 ``factor_i``, ``quantiles``), so checkpoints load with no renaming. Computed
-in float32 whatever the activation dtype. The aux loss waits for training.
+in float32 whatever the activation dtype. ``aux_loss`` pins the quantiles
+to the tails and the median of F; only the quantiles receive its gradient.
+The training forward (noise in place of the round) waits for the families
+that train through it.
 
 The real-bits coder's per-channel CDF tables are host numpy in float64
 (``build_cdf_tables``), a copy of the JAX package's function with the same
@@ -25,6 +28,7 @@ from fastvideocodec_torch.ops.math import LIKELIHOOD_LOWER_BOUND, lower_bound
 
 FILTERS = (3, 3, 3, 3)
 PRECISION = 16  # the coder's tables sum to 2^16
+TAIL_MASS = 1e-9
 
 
 class EntropyBottleneck(nn.Module):
@@ -43,16 +47,32 @@ class EntropyBottleneck(nn.Module):
                 self.register_parameter(f"factor_{i}", nn.Parameter(torch.zeros(*shape, 1)))
         self.quantiles = nn.Parameter(torch.zeros(channels, 1, 3))
 
-    def _logits_cumulative(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [C, 1, N] -> logits [C, 1, N]."""
+    def _logits_cumulative(self, x: torch.Tensor, detach: bool = False) -> torch.Tensor:
+        """x: [C, 1, N] -> logits [C, 1, N]; ``detach``: the layers'
+        parameters enter as constants."""
+
+        def param(name):
+            p = getattr(self, name)
+            return p.detach() if detach else p
+
         logits = x
         for i in range(self.K):
-            m = getattr(self, f"matrix_{i}")
+            m = param(f"matrix_{i}")
             m = torch.logaddexp(m, torch.zeros_like(m))  # softplus
-            logits = torch.bmm(m, logits) + getattr(self, f"bias_{i}")
+            logits = torch.bmm(m, logits) + param(f"bias_{i}")
             if i < self.K - 1:
-                logits = logits + torch.tanh(getattr(self, f"factor_{i}")) * torch.tanh(logits)
+                logits = logits + torch.tanh(param(f"factor_{i}")) * torch.tanh(logits)
         return logits
+
+    def aux_loss(self) -> torch.Tensor:
+        """sum |F-logits(quantiles) - (-t, 0, t)|, t = log(2/tail_mass - 1):
+        pins the quantiles to the tail_mass/2, 0.5 and 1 - tail_mass/2
+        points of F (compressai ``EntropyBottleneck.loss()``). The matrices,
+        biases and factors enter detached, so only the quantiles receive
+        its gradient (the trainer's aux group)."""
+        target = float(np.log(2.0 / TAIL_MASS - 1.0))
+        t = torch.tensor([-target, 0.0, target], device=self.quantiles.device)
+        return torch.sum(torch.abs(self._logits_cumulative(self.quantiles, detach=True) - t))
 
     def dequantize(self, x: torch.Tensor) -> torch.Tensor:
         """round(x - median) + median per channel, float32 [B, C, H, W]: what

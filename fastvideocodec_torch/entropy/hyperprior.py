@@ -74,6 +74,10 @@ class MeanScaleHyperPriors(nn.Module):
         x_hat, x_lik = self.gaussian(x, sigma, mu)
         return x_hat, (x_lik, z_lik), sigma, mu
 
+    def aux_loss(self) -> torch.Tensor:
+        """The bottleneck's quantile loss."""
+        return self.bottleneck.aux_loss()
+
 
 class SSFHyperprior(nn.Module):
     """Every stage of the hyper path is ``planes`` wide; the SPnet's trunk
@@ -129,3 +133,7 @@ class SSFHyperprior(nn.Module):
         scales = self.hyper_decoder_scale(z_hat)[:, :, :h, :w]
         means = self.hyper_decoder_mean(z_hat)[:, :, :h, :w]
         return means, scales
+
+    def aux_loss(self) -> torch.Tensor:
+        """The bottleneck's quantile loss."""
+        return self.bottleneck.aux_loss()

@@ -77,3 +77,7 @@ class RecProbModel(nn.Module):
         sigma = rpm_sigma(sigma_raw)
         x_hat, lik = self.gaussian(x, sigma, mu)
         return x_hat, lik, rpm_hidden, new_prior, sigma, mu
+
+    def aux_loss(self) -> torch.Tensor:
+        """The bottleneck's quantile loss."""
+        return self.bottleneck.aux_loss()

@@ -15,20 +15,22 @@ from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.math import bits_estimate, psnr_from_mse
 
 
-@torch.inference_mode()
-def lsvc_gop(spec: CodecSpec, gop: torch.Tensor):
+def lsvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
     """gop [T, 3, H, W] with frame 0 the I-frame -> (recon [T-1, 3, H, W],
     metrics). Metrics are float32: the model's losses and bpp, plus
-    per-frame ``psnr``, ``mc_psnr`` and ``warp_psnr`` ([T-1])."""
-    com, mc, warped, metrics = spec.module(gop)
-    target = gop[1:].float()
+    per-frame ``psnr``, ``mc_psnr`` and ``warp_psnr`` ([T-1]). Eval runs
+    under ``torch.inference_mode``; ``training`` runs the module's training
+    branch with ``noise`` and keeps the autograd graph."""
+    with torch.inference_mode(not training):
+        com, mc, warped, metrics = spec.module(gop, training=training, noise=noise)
+        target = gop[1:].float()
 
-    def per_frame_psnr(frames):
-        return psnr_from_mse(torch.mean((frames.float() - target) ** 2, dim=(1, 2, 3)))
+        def per_frame_psnr(frames):
+            return psnr_from_mse(torch.mean((frames.float() - target) ** 2, dim=(1, 2, 3)))
 
-    metrics["psnr"] = per_frame_psnr(com)
-    metrics["mc_psnr"] = per_frame_psnr(mc)
-    metrics["warp_psnr"] = per_frame_psnr(warped)
+        metrics["psnr"] = per_frame_psnr(com)
+        metrics["mc_psnr"] = per_frame_psnr(mc)
+        metrics["warp_psnr"] = per_frame_psnr(warped)
     return com, metrics
 
 
@@ -193,13 +195,24 @@ ROLLOUTS = {"lsvc": lsvc_gop, "dvc": sequential_gop, "base": sequential_gop,
             "rlvc": rlvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
 
 
-def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None):
-    """Estimated-bits encode+decode of one GOP (eval mode); ``mask``, the
-    view mask, is MCVC's alone."""
+def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = False,
+            noise=None):
+    """Estimated-bits encode+decode of one GOP; ``mask``, the view mask, is
+    MCVC's alone (it stays the third argument, as callers pass it).
+    ``training``: the quantizers take U(-0.5, 0.5) noise from ``noise``
+    (``ops.math.UniformNoise``, or any callable shaped like it) and the
+    autograd graph is kept; LSVC's alone is ported (ROADMAP.md queue 1,
+    item 7, the other families' training)."""
+    if training and spec.family != "lsvc":
+        raise NotImplementedError(
+            f"training the {spec.family!r} family is not ported yet (ROADMAP.md queue 1, "
+            f"item 7: training for the ported codecs)")
     if spec.family == "mcvc":
         return mcvc_gop(spec, gop, mask)
     if mask is not None:
         raise ValueError(f"family {spec.family!r} takes no view mask")
     if spec.family not in ROLLOUTS:
         raise ValueError(f"family {spec.family!r} is not ported yet")
+    if training:
+        return lsvc_gop(spec, gop, training, noise)
     return ROLLOUTS[spec.family](spec, gop)

@@ -114,6 +114,11 @@ class DVC(nn.Module):
             "bpp_est": (bits_feature + bits_z + bits_mv) / denom,
         }
 
+    def aux_loss(self) -> torch.Tensor:
+        """Zero, as the JAX module's: no entropy bottleneck (the rates are
+        BitEstimators and a Laplace)."""
+        return torch.zeros((), device=next(self.parameters()).device)
+
     def forward(self, x_cur: torch.Tensor, x_ref: torch.Tensor):
         x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
         B, _, H, W = x_cur.shape

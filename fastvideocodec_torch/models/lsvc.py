@@ -34,8 +34,9 @@ the analysis/synthesis transforms carry a SpaceTimeAttention of
 so a layer's (or chunk's) batch composition is part of the result.
 
 The real-bits coder (coder/video.py) runs the same network in pieces
-(``fold`` .. ``sigmas``). Eval only: training noise, the stop-gradient
-of ``detach_tree`` (-D, accepted and kept) and frame sharding are not
+(``fold`` .. ``sigmas``). ``forward(x, training=True, noise=...)`` is the
+training branch (additive quantization noise, the stop-gradient of
+``detach_tree`` (-D) and of the chain graph). Frame sharding is not
 ported yet.
 """
 
@@ -95,7 +96,7 @@ class LSVC(nn.Module):
         if graph not in GRAPHS:
             raise ValueError(f"graph must be one of {GRAPHS}, got {graph!r}")
         self.channels, self.s2d, self.graph, self.dtype = channels, s2d, graph, dtype
-        self.detach_tree = detach_tree  # a stop-gradient: nothing to do in eval
+        self.detach_tree = detach_tree  # a stop-gradient between graph layers
         self.per_layer_mv, self.layer_chunk = per_layer_mv, layer_chunk
         self.full_res_warp, self.mv_full_res_out = full_res_warp, mv_full_res_out
         self.warp_pooled = warp_pooled
@@ -124,6 +125,11 @@ class LSVC(nn.Module):
             self.warpnet = WarpNetTPU(2 * img_c, img_c, warp_width, stem_stride=warp_stride)
         else:
             self.warpnet = WarpNet(2 * img_c, img_c, warp_width)
+
+    def aux_loss(self) -> torch.Tensor:
+        """Zero, as the JAX module's: no entropy bottleneck (the rates are
+        BitEstimators and a Laplace)."""
+        return torch.zeros((), device=next(self.parameters()).device)
 
     def schedule(self, bs: int) -> TreeSchedule:
         """The static graph of ``bs`` P-frames; raises if it leaves a frame
@@ -194,26 +200,34 @@ class LSVC(nn.Module):
         its scale table, and both sides bucket these."""
         return self.prior_decoder(z_q.to(self.dtype)).to(torch.float16)
 
-    def res_codec(self, res: torch.Tensor):
+    def res_codec(self, res: torch.Tensor, training: bool = False, noise=None):
+        """Residual codec with its Laplace-sigma hyperprior: (res_hat, bits).
+        In training z, then the feature, take noise from ``noise``."""
         feature = self.res_encoder(res)
-        z_q = quantize(self.prior_encoder(feature))
+        z_q = quantize(self.prior_encoder(feature), training, noise)
         sigma = self.prior_decoder(z_q)
-        feature_q = quantize(feature)
+        feature_q = quantize(feature, training, noise)
         res_hat = self.res_decoder(feature_q)
         bits = bits_estimate(laplace_likelihood(feature_q.float(), sigma.float()))
         bits = bits + bits_estimate(self.bit_estimator_z.likelihood(z_q))
         return res_hat, bits
 
-    def mv_codec(self, mv: torch.Tensor):
-        latent_q = quantize(self.mv_encoder(mv))
+    def mv_codec(self, mv: torch.Tensor, training: bool = False, noise=None):
+        latent_q = quantize(self.mv_encoder(mv), training, noise)
         mv_hat = self.mv_decoder(latent_q)
         return mv_hat, bits_estimate(self.bit_estimator_mv.likelihood(latent_q))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, training: bool = False, noise=None):
         """x: [T, 3, H, W] GOP with the (already coded) I-frame at index 0.
 
         Returns (com_frames, mc_frames, warped_frames, metrics); the frames
-        are [T-1, 3, H, W] at full resolution."""
+        are [T-1, 3, H, W] at full resolution. ``training``: the latents
+        take additive U(-0.5, 0.5) noise from ``noise`` (ops.math.quantize)
+        in place of the round, drawn in the JAX module's order: the mv
+        latent, then per layer (chunk) z before the feature; with
+        ``per_layer_mv`` each chunk's mv latent first, inside its layer.
+        The stop-gradient on the parents of ``detach_tree`` and of the
+        chain graph holds in both modes."""
         x = x.to(self.dtype)
         T, _, H, W = x.shape
         bs = T - 1
@@ -223,7 +237,7 @@ class LSVC(nn.Module):
         bits_mv = torch.zeros((), dtype=torch.float32, device=x.device)
         if not self.per_layer_mv:
             est_mv = self.optic_flow(x_flow[1:], x_flow[list(sched.ref_index)])
-            mv_hat, bits_mv = self.mv_codec(est_mv)
+            mv_hat, bits_mv = self.mv_codec(est_mv, training, noise)
 
         com = [None] * bs
         mc = [None] * bs
@@ -234,16 +248,18 @@ class LSVC(nn.Module):
                 ref = torch.stack(
                     [x[0] if sched.parents[f] == 0 else com[sched.parents[f] - 1] for f in part]
                 )
+                if self.detach_tree or self.graph == "chain":
+                    ref = ref.detach()
                 ids = [f - 1 for f in part]
                 if self.per_layer_mv:
                     est_mv = self.optic_flow(x_flow[list(part)],
                                              x_flow[[sched.ref_index[i] for i in ids]])
-                    diff, mv_bits = self.mv_codec(est_mv)
+                    diff, mv_bits = self.mv_codec(est_mv, training, noise)
                     bits_mv = bits_mv + mv_bits
                 else:
                     diff = mv_hat[ids]
                 mc_frames, warped_frames = self.motioncompensation(ref, diff)
-                res_hat, rb = self.res_codec(target[ids] - mc_frames)
+                res_hat, rb = self.res_codec(target[ids] - mc_frames, training, noise)
                 com_frames = torch.clamp(res_hat + mc_frames, 0.0, 1.0)
                 bits_res = bits_res + rb
                 for i, f in enumerate(part):

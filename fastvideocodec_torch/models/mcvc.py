@@ -124,6 +124,11 @@ class MCVC(FullResPrediction, nn.Module):
         y_masked = torch.cat([mask_views(y_res_hat, mask), mask_views(y_motion_hat, mask)], dim=1)
         return x_pred + self.backup_res_decoder(y_masked)
 
+    def aux_loss(self) -> torch.Tensor:
+        """The quantile losses of the three hyperpriors' bottlenecks."""
+        return (self.img_hyperprior.aux_loss() + self.motion_hyperprior.aux_loss()
+                + self.res_hyperprior.aux_loss())
+
     def forward_keyframe(self, x: torch.Tensor, mask: torch.Tensor):
         """(x_hat, the enhanced x_hat, {"keyframe": lik})."""
         y_hat, lik = self.img_hyperprior(self.img_encoder(mask_views(x, mask)))

@@ -26,11 +26,27 @@ from fastvideocodec_torch.models.rlvc import RLVC
 from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 
 
+# the reference's RD lambdas by compression level (models.py:72-76)
+PSNR_LAMBDAS = [256, 512, 1024, 2048, 4096, 8192, 16384, 16384 * 2, 16384 * 4]
+MSSSIM_LAMBDAS = [8, 16, 32, 64]
+
+
 @dataclass
 class CodecSpec:
+    """A built codec and its training operating point: ``loss_type`` "P"
+    (MSE) or "M" (MS-SSIM) and ``compression_level``, which pick the RD
+    lambda ``r``."""
+
     name: str
     family: str
     module: nn.Module
+    loss_type: str = "P"
+    compression_level: int = 2
+
+    @property
+    def r(self) -> float:
+        table = PSNR_LAMBDAS if self.loss_type == "P" else MSSSIM_LAMBDAS
+        return float(table[self.compression_level])
 
 
 def _lsvc(name: str, dtype: torch.dtype) -> LSVC:
@@ -128,15 +144,19 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int,
 
 
 def get_codec_model(name: str, dtype: torch.dtype = torch.float32, device="cuda",
-                    sp_stage: int = 1, num_views: int = 0) -> CodecSpec:
+                    sp_stage: int = 1, num_views: int = 0, loss_type: str = "P",
+                    compression_level: int = 2) -> CodecSpec:
     """``sp_stage`` (ELFVC-SP only): 1 lets the motion SPnet replace the
     motion latent, 2 the residual SPnet as well. ``num_views`` (MCVC only,
     at least 1 there): the views folded into each batch item; MCVC-Original
-    takes the views as the batch of its rollout and needs none."""
+    takes the views as the batch of its rollout and needs none.
+    ``loss_type`` and ``compression_level``: the training operating point
+    (``CodecSpec.r``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     family, module = _build(name, dtype, sp_stage, num_views)
-    return CodecSpec(name=name, family=family, module=place(module, dtype, device))
+    return CodecSpec(name=name, family=family, module=place(module, dtype, device),
+                     loss_type=loss_type, compression_level=compression_level)
 
 
 def place(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:

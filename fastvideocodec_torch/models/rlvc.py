@@ -74,6 +74,13 @@ class Coder2D(nn.Module):
         else:
             self.entropy = MeanScaleHyperPriors(c)
 
+    def aux_loss(self) -> torch.Tensor:
+        """The entropy model's quantile loss; zero for rpm2 (BitEstimator
+        and RPM, no bottleneck)."""
+        if self.entropy_type == "rpm2":
+            return torch.zeros((), device=self.enc1.weight.device)
+        return self.entropy.aux_loss()
+
     def encode(self, x, state_enc):
         x = self.gdn1(self.enc1(x))
         x = self.gdn2(self.enc2(x))
@@ -143,6 +150,9 @@ class RLVC(nn.Module):
 
         return RlvcHidden(zeros(4 * c, 4), zeros(4 * c, 4), zeros(2 * c, 16), zeros(2 * c, 16),
                           zeros(c, 16), zeros(c, 16))
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.mv_codec.aux_loss() + self.res_codec.aux_loss()
 
     def motion_compensation(self, x_ref: torch.Tensor, mv_hat: torch.Tensor):
         """(x_mc, x_warp)."""

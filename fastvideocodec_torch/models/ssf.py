@@ -125,6 +125,11 @@ class ScaleSpaceFlow(nn.Module):
         T = x.shape[0]
         return depth_to_space(x.flatten(0, 1), self.s2d).unflatten(0, (T, -1))
 
+    def aux_loss(self) -> torch.Tensor:
+        """The quantile losses of the three hyperpriors' bottlenecks."""
+        return (self.img_hyperprior.aux_loss() + self.motion_hyperprior.aux_loss()
+                + self.res_hyperprior.aux_loss())
+
     def forward_keyframe(self, x: torch.Tensor):
         y_hat, lik = self.img_hyperprior(self.img_encoder(x))
         return self.img_decoder(y_hat), {"keyframe": lik}

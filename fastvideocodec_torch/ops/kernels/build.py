@@ -111,4 +111,9 @@ def open_library(path: Path) -> ctypes.CDLL:
     ]
     for fn in (lib.fvc_pixel_warp, lib.fvc_pixel_warp_s2d):
         fn.restype = ctypes.c_int
+    lib.fvc_flow_warp_backward.argtypes = [
+        *args[:2], ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # grad, grad_img, grad_flow
+        *args[3:9], ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # B..norm_y, s2d, dtype, stream
+    ]
+    lib.fvc_flow_warp_backward.restype = ctypes.c_int
     return lib

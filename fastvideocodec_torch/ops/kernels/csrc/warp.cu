@@ -1,7 +1,9 @@
 // Bilinear backward warp with border clamp, for sm_90a (H100).
 //
-// Three kernels, five entry points. The sample coordinate is built in
-// float32 exactly as the exact path builds it, in one of two conventions:
+// Three kernels, five entry points, and the backward of the two
+// normalized-grid warps (flow_warp_backward_kernel, after the s2d warps).
+// The sample coordinate is built in float32 exactly as the exact path
+// builds it, in one of two conventions:
 // - normalized grid (fastvideocodec_tpu/ops/warp.py:_xla_flow_warp,
 //   mirrored by fastvideocodec_torch/ops/warp.py:plain_flow_warp): the
 //   linspace(-1,1) grid plus flow*2/(size-1);
@@ -673,6 +675,107 @@ warp_s2d_kernel(const T* __restrict__ img, const FlowT<T, kFlow>* __restrict__ f
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward of the normalized-grid warps
+// ---------------------------------------------------------------------------
+
+constexpr int kBwThreads = 256;  // a block: 256 consecutive full-res outputs of one image
+
+// Where full-res pixel (y, x) of channel c lies in an NCHW plane stack, or
+// in its s2d form [4C, H/2, W/2], channel (ry*2 + rx)*C + c at (y/2, x/2).
+template <bool kS2d>
+__device__ __forceinline__ int pixel_offset(int c, int y, int x, int C, int H, int W) {
+  if constexpr (kS2d) {
+    const int Ws = W >> 1;
+    return ((((y & 1) * 2 + (x & 1)) * C + c) * (H >> 1) + (y >> 1)) * Ws + (x >> 1);
+  } else {
+    return (c * H + y) * W + x;
+  }
+}
+
+// The gradient of an axis's coordinate u = ((g + 1)*n - 1)/2 back to its
+// flow component: 0 where the border clamp cut u (a NaN u too, as torch's
+// clamp backward gives), else gu*0.5*n*norm, in the plain version's order.
+__device__ __forceinline__ float flow_grad(float gu, float g, int n, float norm) {
+  const float u = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)n), 1.0f), 0.5f);
+  if (!(u >= 0.0f && u <= (float)(n - 1))) return 0.0f;
+  return __fmul_rn(__fmul_rn(__fmul_rn(gu, 0.5f), (float)n), norm);
+}
+
+// Replaces the custom_vjp backwards _pfw_bwd and _pfws_bwd
+// (fastvideocodec_tpu/ops/pallas/warp_kernel.py:522, :567), which take the
+// vjp of the XLA exact path (no Pallas kernel): the vjp of
+// plain_flow_warp (kS2d false; img [B,C,H,W]) and of plain_flow_warp_s2d
+// (kS2d true; img [B,4C,H/2,W/2], the full-res image in s2d form), both by
+// flow [B,2,H,W] of the image's type, for the incoming gradient grad of
+// the output's shape. A thread owns one full-res output pixel: it rebuilds
+// the forward's four taps (border_tap, the same float32 arithmetic), then
+// over the C channels
+// - sums the derivative of the lerp by its two weights, g*((v01 - v00)*(1
+//   - ty) + (v11 - v10)*ty) and g*(bot - top), into the pixel's flow
+//   gradient (times 0.5*n*2/(n-1) and the clamp's mask, per axis), which it
+//   writes once, rounded to the flow's type: no atomics;
+// - when grad_img is given, adds g times each tap's weight into that float32
+//   buffer (zeroed by the caller) with atomicAdd: several outputs may read
+//   one source pixel. The caller rounds it once to the image's type. The
+//   order of the atomics changes from run to run, so grad_img is not
+//   bit-reproducible; it agrees with the plain vjp to float32 rounding.
+// grad_flow may be null (no flow gradient wanted).
+//
+// Bound by bytes: it reads the image, the flow and the incoming gradient
+// once and writes the two gradients (the float32 image gradient by
+// atomics in L2), a few dozen flops per pixel and channel. A simple kernel:
+// consecutive threads own consecutive pixels of a row, so the flow, the
+// incoming gradient and the smooth-flow taps coalesce.
+template <typename T, bool kS2d>
+__global__ void __launch_bounds__(kBwThreads)
+flow_warp_backward_kernel(const T* __restrict__ img, const T* __restrict__ flow,
+                          const T* __restrict__ grad, float* __restrict__ grad_img,
+                          T* __restrict__ grad_flow, int C, int H, int W, float norm_x,
+                          float norm_y) {
+  const int plane = H * W, p = blockIdx.x * kBwThreads + threadIdx.x, b = blockIdx.y;
+  if (p >= plane) return;
+  const int y = p / W, x = p - y * W;
+  const int64_t base = (int64_t)b * C * plane;  // one image of the batch, either layout
+  const T* fb = flow + (int64_t)b * 2 * plane;
+  const float gx = grid_coord(linspace_at(x, W), to_f32(fb[p]), norm_x);
+  const float gy = grid_coord(linspace_at(y, H), to_f32(fb[plane + p]), norm_y);
+  const Tap a = border_tap(gx, W), t = border_tap(gy, H);
+  const float sx = __fsub_rn(1.0f, a.t), sy = __fsub_rn(1.0f, t.t);
+  const float w00 = __fmul_rn(sx, sy), w01 = __fmul_rn(a.t, sy);
+  const float w10 = __fmul_rn(sx, t.t), w11 = __fmul_rn(a.t, t.t);
+  const T* ib = img + base;
+  const T* gb = grad + base;
+  float* gi = grad_img ? grad_img + base : nullptr;
+  float gtx = 0.0f, gty = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const int o00 = pixel_offset<kS2d>(c, t.i0, a.i0, C, H, W);
+    const int o01 = pixel_offset<kS2d>(c, t.i0, a.i1, C, H, W);
+    const int o10 = pixel_offset<kS2d>(c, t.i1, a.i0, C, H, W);
+    const int o11 = pixel_offset<kS2d>(c, t.i1, a.i1, C, H, W);
+    const float g = to_f32(gb[pixel_offset<kS2d>(c, y, x, C, H, W)]);
+    const float v00 = to_f32(ib[o00]), v01 = to_f32(ib[o01]);
+    const float v10 = to_f32(ib[o10]), v11 = to_f32(ib[o11]);
+    const float top = __fadd_rn(__fmul_rn(v00, sx), __fmul_rn(v01, a.t));
+    const float bot = __fadd_rn(__fmul_rn(v10, sx), __fmul_rn(v11, a.t));
+    const float dtx =
+        __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), sy), __fmul_rn(__fsub_rn(v11, v10), t.t));
+    gtx = __fadd_rn(gtx, __fmul_rn(g, dtx));
+    gty = __fadd_rn(gty, __fmul_rn(g, __fsub_rn(bot, top)));
+    if (gi) {
+      atomicAdd(gi + o00, __fmul_rn(g, w00));
+      atomicAdd(gi + o01, __fmul_rn(g, w01));
+      atomicAdd(gi + o10, __fmul_rn(g, w10));
+      atomicAdd(gi + o11, __fmul_rn(g, w11));
+    }
+  }
+  if (grad_flow) {
+    T* fo = grad_flow + (int64_t)b * 2 * plane;
+    fo[p] = from_f32<T>(flow_grad(gtx, gx, W, norm_x));
+    fo[plane + p] = from_f32<T>(flow_grad(gty, gy, H, norm_y));
+  }
+}
+
 inline bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
 template <typename T>
@@ -723,6 +826,23 @@ int launch_warp_s2d(const void* img, const void* flow, void* out, int B, int C, 
   dim3 grid((Ws + kS2dCols - 1) / kS2dCols, (Hs + kS2dRows - 1) / kS2dRows, B);
   warp_s2d_kernel<T, kFlow><<<grid, kS2dThreads, kBytes, s>>>(
       (const T*)img, (const F*)flow, (T*)out, C, Hs, Ws, norm_x, norm_y, flags);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_flow_warp_backward(const void* img, const void* flow, const void* grad, void* grad_img,
+                              void* grad_flow, int B, int C, int H, int W, float norm_x,
+                              float norm_y, bool s2d, cudaStream_t s) {
+  dim3 grid((H * W + kBwThreads - 1) / kBwThreads, B);
+  if (s2d) {
+    flow_warp_backward_kernel<T, true><<<grid, kBwThreads, 0, s>>>(
+        (const T*)img, (const T*)flow, (const T*)grad, (float*)grad_img, (T*)grad_flow, C, H, W,
+        norm_x, norm_y);
+  } else {
+    flow_warp_backward_kernel<T, false><<<grid, kBwThreads, 0, s>>>(
+        (const T*)img, (const T*)flow, (const T*)grad, (float*)grad_img, (T*)grad_flow, C, H, W,
+        norm_x, norm_y);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -797,6 +917,30 @@ extern "C" int fvc_pixel_warp_s2d(const void* img, const void* flow, void* out, 
   if (dtype == 0) return launch_pixel_warp_s2d<float>(img, flow, out, B, C, Hs, Ws, phase_flow, s);
   if (dtype == 1) {
     return launch_pixel_warp_s2d<__nv_bfloat16>(img, flow, out, B, C, Hs, Ws, phase_flow, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The vjp of fvc_flow_warp (s2d 0: img, grad [B,C,H,W]) or of
+// fvc_flow_warp_s2d (s2d 1: img, grad [B,4C,H/2,W/2]; C the full-res
+// channel count), flow [B,2,H,W], all of dtype, H and W full-res. grad_img
+// is a zeroed float32 buffer of img's shape that receives the image
+// gradient, or null; grad_flow receives the flow gradient (dtype), or null.
+extern "C" int fvc_flow_warp_backward(const void* img, const void* flow, const void* grad,
+                                      void* grad_img, void* grad_flow, int B, int C, int H,
+                                      int W, float norm_x, float norm_y, int s2d, int dtype,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || B > 65535 || !fits_int32((int64_t)max(C, 2) * H * W) ||
+      (s2d && (H % 2 || W % 2)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return launch_flow_warp_backward<float>(img, flow, grad, grad_img, grad_flow, B, C, H, W,
+                                            norm_x, norm_y, s2d, s);
+  }
+  if (dtype == 1) {
+    return launch_flow_warp_backward<__nv_bfloat16>(img, flow, grad, grad_img, grad_flow, B, C,
+                                                    H, W, norm_x, norm_y, s2d, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,10 @@ or bfloat16 image.
 ``LAUNCHES[name]`` grows by one at each kernel launch and nowhere else, so
 a run can show that it went through the kernels; ``reset_launches()``
 zeroes the counts. A launcher gives no gradient: the dispatchers wrap it in
-``ops.warp.KernelWarp`` when autograd needs one.
+``ops.warp.KernelWarp`` when autograd needs one, whose backward launches
+``launch_flow_warp_backward`` / ``launch_flow_warp_s2d_backward`` (counted
+as ``flow_warp_backward`` and ``flow_warp_s2d_backward``) for the two
+normalized-grid warps.
 
 All five are tiled: a block owns a tile of outputs. The three s2d warps
 share one kernel body, and ``flow_warp_s2d``'s block stages the tile's
@@ -37,6 +40,8 @@ LAUNCHES = {
     "pixel_warp": 0,
     "pixel_warp_s2d": 0,
     "pixel_warp_s2d_sflow": 0,
+    "flow_warp_backward": 0,
+    "flow_warp_s2d_backward": 0,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -187,3 +192,52 @@ def launch_pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -
     c-major s2d phase form [B, 8, H/2, W/2] (channel comp*4 + 2*ry + rx);
     returns s2d form."""
     return _launch_pixel_warp_s2d(img_s2d, flow_s2d, True, "pixel_warp_s2d_sflow")
+
+
+def _launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
+                               need_img: bool, need_flow: bool, s2d: bool):
+    B = img.shape[0]
+    if s2d:
+        _, C4, Hs, Ws = _s2d_shape(img)
+        C, H, W = C4 // 4, 2 * Hs, 2 * Ws
+    else:
+        _, C, H, W = img.shape
+    dtype = _check(img, flow, (B, 2, H, W))
+    if (grad.shape, grad.dtype, grad.device) != (img.shape, img.dtype, img.device) or (
+            not grad.is_contiguous()):
+        raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} on {grad.device} is not a "
+                         f"contiguous tensor like img {tuple(img.shape)} {img.dtype}")
+    lib = build.load()
+    grad_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_img else None
+    grad_flow = torch.empty_like(flow) if need_flow else None
+    name = "flow_warp_s2d_backward" if s2d else "flow_warp_backward"
+    with _on_device(img):
+        rc = lib.fvc_flow_warp_backward(
+            img.data_ptr(), flow.data_ptr(), grad.data_ptr(),
+            grad_img.data_ptr() if need_img else None,
+            grad_flow.data_ptr() if need_flow else None,
+            B, C, H, W, grid_norm(W), grid_norm(H), int(s2d), dtype,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, name)
+    LAUNCHES[name] += 1
+    return (grad_img.to(img.dtype) if need_img else None), grad_flow
+
+
+def launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
+                              need_img: bool = True, need_flow: bool = True):
+    """The vjp of ``flow_warp`` at (img [B, C, H, W], flow [B, 2, H, W]) for
+    the output's gradient ``grad`` (img's shape and dtype): (grad_img,
+    grad_flow), each None unless asked for. The image gradient is summed by
+    float32 atomics and rounded once to img's dtype; its order changes
+    from run to run."""
+    return _launch_flow_warp_backward(img, flow, grad, need_img, need_flow, False)
+
+
+def launch_flow_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
+                                  grad: torch.Tensor, need_img: bool = True,
+                                  need_flow: bool = True):
+    """The vjp of ``flow_warp_s2d`` at (img_s2d [B, 4C, H/2, W/2], flow
+    [B, 2, H, W]) for the output's gradient ``grad`` (img_s2d's shape and
+    dtype), as ``launch_flow_warp_backward``."""
+    return _launch_flow_warp_backward(img_s2d, flow, grad, need_img, need_flow, True)

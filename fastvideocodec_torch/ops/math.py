@@ -1,9 +1,12 @@
 """Quantization and rate-estimation math, ported from fastvideocodec_tpu/ops/math.py.
 
-Quantization is the eval-time hard round (half to even, as ``jnp.round``);
-training noise is not ported yet. Rates are computed in float32 whatever
-the activation dtype. The real-bits coder buckets scales into the
-exp-spaced ``scale_table`` (float64, host numpy) with ``build_indexes``.
+Quantization is the eval-time hard round (half to even, as ``jnp.round``)
+or, in training, additive U(-0.5, 0.5) noise drawn from an explicit
+source (``UniformNoise``, or any callable that returns a tensor shaped
+like its argument); ``quantize_ste`` is the round with a straight-through
+gradient. Rates are computed in float32 whatever the activation dtype.
+The real-bits coder buckets scales into the exp-spaced ``scale_table``
+(float64, host numpy) with ``build_indexes``.
 """
 
 from __future__ import annotations
@@ -20,11 +23,46 @@ SCALES_LEVELS = 64
 LIKELIHOOD_LOWER_BOUND = 1e-9
 
 
-def quantize(x: torch.Tensor) -> torch.Tensor:
-    """Hard round (eval time). It is also the JAX package's straight-through
+class UniformNoise:
+    """U(-0.5, 0.5) draws shaped like a tensor, in its dtype and on its
+    device, from a ``torch.Generator`` seeded with ``seed``. The generator
+    lives on ``device``, by default the device of the first tensor it draws
+    for; draws made on another device are copied to the tensor's."""
+
+    def __init__(self, seed: int = 0, device=None):
+        self.seed, self.device = seed, device
+        self._gen = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self._gen is None:
+            device = torch.device(self.device if self.device is not None else x.device)
+            self._gen = torch.Generator(device=device).manual_seed(self.seed)
+        u = torch.rand(x.shape, generator=self._gen, device=self._gen.device) - 0.5
+        return u.to(x.device, x.dtype)
+
+
+def quantize_noise(x: torch.Tensor, noise) -> torch.Tensor:
+    """Training-time quantization: x plus U(-0.5, 0.5) noise from
+    ``noise(x)``."""
+    return x + noise(x)
+
+
+def quantize_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round with a straight-through gradient (compressai quantize_ste):
+    the value of round(x), the gradient of x (torch.round alone has a zero
+    gradient)."""
+    return x + (torch.round(x) - x).detach()
+
+
+def quantize(x: torch.Tensor, training: bool = False, noise=None) -> torch.Tensor:
+    """Noise when training (from ``noise``, which training needs), the hard
+    round otherwise. The eval round is also the JAX package's
     ``quantize_ste`` at eval time: x + (round(x) - x) equals round(x)
-    exactly in floating point. The straight-through gradient waits for
-    training."""
+    exactly in floating point."""
+    if training:
+        if noise is None:
+            raise ValueError("training quantization needs a noise source")
+        return quantize_noise(x, noise)
     return torch.round(x)
 
 

@@ -17,8 +17,13 @@ dispatchers (``flow_warp``, ``flow_warp_fullres_s2d``, ``pixel_warp``,
 kernels (ops/kernels/warp.py) for CUDA tensors and run the plain versions
 for CPU tensors only: a CUDA tensor never falls back to them. On a CUDA
 tensor that needs a gradient the kernel runs inside ``KernelWarp``, whose
-backward is the vjp of the plain version. There is no displacement bound:
-the TPU kernel's clamp was a limit of the TPU.
+backward is a backward kernel for the two normalized-grid warps and the
+vjp of the plain version for the pixel warps. There is no displacement
+bound: the TPU kernel's clamp was a limit of the TPU.
+
+The cached tensors (grids, resize weights, blur taps) are built outside
+inference mode (``_cached``), so that a training step may follow an eval
+rollout in one process.
 
 The SSF scale-space volume ops at the end (blur, volume, the full-resolution
 volume warp, phase mean, s2d upsample, the pyramid warp) are plain
@@ -36,6 +41,24 @@ import torch.nn.functional as F
 
 from fastvideocodec_torch.ops.kernels import warp as kernels
 from fastvideocodec_torch.ops.kernels.warp import grid_norm
+
+
+def _cached(maxsize: int):
+    """functools.lru_cache of a function that makes a tensor, run outside
+    inference mode: a tensor first made during an eval rollout (under
+    ``torch.inference_mode``) may later be saved for a backward, which an
+    inference tensor cannot be."""
+
+    def wrap(fn):
+        @functools.lru_cache(maxsize=maxsize)
+        @functools.wraps(fn)
+        def build(*args):
+            with torch.inference_mode(False):
+                return fn(*args)
+
+        return build
+
+    return wrap
 
 
 def space_to_depth(x: torch.Tensor, r: int = 2) -> torch.Tensor:
@@ -71,7 +94,7 @@ def _two_tap_indices(in_size: int, out_size: int, align_corners: bool):
     return lo, hi, t
 
 
-@functools.lru_cache(maxsize=64)
+@_cached(maxsize=64)
 def _x2_weights(size: int, align_corners: bool, ndim: int, axis: int,
                 dtype: torch.dtype, device: torch.device):
     """The four per-row weights of a x2 resize along one axis, as tensors
@@ -123,7 +146,7 @@ def bilinear_upsample_x2_ac(x: torch.Tensor) -> torch.Tensor:
     return _resize_axis_x2(_resize_axis_x2(x, 2, True), 3, True)
 
 
-@functools.lru_cache(maxsize=64)
+@_cached(maxsize=64)
 def _linspace(n: int, device) -> torch.Tensor:
     """linspace(-1, 1, n) in float32 by jnp.linspace's formula, s = i/(n-1),
     value = -1*(1-s) + 1*s, each step rounded once (XLA on the CPU may land
@@ -157,7 +180,7 @@ def _taps(flow_c: torch.Tensor, lin: torch.Tensor, size: int):
     return _border_taps(((g + 1.0) * size - 1.0) * 0.5, size)
 
 
-@functools.lru_cache(maxsize=64)
+@_cached(maxsize=64)
 def _divisor(n: int, device) -> torch.Tensor:
     """n as a one-element float32 tensor on ``device``: dividing by it is
     IEEE float32 division on every device (PyTorch's CUDA division by a
@@ -165,7 +188,7 @@ def _divisor(n: int, device) -> torch.Tensor:
     return torch.full((1,), float(n), dtype=torch.float32, device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@_cached(maxsize=64)
 def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.float32, device=device)
 
@@ -302,12 +325,37 @@ def _launcher(name: str):
     return getattr(kernels, f"launch_{name}")
 
 
+def plain_warp_vjp(name: str, img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
+                   need_img: bool = True, need_flow: bool = True) -> tuple:
+    """The vjp of PLAIN[name] at (img, flow) for the output's gradient
+    ``grad``: (grad_img, grad_flow), each None unless asked for, by
+    autograd through the plain version on the inputs' device."""
+    wanted = (need_img, need_flow)
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(w) for t, w in zip((img, flow), wanted)]
+        out = PLAIN[name](*inputs)
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], grad))
+    return tuple(next(grads) if w else None for w in wanted)
+
+
+# The warps whose backward is a kernel too, by launch-count name, with the
+# backward's plain version: ops/kernels/warp.py's launch_<name>_backward
+# takes (img, flow, grad, need_img, need_flow) and gives (grad_img,
+# grad_flow) as these do. The others take plain_warp_vjp.
+PLAIN_BACKWARD = {name: functools.partial(plain_warp_vjp, name)
+                  for name in ("flow_warp", "flow_warp_s2d")}
+
+
 class KernelWarp(torch.autograd.Function):
-    """A warp kernel with a gradient: the forward is the kernel's launcher,
-    the backward the vjp of its plain version on the saved inputs, computed
-    by autograd on their device (the JAX package's ``custom_vjp`` entry
-    points take the vjp of the exact gather path the same way). Call as
-    ``KernelWarp.apply(name, img, flow)``."""
+    """A warp kernel with a gradient: the forward is the kernel's launcher.
+    The backward of ``flow_warp`` and ``flow_warp_s2d`` is their backward
+    kernel, asked for only the gradients autograd needs (the image's
+    gradient, a scatter of float32 atomics, is skipped when the image needs
+    none, as SpyNet's level image does); a build or launch failure raises.
+    The three pixel warps' backward is still the vjp of the plain version
+    on the saved inputs, computed by autograd on their device (the JAX
+    package's ``custom_vjp`` entry points take the vjp of the exact gather
+    path the same way). Call as ``KernelWarp.apply(name, img, flow)``."""
 
     @staticmethod
     def forward(ctx, name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -320,12 +368,10 @@ class KernelWarp(torch.autograd.Function):
     def backward(ctx, grad: torch.Tensor):
         img, flow = ctx.saved_tensors
         wanted = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(w) for t, w in zip((img, flow), wanted)]
-            out = PLAIN[ctx.name](*inputs)
-            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
-                                             grad))
-        return None, *(next(grads) if w else None for w in wanted)
+        if ctx.name in PLAIN_BACKWARD:
+            launch = getattr(kernels, f"launch_{ctx.name}_backward")
+            return None, *launch(img, flow, grad.contiguous(), *wanted)
+        return None, *plain_warp_vjp(ctx.name, img, flow, grad, *wanted)
 
 
 def _dispatch(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -389,14 +435,14 @@ def gaussian_kernel1d(kernel_size: int, sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@_cached(maxsize=16)
 def _blur_taps(kernel_size: int, sigma: float, dtype: torch.dtype, device) -> torch.Tensor:
     """The tap coefficients rounded to the image dtype, on its device
     (cached: no host-to-device copy per call)."""
     return torch.as_tensor(gaussian_kernel1d(kernel_size, sigma)).to(device, dtype)
 
 
-@functools.lru_cache(maxsize=16)
+@_cached(maxsize=16)
 def _phase_scale(H: int, W: int, device) -> torch.Tensor:
     """[W/2 x4, H/2 x4] as [8, 1, 1] float32: the c-major phase flow's
     normalized-to-pixel scale."""
@@ -449,7 +495,7 @@ def gaussian_volume(x: torch.Tensor, sigma0: float, num_levels: int) -> torch.Te
     return torch.cat(levels, dim=1)
 
 
-@functools.lru_cache(maxsize=16)
+@_cached(maxsize=16)
 def _half_size(H: int, W: int, device) -> torch.Tensor:
     """[W/2, H/2] as [1, 2, 1, 1] float32: a normalized flow's pixel scale."""
     return torch.as_tensor(np.asarray([W / 2.0, H / 2.0], np.float32),
@@ -573,6 +619,7 @@ __all__ = [
     "gaussian_volume",
     "KernelWarp",
     "PLAIN",
+    "PLAIN_BACKWARD",
     "grid_norm",
     "pixel_warp",
     "pixel_warp_s2d",
@@ -582,6 +629,7 @@ __all__ = [
     "plain_pixel_warp",
     "plain_pixel_warp_s2d",
     "plain_pixel_warp_s2d_sflow",
+    "plain_warp_vjp",
     "s2d_phase_mean",
     "space_to_depth",
     "staged_tiles",

@@ -3,7 +3,13 @@
     python -m fastvideocodec_torch.tools.profile_rollout
         [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|LSVC-128|LSVC-TPU-RW
                  |...|MCVC-IA|MCVC-Original|DVC|RLVC|RLVC-HP|Base-EC-ER]
-        [--views 4] [--h 256 --w 256] [--json PATH]
+        [--views 4] [--h 256 --w 256] [--json PATH] [--train]
+
+``--train`` profiles one training step in place of a rollout (an LSVC
+form, float32, --h x --w, 256x256 unless given, GOP 16 of synth_gop_multi
+seed 0, the step of ``train.make_train_step`` at lr 1e-4 after a warm-up
+step): its card ms beside its host enqueue ms, and the kernel section
+below; no module split.
 
 The cell of ``chip_smoke.py``: bf16, 1024x2048, GOP 16, synth_gop_multi
 seed 0, with ``real_bits_fps``'s weights (seeded full widths, the
@@ -153,6 +159,60 @@ def call_kernels(module, args, kwargs) -> dict:
                         for e in kernels]}
 
 
+def profile_train_step(args) -> int:
+    """``--train``: one LSVC training step, timed and profiled."""
+    from fastvideocodec_torch.ops.math import UniformNoise
+    from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training
+
+    spec, trained = load_model(args.codec, 2, torch.float32, "cuda", 1)
+    if spec.family != "lsvc":
+        raise SystemExit(f"--train: {args.codec} does not train in the port yet")
+    h, w = args.h, args.w
+    rng = np.random.default_rng(0)
+    clips = [torch.from_numpy(np.ascontiguousarray(synth_gop_multi(rng, size=max(h, w), gop=GOP)
+                                                   [:, :h, :w])).permute(0, 3, 1, 2)
+             .contiguous().cuda() for _ in range(4)]
+    params = ready_for_training(spec)
+    init_fn, step_fn = make_train_step(spec, TrainConfig(learning_rate=1e-4))
+    state = {"params": params, "opt": init_fn(params), "noise": UniformNoise(0), "i": 0}
+    name = torch.cuda.get_device_name(0)
+    print(f"{args.codec} {'trained' if trained else 'seeded'} training step {h}x{w} GOP{GOP} "
+          f"f32 on {name}", flush=True)
+
+    def step():
+        clip = clips[state["i"] % len(clips)]
+        state["i"] += 1
+        state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], clip,
+                                                   state["noise"])
+
+    step()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    print(f"training step: card {step_ms:.3f} ms, host enqueue {enqueue_ms:.3f} ms", flush=True)
+    k = by_kernel(step, TOP)
+    busy = "not measured" if k["busy_ms"] is None else f"{k['busy_ms']:.3f} ms"
+    share = ("not measured" if k["busy_ms"] is None
+             else f"{1 - k['busy_ms'] / k['wall_ms']:.4f}")
+    print(f"profiled step: wall {k['wall_ms']:.3f} ms, {k['kernels']} kernels, device busy "
+          f"{busy}, idle share {share}", flush=True)
+    for kname, n, ms in k["top"]:
+        print(f"  {ms:.3f} ms in {n} launches: {kname}", flush=True)
+    if args.json:
+        with open(args.json, "a") as f:
+            f.write(json.dumps({
+                "tool": "fastvideocodec_torch.tools.profile_rollout", "codec": args.codec,
+                "train": True, "device": name, "dtype": "f32", "h": h, "w": w, "gop": GOP,
+                "step_ms": step_ms, "enqueue_ms": enqueue_ms, **k}) + "\n")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--codec", choices=CODECS, default="ELFVC-SP-TPU")
@@ -160,11 +220,15 @@ def main(argv=None) -> int:
     ap.add_argument("--h", type=int, default=256, help="MCVC's view height")
     ap.add_argument("--w", type=int, default=256, help="MCVC's view width")
     ap.add_argument("--json", default="", help="append the summary as one JSON line here")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one LSVC training step (float32) in place of a rollout")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.train:
+        return profile_train_step(args)
 
     if args.codec.startswith("MCVC"):
         views, h, w = args.views, args.h, args.w

@@ -60,10 +60,13 @@ def grads(fn, img, flow, g):
 
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_function_gradients_are_the_plain_versions(name, monkeypatch):
-    """KernelWarp with its launcher replaced by the plain version: its
-    forward and its input gradients equal autograd through the plain
-    version exactly."""
+    """KernelWarp with its launchers replaced by the plain versions (the
+    backward kernel's too, for flow_warp and flow_warp_s2d): its forward
+    and its input gradients equal autograd through the plain version
+    exactly."""
     monkeypatch.setattr(kwarp, f"launch_{name}", twarp.PLAIN[name])
+    if name in twarp.PLAIN_BACKWARD:
+        monkeypatch.setattr(kwarp, f"launch_{name}_backward", twarp.PLAIN_BACKWARD[name])
     img, flow, g = inputs(name, np.random.default_rng(40))
     got = grads(lambda i, f: twarp.KernelWarp.apply(name, i, f), img, flow, g)
     want = grads(twarp.PLAIN[name], img, flow, g)
@@ -376,6 +379,64 @@ def check_card_gradients(name, shapes, dtype):
         else:
             torch.testing.assert_close(t.float(), w.float(), rtol=2e-2,
                                        atol=2e-2 * float(w.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_img", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(FLOWS))
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_kernels_are_the_plain_vjp(card, name, kind, dtype, need_img):
+    """Each backward kernel on the ragged shapes and flows of the forward's
+    test, against the plain version's vjp on the card: float32 within 1e-5
+    relative and 1e-5 of the largest gradient (the image gradient's float32
+    atomics sum in an order that changes from run to run). A bfloat16
+    kernel sums in float32 and rounds once, so it is held, within 2e-2,
+    to the plain vjp of the same (exactly widened) inputs in float32,
+    rounded to bfloat16: the bfloat16 plain vjp scatter-adds bfloat16
+    terms, and +-200 px flows pile hundreds of them onto a border pixel
+    (measured 3.0 apart there). The image gradient is None when not asked
+    for; each call is one launch under the backward's own count."""
+    rng = np.random.default_rng(45)
+    for shape in RAGGED[name]:
+        img, flow = tiled_case(name, shape, kind, rng, dtype, "cuda")
+        g = torch.from_numpy(rng.normal(0, 1, img.shape).astype(np.float32)).to("cuda", dtype)
+        kwarp.reset_launches()
+        got = getattr(kwarp, f"launch_{name}_backward")(img, flow, g, need_img, True)
+        assert kwarp.LAUNCHES[f"{name}_backward"] == 1
+        want = [None if w is None else w.to(dtype) for w in twarp.PLAIN_BACKWARD[name](
+            img.float(), flow.float(), g.float(), need_img, True)]
+        torch.cuda.synchronize()
+        assert (got[0] is None) == (not need_img)
+        for t, w in zip(got, want):
+            if w is None:
+                continue
+            assert t.dtype == w.dtype and t.shape == w.shape
+            scale = float(w.float().abs().max())
+            rtol, atol = (1e-5, 1e-5 * scale) if dtype == torch.float32 else (2e-2, 2e-2 * scale)
+            torch.testing.assert_close(t.float(), w.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_kernels_follow_the_plain_vjp_on_nan_flows(card, name):
+    """Two NaN flow pixels: NaN in the image gradient exactly where the
+    plain vjp has it (the taps the NaN sample reads), 0 in the flow
+    gradient there (the border clamp's mask drops a NaN coordinate, as
+    torch's clamp backward does), the plain vjp's values elsewhere."""
+    rng = np.random.default_rng(46)
+    img, flow = tiled_case(name, (1, 3, 64, 512), "smooth", rng, torch.float32, "cuda")
+    flow[:, :, 5, 7] = float("nan")
+    flow[:, :, 37, 300] = float("nan")
+    g = torch.from_numpy(rng.normal(0, 1, img.shape).astype(np.float32)).cuda()
+    got = getattr(kwarp, f"launch_{name}_backward")(img, flow, g)
+    want = twarp.PLAIN_BACKWARD[name](img, flow, g)
+    for t, w in zip(got, want):
+        nan = w.isnan()
+        assert torch.equal(t.isnan(), nan)
+        torch.testing.assert_close(t[~nan], w[~nan], rtol=1e-5,
+                                   atol=1e-5 * float(w[~nan].abs().max()))
+    assert float(got[1][:, :, 5, 7].abs().max()) == 0.0
 
 
 @pytest.mark.gpu

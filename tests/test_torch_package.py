@@ -1,9 +1,11 @@
 """Package-level guards of the PyTorch port.
 
-- The port, chip_smoke.py, warp_ab.py and real_bits_ab.py import with
-  jax, flax and fastvideocodec_tpu unimportable (the card's machine has
-  none of them); real_bits_ab.py's synchronous copies are swapped in for
-  their scope only.
+- The port (its training modules too: train/, cli/train.py, utils/,
+  data/vimeo.py, data/loader.py), chip_smoke.py, warp_ab.py and
+  real_bits_ab.py import with jax, flax, optax, orbax, PIL and
+  fastvideocodec_tpu unimportable (the card's machine has none of them);
+  real_bits_ab.py's synchronous copies are swapped in for their scope
+  only.
 - chip_smoke.py exits non-zero, printing no result, without a CUDA card and
   in a directory that holds nothing else of the repo.
 - The weight loader raises on unknown and on missing parameters.
@@ -58,7 +60,8 @@ BLOCKER = """
 import sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "fastvideocodec_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                  "fastvideocodec_tpu", "PIL"):
             raise ImportError(f"blocked: {{name}}")
         return None
 sys.meta_path.insert(0, _Block())
@@ -81,10 +84,12 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m.name)\n"
         "assert 'fastvideocodec_torch.models.mcvc' in sys.modules\n"
         "for name in ('models.dvc', 'models.base', 'models.rlvc', 'entropy.rpm',\n"
-        "             'layers.codecnet'):\n"
+        "             'layers.codecnet', 'train.trainer', 'train.checkpoint',\n"
+        "             'cli.train', 'utils.meters', 'data.vimeo', 'data.loader'):\n"
         "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+        "                              'fastvideocodec_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -878,6 +883,36 @@ def test_lsvc_forms_run_without_jax():
         "assert abs(bd_rate(*curve, *curve)) < 1e-9\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_training_step_runs_without_jax():
+    """An eval rollout, then a training step and a checkpoint round trip of
+    LSVC-TPU-TINY on the CPU, with JAX, optax, orbax and PIL unimportable."""
+    r = run_blocked(
+        "import os, tempfile, numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+        "from fastvideocodec_torch.ops.math import UniformNoise\n"
+        "from fastvideocodec_torch import train\n"
+        "spec = ft.get_codec_model('LSVC-TPU-TINY', device='cpu')\n"
+        "ft.load_asset(spec.module, 'tiny_lsvctpu_l2')\n"
+        "clip = synth_gop(np.random.default_rng(0), size=64, gop=4)\n"
+        "gop = torch.from_numpy(np.array(clip.transpose(0, 3, 1, 2)))\n"
+        "ft.rollout(spec, gop)\n"
+        "params = train.ready_for_training(spec)\n"
+        "init_fn, step_fn = train.make_train_step(spec, train.TrainConfig())\n"
+        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
+        "assert all(bool(torch.isfinite(v)) for v in m.values())\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    train.save_checkpoint(d, {'params': params, 'opt_state': state, 'epoch': 0,\n"
+        "                              'score': 1.0})\n"
+        "    assert train.load_checkpoint(d)['opt_state']['main']['count'] == 1\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+        "                              'fastvideocodec_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
