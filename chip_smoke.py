@@ -19,11 +19,13 @@ Phases, each timed on its own line:
    half and random on the other (both in one launch); and with two NaN
    flow pixels, which must give NaN exactly where the plain version does;
    then each kernel's gradient (its autograd Function) against autograd
-   through its plain version (flow_warp and flow_warp_s2d launching their
-   backward kernel once a backward), and the two backward kernels against
-   the plain version's vjp at GRAD_TOL on the ragged shapes with smooth,
-   random, mixed and NaN flows, with the image gradient on and off (the
-   image gradient's float32 atomics change order from run to run);
+   through its plain version (each launching its backward kernel once a
+   backward), and the five backward kernels against the plain version's
+   vjp at GRAD_TOL on the ragged shapes (pixel_warp at 3, 7, 15 and 18
+   channels; odd H/2 and W/2 for the s2d forms) with smooth, random, mixed
+   and NaN flows, float32 and bfloat16, with the image and the flow
+   gradient each on and off (the image gradient's float32 atomics change
+   order from run to run);
 4. card vs CPU: LSVC-TPU in float32 at 64x128, GOP 4, shipped weights, on
    the card (kernels) and on the CPU (plain versions); then bfloat16 on the
    card against that float32 result;
@@ -183,9 +185,13 @@ Phases, each timed on its own line:
    full < half-res < rigid with rigid under 32% and half-res under 16%;
 42. LSVC-TPU training, card vs CPU: one step of the full-width model
    (hd_lsvctpuf2_l2) in float32 at 64x128, GOP 4 (phase 4's clip), the
-   same noise on both devices: loss and metrics, each parameter's gradient
-   (the worst max abs / max |grad| named) and the parameters after one
-   Adam step, at the TRAIN_CPU_* bars;
+   same noise on both devices, the CPU on the card's ReLU branches (an
+   activation whose input lies within float32 noise of 0 may pass its
+   gradient on one device and not on the other: the card's run records
+   each ReLU's and leaky ReLU's positive set, the CPU's takes it, and the
+   elements that differed are counted): loss and metrics, each parameter's
+   gradient (the worst max abs / max |grad| named) and the parameters
+   after one Adam step, at the TRAIN_CPU_* bars;
 43. LSVC-TPU train at 256x256, GOP 16, float32 (tools/train_tiny.py's
    lsvctpu256_hd rung): 20 steps of make_train_step from
    hd_lsvctpuf2_l2, one synth_gop_multi clip a step from default_rng(0),
@@ -205,7 +211,36 @@ Phases, each timed on its own line:
 45. backward kernel timing on the captured step's inputs: each backward
    kernel's ms per step's launches (warm, and with the L2 flushed), its
    byte bound at 3.35 TB/s, the plain vjp's time and, for flow_warp,
-   F.grid_sample's forward and backward on the same inputs.
+   F.grid_sample's forward and backward on the same inputs;
+46. ELFVC-SP-TPU and ELFVC-SP training, card vs CPU: one step of each at
+   full width (seeded_flat(name, 0), sp_stage 1 as cli/train.py builds
+   them) in float32 at 64x128, GOP 4, as phase 42, at its bars, their
+   gradient norms printed (JAX's ELFVC-SP at its own random init is
+   degenerate, ~1e30); then, as a control, the card's step once more with
+   the pixel warps' backward kernels' flow gradient zeroed, which must
+   fail the gradient bar at the motion decoder;
+47. ELFVC-SP, cli/train.py's default codec, on its default batch of 4
+   clips x 7 frames x 256x256, float32, full width from seeded_flat: 10
+   steps of the default stage, then 3 steps each of
+   make_elfvc_stage_optimizer's stages 0, 1 and 2; per stage ms/step by
+   CUDA events (median and range), host enqueue, peak GiB, and loss, PSNR,
+   bpp and grad_norm of the first and last step; the launches exact and
+   stated beforehand (each P-frame 2 pixel_warp and 2 flow-only backward
+   kernels), no plain warp or plain vjp called, every parameter outside a
+   stage's groups bit for bit unchanged through it; the stage masking on
+   unit gradients (JAX's test); then one step with the pixel warps'
+   backward inputs captured;
+48. SSF-TPU and ELFVC-SP-TPU at 256x256, GOP 16, float32 (phase 43's
+   shape), 10 steps each from seeded_flat, the same readings: each
+   P-frame 1 (SSF-TPU) or 2 (ELFVC-SP-TPU) pixel_warp at C = 15 and
+   pixel_warp_s2d_sflow, each with a flow-only backward kernel; the
+   parameters outside the keyframe's transforms moved; one step's
+   backward inputs captured;
+49. the pixel warps' backward kernels timed on those inputs, by path:
+   ms per step's launches, warm and L2-flushed, against the byte bound,
+   the plain vjp and, for pixel_warp, F.grid_sample's forward and backward
+   on the prepared grid (pixel_warp_s2d, which no codec calls, on the
+   sflow's inputs with the flow unpacked to full resolution).
 
 Along the way it prints a JSON line of MCVC's numbers, one of the stock
 codecs', one of the DVC family's, one of the training numbers and one of
@@ -216,8 +251,10 @@ LSVC-TPU's rollout for the two flow warps, SSF-TPU's timing and
 ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's MCVC-IA and
 SSF-Official timings, flow_warp's on DVC's, LSVC-128's and -RW's inputs
 and flow_warp_s2d's on -HF's stand under ``timing_by_path``; and the two
-backward kernels, their launches those of phase 43's 20 training steps,
-their times those of phase 45),
+backward kernels of the flow warps, their launches those of phase 43's 20
+training steps, their times those of phase 45; the three of the pixel
+warps, their launches those of phases 47 and 48, their times those of
+phase 49: ten kernels in all),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -303,8 +340,14 @@ REPLACES = {
     # the custom_vjp backwards (the vjp of the XLA exact path)
     "flow_warp_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:522",
     "flow_warp_s2d_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:567",
+    "pixel_warp_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:594",
+    "pixel_warp_s2d_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:642",
+    "pixel_warp_s2d_sflow_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:698",
 }
-BACKWARD = {"flow_warp_backward": "flow_warp", "flow_warp_s2d_backward": "flow_warp_s2d"}
+FLOW_BACKWARD = {"flow_warp_backward": "flow_warp", "flow_warp_s2d_backward": "flow_warp_s2d"}
+PIXEL_BACKWARD = {"pixel_warp_backward": "pixel_warp", "pixel_warp_s2d_backward": "pixel_warp_s2d",
+                  "pixel_warp_s2d_sflow_backward": "pixel_warp_s2d_sflow"}
+BACKWARD = {**FLOW_BACKWARD, **PIXEL_BACKWARD}
 # LSVC-TPU training on the card (train_tiny.py's lsvctpu256_hd rung, and
 # cli/train.py's default batch): full width, float32, hd_lsvctpuf2_l2
 TRAIN_SIZE, TRAIN_GOP, TRAIN_STEPS, TRAIN_LR = 256, 16, 20, 1e-4
@@ -325,6 +368,22 @@ TRAIN_CPU_METRIC_REL, TRAIN_CPU_GRAD_REL = 1e-4, 5e-3
 def train_launches_of(layers: int) -> dict:
     return {"flow_warp": 4, "flow_warp_s2d": layers, "flow_warp_backward": 3,
             "flow_warp_s2d_backward": layers}
+# SSF and ELFVC training on the card, float32, full width from
+# seeded_flat(name, 0), the ELFVC-SP forms at sp_stage 1 (cli/train.py's):
+# ELFVC-SP's default stage, then 3 steps of each make_elfvc_stage_optimizer
+# stage (JAX's staged recipe, tools/train_tiny.py:train_elfvc, shortened);
+# the -TPU forms at phase 43's 256x256, GOP 16
+ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 10, 3, 10
+DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
+# the launches of an SSF or ELFVC training step over ``p_frames`` P-frames:
+# each warp call a forward and a flow-only backward (the warped reference
+# is detached, the flow comes from the parameters); stock SSF warps its
+# volume once a P-frame and ELFVC twice (pixel_warp at C = 18), the -TPU
+# forms' pyramid warp is one pixel_warp (C = 15) and one sflow warp
+def pixel_train_launches(name: str, p_frames: int) -> dict:
+    per = 2 if name.startswith("ELFVC") else 1
+    warps = ("pixel_warp", "pixel_warp_s2d_sflow") if "-TPU" in name else ("pixel_warp",)
+    return {f"{k}{part}": per * p_frames for k in warps for part in ("", "_backward")}
 LSVC_KERNELS = ("flow_warp", "flow_warp_s2d")
 SSF_KERNELS = ("pixel_warp", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
 S2D_KERNELS = ("flow_warp_s2d", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
@@ -816,20 +875,22 @@ def main() -> int:
                     f"{atol:.0e} x max |grad|); launches {n}")
     torch.use_deterministic_algorithms(False)
 
-    def hold_backward(bname, img, flow, g, need_img, what, dname="float32"):
+    def hold_backward(bname, img, flow, g, need_img, what, dname="float32", need_flow=True):
         """A backward kernel against its plain version (the plain forward's
-        vjp) on the card, at GRAD_TOL: NaN where the plain vjp has NaN; the
-        image gradient None when not asked for. A bfloat16 kernel sums in
+        vjp) on the card, at GRAD_TOL: NaN where the plain vjp has NaN; a
+        gradient None when not asked for. A bfloat16 kernel sums in
         float32 and rounds once: it is held to the plain vjp of the same
-        inputs widened to float32 (exactly), rounded to bfloat16, since the
-        bfloat16 plain vjp scatter-adds bfloat16 terms (random +-200 px
+        inputs widened to float32 (exactly), rounded to bfloat16 (the flow
+        gradient to the flow's dtype: float32 for the pixel warps), since
+        the bfloat16 plain vjp scatter-adds bfloat16 terms (random +-200 px
         flows pile hundreds onto a border pixel). Returns the max abs error
         over the two gradients."""
-        got = backward_kernels[bname](img, flow, g, need_img, True)
-        want = [None if w is None else w.to(img.dtype) for w in backward_plains[bname](
-            img.float(), flow.float(), g.float(), need_img, True)]
+        got = backward_kernels[bname](img, flow, g, need_img, need_flow)
+        want = [None if w is None else w.to(t) for w, t in zip(backward_plains[bname](
+            img.float(), flow.float(), g.float(), need_img, need_flow), (img.dtype, flow.dtype))]
         torch.cuda.synchronize()
-        require((got[0] is None) == (not need_img), f"{what}: image gradient {got[0] is None}")
+        require((got[0] is None) == (not need_img) and (got[1] is None) == (not need_flow),
+                f"{what}: gradients given {[t is not None for t in got]}")
         rtol, atol = GRAD_TOL[dname]
         worst = 0.0
         for t, w in zip(got, want):
@@ -848,7 +909,7 @@ def main() -> int:
         return worst
 
     with phase("backward kernels vs the plain vjp: ragged shapes, smooth, random, mixed and "
-               "NaN flows, image gradient on and off"):
+               "NaN flows, image and flow gradient each on and off"):
         log(f"tolerance GRAD_TOL {GRAD_TOL} (rtol, atol x max(max |grad|, 1)): the image "
             f"gradient is a scatter-add of float32 atomics whose order changes from run to "
             f"run, so it is not bit-reproducible; a bfloat16 kernel is held to the float32 "
@@ -859,7 +920,7 @@ def main() -> int:
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[1]
                 for pattern, make in flows.items():
-                    for need_img in (True, False):
+                    for need_img, need_flow in ((True, True), (False, True), (True, False)):
                         worst = 0.0
                         for shape in ragged[name]:
                             img, flow = tiled_case(gen, name, shape, make, dtype)
@@ -867,11 +928,12 @@ def main() -> int:
                             kw.reset_launches()
                             worst = max(worst, hold_backward(
                                 bname, img, flow, g, need_img,
-                                f"{bname} {dname} {pattern} {shape} image grad {need_img}",
-                                dname))
+                                f"{bname} {dname} {pattern} {shape} image grad {need_img} "
+                                f"flow grad {need_flow}", dname, need_flow))
                             require(kw.LAUNCHES[bname] == 1, f"{bname}: {kw.LAUNCHES}")
-                        log(f"{bname} {dname} {pattern} flows on {len(ragged[name])} shapes, "
-                            f"image gradient {'on' if need_img else 'off'}: max abs {worst:.3e} "
+                        log(f"{bname} {dname} {pattern} flows on {len(ragged[name])} shapes "
+                            f"{ragged[name]}, image gradient {'on' if need_img else 'off'}, "
+                            f"flow gradient {'on' if need_flow else 'off'}: max abs {worst:.3e} "
                             f"(GRAD_TOL {GRAD_TOL[dname]})")
                 img, flow = tiled_case(gen, name, (1, 3, 64, 512), smooth_flow, dtype,
                                        nan_at=((5, 7), (37, 300)))
@@ -2178,45 +2240,82 @@ def main() -> int:
         return {n: p.grad if p.grad is not None else torch.zeros_like(p)
                 for n, p in params.items()}
 
-    training = {"card": smi}
-    with phase("lsvc-tpu training step, card vs cpu, 64x128 GOP4 f32"):
-        # the clip of phase 4; the same noise on both devices (drawn on the
-        # host from one seed, copied to the card)
-        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
-        small = nchw_clip(clip)
+    from fastvideocodec_torch.tools.train_parity import CardBranches, own_gaps
+
+    def step_card_vs_cpu(label, make_spec, small, control=None):
+        """One training step of ``make_spec(device)`` (spec, params) on the
+        card and on the CPU on the clip ``small``, the same noise on both
+        devices (drawn on the host from one seed, copied to the card), the
+        CPU on the card's ReLU branches (tools/train_parity.py's
+        CardBranches): the loss and metrics, each parameter's gradient and
+        the parameters after one Adam step, at the TRAIN_CPU_* bars.
+        ``control`` (name: a launcher to put in its place) runs the card's
+        step once more with those launchers, and that step's gradients
+        must fail the bar. Returns the numbers."""
         cfg = TrainConfig(learning_rate=TRAIN_LR)
-        res = {}
-        for device in ("cuda", "cpu"):
-            spec, params = train_spec(device)
-            loss, m = gop_loss(spec, small.to(device), True, UniformNoise(0, device="cpu"), cfg)
-            loss.backward()
+
+        def run(device, replay=None, launchers=None):
+            saved = {n: getattr(kw, n) for n in launchers or {}}
+            try:
+                for n, fn in (launchers or {}).items():
+                    setattr(kw, n, fn)
+                spec, params = make_spec(device)
+                with CardBranches(replay) as branches:
+                    loss, m = gop_loss(spec, small.to(device), True,
+                                       UniformNoise(0, device="cpu"), cfg)
+                    loss.backward()
+            finally:
+                for n, fn in saved.items():
+                    setattr(kw, n, fn)
             grads = grads_of(params)
             tx = make_optimizer(cfg)
             updates, _ = tx.update(grads, tx.init(params), params)
             apply_updates(params, updates)
-            res[device] = ({k: float(v.detach()) for k, v in m.items()},
-                           {n: g.detach().float().cpu() for n, g in grads.items()},
-                           {n: p.detach().cpu() for n, p in params.items()})
-            del spec, params, grads, updates, loss
-        (mg, gg, pg), (mc, gc, pc) = res["cuda"], res["cpu"]
+            return (branches, {k: float(v.detach()) for k, v in m.items()},
+                    {n: g.detach().float().cpu() for n, g in grads.items()},
+                    {n: p.detach().cpu() for n, p in params.items()})
+
+        card, mg, gg, pg = run("cuda")
+        cpu, mc, gc, pc = run("cpu", replay=card.masks)
         metric_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
-        grad_rel, grad_name = max(
-            ((gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30), n)
-            for n in gc)
+        norms = [float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values())))
+                 for grads in (gg, gc)]
+        gaps = own_gaps(gg, gc)
+        grad_rel, grad_name = max((v, n) for n, v in gaps.items())
         param_abs, param_name = max(((pg[n] - pc[n]).abs().max().item(), n) for n in pc)
-        log(f"training step card vs cpu ({smi}): loss card {mg['loss']:.6f} cpu "
+        log(f"{label} gradient norm card {norms[0]:.6e} cpu {norms[1]:.6e} (degenerate, as "
+            f"JAX's ELFVC-SP at its own random init, from {DEGENERATE_GRAD_NORM:.0e}); the CPU "
+            f"on the card's branches: {cpu.flips} of "
+            f"{sum(m.numel() for m in card.masks)} activation elements in "
+            f"{len(card.masks)} calls took the other branch on the CPU")
+        log(f"{label} training step card vs cpu ({smi}): loss card {mg['loss']:.6f} cpu "
             f"{mc['loss']:.6f}; metrics max rel {max(metric_rel.values()):.2e} "
             f"{ {k: f'{v:.1e}' for k, v in metric_rel.items()} } (tolerance "
             f"{TRAIN_CPU_METRIC_REL}); worst gradient max abs / max |grad| {grad_rel:.2e} at "
             f"{grad_name} (tolerance {TRAIN_CPU_GRAD_REL}); parameters after one Adam step "
             f"max abs {param_abs:.2e} at {param_name} (tolerance 2 lr + 1e-6 = "
             f"{2 * TRAIN_LR + 1e-6:.2e}: a gradient near 0 of another sign moves 2 lr)")
-        require(max(metric_rel.values()) <= TRAIN_CPU_METRIC_REL, "training metrics card vs cpu")
-        require(grad_rel <= TRAIN_CPU_GRAD_REL, f"gradient card vs cpu at {grad_name}")
-        require(param_abs <= 2 * TRAIN_LR + 1e-6, f"parameters card vs cpu at {param_name}")
-        training["card_vs_cpu"] = {"metric_rel": metric_rel, "grad_rel": grad_rel,
-                                   "grad_rel_at": grad_name, "param_abs": param_abs}
-        del res, gg, gc, pg, pc
+        require(max(metric_rel.values()) <= TRAIN_CPU_METRIC_REL,
+                f"{label} training metrics card vs cpu")
+        require(grad_rel <= TRAIN_CPU_GRAD_REL, f"{label} gradient card vs cpu at {grad_name}")
+        require(param_abs <= 2 * TRAIN_LR + 1e-6,
+                f"{label} parameters card vs cpu at {param_name}")
+        out = {"metric_rel": metric_rel, "grad_rel": grad_rel, "grad_rel_at": grad_name,
+               "param_abs": param_abs, "grad_norm": norms, "relu_flips": cpu.flips}
+        if control:
+            control_rel, control_at = max((v, n) for n, v in own_gaps(run("cuda", None, control)[2],
+                                                                      gc).items())
+            log(f"{label} control, {sorted(control)} replaced: worst gradient gap "
+                f"{control_rel:.2e} at {control_at} (must exceed {TRAIN_CPU_GRAD_REL})")
+            require(control_rel > TRAIN_CPU_GRAD_REL, f"{label}: the control passed the bar")
+            out["control_grad_rel"], out["control_at"] = control_rel, control_at
+        return out
+
+    training = {"card": smi}
+    with phase("lsvc-tpu training step, card vs cpu, 64x128 GOP4 f32"):
+        # the clip of phase 4
+        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+        training["card_vs_cpu"] = step_card_vs_cpu("lsvc-tpu", train_spec, nchw_clip(clip))
 
     def count_calls(table, calls):
         """``table``'s functions wrapped to count their calls in ``calls``."""
@@ -2226,6 +2325,27 @@ def main() -> int:
                 return fn(*args, **kwargs)
             return wrapped
         return {name: counted(name, fn) for name, fn in table.items()}
+
+    @contextlib.contextmanager
+    def capture_backward(captured):
+        """Record a clone of the inputs of each backward kernel named in
+        ``captured`` (by launch-count name), launched as the run goes."""
+        saved = {b: getattr(kw, f"launch_{b}") for b in captured}
+
+        def capture(bname):
+            def wrapped(img, flow, grad, need_img=True, need_flow=True):
+                captured[bname].append((img.clone(), flow.clone(), grad.clone(), need_img,
+                                        need_flow))
+                return saved[bname](img, flow, grad, need_img, need_flow)
+            return wrapped
+
+        for b in captured:
+            setattr(kw, f"launch_{b}", capture(b))
+        try:
+            yield
+        finally:
+            for b in captured:
+                setattr(kw, f"launch_{b}", saved[b])
 
     def train_run(label, step_fn, params, opt_state, batches, noise):
         """Every step of ``batches`` timed: CUDA events around each step,
@@ -2294,11 +2414,11 @@ def main() -> int:
         noise = UniformNoise(0)
         params, opt_state, metrics, times, enqueue, train_launches, plain_calls, peak = \
             train_run("train", step_fn, params, init_fn(params), clips[:TRAIN_STEPS], noise)
-        per_step = train_launches_of(spec.module.schedule(TRAIN_GOP - 1).depth)
-        want = {**zero_counts, **{k: n * TRAIN_STEPS for k, n in per_step.items()}}
+        per_lsvc_step = train_launches_of(spec.module.schedule(TRAIN_GOP - 1).depth)
+        want = {**zero_counts, **{k: n * TRAIN_STEPS for k, n in per_lsvc_step.items()}}
         log(f"launches in {TRAIN_STEPS} steps: {train_launches}; a step: "
             f"{ {k: v / TRAIN_STEPS for k, v in train_launches.items() if v} } (want "
-            f"{per_step}); plain warp calls {plain_calls} (want none)")
+            f"{per_lsvc_step}); plain warp calls {plain_calls} (want none)")
         require(train_launches == want, f"training launches {train_launches}, want {want}")
         require(not plain_calls, f"the training steps called plain warps: {plain_calls}")
         moved = sum(not torch.equal(p.detach(), start_params[n]) for n, p in params.items())
@@ -2309,23 +2429,9 @@ def main() -> int:
         del start_params
 
         # one more step with the backward kernels' inputs captured
-        captured = {b: [] for b in BACKWARD}
-        saved = {b: backward_kernels[b] for b in BACKWARD}
-
-        def capture(bname):
-            def wrapped(img, flow, grad, need_img=True, need_flow=True):
-                captured[bname].append((img.clone(), flow.clone(), grad.clone(), need_img,
-                                        need_flow))
-                return saved[bname](img, flow, grad, need_img, need_flow)
-            return wrapped
-
-        for b in BACKWARD:
-            setattr(kw, f"launch_{b}", capture(b))
-        try:
+        captured = {b: [] for b in FLOW_BACKWARD}
+        with capture_backward(captured):
             step_fn(params, opt_state, clips[TRAIN_STEPS], noise)
-        finally:
-            for b in BACKWARD:
-                setattr(kw, f"launch_{b}", saved[b])
         del spec, params, opt_state, clips
         torch.cuda.empty_cache()
 
@@ -2411,9 +2517,9 @@ def main() -> int:
 
     with phase("backward kernel timing (f32, one training step's launches)"):
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-        for bname, name in BACKWARD.items():
+        for bname, name in FLOW_BACKWARD.items():
             inputs = captured[bname]
-            require(len(inputs) == per_step[bname],
+            require(len(inputs) == per_lsvc_step[bname],
                     f"{bname}: captured {len(inputs)} launches")
             r = rows[bname] = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                "launches": []}
@@ -2440,8 +2546,204 @@ def main() -> int:
                 f"library {lib[bname]} "
                 f"({'F.grid_sample forward + backward' if lib[bname] is not None else 'none'})")
             log(f"{bname} per launch, img shape: warm / L2-flushed ms: {r['launches']}")
-        del captured, flush
-    training["backward_timing"] = {b: {**rows[b], "library_ms": lib[b]} for b in BACKWARD}
+        del captured
+    training["backward_timing"] = {b: {**rows[b], "library_ms": lib[b]} for b in FLOW_BACKWARD}
+
+    # ---- training: SSF and ELFVC at full width, float32 ----
+    from fastvideocodec_torch.train import make_elfvc_stage_optimizer
+
+    def seeded_train_spec(name, device):
+        """``name`` at full width on seeded_flat(name, 0) (sp_stage 1 for the
+        ELFVC-SP forms, as cli/train.py builds them), readied for training:
+        (spec, params)."""
+        spec = get_codec_model(name, device=device)
+        load_flat(spec.module, seeded_flat(name, 0))
+        return spec, ready_for_training(spec)
+
+    def zero_flow_gradient(launch):
+        """``launch`` (a pixel warp's backward launcher) with its flow
+        gradient zeroed: the control of phase 46."""
+        def zeroed(img, flow, grad, need_img, need_flow):
+            grad_img, grad_flow = launch(img, flow, grad, need_img, need_flow)
+            return grad_img, None if grad_flow is None else torch.zeros_like(grad_flow)
+        return zeroed
+
+    with phase("elfvc-sp-tpu and elfvc-sp training step, card vs cpu, 64x128 GOP4 f32"):
+        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+        control = {f"launch_{b}": zero_flow_gradient(getattr(kw, f"launch_{b}"))
+                   for b in PIXEL_BACKWARD}
+        training["elfvc_card_vs_cpu"] = {
+            name: step_card_vs_cpu(name, lambda device, name=name: seeded_train_spec(name, device),
+                                   nchw_clip(clip), control)
+            for name in ("ELFVC-SP-TPU", "ELFVC-SP")}
+
+    pixel_captured = {}  # path: {backward name: one training step's inputs}
+    pixel_launches = {k: 0 for k in kw.LAUNCHES}  # over the runs of phases 47 and 48
+    pixel_per_step = {}  # path: launches of one training step
+
+    def masked_by_stage(params) -> dict:
+        """JAX's masking check (tests/test_models.py, TestStagedTraining) on
+        unit gradients: each stage's groups get nonzero updates, every other
+        parameter none. Returns the trainable count by stage."""
+        out = {}
+        for stage in (0, 1, 2):
+            tx = make_elfvc_stage_optimizer(TrainConfig(learning_rate=TRAIN_LR), stage)
+            ones = {n: torch.ones_like(p) for n, p in params.items()}
+            updates, _ = tx.update(ones, tx.init(params), params)
+            trainable = {n for n in params if tx.label(n) != "frozen"}
+            require(set(updates) == trainable and all(
+                float(u.abs().min()) > 0 for u in updates.values()), f"stage {stage} masking")
+            require(any(".y_predictor." in n for n in trainable), f"stage {stage}: no SPnet")
+            out[stage] = len(trainable)
+        return out
+
+    with phase(f"elfvc-sp train {BATCH_CLIPS} x {BATCH_GOP} x {TRAIN_SIZE}x{TRAIN_SIZE} f32: "
+               f"default stage {ELFVC_TRAIN_STEPS} steps, stages 0, 1, 2 {ELFVC_STAGE_STEPS} "
+               f"steps each"):
+        # cli/train.py's default codec and batch, then JAX's staged recipe
+        # shortened; one synth_gop_multi clip an item from default_rng(2)
+        rng = np.random.default_rng(2)
+        runs = [("default", None, ELFVC_TRAIN_STEPS)] + [
+            (f"stage {k}", k, ELFVC_STAGE_STEPS) for k in (0, 1, 2)]
+        batches = [torch.stack([nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=BATCH_GOP))
+                                for _ in range(BATCH_CLIPS)]).cuda()
+                   for _ in range(sum(n for _, _, n in runs) + 1)]
+        spec, params = seeded_train_spec("ELFVC-SP", "cuda")
+        cfg = TrainConfig(learning_rate=TRAIN_LR)
+        noise = UniformNoise(2)
+        per_step = pixel_per_step["elfvc-sp"] = pixel_train_launches(
+            "ELFVC-SP", BATCH_CLIPS * (BATCH_GOP - 1))
+        log(f"elfvc-sp launches a step, stated beforehand: {per_step}")
+        elfvc_train, at = {}, 0
+        for label, stage, n in runs:
+            tx = make_optimizer(cfg) if stage is None else make_elfvc_stage_optimizer(cfg, stage)
+            init_fn, step_fn = make_train_step(spec, cfg, optimizer=tx, batched=True)
+            before = {k: p.detach().clone() for k, p in params.items()}
+            params, _, metrics, times, enqueue, launches, plain_calls, peak = train_run(
+                f"elfvc-sp {label}", step_fn, params, init_fn(params), batches[at:at + n], noise)
+            at += n
+            want = {**zero_counts, **{k: v * n for k, v in per_step.items()}}
+            require(launches == want, f"elfvc-sp {label} launches {launches}, want {want}")
+            require(not plain_calls, f"elfvc-sp {label} called plain warps: {plain_calls}")
+            frozen = [k for k in params if tx.label(k) == "frozen"]
+            require((stage is None) == (not frozen), f"elfvc-sp {label}: {len(frozen)} frozen")
+            thawed = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+            require(not thawed, f"elfvc-sp {label}: frozen parameters moved: {thawed}")
+            moved = sum(not torch.equal(p.detach(), before[k]) for k, p in params.items())
+            degenerate = max(m["grad_norm"] for m in metrics) >= DEGENERATE_GRAD_NORM
+            for k, v in launches.items():
+                pixel_launches[k] += v
+            elfvc_train[label] = {**run_summary(f"elfvc-sp {label}", metrics, times, enqueue,
+                                                peak, 2 if n > ELFVC_STAGE_STEPS else 1),
+                                  "launches": launches, "moved": moved, "frozen": len(frozen),
+                                  "degenerate": degenerate}
+            log(f"elfvc-sp {label}: launches {launches}; plain warp calls none; parameters "
+                f"moved {moved} of {len(params)}, {len(frozen)} frozen and bit for bit "
+                f"unchanged; degenerate (grad_norm from {DEGENERATE_GRAD_NORM:.0e}): {degenerate}")
+            del before
+        elfvc_train["stage_masking_unit_grads"] = masked_by_stage(params)
+        log(f"stage masking on unit gradients (trainable parameters by stage): "
+            f"{elfvc_train['stage_masking_unit_grads']} of {len(params)}")
+        training["elfvc_sp_4x7x256"] = elfvc_train
+        # one more step with the backward kernels' inputs captured
+        captured = pixel_captured["elfvc-sp"] = {b: [] for b in PIXEL_BACKWARD}
+        init_fn, step_fn = make_train_step(spec, cfg, batched=True)
+        with capture_backward(captured):
+            step_fn(params, init_fn(params), batches[-1], noise)
+        del spec, params, batches
+        torch.cuda.empty_cache()
+
+    with phase(f"ssf-tpu and elfvc-sp-tpu train {TRAIN_SIZE}x{TRAIN_SIZE} GOP{TRAIN_GOP} f32, "
+               f"{TPU_FORM_STEPS} steps each"):
+        rng = np.random.default_rng(3)
+        clips = [nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=TRAIN_GOP)).cuda()
+                 for _ in range(TPU_FORM_STEPS + 1)]
+        cfg = TrainConfig(learning_rate=TRAIN_LR)
+        for name in ("SSF-TPU", "ELFVC-SP-TPU"):
+            label = name.lower()
+            spec, params = seeded_train_spec(name, "cuda")
+            start = {k: p.detach().clone() for k, p in params.items()}
+            init_fn, step_fn = make_train_step(spec, cfg)
+            noise = UniformNoise(3)
+            per_step = pixel_per_step[label] = pixel_train_launches(name, TRAIN_GOP - 1)
+            log(f"{label} launches a step, stated beforehand: {per_step}")
+            params, opt_state, metrics, times, enqueue, launches, plain_calls, peak = train_run(
+                label, step_fn, params, init_fn(params), clips[:TPU_FORM_STEPS], noise)
+            want = {**zero_counts, **{k: v * TPU_FORM_STEPS for k, v in per_step.items()}}
+            require(launches == want, f"{label} launches {launches}, want {want}")
+            require(not plain_calls, f"{label} called plain warps: {plain_calls}")
+            for k, v in launches.items():
+                pixel_launches[k] += v
+            # the keyframe's transforms take no part in a rollout
+            coded = [k for k in params if not k.startswith("img_")]
+            moved = sum(not torch.equal(params[k].detach(), start[k]) for k in coded)
+            log(f"{label}: launches {launches}; plain warp calls none; parameters moved {moved} "
+                f"of the {len(coded)} outside the keyframe's transforms")
+            require(moved >= 0.9 * len(coded), f"{label}: the parameters did not move")
+            training[f"{label}_256_gop16"] = {**run_summary(label, metrics, times, enqueue, peak,
+                                                            2),
+                                              "launches": launches, "moved": moved}
+            captured = pixel_captured[label] = {b: [] for b in PIXEL_BACKWARD}
+            with capture_backward(captured):
+                step_fn(params, opt_state, clips[TPU_FORM_STEPS], noise)
+            del spec, params, opt_state, start
+        del clips
+        torch.cuda.empty_cache()
+
+    with phase("pixel warps' backward kernel timing (f32, one training step's launches)"):
+        # pixel_warp_s2d has no caller: time it on the sflow's inputs, its
+        # phase flow unpacked to full resolution
+        for path in ("ssf-tpu", "elfvc-sp-tpu"):
+            c = pixel_captured[path]
+            c["pixel_warp_s2d_backward"] = [
+                (img, _full_res_flow(flow).contiguous(), grad, ni, nf)
+                for img, flow, grad, ni, nf in c["pixel_warp_s2d_sflow_backward"]]
+        # the kernel's own row: ELFVC-SP's (cli/train.py's default) for
+        # pixel_warp, ELFVC-SP-TPU's for the s2d forms; the others by path
+        top_path = {"pixel_warp_backward": "elfvc-sp", "pixel_warp_s2d_backward": "elfvc-sp-tpu",
+                    "pixel_warp_s2d_sflow_backward": "elfvc-sp-tpu"}
+        pixel_timing = {b: {} for b in PIXEL_BACKWARD}
+        for path, captured in pixel_captured.items():
+            for bname, inputs in captured.items():
+                # pixel_warp_s2d_backward's inputs are the sflow's, unpacked
+                want_n = (len(inputs) if bname == "pixel_warp_s2d_backward"
+                          else pixel_per_step[path].get(bname, 0))
+                require(len(inputs) == want_n, f"{bname} on {path}: captured {len(inputs)}")
+                if not inputs:
+                    continue
+                name = PIXEL_BACKWARD[bname]
+                require(all(not ni and nf for *_, ni, nf in inputs),
+                        f"{bname} on {path}: an image gradient was asked for")
+                r = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0 if name == "pixel_warp" else None,
+                     "launches": len(inputs),
+                     "shape": f"{tuple(inputs[0][0].shape)} flow {tuple(inputs[0][1].shape)}"}
+                for img, flow, grad, need_img, need_flow in inputs:
+                    hold_backward(bname, img, flow, grad, need_img, f"{bname} on {path}'s inputs",
+                                  need_flow=need_flow)
+                    args = (img, flow, grad, need_img, need_flow)
+                    r["ms"] += cuda_ms(torch, backward_kernels[bname], *args, iters=10)
+                    r["cold_ms"] += cold_ms(torch, backward_kernels[bname], *args, flush=flush,
+                                            reps=3)
+                    r["plain_ms"] += cuda_ms(torch, backward_plains[bname], *args, iters=2,
+                                             warmup=1)
+                    r["bound_ms"] += backward_bound_ms(img, flow, need_img, need_flow)
+                    if name == "pixel_warp":
+                        r["library_ms"] += cuda_ms(torch, grid_sample_fb, img, pixel_grid(flow),
+                                                   grad, need_img, need_flow, iters=10)
+                pixel_timing[bname][path] = r
+                library = ("F.grid_sample forward + backward, prepared grid"
+                           if name == "pixel_warp" else "none: no single PyTorch call")
+                log(f"{bname} on {path}'s training step ({smi}): {r['launches']} launches of "
+                    f"{r['shape']}, flow gradient only: kernel {r['ms']:.4f} ms (L2 flushed "
+                    f"before each: {r['cold_ms']:.4f}), bound {r['bound_ms']:.4f} (bytes at "
+                    f"3.35 TB/s), plain vjp {r['plain_ms']:.4f}, library {r['library_ms']} "
+                    f"({library})")
+        for bname, path in top_path.items():
+            rows[bname] = pixel_timing[bname][path]
+            lib[bname] = rows[bname]["library_ms"]
+        del pixel_captured, flush
+    training["pixel_backward_timing"] = pixel_timing
     log(json.dumps({"training": training}))
 
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
@@ -2495,21 +2797,27 @@ def main() -> int:
         }
         for name in kernels
     ] + [
-        # the backward kernels: launches over the LSVC-TPU training run (its
-        # 20 steps), times per step's launches on one step's inputs
+        # the backward kernels: launches over the training runs (the flow
+        # warps' over LSVC-TPU's 20 steps, the pixel warps' over phases 47
+        # and 48), times per step's launches on one step's inputs
         {
             "name": bname,
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": REPLACES[bname],
-            "launches": train_launches[bname],
+            "launches": (train_launches if bname in FLOW_BACKWARD else pixel_launches)[bname],
             "max_abs_err": max_err[bname],
             "ms": rows[bname]["ms"],
             "plain_ms": rows[bname]["plain_ms"],
             "bound_ms": rows[bname]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": lib[bname],
-            "launches_per_training_step": per_step[bname],
+            "launches_per_training_step": (
+                per_lsvc_step[bname] if bname in FLOW_BACKWARD
+                else {path: n.get(bname, 0) for path, n in pixel_per_step.items()}),
+            **({"timing_by_path": {path: {k: t[k] for k in keys}
+                                   for path, t in pixel_timing[bname].items()}}
+               if bname in PIXEL_BACKWARD else {}),
         }
         for bname in BACKWARD
     ]}

@@ -13,10 +13,10 @@ Usage:
   python -m fastvideocodec_torch.cli.train --codec LSVC-TPU \\
       --dataset-dir /data/vimeo_septuplet --epochs 10
 
-LSVC trains in float32 (every LSVC name); the other families, ``--bf16``,
-``--loss-type M``, ``--evaluate`` and ``--evolve`` wait for later slices
-(ROADMAP.md queue 1, items 7 and 8). The default codec stays the JAX
-CLI's ELFVC-SP, whose training is not ported yet: pass ``--codec``.
+The LSVC, SSF and ELFVC families train in float32 (every name of them;
+the default is the JAX CLI's ELFVC-SP); MCVC, DVC, RLVC and Base,
+``--bf16``, ``--loss-type M``, ``--evaluate`` and ``--evolve`` wait for
+later slices (ROADMAP.md queue 1, items 7 and 8).
 """
 
 from __future__ import annotations

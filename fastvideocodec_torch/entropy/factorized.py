@@ -1,15 +1,15 @@
-"""Factorized entropy bottleneck at eval time, ported from
+"""Factorized entropy bottleneck, ported from
 fastvideocodec_tpu/entropy/factorized.py (Balle et al. 2018, appendix 6.1).
 
 A per-channel non-parametric cumulative F(x) of K = 5 monotone layers.
-Eval rounds to the channel median; the likelihood is the sigmoid
-difference of the cumulative logits with the sign trick, bounded below at
-1e-9. Parameters keep the flax names and shapes (``matrix_i``, ``bias_i``,
-``factor_i``, ``quantiles``), so checkpoints load with no renaming. Computed
-in float32 whatever the activation dtype. ``aux_loss`` pins the quantiles
+Eval rounds to the channel median; training adds U(-0.5, 0.5) noise from
+an explicit source to x itself (the medians take no part, so no gradient
+reaches them). The likelihood is the sigmoid difference of the cumulative
+logits with the sign trick, bounded below at 1e-9. Parameters keep the
+flax names and shapes (``matrix_i``, ``bias_i``, ``factor_i``,
+``quantiles``), so checkpoints load with no renaming. Computed in float32
+whatever the activation dtype. ``aux_loss`` pins the quantiles
 to the tails and the median of F; only the quantiles receive its gradient.
-The training forward (noise in place of the round) waits for the families
-that train through it.
 
 The real-bits coder's per-channel CDF tables are host numpy in float64
 (``build_cdf_tables``), a copy of the JAX package's function with the same
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fastvideocodec_torch.ops.math import LIKELIHOOD_LOWER_BOUND, lower_bound
+from fastvideocodec_torch.ops.math import LIKELIHOOD_LOWER_BOUND, lower_bound, quantize_noise
 
 FILTERS = (3, 3, 3, 3)
 PRECISION = 16  # the coder's tables sum to 2^16
@@ -80,9 +80,11 @@ class EntropyBottleneck(nn.Module):
         medians = self.quantiles[:, 0, 1][None, :, None, None]
         return torch.round(x.float() - medians) + medians
 
-    def forward(self, x: torch.Tensor):
-        """x [B, C, H, W] -> (x_hat, likelihoods), both float32 [B, C, H, W]."""
-        x_hat = self.dequantize(x)
+    def forward(self, x: torch.Tensor, training: bool = False, noise=None):
+        """x [B, C, H, W] -> (x_hat, likelihoods), both float32 [B, C, H, W]:
+        x_hat the round around the medians, or in training x + noise(x)
+        (``noise`` an ``ops.math.UniformNoise``-like source)."""
+        x_hat = quantize_noise(x.float(), noise) if training else self.dequantize(x)
         # channel-major flattening for the per-channel cumulative
         v = x_hat.transpose(0, 1).reshape(self.channels, 1, -1)
         lower = self._logits_cumulative(v - 0.5)

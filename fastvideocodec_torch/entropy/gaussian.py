@@ -41,13 +41,19 @@ class GaussianConditional(ScaleTable):
     """Round around the means, the interval likelihood, and the coder's
     scale table and CDF tables."""
 
-    def __call__(self, x: torch.Tensor, scales: torch.Tensor, means: torch.Tensor):
+    def __call__(self, x: torch.Tensor, scales: torch.Tensor, means: torch.Tensor,
+                 training: bool = False, noise=None):
         """(x_hat, likelihoods): x_hat = round(x - means) + means in x's
         dtype, the symbol rounded once in that dtype as the decoder receives
         it; the likelihood of that same symbol under N(means, scales^2),
-        computed in float32 whatever the activation dtype."""
-        q = om.quantize(x - means)
+        computed in float32 whatever the activation dtype. In training
+        x_hat = x + noise(x), as in the JAX package: the noise goes on x
+        itself, not on x - means, and the likelihood is that of x_hat."""
         means32 = means.float()
+        if training:
+            x_hat = om.quantize_noise(x, noise)
+            return x_hat, om.gaussian_likelihood(x_hat.float(), scales.float(), means32)
+        q = om.quantize(x - means)
         lik = om.gaussian_likelihood(q.float() + means32, scales.float(), means32)
         return q + means, lik
 

@@ -1,4 +1,4 @@
-"""The hyperpriors at eval time, ported from
+"""The hyperpriors, ported from
 fastvideocodec_tpu/entropy/hyperprior.py: ``MeanScaleHyperPriors``, RLVC-HP's
 (reference entropy_models.py:150-324), and the SSF family's
 ``SSFHyperprior`` (reference models.py:1958-1999).
@@ -14,13 +14,20 @@ y -> hyper encoder -> z; z is coded by the factorized bottleneck; the mean
 and QReLU-scale hyper decoders give the Gaussian parameters of y, cropped
 to y's size (the three stride-2 deconvs emit 8*ceil(y/8) pixels); y_hat is
 the round of y around the means, in y's dtype, and y's rate is the float32
-likelihood of that same symbol.
+likelihood of that same symbol. In training (``SSFHyperprior`` only, the
+SSF and ELFVC families') z and y take noise from an explicit source, z's
+draw first: the rates are the likelihoods of the noisy z and y, while the
+decoders take y_hat = quantize_ste(y - means) + means, the round with a
+straight-through gradient.
 
 With ``super_prec`` (ELFVC-SP) the hyperprior also holds an SPnet,
 ``y_predictor``, that predicts y from the symbol round(y - means) and the
 previous frame's symbol (``q_y_prior``); with ``sp`` the decoders take that
-prediction in place of y_hat. ``forward_with_prior`` is the JAX module's
-``__call__`` with its prior; ``forward`` is the SSF codecs' call.
+prediction in place of y_hat. As in the JAX package, the prediction adds
+the means detached, its error is taken against y detached, and the
+decoders take it detached: the SPnet learns from its error alone.
+``forward_with_prior`` is the JAX module's ``__call__`` with its prior;
+``forward`` is the SSF codecs' call.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from fastvideocodec_torch.layers.transforms import (
     SSFHyperDecoder,
     SSFHyperDecoderQReLU,
 )
-from fastvideocodec_torch.ops.math import quantize
+from fastvideocodec_torch.ops.math import quantize, quantize_ste
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -94,33 +101,40 @@ class SSFHyperprior(nn.Module):
         self.sp = sp
         self.y_predictor = SPnet(2 * planes, planes, sp_dim) if super_prec else None
 
-    def _forward(self, y: torch.Tensor):
-        z_hat, z_lik = self.bottleneck(self.hyper_encoder(y))
+    def _forward(self, y: torch.Tensor, training: bool, noise):
+        z = self.hyper_encoder(y)
+        z_hat, z_lik = self.bottleneck(z, True, noise) if training else self.bottleneck(z)
         means, scales = self.means_scales(z_hat.to(y.dtype), *y.shape[2:])
-        y_hat, y_lik = self.gaussian(y, scales, means)
+        if training:
+            _, y_lik = self.gaussian(y, scales, means, True, noise)
+            y_hat = quantize_ste(y - means) + means
+        else:
+            y_hat, y_lik = self.gaussian(y, scales, means)
         return y_hat, {"y": y_lik, "z": z_lik}, means
 
-    def forward(self, y: torch.Tensor):
+    def forward(self, y: torch.Tensor, training: bool = False, noise=None):
         """y [B, C, h, w] -> (y_hat in y's dtype, {"y": likelihoods of y,
-        "z": likelihoods of z}, float32)."""
-        y_hat, lik, _ = self._forward(y)
+        "z": likelihoods of z}, float32); ``training`` draws the noise of
+        z, then of y, from ``noise``."""
+        y_hat, lik, _ = self._forward(y, training, noise)
         return y_hat, lik
 
-    def forward_with_prior(self, y: torch.Tensor, q_y_prior):
+    def forward_with_prior(self, y: torch.Tensor, q_y_prior, training: bool = False,
+                           noise=None):
         """(y_hat, {"y", "z", "pred_err_y", "Q_err_y"}, new prior), as the
         JAX module returns them. Q_err_y = round(y - means) + means - y.
         Without an SPnet, pred_err_y is None and the prior passes through;
-        with one, pred_err_y = pred_y - y, y_hat is pred_y when ``sp``, and
-        the new prior is round(y - means)."""
-        y_hat, lik, means = self._forward(y)
+        with one, pred_err_y = pred_y - y (y detached), y_hat is pred_y
+        (detached) when ``sp``, and the new prior is round(y - means)."""
+        y_hat, lik, means = self._forward(y, training, noise)
         round_y = quantize(y - means)
         lik["Q_err_y"] = round_y + means - y
         lik["pred_err_y"] = None
         if self.y_predictor is None:
             return y_hat, lik, q_y_prior
-        pred_y = self.predict_y(round_y, q_y_prior, means)
-        lik["pred_err_y"] = pred_y - y
-        return (pred_y if self.sp else y_hat), lik, round_y
+        pred_y = self.predict_y(round_y, q_y_prior, means.detach())
+        lik["pred_err_y"] = pred_y - y.detach()
+        return (pred_y.detach() if self.sp else y_hat), lik, round_y
 
     def predict_y(self, round_y: torch.Tensor, q_y_prior: torch.Tensor,
                   means: torch.Tensor) -> torch.Tensor:

@@ -113,48 +113,52 @@ def rlvc_gop(spec: CodecSpec, gop: torch.Tensor):
     return _chain(module, gop, step)
 
 
-@torch.inference_mode()
-def ssf_gop(spec: CodecSpec, gop: torch.Tensor):
+def ssf_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
     """gop [T, 3, H, W] or [T, B, 3, H, W] with frame 0 the (uncoded)
     reference -> (recon [T-1, (B,) 3, H, W], metrics): the GOP folds into
     the codec's domain once (the s2d domain for SSF-TPU), the P-frames run
-    a chain of ``forward_inter`` calls, and the recon unfolds once.
-    MCVC-Original runs here with the views as the batch. Metrics are
-    float32 [T-1] stacks of ``img_loss``, ``psnr``, ``bpp_est`` and
-    ``bpp_res_est``."""
+    a chain of ``forward_inter`` calls, each on the previous recon
+    detached, and the recon unfolds once. MCVC-Original runs here with the
+    views as the batch. Metrics are float32 [T-1] stacks of ``img_loss``,
+    ``psnr``, ``bpp_est`` and ``bpp_res_est``. Eval runs under
+    ``torch.inference_mode``; ``training`` draws the quantizers' noise
+    from ``noise``, frame by frame, and keeps the autograd graph."""
     module = spec.module
-    x = _fold(module, gop)
-    x_prev = x[0]
-    recons, per_frame = [], []
-    for i in range(1, x.shape[0]):
-        x_prev, lik = module.forward_inter(x[i], x_prev)
-        recons.append(x_prev)
-        per_frame.append(_ssf_metrics(x[i], x_prev, lik))
-    return _unfold(module, recons, gop), _stack(per_frame)
+    with torch.inference_mode(not training):
+        x = _fold(module, gop)
+        x_prev = x[0]
+        recons, per_frame = [], []
+        for i in range(1, x.shape[0]):
+            x_rec, lik = module.forward_inter(x[i], x_prev, training, noise)
+            recons.append(x_rec)
+            per_frame.append(_ssf_metrics(x[i], x_rec, lik))
+            x_prev = x_rec.detach()
+        return _unfold(module, recons, gop), _stack(per_frame)
 
 
-@torch.inference_mode()
-def elfvc_gop(spec: CodecSpec, gop: torch.Tensor):
+def elfvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
     """As ``ssf_gop``, with the ELFVC state starting at zeros; with
     ``super_prec`` the metrics add ``pred_err_norm`` and ``Q_err_norm``,
     the sums over the frame's hyperpriors of the L2 norms of pred_y - y
     and of round(y - means) + means - y. All float32 [T-1]."""
     module = spec.module
-    x = _fold(module, gop)
-    x_prev = x[0]
-    B, _, h, w = x_prev.shape
-    state = module.init_state(B, h, w)
-    recons, per_frame = [], []
-    for i in range(1, x.shape[0]):
-        x_prev, out, state = module.forward_inter(x[i], x_prev, state)
-        recons.append(x_prev)
-        metrics = _ssf_metrics(x[i], x_prev, out)
-        if module.super_prec:
-            for key in ("pred_err", "Q_err"):
-                metrics[f"{key}_norm"] = sum(torch.linalg.vector_norm(e.float())
-                                             for e in out[key])
-        per_frame.append(metrics)
-    return _unfold(module, recons, gop), _stack(per_frame)
+    with torch.inference_mode(not training):
+        x = _fold(module, gop)
+        x_prev = x[0]
+        B, _, h, w = x_prev.shape
+        state = module.init_state(B, h, w)
+        recons, per_frame = [], []
+        for i in range(1, x.shape[0]):
+            x_rec, out, state = module.forward_inter(x[i], x_prev, state, training, noise)
+            recons.append(x_rec)
+            metrics = _ssf_metrics(x[i], x_rec, out)
+            if module.super_prec:
+                for key in ("pred_err", "Q_err"):
+                    metrics[f"{key}_norm"] = sum(torch.linalg.vector_norm(e.float())
+                                                 for e in out[key])
+            per_frame.append(metrics)
+            x_prev = x_rec.detach()
+        return _unfold(module, recons, gop), _stack(per_frame)
 
 
 @torch.inference_mode()
@@ -193,6 +197,9 @@ def estimated_bits(liks) -> float:
 
 ROLLOUTS = {"lsvc": lsvc_gop, "dvc": sequential_gop, "base": sequential_gop,
             "rlvc": rlvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
+# the families that train, and the ROADMAP.md item that brings each other's
+TRAINED = ("lsvc", "ssf", "elfvc")
+TRAINING_ITEM = {"mcvc": "7.2", "dvc": "7.3", "rlvc": "7.3", "base": "7.3"}
 
 
 def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = False,
@@ -201,12 +208,13 @@ def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = F
     MCVC's alone (it stays the third argument, as callers pass it).
     ``training``: the quantizers take U(-0.5, 0.5) noise from ``noise``
     (``ops.math.UniformNoise``, or any callable shaped like it) and the
-    autograd graph is kept; LSVC's alone is ported (ROADMAP.md queue 1,
-    item 7, the other families' training)."""
-    if training and spec.family != "lsvc":
+    autograd graph is kept; the LSVC, SSF and ELFVC families train (the
+    others wait for ROADMAP.md queue 1, item 7)."""
+    if training and spec.family not in TRAINED:
+        item = TRAINING_ITEM.get(spec.family, "7")
         raise NotImplementedError(
             f"training the {spec.family!r} family is not ported yet (ROADMAP.md queue 1, "
-            f"item 7: training for the ported codecs)")
+            f"item {item}: training for the ported codecs)")
     if spec.family == "mcvc":
         return mcvc_gop(spec, gop, mask)
     if mask is not None:
@@ -214,5 +222,5 @@ def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = F
     if spec.family not in ROLLOUTS:
         raise ValueError(f"family {spec.family!r} is not ported yet")
     if training:
-        return lsvc_gop(spec, gop, training, noise)
+        return ROLLOUTS[spec.family](spec, gop, training, noise)
     return ROLLOUTS[spec.family](spec, gop)

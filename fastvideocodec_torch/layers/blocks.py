@@ -4,8 +4,8 @@ WarpNetTPU (LSVC-TPU-WT) and the MEBasic SpyNet level of the LSVC path,
 the factorized space/time attention of LSVC's -A/-S forms
 (SpaceTimeAttention over TokenAttention and GEGLUFeedForward), RLVC's
 ConvLSTM and flax's transposed conv with ``padding="SAME"``
-(``SameConvTranspose``), the forward of QReLU for the SSF hyper
-decoders, the super-precision SPnet of ELFVC-SP with its blocks
+(``SameConvTranspose``), QReLU with its surrogate gradient for the SSF
+hyper decoders, the super-precision SPnet of ELFVC-SP with its blocks
 (ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention), and
 ConvAttention across views for MCVC-IA.
 
@@ -166,10 +166,33 @@ class MEBasic(nn.Module):
         return getattr(self, f"Conv_{self.n}")(x)
 
 
+_QRELU_ALPHA = 0.9943258522851727
+_QRELU_MAX = 255  # 2^8 - 1: compressai's QReLU at 8 bits
+_QRELU_BETA = 100
+
+
+class _QReLU(torch.autograd.Function):
+    """clamp(x, 0, 255) with compressai's smooth surrogate gradient: g
+    inside [0, 255] (the bounds included), exp(-a + a*|2x/255 - 1|) * g
+    outside it, a = _QRELU_ALPHA ** 100 (the JAX package's ``_qrelu_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, float(_QRELU_MAX))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        scale = _QRELU_ALPHA ** _QRELU_BETA
+        grad_sub = torch.exp(-scale + scale * torch.abs(2.0 * x / _QRELU_MAX - 1.0)) * g
+        return torch.where((x < 0) | (x > _QRELU_MAX), grad_sub, g)
+
+
 def qrelu(x: torch.Tensor) -> torch.Tensor:
-    """clamp(x, 0, 255): the forward of compressai's QReLU at 8 bits. Its
-    smooth surrogate gradient waits for training."""
-    return torch.clamp(x, 0.0, 255.0)
+    """clamp(x, 0, 255), compressai's QReLU at 8 bits, with its surrogate
+    gradient outside [0, 255] (``_QReLU``)."""
+    return _QReLU.apply(x)
 
 
 # ---------------------------------------------------------------------------

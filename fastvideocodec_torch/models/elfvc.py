@@ -15,13 +15,15 @@ On top of the SSF skeleton of the same form (models/ssf.py), per P-frame:
 
 The temporal state (x_ref_ref, the motion prior, and the hyperpriors'
 round-y priors for the SPnets) is an ``ElfvcState`` carried from frame to
-frame; it starts at zeros at each GOP. With ``super_prec`` the motion and
+frame; it starts at zeros at each GOP, and carries x_ref and the decoded
+motion detached, as in the JAX package. With ``super_prec`` the motion and
 residual hyperpriors hold SPnets; ``sp_stage`` >= 1 lets the motion SPnet
 replace y_motion_hat, >= 2 the residual one as well. The motion tensors
 (the predictor's output, the prior, the decoded delta) are the stock
 form's [B, 3, H, W] (flow x, flow y, scale; the flow normalized) and the
-'-TPU' form's [B, 12, H/2, W/2] in the warp's c-major phase form. Eval
-only.
+'-TPU' form's [B, 12, H/2, W/2] in the warp's c-major phase form.
+``training`` (with ``noise``) draws the motion hyperprior's noise, then
+the residual's.
 """
 
 from __future__ import annotations
@@ -70,24 +72,26 @@ class ELFVC(ScaleSpaceFlow):
                           zeros(batch, self.planes, height // lat, width // lat),
                           zeros(batch, self.planes, height // lat, width // lat))
 
-    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, state: ElfvcState):
+    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, state: ElfvcState,
+                      training: bool = False, noise=None):
         """x_cur, x_ref in the form's domain and the model dtype -> (x_rec,
         {"motion": lik, "residual": lik, "pred_err": [...], "Q_err": [...]},
         the next state); each lik as ``SSFHyperprior.forward_with_prior``
-        gives it."""
+        gives it; pred_err holds the SPnets' errors (none without
+        ``super_prec``)."""
         motion_info_local = self.flow_predictor(
             torch.cat([x_ref, state.x_ref_ref, state.motion_info_prior], dim=1))
         volume = self.make_volume(x_ref)
         x_pred_local = self.warp_prediction(volume, motion_info_local)
         y_motion = self.motion_encoder(torch.cat([x_cur, x_pred_local], dim=1))
         y_motion_hat, motion_lik, q_prior_m = self.motion_hyperprior.forward_with_prior(
-            y_motion, state.q_y_prior_motion)
+            y_motion, state.q_y_prior_motion, training, noise)
         motion_info = state.motion_info_prior + self.motion_decoder(y_motion_hat)
         x_pred = self.warp_prediction(volume, motion_info)
         y_res_hat, res_lik, q_prior_r = self.res_hyperprior.forward_with_prior(
-            self.res_encoder(x_cur - x_pred), state.q_y_prior_res)
+            self.res_encoder(x_cur - x_pred), state.q_y_prior_res, training, noise)
         x_rec = x_pred + self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1))
-        new_state = ElfvcState(x_ref, motion_info, q_prior_m, q_prior_r)
+        new_state = ElfvcState(x_ref.detach(), motion_info.detach(), q_prior_m, q_prior_r)
         liks = (motion_lik, res_lik)
         out = {
             "motion": motion_lik,
@@ -97,18 +101,19 @@ class ELFVC(ScaleSpaceFlow):
         }
         return x_rec, out, new_state
 
-    def forward(self, frames: torch.Tensor):
+    def forward(self, frames: torch.Tensor, training: bool = False, noise=None):
         """Keyframe + chained inter frames over frames [T, B, 3, H, W], the
         state starting at zeros after the keyframe: (recon [T, B, 3, H, W],
         per-frame dicts: the keyframe's {"keyframe": lik}, then each inter
-        frame's ``forward_inter`` dict)."""
+        frame's ``forward_inter`` dict); each inter frame takes the previous
+        recon detached."""
         x = self.fold_gop(frames.to(self.dtype))
-        x_ref, lik0 = self.forward_keyframe(x[0])
+        x_ref, lik0 = self.forward_keyframe(x[0], training, noise)
         B, _, h, w = x_ref.shape
         state = self.init_state(B, h, w)
         recons, liks = [x_ref], [lik0]
         for i in range(1, x.shape[0]):
-            x_ref, out, state = self.forward_inter(x[i], x_ref, state)
+            x_ref, out, state = self.forward_inter(x[i], x_ref.detach(), state, training, noise)
             recons.append(x_ref)
             liks.append(out)
         return self.unfold_gop(torch.stack(recons)), liks

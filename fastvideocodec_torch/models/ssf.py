@@ -22,9 +22,11 @@ Per P-frame, in either form:
 ``fold_gop``/``unfold_gop`` carry a GOP into the form's domain and back
 (the identity for ``s2d=1``), so the rollouts and the real-bits coder
 (coder/video.py) are one code path for both. Keyframes go through the
-img_* transforms. Eval only. JAX's non-pipeline ``s2d=2`` form (s2d
-transforms around a full-resolution warp) has no registry name and is
-not ported.
+img_* transforms. ``training`` (with ``noise``, an ``ops.math.UniformNoise``
+-like source) draws each hyperprior's noise, the motion's before the
+residual's; the chained reference is detached between frames, as in the
+JAX package. JAX's non-pipeline ``s2d=2`` form (s2d transforms around a
+full-resolution warp) has no registry name and is not ported.
 """
 
 from __future__ import annotations
@@ -130,29 +132,32 @@ class ScaleSpaceFlow(nn.Module):
         return (self.img_hyperprior.aux_loss() + self.motion_hyperprior.aux_loss()
                 + self.res_hyperprior.aux_loss())
 
-    def forward_keyframe(self, x: torch.Tensor):
-        y_hat, lik = self.img_hyperprior(self.img_encoder(x))
+    def forward_keyframe(self, x: torch.Tensor, training: bool = False, noise=None):
+        y_hat, lik = self.img_hyperprior(self.img_encoder(x), training, noise)
         return self.img_decoder(y_hat), {"keyframe": lik}
 
-    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor):
+    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, training: bool = False,
+                      noise=None):
         """x_cur, x_ref in the form's domain and the model dtype -> (x_rec,
         {"motion": lik, "residual": lik})."""
         y_motion = self.motion_encoder(torch.cat([x_cur, x_ref], dim=1))
-        y_motion_hat, motion_lik = self.motion_hyperprior(y_motion)
+        y_motion_hat, motion_lik = self.motion_hyperprior(y_motion, training, noise)
         x_pred = self.forward_prediction(x_ref, self.motion_decoder(y_motion_hat))
-        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred))
+        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred), training,
+                                                 noise)
         x_res_hat = self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1))
         return x_pred + x_res_hat, {"motion": motion_lik, "residual": res_lik}
 
-    def forward(self, frames: torch.Tensor):
+    def forward(self, frames: torch.Tensor, training: bool = False, noise=None):
         """Keyframe + chained inter frames over frames [T, B, 3, H, W]:
         returns (recon [T, B, 3, H, W], per-frame likelihood dicts). The
-        frames fold into the form's domain once and the recon unfolds once."""
+        frames fold into the form's domain once and the recon unfolds once;
+        each inter frame takes the previous recon detached."""
         x = self.fold_gop(frames.to(self.dtype))
-        x_ref, lik0 = self.forward_keyframe(x[0])
+        x_ref, lik0 = self.forward_keyframe(x[0], training, noise)
         recons, liks = [x_ref], [lik0]
         for i in range(1, x.shape[0]):
-            x_ref, lik = self.forward_inter(x[i], x_ref)
+            x_ref, lik = self.forward_inter(x[i], x_ref.detach(), training, noise)
             recons.append(x_ref)
             liks.append(lik)
         return self.unfold_gop(torch.stack(recons)), liks

@@ -116,4 +116,13 @@ def open_library(path: Path) -> ctypes.CDLL:
         *args[3:9], ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # B..norm_y, s2d, dtype, stream
     ]
     lib.fvc_flow_warp_backward.restype = ctypes.c_int
+    # absent from the sources before the pixel warps' backward: warp_ab.py
+    # opens older versions too
+    pixel_backward = getattr(lib, "fvc_pixel_warp_backward", None)
+    if pixel_backward is not None:
+        pixel_backward.argtypes = [
+            *args[:2], ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # grad, grads out
+            *args[3:7], ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # B..W, layout, dtype, stream
+        ]
+        pixel_backward.restype = ctypes.c_int
     return lib

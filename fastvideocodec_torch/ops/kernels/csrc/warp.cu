@@ -1,7 +1,9 @@
 // Bilinear backward warp with border clamp, for sm_90a (H100).
 //
-// Three kernels, five entry points, and the backward of the two
-// normalized-grid warps (flow_warp_backward_kernel, after the s2d warps).
+// Three kernels, five entry points, and the backward of each entry point
+// (flow_warp_backward_kernel for the two normalized-grid warps,
+// pixel_warp_backward_kernel for the three pixel warps, after the s2d
+// warps).
 // The sample coordinate is built in float32 exactly as the exact path
 // builds it, in one of two conventions:
 // - normalized grid (fastvideocodec_tpu/ops/warp.py:_xla_flow_warp,
@@ -676,7 +678,7 @@ warp_s2d_kernel(const T* __restrict__ img, const FlowT<T, kFlow>* __restrict__ f
 }
 
 // ---------------------------------------------------------------------------
-// The backward of the normalized-grid warps
+// The backward kernels
 // ---------------------------------------------------------------------------
 
 constexpr int kBwThreads = 256;  // a block: 256 consecutive full-res outputs of one image
@@ -693,13 +695,68 @@ __device__ __forceinline__ int pixel_offset(int c, int y, int x, int C, int H, i
   }
 }
 
-// The gradient of an axis's coordinate u = ((g + 1)*n - 1)/2 back to its
-// flow component: 0 where the border clamp cut u (a NaN u too, as torch's
-// clamp backward gives), else gu*0.5*n*norm, in the plain version's order.
-__device__ __forceinline__ float flow_grad(float gu, float g, int n, float norm) {
+// Whether the border clamp passes the gradient of an axis's coordinate
+// u = ((g + 1)*n - 1)/2: u inside [0, n - 1], the bounds included, as
+// torch's clamp backward passes it; a NaN u passes none.
+__device__ __forceinline__ bool clamp_passes(float g, int n) {
   const float u = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)n), 1.0f), 0.5f);
-  if (!(u >= 0.0f && u <= (float)(n - 1))) return 0.0f;
+  return u >= 0.0f && u <= (float)(n - 1);
+}
+
+// The gradient of u back to its flow component in the normalized-grid
+// convention (g = lin + f*norm): gu*0.5*n*norm where the clamp passes it,
+// else 0, in the plain version's order.
+__device__ __forceinline__ float flow_grad(float gu, float g, int n, float norm) {
+  if (!clamp_passes(g, n)) return 0.0f;
   return __fmul_rn(__fmul_rn(__fmul_rn(gu, 0.5f), (float)n), norm);
+}
+
+// The same in the pixel convention (g = (2*(i + f) + 1)/n - 1):
+// ((gu*0.5*n)/n)*2, the plain version's order and IEEE division (the
+// round trip is not the identity in float32).
+__device__ __forceinline__ float pixel_flow_grad(float gu, float g, int n) {
+  if (!clamp_passes(g, n)) return 0.0f;
+  return __fmul_rn(__fdiv_rn(__fmul_rn(__fmul_rn(gu, 0.5f), (float)n), (float)n), 2.0f);
+}
+
+// The channel loop of a backward, for full-res output pixel (y, x) of one
+// image of the batch (ib, gb, gi at that image) with its taps a (along x)
+// and t (along y): the sums over the C channels of the incoming gradient
+// times the lerp's derivative by its x weight and by its y weight, in
+// *gtx and *gty; and, when gi is given, g times each tap's weight added
+// into that float32 buffer by atomicAdd (several outputs may read one
+// source pixel).
+template <typename T, bool kS2d>
+__device__ __forceinline__ void backward_channels(const T* ib, const T* gb, float* gi, int C,
+                                                  int H, int W, int y, int x, Tap a, Tap t,
+                                                  float* gtx, float* gty) {
+  const float sx = __fsub_rn(1.0f, a.t), sy = __fsub_rn(1.0f, t.t);
+  const float w00 = __fmul_rn(sx, sy), w01 = __fmul_rn(a.t, sy);
+  const float w10 = __fmul_rn(sx, t.t), w11 = __fmul_rn(a.t, t.t);
+  float sum_x = 0.0f, sum_y = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const int o00 = pixel_offset<kS2d>(c, t.i0, a.i0, C, H, W);
+    const int o01 = pixel_offset<kS2d>(c, t.i0, a.i1, C, H, W);
+    const int o10 = pixel_offset<kS2d>(c, t.i1, a.i0, C, H, W);
+    const int o11 = pixel_offset<kS2d>(c, t.i1, a.i1, C, H, W);
+    const float g = to_f32(gb[pixel_offset<kS2d>(c, y, x, C, H, W)]);
+    const float v00 = to_f32(ib[o00]), v01 = to_f32(ib[o01]);
+    const float v10 = to_f32(ib[o10]), v11 = to_f32(ib[o11]);
+    const float top = __fadd_rn(__fmul_rn(v00, sx), __fmul_rn(v01, a.t));
+    const float bot = __fadd_rn(__fmul_rn(v10, sx), __fmul_rn(v11, a.t));
+    const float dtx =
+        __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), sy), __fmul_rn(__fsub_rn(v11, v10), t.t));
+    sum_x = __fadd_rn(sum_x, __fmul_rn(g, dtx));
+    sum_y = __fadd_rn(sum_y, __fmul_rn(g, __fsub_rn(bot, top)));
+    if (gi) {
+      atomicAdd(gi + o00, __fmul_rn(g, w00));
+      atomicAdd(gi + o01, __fmul_rn(g, w01));
+      atomicAdd(gi + o10, __fmul_rn(g, w10));
+      atomicAdd(gi + o11, __fmul_rn(g, w11));
+    }
+  }
+  *gtx = sum_x;
+  *gty = sum_y;
 }
 
 // Replaces the custom_vjp backwards _pfw_bwd and _pfws_bwd
@@ -740,39 +797,75 @@ flow_warp_backward_kernel(const T* __restrict__ img, const T* __restrict__ flow,
   const T* fb = flow + (int64_t)b * 2 * plane;
   const float gx = grid_coord(linspace_at(x, W), to_f32(fb[p]), norm_x);
   const float gy = grid_coord(linspace_at(y, H), to_f32(fb[plane + p]), norm_y);
-  const Tap a = border_tap(gx, W), t = border_tap(gy, H);
-  const float sx = __fsub_rn(1.0f, a.t), sy = __fsub_rn(1.0f, t.t);
-  const float w00 = __fmul_rn(sx, sy), w01 = __fmul_rn(a.t, sy);
-  const float w10 = __fmul_rn(sx, t.t), w11 = __fmul_rn(a.t, t.t);
-  const T* ib = img + base;
-  const T* gb = grad + base;
-  float* gi = grad_img ? grad_img + base : nullptr;
-  float gtx = 0.0f, gty = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const int o00 = pixel_offset<kS2d>(c, t.i0, a.i0, C, H, W);
-    const int o01 = pixel_offset<kS2d>(c, t.i0, a.i1, C, H, W);
-    const int o10 = pixel_offset<kS2d>(c, t.i1, a.i0, C, H, W);
-    const int o11 = pixel_offset<kS2d>(c, t.i1, a.i1, C, H, W);
-    const float g = to_f32(gb[pixel_offset<kS2d>(c, y, x, C, H, W)]);
-    const float v00 = to_f32(ib[o00]), v01 = to_f32(ib[o01]);
-    const float v10 = to_f32(ib[o10]), v11 = to_f32(ib[o11]);
-    const float top = __fadd_rn(__fmul_rn(v00, sx), __fmul_rn(v01, a.t));
-    const float bot = __fadd_rn(__fmul_rn(v10, sx), __fmul_rn(v11, a.t));
-    const float dtx =
-        __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), sy), __fmul_rn(__fsub_rn(v11, v10), t.t));
-    gtx = __fadd_rn(gtx, __fmul_rn(g, dtx));
-    gty = __fadd_rn(gty, __fmul_rn(g, __fsub_rn(bot, top)));
-    if (gi) {
-      atomicAdd(gi + o00, __fmul_rn(g, w00));
-      atomicAdd(gi + o01, __fmul_rn(g, w01));
-      atomicAdd(gi + o10, __fmul_rn(g, w10));
-      atomicAdd(gi + o11, __fmul_rn(g, w11));
-    }
-  }
+  float gtx, gty;
+  backward_channels<T, kS2d>(img + base, grad + base, grad_img ? grad_img + base : nullptr, C, H,
+                             W, y, x, border_tap(gx, W), border_tap(gy, H), &gtx, &gty);
   if (grad_flow) {
     T* fo = grad_flow + (int64_t)b * 2 * plane;
     fo[p] = from_f32<T>(flow_grad(gtx, gx, W, norm_x));
     fo[plane + p] = from_f32<T>(flow_grad(gty, gy, H, norm_y));
+  }
+}
+
+// The layouts of the pixel warps, for their backward.
+enum PixelLayout {
+  kPixelNchw,   // img [B,C,H,W], flow [B,2,H,W]: pixel_warp
+  kPixelS2d,    // img [B,4C,H/2,W/2], flow full-res [B,2,H,W]: pixel_warp_s2d
+  kPixelPhase,  // img [B,4C,H/2,W/2], flow c-major phase form [B,8,H/2,W/2]: the sflow
+};
+
+// Where flow component comp (0: x, 1: y) of full-res pixel (y, x) lies in
+// one image's flow: [2,H,W], or in c-major phase form [8,H/2,W/2], channel
+// comp*4 + 2*(y%2) + x%2 at (y/2, x/2) (the vjp of the phase form's
+// unpacking to full resolution is this permutation).
+template <int kLayout>
+__device__ __forceinline__ int flow_offset(int comp, int y, int x, int H, int W) {
+  if constexpr (kLayout == kPixelPhase) {
+    return ((comp * 4 + (y & 1) * 2 + (x & 1)) * (H >> 1) + (y >> 1)) * (W >> 1) + (x >> 1);
+  } else {
+    return (comp * H + y) * W + x;
+  }
+}
+
+// Replaces the custom_vjp backwards _ppw_bwd, _ppws_bwd and _ppwss_bwd
+// (fastvideocodec_tpu/ops/pallas/warp_kernel.py:594, :642, :698), which
+// take the vjp of the XLA exact path (no Pallas kernel): the vjp of
+// plain_pixel_warp (kPixelNchw), plain_pixel_warp_s2d (kPixelS2d) and
+// plain_pixel_warp_s2d_sflow (kPixelPhase), img of type T and a float32
+// flow, for the incoming gradient grad of the output's shape (type T).
+// As flow_warp_backward_kernel: a thread owns one full-res output pixel,
+// rebuilds the forward's taps (pixel_tap's float32 arithmetic), sums the
+// flow gradient over the C channels in registers and writes it once as
+// float32 (in the flow's own layout: no atomics), and adds the image
+// gradient into the zeroed float32 grad_img by atomicAdd only when it is
+// given. grad_flow may be null (no flow gradient wanted); on the SSF and
+// ELFVC training path grad_img is null (the warped image is built from a
+// detached reference and holds no parameter), so that path allocates and
+// zeroes nothing of the image's size.
+//
+// Bound by bytes as the forward is: the image's taps, the flow and the
+// incoming gradient read once, the gradients written once.
+template <typename T, int kLayout>
+__global__ void __launch_bounds__(kBwThreads)
+pixel_warp_backward_kernel(const T* __restrict__ img, const float* __restrict__ flow,
+                           const T* __restrict__ grad, float* __restrict__ grad_img,
+                           float* __restrict__ grad_flow, int C, int H, int W) {
+  constexpr bool kS2d = kLayout != kPixelNchw;
+  const int plane = H * W, p = blockIdx.x * kBwThreads + threadIdx.x, b = blockIdx.y;
+  if (p >= plane) return;
+  const int y = p / W, x = p - y * W;
+  const int64_t base = (int64_t)b * C * plane;  // one image of the batch, either layout
+  const int ox = flow_offset<kLayout>(0, y, x, H, W), oy = flow_offset<kLayout>(1, y, x, H, W);
+  const float* fb = flow + (int64_t)b * 2 * plane;  // [2,H,W] or [8,H/2,W/2]: 2*plane either way
+  const float gx = pixel_norm(__fadd_rn((float)x, fb[ox]), W);
+  const float gy = pixel_norm(__fadd_rn((float)y, fb[oy]), H);
+  float gtx, gty;
+  backward_channels<T, kS2d>(img + base, grad + base, grad_img ? grad_img + base : nullptr, C, H,
+                             W, y, x, border_tap(gx, W), border_tap(gy, H), &gtx, &gty);
+  if (grad_flow) {
+    float* fo = grad_flow + (int64_t)b * 2 * plane;
+    fo[ox] = pixel_flow_grad(gtx, gx, W);
+    fo[oy] = pixel_flow_grad(gty, gy, H);
   }
 }
 
@@ -842,6 +935,26 @@ int launch_flow_warp_backward(const void* img, const void* flow, const void* gra
     flow_warp_backward_kernel<T, false><<<grid, kBwThreads, 0, s>>>(
         (const T*)img, (const T*)flow, (const T*)grad, (float*)grad_img, (T*)grad_flow, C, H, W,
         norm_x, norm_y);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pixel_warp_backward(const void* img, const void* flow, const void* grad,
+                               void* grad_img, void* grad_flow, int B, int C, int H, int W,
+                               int layout, cudaStream_t s) {
+  dim3 grid((H * W + kBwThreads - 1) / kBwThreads, B);
+  const T* i = (const T*)img;
+  const float* f = (const float*)flow;
+  const T* g = (const T*)grad;
+  float *gi = (float*)grad_img, *gf = (float*)grad_flow;
+  if (layout == kPixelNchw) {
+    pixel_warp_backward_kernel<T, kPixelNchw><<<grid, kBwThreads, 0, s>>>(i, f, g, gi, gf, C, H, W);
+  } else if (layout == kPixelS2d) {
+    pixel_warp_backward_kernel<T, kPixelS2d><<<grid, kBwThreads, 0, s>>>(i, f, g, gi, gf, C, H, W);
+  } else {
+    pixel_warp_backward_kernel<T, kPixelPhase><<<grid, kBwThreads, 0, s>>>(i, f, g, gi, gf, C, H,
+                                                                           W);
   }
   return (int)cudaGetLastError();
 }
@@ -941,6 +1054,31 @@ extern "C" int fvc_flow_warp_backward(const void* img, const void* flow, const v
   if (dtype == 1) {
     return launch_flow_warp_backward<__nv_bfloat16>(img, flow, grad, grad_img, grad_flow, B, C,
                                                     H, W, norm_x, norm_y, s2d, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The vjp of the pixel warps: layout 0 fvc_pixel_warp (img, grad [B,C,H,W],
+// flow [B,2,H,W]), 1 the full-res-flow fvc_pixel_warp_s2d (img, grad
+// [B,4C,H/2,W/2], flow [B,2,H,W]), 2 its phase-flow form (flow
+// [B,8,H/2,W/2]); img and grad of dtype, the flow float32, C the full-res
+// channel count, H and W full-res. grad_img is a zeroed float32 buffer of
+// img's shape that receives the image gradient, or null; grad_flow receives
+// the flow gradient (float32, the flow's shape), or null.
+extern "C" int fvc_pixel_warp_backward(const void* img, const void* flow, const void* grad,
+                                       void* grad_img, void* grad_flow, int B, int C, int H,
+                                       int W, int layout, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || B > 65535 || !fits_int32((int64_t)max(C, 2) * H * W) || layout < kPixelNchw ||
+      layout > kPixelPhase || (layout != kPixelNchw && (H % 2 || W % 2)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return launch_pixel_warp_backward<float>(img, flow, grad, grad_img, grad_flow, B, C, H, W,
+                                             layout, s);
+  }
+  if (dtype == 1) {
+    return launch_pixel_warp_backward<__nv_bfloat16>(img, flow, grad, grad_img, grad_flow, B, C,
+                                                     H, W, layout, s);
   }
   return (int)cudaErrorInvalidValue;
 }

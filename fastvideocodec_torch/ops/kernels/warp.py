@@ -12,9 +12,10 @@ or bfloat16 image.
 a run can show that it went through the kernels; ``reset_launches()``
 zeroes the counts. A launcher gives no gradient: the dispatchers wrap it in
 ``ops.warp.KernelWarp`` when autograd needs one, whose backward launches
-``launch_flow_warp_backward`` / ``launch_flow_warp_s2d_backward`` (counted
-as ``flow_warp_backward`` and ``flow_warp_s2d_backward``) for the two
-normalized-grid warps.
+the warp's backward kernel, ``launch_<name>_backward`` (counted as
+``<name>_backward``): csrc/warp.cu's flow_warp_backward_kernel for the two
+normalized-grid warps, its pixel_warp_backward_kernel for the three pixel
+warps.
 
 All five are tiled: a block owns a tile of outputs. The three s2d warps
 share one kernel body, and ``flow_warp_s2d``'s block stages the tile's
@@ -42,6 +43,9 @@ LAUNCHES = {
     "pixel_warp_s2d_sflow": 0,
     "flow_warp_backward": 0,
     "flow_warp_s2d_backward": 0,
+    "pixel_warp_backward": 0,
+    "pixel_warp_s2d_backward": 0,
+    "pixel_warp_s2d_sflow_backward": 0,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -194,6 +198,30 @@ def launch_pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -
     return _launch_pixel_warp_s2d(img_s2d, flow_s2d, True, "pixel_warp_s2d_sflow")
 
 
+def _launch_backward(bname: str, img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
+                     need_img: bool, need_flow: bool, launch):
+    """Check ``grad`` (a contiguous tensor of img's shape, dtype and device:
+    the output's gradient), allocate the asked-for gradients (the image's a
+    zeroed float32 buffer for the kernel's atomics, none of the image's size
+    without it), run ``launch(lib, grad_img_ptr, grad_flow_ptr, stream)`` on
+    img's device and count it under ``bname``: (grad_img in img's dtype,
+    grad_flow), each None unless asked for."""
+    if (grad.shape, grad.dtype, grad.device) != (img.shape, img.dtype, img.device) or (
+            not grad.is_contiguous()):
+        raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} on {grad.device} is not a "
+                         f"contiguous tensor like img {tuple(img.shape)} {img.dtype}")
+    lib = build.load()
+    grad_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_img else None
+    grad_flow = torch.empty_like(flow) if need_flow else None
+    with _on_device(img):
+        rc = launch(lib, grad_img.data_ptr() if need_img else None,
+                    grad_flow.data_ptr() if need_flow else None,
+                    torch.cuda.current_stream().cuda_stream)
+    _raise_if_failed(rc, bname)
+    LAUNCHES[bname] += 1
+    return (grad_img.to(img.dtype) if need_img else None), grad_flow
+
+
 def _launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
                                need_img: bool, need_flow: bool, s2d: bool):
     B = img.shape[0]
@@ -203,25 +231,11 @@ def _launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torc
     else:
         _, C, H, W = img.shape
     dtype = _check(img, flow, (B, 2, H, W))
-    if (grad.shape, grad.dtype, grad.device) != (img.shape, img.dtype, img.device) or (
-            not grad.is_contiguous()):
-        raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} on {grad.device} is not a "
-                         f"contiguous tensor like img {tuple(img.shape)} {img.dtype}")
-    lib = build.load()
-    grad_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_img else None
-    grad_flow = torch.empty_like(flow) if need_flow else None
-    name = "flow_warp_s2d_backward" if s2d else "flow_warp_backward"
-    with _on_device(img):
-        rc = lib.fvc_flow_warp_backward(
-            img.data_ptr(), flow.data_ptr(), grad.data_ptr(),
-            grad_img.data_ptr() if need_img else None,
-            grad_flow.data_ptr() if need_flow else None,
-            B, C, H, W, grid_norm(W), grid_norm(H), int(s2d), dtype,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_if_failed(rc, name)
-    LAUNCHES[name] += 1
-    return (grad_img.to(img.dtype) if need_img else None), grad_flow
+    return _launch_backward(
+        "flow_warp_s2d_backward" if s2d else "flow_warp_backward", img, flow, grad, need_img,
+        need_flow, lambda lib, gi, gf, stream: lib.fvc_flow_warp_backward(
+            img.data_ptr(), flow.data_ptr(), grad.data_ptr(), gi, gf, B, C, H, W, grid_norm(W),
+            grid_norm(H), int(s2d), dtype, stream))
 
 
 def launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
@@ -241,3 +255,55 @@ def launch_flow_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
     [B, 2, H, W]) for the output's gradient ``grad`` (img_s2d's shape and
     dtype), as ``launch_flow_warp_backward``."""
     return _launch_flow_warp_backward(img_s2d, flow, grad, need_img, need_flow, True)
+
+
+# the layouts of the pixel warps' backward (csrc/warp.cu's PixelLayout)
+_PIXEL_LAYOUT = {"pixel_warp": 0, "pixel_warp_s2d": 1, "pixel_warp_s2d_sflow": 2}
+
+
+def _launch_pixel_warp_backward(name: str, img: torch.Tensor, flow: torch.Tensor,
+                                grad: torch.Tensor, need_img: bool, need_flow: bool):
+    layout = _PIXEL_LAYOUT[name]
+    if layout == 0:
+        B, C, H, W = img.shape
+        flow_shape = (B, 2, H, W)
+    else:
+        B, C4, Hs, Ws = _s2d_shape(img)
+        C, H, W = C4 // 4, 2 * Hs, 2 * Ws
+        flow_shape = (B, 8, Hs, Ws) if layout == 2 else (B, 2, H, W)
+    dtype = _check(img, flow, flow_shape, torch.float32)
+    return _launch_backward(
+        f"{name}_backward", img, flow, grad, need_img, need_flow,
+        lambda lib, gi, gf, stream: lib.fvc_pixel_warp_backward(
+            img.data_ptr(), flow.data_ptr(), grad.data_ptr(), gi, gf, B, C, H, W, layout, dtype,
+            stream))
+
+
+def launch_pixel_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
+                               need_img: bool = True, need_flow: bool = True):
+    """The vjp of ``pixel_warp`` at (img [B, C, H, W], flow [B, 2, H, W]
+    float32) for the output's gradient ``grad`` (img's shape and dtype):
+    (grad_img in img's dtype, grad_flow float32), each None unless asked
+    for. The image gradient is summed by float32 atomics and rounded once
+    to img's dtype; its order changes from run to run. Without it nothing
+    of the image's size is allocated."""
+    return _launch_pixel_warp_backward("pixel_warp", img, flow, grad, need_img, need_flow)
+
+
+def launch_pixel_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
+                                   grad: torch.Tensor, need_img: bool = True,
+                                   need_flow: bool = True):
+    """The vjp of ``pixel_warp_s2d`` at (img_s2d [B, 4C, H/2, W/2], flow
+    [B, 2, H, W] float32), as ``launch_pixel_warp_backward``."""
+    return _launch_pixel_warp_backward("pixel_warp_s2d", img_s2d, flow, grad, need_img,
+                                       need_flow)
+
+
+def launch_pixel_warp_s2d_sflow_backward(img_s2d: torch.Tensor, flow_s2d: torch.Tensor,
+                                         grad: torch.Tensor, need_img: bool = True,
+                                         need_flow: bool = True):
+    """The vjp of ``pixel_warp_s2d_sflow`` at (img_s2d [B, 4C, H/2, W/2],
+    flow_s2d [B, 8, H/2, W/2] float32 in c-major phase form), as
+    ``launch_pixel_warp_backward``: the flow gradient in the phase form."""
+    return _launch_pixel_warp_backward("pixel_warp_s2d_sflow", img_s2d, flow_s2d, grad,
+                                       need_img, need_flow)

@@ -17,9 +17,10 @@ dispatchers (``flow_warp``, ``flow_warp_fullres_s2d``, ``pixel_warp``,
 kernels (ops/kernels/warp.py) for CUDA tensors and run the plain versions
 for CPU tensors only: a CUDA tensor never falls back to them. On a CUDA
 tensor that needs a gradient the kernel runs inside ``KernelWarp``, whose
-backward is a backward kernel for the two normalized-grid warps and the
-vjp of the plain version for the pixel warps. There is no displacement
-bound: the TPU kernel's clamp was a limit of the TPU.
+backward is the warp's backward kernel; the vjp of the plain version
+(``plain_warp_vjp``) is that kernel's plain version, for CPU tensors, the
+tests and the card's checks. There is no displacement bound: the TPU
+kernel's clamp was a limit of the TPU.
 
 The cached tensors (grids, resize weights, blur taps) are built outside
 inference mode (``_cached``), so that a training step may follow an eval
@@ -338,24 +339,22 @@ def plain_warp_vjp(name: str, img: torch.Tensor, flow: torch.Tensor, grad: torch
     return tuple(next(grads) if w else None for w in wanted)
 
 
-# The warps whose backward is a kernel too, by launch-count name, with the
-# backward's plain version: ops/kernels/warp.py's launch_<name>_backward
-# takes (img, flow, grad, need_img, need_flow) and gives (grad_img,
-# grad_flow) as these do. The others take plain_warp_vjp.
-PLAIN_BACKWARD = {name: functools.partial(plain_warp_vjp, name)
-                  for name in ("flow_warp", "flow_warp_s2d")}
+# Each warp's backward kernel's plain version, by the warp's launch-count
+# name: ops/kernels/warp.py's launch_<name>_backward takes (img, flow, grad,
+# need_img, need_flow) and gives (grad_img, grad_flow) as these do.
+PLAIN_BACKWARD = {name: functools.partial(plain_warp_vjp, name) for name in PLAIN}
 
 
 class KernelWarp(torch.autograd.Function):
-    """A warp kernel with a gradient: the forward is the kernel's launcher.
-    The backward of ``flow_warp`` and ``flow_warp_s2d`` is their backward
-    kernel, asked for only the gradients autograd needs (the image's
-    gradient, a scatter of float32 atomics, is skipped when the image needs
-    none, as SpyNet's level image does); a build or launch failure raises.
-    The three pixel warps' backward is still the vjp of the plain version
-    on the saved inputs, computed by autograd on their device (the JAX
-    package's ``custom_vjp`` entry points take the vjp of the exact gather
-    path the same way). Call as ``KernelWarp.apply(name, img, flow)``."""
+    """A warp kernel with a gradient: the forward is the kernel's launcher,
+    the backward the warp's backward kernel (``launch_<name>_backward``),
+    asked for only the gradients autograd needs: the image's gradient, a
+    scatter of float32 atomics, is skipped when the image needs none, as
+    SpyNet's level image and the SSF and ELFVC references (detached) do. A
+    build or launch failure raises; the plain vjp is never taken here (the
+    JAX package's ``custom_vjp`` entry points take the vjp of the exact
+    gather path, not a Pallas kernel). Call as
+    ``KernelWarp.apply(name, img, flow)``."""
 
     @staticmethod
     def forward(ctx, name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -367,11 +366,8 @@ class KernelWarp(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad: torch.Tensor):
         img, flow = ctx.saved_tensors
-        wanted = ctx.needs_input_grad[1:]
-        if ctx.name in PLAIN_BACKWARD:
-            launch = getattr(kernels, f"launch_{ctx.name}_backward")
-            return None, *launch(img, flow, grad.contiguous(), *wanted)
-        return None, *plain_warp_vjp(ctx.name, img, flow, grad, *wanted)
+        launch = getattr(kernels, f"launch_{ctx.name}_backward")
+        return None, *launch(img, flow, grad.contiguous(), *ctx.needs_input_grad[1:])
 
 
 def _dispatch(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

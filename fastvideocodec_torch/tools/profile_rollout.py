@@ -5,8 +5,9 @@
                  |...|MCVC-IA|MCVC-Original|DVC|RLVC|RLVC-HP|Base-EC-ER]
         [--views 4] [--h 256 --w 256] [--json PATH] [--train]
 
-``--train`` profiles one training step in place of a rollout (an LSVC
-form, float32, --h x --w, 256x256 unless given, GOP 16 of synth_gop_multi
+``--train`` profiles one training step in place of a rollout (an LSVC,
+SSF or ELFVC form, float32, --h x --w, 256x256 unless given, GOP 16 of
+synth_gop_multi
 seed 0, the step of ``train.make_train_step`` at lr 1e-4 after a warm-up
 step): its card ms beside its host enqueue ms, and the kernel section
 below; no module split.
@@ -160,12 +161,13 @@ def call_kernels(module, args, kwargs) -> dict:
 
 
 def profile_train_step(args) -> int:
-    """``--train``: one LSVC training step, timed and profiled."""
+    """``--train``: one training step, timed and profiled."""
+    from fastvideocodec_torch.gop.engine import TRAINED
     from fastvideocodec_torch.ops.math import UniformNoise
     from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training
 
     spec, trained = load_model(args.codec, 2, torch.float32, "cuda", 1)
-    if spec.family != "lsvc":
+    if spec.family not in TRAINED:
         raise SystemExit(f"--train: {args.codec} does not train in the port yet")
     h, w = args.h, args.w
     rng = np.random.default_rng(0)
@@ -221,7 +223,7 @@ def main(argv=None) -> int:
     ap.add_argument("--w", type=int, default=256, help="MCVC's view width")
     ap.add_argument("--json", default="", help="append the summary as one JSON line here")
     ap.add_argument("--train", action="store_true",
-                    help="profile one LSVC training step (float32) in place of a rollout")
+                    help="profile one training step (float32) in place of a rollout")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")

@@ -16,10 +16,11 @@ flax module names (a name split on "." is the flax path without its
 ``make_train_step`` returns ``(init_fn, step_fn)`` as JAX's does. The step
 runs autograd over ``spec.module``'s own parameters, readied by
 ``ready_for_training`` (float32, requiring grad), and updates them in
-place. The warps' backward on the card is the hand-written backward
-kernel of ``flow_warp`` and ``flow_warp_s2d`` (ops/warp.py:KernelWarp),
-exact like JAX's training warp (``exact_warp``). LSVC alone trains in this
-slice; float32 only (ROADMAP.md queue 1, item 7).
+place. Every warp's backward on the card is a hand-written backward
+kernel (ops/warp.py:KernelWarp), exact like JAX's training warp
+(``exact_warp``). The LSVC, SSF and ELFVC families train; ELFVC-SP's staged
+recipe freezes by ``make_elfvc_stage_optimizer``. Float32 only; MCVC, DVC,
+RLVC and Base wait (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations

@@ -154,7 +154,7 @@ def test_batched_step_is_the_mean_of_the_clips():
         assert float((g - mean_grad[n]).abs().max()) <= 1e-6 * max(scale, 1e-12), n
 
 
-@pytest.mark.parametrize("name, kw", [("SSF-TINY", {}), ("DVC-TINY", {}),
+@pytest.mark.parametrize("name, kw", [("RLVC-TINY", {}), ("DVC-TINY", {}),
                                       ("MCVC-IA-TINY", {"num_views": 3})])
 def test_training_other_families_raises(name, kw):
     spec = ft.get_codec_model(name, device="cpu", **kw)
