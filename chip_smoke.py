@@ -18,6 +18,14 @@ Phases, each timed on its own line:
    memory), +-200 px random flows (none) and flows smooth on one
    half and random on the other (both in one launch); and with two NaN
    flow pixels, which must give NaN exactly where the plain version does;
+   then flow_warp (pair_warp_kernel at every shape) and both plans of
+   pixel_warp (pixel_warp_kernel and pair_warp_kernel, whichever
+   ops/kernels/warp.py:pixel_warp_plan picks at the shape) the same way on
+   the ragged shapes and SMALL_FRAMES (DVC's small SpyNet levels, MCVC's
+   4 x 18 x 256x256, a sub-tile frame, an odd width, 1, 2, 4, 7 and 18
+   channels), and with an image or a flow one element past its pairs'
+   alignment; every later timing phase holds both plans of pixel_warp bit
+   for bit on its main-path inputs and logs the plan of each launch;
    then each kernel's gradient (its autograd Function) against autograd
    through its plain version (each launching its backward kernel once a
    backward), and the five backward kernels against the plain version's
@@ -108,7 +116,9 @@ Phases, each timed on its own line:
 20. MCVC at 4 views of 1024x2048, the row-offset crops (0, 320, 640, 1024)
    of the 2048x2048 clip of phase 5, the same;
 21. MCVC kernel timing: pixel_warp at C = 18 as in phase 7, on the inputs
-   the 4 x 256x256 and the 4 x 1024x2048 rollouts give it;
+   the 4 x 256x256 and the 4 x 1024x2048 rollouts give it, and beside it,
+   as in phase 31, the device time of the kernel and of F.grid_sample
+   under torch.profiler and the host's enqueue time of each;
 22. MCVC real bits: 4 views of 256x256, view 2 failed, through
    mcvc_compress_gop and mcvc_decompress_gop as in phase 12: launches
    exactly 15 + 15, decode == encode bit for bit, real bpp within 5% of
@@ -148,6 +158,8 @@ Phases, each timed on its own line:
    L2-flushed against the byte bound, the plain version and
    F.grid_sample, and beside them the device time of the kernel and of
    F.grid_sample under torch.profiler and the host's enqueue time of each;
+   then the host's cost of one flow_warp launch at 1 x 3 x 128x256, piece
+   by piece (tools/launch_cost.py), beside F.grid_sample's call;
 32. DVC real bits at 1024x2048 (a warm-up GOP and one timed): launches
    exactly 75 + 15, decode == encode bit for bit, real bpp within 5% of
    the rollout's estimate on the same P-frames;
@@ -264,6 +276,7 @@ nothing of the JAX package; it exits non-zero when no CUDA device is found.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import platform
@@ -384,6 +397,16 @@ def pixel_train_launches(name: str, p_frames: int) -> dict:
     per = 2 if name.startswith("ELFVC") else 1
     warps = ("pixel_warp", "pixel_warp_s2d_sflow") if "-TPU" in name else ("pixel_warp",)
     return {f"{k}{part}": per * p_frames for k in warps for part in ("", "_backward")}
+NCHW_KERNELS = ("flow_warp", "pixel_warp")
+PLANS = ("tiled", "small")  # of pixel_warp (ops/kernels/warp.py:pixel_warp_plan)
+# the small-frame plan's shapes beside the ragged ones: DVC's three SpyNet
+# levels below full resolution, MCVC's 4 x 18 x 256x256 volume, a frame
+# smaller than one tile, an odd width, and 1, 2, 4, 7 and 18 channels (the
+# few-channel group short; the many-channel group short, with a remainder
+# and whole)
+SMALL_FRAMES = [(1, 3, 128, 256), (1, 3, 256, 512), (1, 3, 512, 1024), (4, 18, 256, 256),
+                (1, 3, 16, 32), (1, 3, 9, 33), (2, 1, 40, 70), (2, 2, 40, 70), (1, 4, 33, 65),
+                (1, 7, 24, 200), (3, 18, 20, 50)]
 LSVC_KERNELS = ("flow_warp", "flow_warp_s2d")
 SSF_KERNELS = ("pixel_warp", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
 S2D_KERNELS = ("flow_warp_s2d", "pixel_warp_s2d", "pixel_warp_s2d_sflow")
@@ -621,6 +644,7 @@ def main() -> int:
     from fastvideocodec_torch.ops.kernels import build
     from fastvideocodec_torch.ops.kernels import warp as kw
     from fastvideocodec_torch.ops import warp as ow
+    from fastvideocodec_torch.tools import launch_cost
     from fastvideocodec_torch.ops.warp import (
         _full_res_flow,
         _linspace,
@@ -725,10 +749,11 @@ def main() -> int:
                                             (1, 2, H, W), dtype, f32)),
         ]
 
-    def hold_exact(name, img, flow, what) -> int:
-        """The kernel against its plain version: NaN at the same outputs,
-        bit for bit equal at all others; returns the NaN count."""
-        got = kernels[name](img, flow)
+    def hold_exact(name, img, flow, what, launch=None) -> int:
+        """The kernel (``launch``, default its launcher) against its plain
+        version: NaN at the same outputs, bit for bit equal at all others;
+        returns the NaN count."""
+        got = (launch or kernels[name])(img, flow)
         want = plains[name](img, flow)
         torch.cuda.synchronize()
         nan = want.isnan()
@@ -821,6 +846,52 @@ def main() -> int:
                     require(nans == want, f"{name} {dname} C18: {nans} NaN outputs, want {want}")
                     log(f"{name} {dname} NaN flow at 2 pixels of each of 4 views {C18_RAGGED}: "
                         f"NaN at the plain version's {nans} outputs, max abs 0 elsewhere")
+
+    # flow_warp's one kernel and each plan of pixel_warp, forced at any shape
+    plan_launchers = {"flow_warp": {"pair": kernels["flow_warp"]},
+                      "pixel_warp": {plan: functools.partial(kw._pixel_warp, plan=plan)
+                                     for plan in PLANS}}
+    with phase("flow_warp and both plans of pixel_warp: ragged shapes, small frames, smooth, "
+               "random, mixed and NaN flows, unaligned pointers"):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for name in NCHW_KERNELS:
+            shapes = ragged[name] + SMALL_FRAMES
+            if name == "pixel_warp":
+                log(f"{name} plans by the rule: " + ", ".join(
+                    f"{shape} {kw.pixel_warp_plan(*shape)}" for shape in shapes))
+            for plan, launch in plan_launchers[name].items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).split(".")[1]
+                    for pattern, make in flows.items():
+                        for shape in shapes:
+                            img, flow = tiled_case(gen, name, shape, make, dtype)
+                            hold_exact(name, img, flow, f"{name} {plan} {dname} {pattern} {shape}",
+                                       launch)
+                    nans = 0
+                    for shape in SMALL_FRAMES + [C18_RAGGED]:
+                        B, C, h, w = shape
+                        img, flow = tiled_case(gen, name, shape, smooth_flow, dtype)
+                        flow[0, :, 0, 0] = flow[B - 1, :, h - 1, w - 1] = float("nan")
+                        n = hold_exact(name, img, flow, f"{name} {plan} {dname} NaN {shape}",
+                                       launch)
+                        require(n == 2 * C, f"{name} {plan} {dname} NaN {shape}: {n} NaN outputs")
+                        nans += n
+                    # an image or a flow one element past a pair's alignment
+                    for shape in ((1, 3, 128, 256), (4, 18, 64, 64), (1, 3, 16, 32)):
+                        img, flow = tiled_case(gen, name, shape, random_flow, dtype)
+                        for which, t in (("img", img), ("flow", flow)):
+                            moved = torch.empty(t.numel() + 1, dtype=t.dtype,
+                                                device="cuda")[1:].view(t.shape)
+                            moved.copy_(t)
+                            require(moved.data_ptr() % (2 * t.element_size()) != 0, "aligned")
+                            args = (moved, flow) if which == "img" else (img, moved)
+                            got = launch(*args)
+                            require(torch.equal(got, plains[name](img, flow)),
+                                    f"{name} {plan} {dname} unaligned {which} {shape}")
+                    log(f"{name} {plan} {dname}: smooth, random and mixed flows on "
+                        f"{len(shapes)} shapes max abs 0 (tolerance 0); NaN flows NaN at the "
+                        f"plain version's {nans} outputs, max abs 0 elsewhere; unaligned image "
+                        f"and flow equal")
 
     grad_cases = [("flow_warp", (2, 3, 12, 20), (2, 2, 12, 20)),
                   ("flow_warp_s2d", (2, 12, 6, 10), (2, 2, 12, 20)),
@@ -1066,6 +1137,9 @@ def main() -> int:
                 sflow = flow_like(torch, sgen, smooth_flow, flow)
                 for f in (flow, sflow):
                     hold_exact(name, img, f, f"{name} on main-path inputs")
+                    for plan in PLANS if name == "pixel_warp" else ():
+                        hold_exact(name, img, f, f"{name} {plan} on main-path inputs",
+                                   plan_launchers[name][plan])
                 if name == "flow_warp_s2d":
                     for key, f in (("staged", flow), ("smooth_staged", sflow)):
                         r[key] = [a + b for a, b in zip(r[key], staged_tiles(img, f))]
@@ -1073,7 +1147,8 @@ def main() -> int:
                 cold = cold_ms(torch, kernels[name], img, flow, flush=flush)
                 r["ms"] += warm
                 r["cold_ms"] += cold
-                r["launches"].append(f"{tuple(img.shape)}: {warm:.4f} / {cold:.4f}")
+                plan = kw.pixel_warp_plan(*img.shape) if name == "pixel_warp" else "one plan"
+                r["launches"].append(f"{tuple(img.shape)} {plan}: {warm:.4f} / {cold:.4f}")
                 r["plain_ms"] += cuda_ms(torch, plains[name], img, flow, iters=5)
                 r["bound_ms"] += bound_ms(img, flow)
                 r["smooth_ms"] += cuda_ms(torch, kernels[name], img, sflow)
@@ -1094,7 +1169,7 @@ def main() -> int:
                 f"{r['smooth_ms']:.4f}; on uniform random flows of +-200 px: "
                 f"{r['random_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
                 f"{r['bound_ms']:.4f} (bytes), library {lib[name]}{staged}")
-            log(f"{name} per launch, img shape: warm / L2-flushed ms: {r['launches']}")
+            log(f"{name} per launch, img shape and plan: warm / L2-flushed ms: {r['launches']}")
 
     rows, lib = {}, {}
     with phase("kernel timing (bf16, one GOP's launches)"):
@@ -1587,6 +1662,7 @@ def main() -> int:
 
     mcvc_timing = {}
     with phase("mcvc kernel timing (bf16, one GOP's pixel_warp launches at C = 18)"):
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
         for label, frames in ((f"{MCVC_VIEWS}x{MCVC_SIZE}", mv_small),
                               (f"{MCVC_VIEWS}x{H}x{W}", mv_big)):
             captured = {}
@@ -1597,13 +1673,28 @@ def main() -> int:
                     f"captured {[(k, len(v)) for k, v in captured.items()]}")
             mrows, mlib = {}, {}
             time_kernels(("pixel_warp",), captured, mrows, mlib, ssf_library)
-            mcvc_timing[label] = {**mrows["pixel_warp"], "library_ms": mlib["pixel_warp"]}
-            log(f"pixel_warp C = 18 at {label}: kernel {mrows['pixel_warp']['ms']:.4f} ms/GOP "
-                f"against its byte bound {mrows['pixel_warp']['bound_ms']:.4f} "
-                f"({mrows['pixel_warp']['bound_ms'] / mrows['pixel_warp']['ms']:.3f} of it) "
-                f"and F.grid_sample {mlib['pixel_warp']:.4f}")
-            del captured
-        del mv_big
+            # the card's time under the profiler and the host's enqueue, of
+            # the kernel and of F.grid_sample (the grid built beforehand)
+            inputs = captured["pixel_warp"]
+            grids = [(img, pixel_grid(flow).to(img.dtype)) for img, flow in inputs]
+            dev, per_call = device_ms(torch, kernels["pixel_warp"], inputs)
+            ldev, lper_call = device_ms(torch, grid_sample, grids)
+            t = mcvc_timing[label] = {
+                **mrows["pixel_warp"], "library_ms": mlib["pixel_warp"],
+                "library_cold_ms": sum(cold_ms(torch, grid_sample, *g, flush=flush)
+                                       for g in grids),
+                "device_ms": dev, "library_device_ms": ldev,
+                "host_ms": host_ms(torch, kernels["pixel_warp"], inputs),
+                "library_host_ms": host_ms(torch, grid_sample, grids)}
+            log(f"pixel_warp C = 18 at {label}: kernel {t['ms']:.4f} ms/GOP (L2 flushed "
+                f"{t['cold_ms']:.4f}) against its byte bound {t['bound_ms']:.4f} "
+                f"({t['bound_ms'] / t['cold_ms']:.3f} of it L2-flushed) and F.grid_sample "
+                f"{t['library_ms']:.4f} (L2 flushed {t['library_cold_ms']:.4f}); device time "
+                f"under the profiler kernel {dev} ({per_call} kernels a call) / F.grid_sample "
+                f"{ldev} ({lper_call} a call); host enqueue kernel {t['host_ms']:.4f} / "
+                f"F.grid_sample {t['library_host_ms']:.4f}")
+            del captured, inputs, grids
+        del mv_big, flush
 
     with phase(f"mcvc real bits {MCVC_VIEWS}x{MCVC_SIZE}x{MCVC_SIZE} GOP16 bf16"):
         # the model's estimate over the same GOP and mask, keyframe coded as
@@ -1630,7 +1721,8 @@ def main() -> int:
         del runs, recon
     log(json.dumps({"mcvc": {"rollouts": mcvc_rows, "pixel_warp_c18": {
         k: {key: v[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "smooth_ms",
-                                    "random_ms", "library_ms")}
+                                    "random_ms", "library_ms", "library_cold_ms", "device_ms",
+                                    "library_device_ms", "host_ms", "library_host_ms")}
         for k, v in mcvc_timing.items()}}}))
 
     # -- the stock (s2d=1) scale-space codecs: SSF-Official, ELFVC-SP and
@@ -1865,6 +1957,7 @@ def main() -> int:
         groups = {f"dvc_rollout_spynet_{H >> (3 - k)}x{W >> (3 - k)}": warps[k::5]
                   for k in range(4)}
         groups["dvc_rollout_mc_warp"] = mc
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
         for what, inputs in groups.items():
             drows, dlib = {}, {}
             time_kernels(("flow_warp",), {"flow_warp": inputs}, drows, dlib, lsvc_library)
@@ -1873,17 +1966,20 @@ def main() -> int:
             ldev, lper_call = device_ms(torch, grid_sample, grids)
             t = chain_timing[what] = {
                 **drows["flow_warp"], "library_ms": dlib["flow_warp"], "launches": len(inputs),
+                "library_cold_ms": sum(cold_ms(torch, grid_sample, *g, flush=flush)
+                                       for g in grids),
                 "device_ms": dev, "library_device_ms": ldev,
                 "host_ms": host_ms(torch, kernels["flow_warp"], inputs),
                 "library_host_ms": host_ms(torch, grid_sample, grids)}
             log(f"flow_warp {what}, {len(inputs)} launches of {tuple(inputs[0][0].shape)}: "
                 f"by CUDA events kernel {t['ms']:.4f} / F.grid_sample {t['library_ms']:.4f} "
-                f"ms/GOP; device time under the profiler kernel {dev} ({per_call} kernels "
-                f"a call) / F.grid_sample {ldev} ({lper_call} a call); host enqueue kernel "
+                f"ms/GOP, L2 flushed {t['cold_ms']:.4f} / {t['library_cold_ms']:.4f}; device "
+                f"time under the profiler kernel {dev} ({per_call} kernels a call) / "
+                f"F.grid_sample {ldev} ({lper_call} a call); host enqueue kernel "
                 f"{t['host_ms']:.4f} / F.grid_sample {t['library_host_ms']:.4f}; bound "
                 f"{t['bound_ms']:.4f}")
         sums = ("ms", "cold_ms", "plain_ms", "bound_ms", "smooth_ms", "random_ms",
-                "library_ms", "device_ms", "library_device_ms", "host_ms",
+                "library_ms", "library_cold_ms", "device_ms", "library_device_ms", "host_ms",
                 "library_host_ms", "launches")
         r = chain_timing["dvc_rollout"] = {
             key: (None if any(t[key] is None for t in chain_timing.values())
@@ -1896,7 +1992,12 @@ def main() -> int:
             f"{r['library_ms']:.4f} (device {r['library_device_ms']}); of it the 15 MC "
             f"warps (1 x 3 x {H}x{W}) {q['ms']:.4f} (L2 flushed {q['cold_ms']:.4f}, bound "
             f"{q['bound_ms']:.4f}, F.grid_sample {q['library_ms']:.4f})")
-        del captured, warps, mc, groups, inputs, grids  # the captured frames
+        del captured, warps, mc, groups, inputs, grids, flush  # the captured frames
+        # the launcher's host cost, piece by piece, beside F.grid_sample's call
+        launch_host_us = launch_cost.pieces(torch)
+        log("host us a call of one flow_warp launch at 1 x 3 x 128x256 bf16 "
+            "(tools/launch_cost.py), piece by piece: " + "; ".join(
+                f"{what} {us:.3f}" for what, us in launch_host_us.items()))
 
     with phase(f"dvc real bits {H}x{W} GOP16 bf16"):
         enc, dec = chain_real_bits("dvc", dspec, gop)
@@ -1926,7 +2027,8 @@ def main() -> int:
         del cspec
     del small_gop
     log(json.dumps({"dvc_family": chain_rows, "flow_warp": {
-        k: {key: v[key] for key in sums} for k, v in chain_timing.items()}}))
+        k: {key: v[key] for key in sums} for k, v in chain_timing.items()},
+        "launch_host_us": launch_host_us}))
 
     # -- The rest of LSVC: the s2d=1 LSVC-128 (the stock SpyNet over all 15
     # P-frames in one batch, flow_warp at full resolution), the LSVC-TPU

@@ -105,11 +105,12 @@ def open_library(path: Path) -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     pixel = args[:7]  # img, flow, out, B, C, H (or Hs), W (or Ws)
-    lib.fvc_pixel_warp.argtypes = [*pixel, ctypes.c_int, ctypes.c_void_p]  # dtype, stream
+    for fn in (lib.fvc_pixel_warp, lib.fvc_pixel_warp_small):
+        fn.argtypes = [*pixel, ctypes.c_int, ctypes.c_void_p]  # dtype, stream
     lib.fvc_pixel_warp_s2d.argtypes = [
         *pixel, ctypes.c_int, ctypes.c_int, ctypes.c_void_p  # phase_flow, dtype, stream
     ]
-    for fn in (lib.fvc_pixel_warp, lib.fvc_pixel_warp_s2d):
+    for fn in (lib.fvc_pixel_warp, lib.fvc_pixel_warp_small, lib.fvc_pixel_warp_s2d):
         fn.restype = ctypes.c_int
     lib.fvc_flow_warp_backward.argtypes = [
         *args[:2], ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # grad, grad_img, grad_flow

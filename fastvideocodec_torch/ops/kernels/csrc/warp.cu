@@ -3,7 +3,9 @@
 // Three kernels, five entry points, and the backward of each entry point
 // (flow_warp_backward_kernel for the two normalized-grid warps,
 // pixel_warp_backward_kernel for the three pixel warps, after the s2d
-// warps).
+// warps). pair_warp_kernel serves flow_warp at every shape and pixel_warp
+// on the frames that would leave pixel_warp_kernel's grid idle
+// (kTiledMinThreads).
 // The sample coordinate is built in float32 exactly as the exact path
 // builds it, in one of two conventions:
 // - normalized grid (fastvideocodec_tpu/ops/warp.py:_xla_flow_warp,
@@ -319,71 +321,6 @@ struct Extremes {
 // The NCHW warps
 // ---------------------------------------------------------------------------
 
-constexpr int kFwPairs = 4;                  // pairs of outputs a thread owns
-constexpr int kFwCols = kPairCols * kFwPairs;  // 256 columns a warp covers
-constexpr int kFwRows = 8;                   // warps of a block, one output row each
-constexpr int kFwThreads = 32 * kFwRows;     // 256: a tile of kFwRows x kFwCols outputs
-
-// Replaces pallas_flow_warp (fastvideocodec_tpu/ops/pallas/warp_kernel.py:502),
-// the SpyNet level warp. img [B,C,H,W], flow [B,2,H,W], out [B,C,H,W].
-//
-// Bound by bytes: it must read the flow and the image once and write the
-// output (C=3 on the main path: ~167 MB per GOP at 1024x2048, ~0.05 ms at
-// 3.35 TB/s). What the tiling does about the plain gather's costs:
-// - grid (column tiles, row tiles, B): a block owns kFwRows x kFwCols
-//   outputs, a warp one row of them and a thread kFwPairs pairs of
-//   neighbouring outputs; all indexing is 32-bit from blockIdx and
-//   tile-local offsets (no 64-bit division);
-// - the linspace values of the tile's columns and rows are computed once
-//   per block into shared memory (the same __fdiv_rn expression), so a
-//   pixel costs one multiply and one add per axis before border_tap;
-// - the flow and every output channel move as 2-element vectors, each
-//   warp access 128 contiguous bytes in bf16 (a masked scalar edge where W
-//   is odd or a pointer unaligned); runs of 8 outputs a thread with
-//   16-byte vectors were tried first and lost (PERF.md);
-// - the gathers read global memory, through L1: staging the tile's
-//   footprint in shared memory, as warp_s2d_kernel does, measured slower
-//   here on the path's flows and on random ones (warp_ab.py, PERF.md).
-template <typename T>
-__global__ void __launch_bounds__(kFwThreads)
-flow_warp_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restrict__ out,
-                 int C, int H, int W, float norm_x, float norm_y, int flags) {
-  __shared__ float lin_x[kFwCols], lin_y[kFwRows];
-
-  const int tid = threadIdx.x, lane = tid & 31, row = tid >> 5, b = blockIdx.z;
-  const int tx0 = blockIdx.x * kFwCols, ty0 = blockIdx.y * kFwRows;
-  for (int t = tid; t < kFwCols; t += kFwThreads) lin_x[t] = linspace_at(tx0 + t, W);
-  if (tid < kFwRows) lin_y[tid] = linspace_at(ty0 + tid, H);
-  __syncthreads();
-
-  const int y = ty0 + row, plane = H * W;
-  if (y >= H) return;
-  const bool vec = flags & kVecPairs;
-  const int pix = y * W + tx0;  // the warp's first output
-  const T* fb = flow + (int64_t)b * 2 * plane + pix;
-  const T* ib = img + (int64_t)b * C * plane;
-  T* ob = out + (int64_t)b * C * plane + pix;
-  const float ly = lin_y[row];
-#pragma unroll
-  for (int m = 0; m < kFwPairs; ++m) {
-    const int col = pair_col(m, lane), n = min(2, W - tx0 - col);
-    if (n <= 0) break;  // never grows with m
-    const Vec<T, 2> fx = load_vec<2>(fb + col, vec, n), fy = load_vec<2>(fb + plane + col, vec, n);
-    // the taps of the pair; past the edge the pair's first output's, never stored
-    Taps4 t[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool in = e < n;
-      const float ux = to_f32(in ? fx.v[e] : fx.v[0]), uy = to_f32(in ? fy.v[e] : fy.v[0]);
-      const Tap a = border_tap(grid_coord(lin_x[col + (in ? e : 0)], ux, norm_x), W);
-      const Tap c = border_tap(grid_coord(ly, uy, norm_y), H);
-      const int r0 = c.i0 * W, r1 = c.i1 * W;
-      t[e] = Taps4{r0 + a.i0, r0 + a.i1, r1 + a.i0, r1 + a.i1, a.t, c.t};
-    }
-    lerp_pair(ib, plane, t, C, ob + col, plane, vec, n);
-  }
-}
-
 constexpr int kPwRows = 8;                 // warps of a block, one output row each
 constexpr int kPwThreads = 32 * kPwRows;   // 256: a tile of kPwRows x kPairCols outputs
 constexpr int kPwChunk = 3;                // channels whose gathers a thread issues together
@@ -394,10 +331,10 @@ constexpr int kPwChunk = 3;                // channels whose gathers a thread is
 // [B,2,H,W] float32 pixel displacements, out [B,C,H,W].
 //
 // Bound by bytes: on the SSF-TPU path (C = 15 in bf16 at 512x1024, flow
-// f32) 35.7 MB a launch, ~0.16 ms per GOP at 3.35 TB/s. flow_warp_kernel's
-// tiling, with what the many channels change:
-// - a thread owns one pair of neighbouring outputs (a tile of kPwRows x
-//   kPairCols): with 15 channels a pair is 120 gathers, and a thread of
+// f32) 35.7 MB a launch, ~0.16 ms per GOP at 3.35 TB/s. The tiling:
+// - grid (column tiles, row tiles, B): a block owns kPwRows x kPairCols
+//   outputs, a warp one row of them and a thread one pair of neighbouring
+//   outputs: with 15 channels a pair is 120 gathers, and a thread of
 //   several pairs would leave too few blocks to fill the card at 512x1024;
 // - the pair's coordinates and taps are computed once (one f32 pair load
 //   per flow component) and serve every channel;
@@ -409,7 +346,7 @@ constexpr int kPwChunk = 3;                // channels whose gathers a thread is
 //   warp_ab.py, PERF.md);
 // - each channel's output pair is one 2-element store;
 // - no shared-memory stage: a tile's footprint over 15 planes would not
-//   leave L1 room, and staging did not pay in flow_warp_kernel.
+//   leave L1 room, and staging lost in the grid warps too.
 template <typename T>
 __global__ void __launch_bounds__(kPwThreads)
 pixel_warp_kernel(const T* __restrict__ img, const float* __restrict__ flow,
@@ -438,6 +375,123 @@ pixel_warp_kernel(const T* __restrict__ img, const float* __restrict__ flow,
   for (; c + kPwChunk <= C; c += kPwChunk)
     lerp_pair_chunk<kPwChunk>(ib + c * plane, plane, t, ob + c * plane, plane, vec, n);
   for (; c < C; ++c) lerp_pair_chunk<1>(ib + c * plane, plane, t, ob + c * plane, plane, vec, n);
+}
+
+// pixel_warp's plan rule, in plain numbers that
+// ops/kernels/warp.py:pixel_warp_plan reads from this file: a launch keeps
+// pixel_warp_kernel above when its grid holds at least kTiledMinThreads
+// threads, and takes pair_warp_kernel below otherwise, where that
+// kernel's grid fits. The threshold lies between the measured sides
+// (warp_ab.py, PERF.md): the training steps' 1 x 15 x 128x128 and 1 x 18 x
+// 256x256 (8K and 32K tiled threads) take 0.59 and 0.74 of the tiled
+// kernel's device time in pair_warp_kernel, which recomputes its taps for
+// each channel group; MCVC's 4 x 18 x 256x256 (128K) takes 1.08, and every
+// larger frame more.
+constexpr int kTiledMinThreads = 65536;
+constexpr int kPairRows = 2;       // warps of a pair_warp_kernel block, one output row each
+constexpr int kPairFewChunk = 3;   // channels of a thread when C <= kPairFewChunk (SpyNet's 3)
+constexpr int kPairManyChunk = 6;  // channels of a thread's group when C is larger
+constexpr int kGridYZ = 65535;     // CUDA's limit on gridDim.y and gridDim.z
+constexpr int kPairThreads = 32 * kPairRows;  // 64: a tile of kPairRows x kPairCols outputs
+
+// The same gathers and lerps as lerp_pair_chunk<K>, for the first nc (1..K)
+// of K channels: every load is issued (predicated) before the first lerp.
+template <int K, typename T>
+__device__ __forceinline__ void lerp_pair_upto(const T* src, int cstride, const Taps4 (&t)[2],
+                                               int nc, T* out, int ostride, bool vec, int n) {
+  T v[K][2][4];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (c < nc) {
+      const T* sc = src + c * cstride;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[c][e][0] = sc[t[e].o00];
+        v[c][e][1] = sc[t[e].o01];
+        v[c][e][2] = sc[t[e].o10];
+        v[c][e][3] = sc[t[e].o11];
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (c < nc) {
+      float r[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        r[e] = lerp2(to_f32(v[c][e][0]), to_f32(v[c][e][1]), to_f32(v[c][e][2]),
+                     to_f32(v[c][e][3]), t[e].wx, t[e].wy);
+      store_pair(out + c * ostride, vec, n, r[0], r[1]);
+    }
+  }
+}
+
+// Replaces pallas_flow_warp (fastvideocodec_tpu/ops/pallas/warp_kernel.py:502)
+// at every shape (kPixel false: the normalized grid, a flow of the image's
+// type): SpyNet's level warp, the DVC family's MC warp, LSVC-128's and
+// -RW's (C = 12) MC warps; and pixel_warp (kPixel true: pixel offsets, a
+// float32 flow) on the frames where pixel_warp_kernel's grid would leave
+// the card idle (pixel_warp_plan). img [B,C,H,W], flow [B,2,H,W], out
+// [B,C,H,W].
+//
+// Bound by bytes (C = 3 at 1024x2048 in bf16: 33.6 MB a launch), but on
+// the small frames of DVC's SpyNet (1 x 3 x 128x256 .. 512x1024) latency
+// sets the time: a tiled kernel of 8 x 256 outputs a block gave 16 to 256
+// blocks on 132 SMs, each thread waiting on a dozen dependent round trips
+// to L2 or HBM. Here a thread owns one pair of neighbouring outputs and a
+// group of K channels of them:
+// - grid (column tiles of kPairCols, row tiles of kPairRows, B x channel
+//   groups): blocks of 64 threads, so 1 x 3 x 128x256 gives 256 blocks and
+//   every SM holds up to 32 of them; K = kPairFewChunk (3) for C <= 3,
+//   else kPairManyChunk (6). Groups of 3 at 18 channels, of 6 at 3, of 9
+//   at 18, blocks of 4 rows, an L2 prefetch of the output's own rows
+//   before the flow load, and gathering a smooth pair's taps as two runs
+//   of three (pair vectors: 4 loads a channel in place of 8) all measured
+//   slower on the path's inputs, or no faster (warp_ab.py, PERF.md);
+// - one round trip for the flow pair (a 2-element vector), then every one
+//   of the group's 8K gathers issued before the first lerp
+//   (lerp_pair_upto), then the stores: two dependent round trips;
+// - the taps are recomputed for each channel group (about 40 flops and
+//   the flow pair, which L2 holds, against 8 gathers a channel), and the
+//   linspace values by each thread (no shared memory, no block barrier);
+// - at full resolution the same design beat the 8 x 256 tile by 14-20% on
+//   the path's flows and lost 11-18% on +-200 px random ones (warp_ab.py,
+//   PERF.md): no codec's flow is random, so it serves every shape;
+// - the same border_tap / grid_coord / pixel_tap arithmetic and lerp2 as
+//   the other kernels: bit for bit the plain versions, NaN flows included.
+template <typename T, typename F, bool kPixel, int K>
+__global__ void __launch_bounds__(kPairThreads)
+pair_warp_kernel(const T* __restrict__ img, const F* __restrict__ flow, T* __restrict__ out,
+                 int C, int groups, int H, int W, float norm_x, float norm_y, int flags) {
+  const int lane = threadIdx.x & 31;
+  const int x = blockIdx.x * kPairCols + 2 * lane, n = min(2, W - x);
+  const int y = blockIdx.y * kPairRows + (threadIdx.x >> 5);
+  if (y >= H || n <= 0) return;
+  const int b = blockIdx.z / groups, c0 = (blockIdx.z - b * groups) * K;
+  const bool vec = flags & kVecPairs;
+  const int plane = H * W, pix = y * W + x;  // the pair's first output
+  const F* fb = flow + (int64_t)b * 2 * plane + pix;
+  const Vec<F, 2> fx = load_vec<2>(fb, vec, n), fy = load_vec<2>(fb + plane, vec, n);
+  // the taps of the pair; past the edge the pair's first output's, never stored
+  Taps4 t[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool in = e < n;
+    const int xe = x + (in ? e : 0);
+    const float ux = to_f32(in ? fx.v[e] : fx.v[0]), uy = to_f32(in ? fy.v[e] : fy.v[0]);
+    Tap a, c;
+    if constexpr (kPixel) {
+      a = pixel_tap(ux, xe, W);
+      c = pixel_tap(uy, y, H);
+    } else {
+      a = border_tap(grid_coord(linspace_at(xe, W), ux, norm_x), W);
+      c = border_tap(grid_coord(linspace_at(y, H), uy, norm_y), H);
+    }
+    const int r0 = c.i0 * W, r1 = c.i1 * W;
+    t[e] = Taps4{r0 + a.i0, r0 + a.i1, r1 + a.i0, r1 + a.i1, a.t, c.t};
+  }
+  const int64_t base = ((int64_t)b * C + c0) * plane;
+  lerp_pair_upto<K>(img + base, plane, t, min(K, C - c0), out + base + pix, plane, vec, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -872,19 +926,6 @@ pixel_warp_backward_kernel(const T* __restrict__ img, const float* __restrict__ 
 inline bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
 template <typename T>
-int launch_flow_warp(const void* img, const void* flow, void* out, int B, int C, int H, int W,
-                     float norm_x, float norm_y, cudaStream_t s) {
-  constexpr int kPair = 2 * sizeof(T);
-  int flags = 0;
-  if (W % 2 == 0 && aligned(img, kPair) && aligned(flow, kPair) && aligned(out, kPair))
-    flags |= kVecPairs;
-  dim3 grid((W + kFwCols - 1) / kFwCols, (H + kFwRows - 1) / kFwRows, B);
-  flow_warp_kernel<T><<<grid, kFwThreads, 0, s>>>(
-      (const T*)img, (const T*)flow, (T*)out, C, H, W, norm_x, norm_y, flags);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_pixel_warp(const void* img, const void* flow, void* out, int B, int C, int H, int W,
                       cudaStream_t s) {
   constexpr int kPair = 2 * sizeof(T);
@@ -895,6 +936,35 @@ int launch_pixel_warp(const void* img, const void* flow, void* out, int B, int C
   pixel_warp_kernel<T><<<grid, kPwThreads, 0, s>>>(
       (const T*)img, (const float*)flow, (T*)out, C, H, W, flags);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename F, bool kPixel, int K>
+int launch_pair_warp_of(const void* img, const void* flow, void* out, int B, int C, int H,
+                        int W, float norm_x, float norm_y, cudaStream_t s) {
+  const int groups = (C + K - 1) / K, rows = (H + kPairRows - 1) / kPairRows;
+  if (groups < 1 || (int64_t)B * groups > kGridYZ || rows > kGridYZ)
+    return (int)cudaErrorInvalidValue;
+  constexpr int kPair = 2 * sizeof(T);
+  int flags = 0;
+  if (W % 2 == 0 && aligned(img, kPair) && aligned(flow, 2 * sizeof(F)) && aligned(out, kPair))
+    flags |= kVecPairs;
+  dim3 grid((W + kPairCols - 1) / kPairCols, rows, B * groups);
+  pair_warp_kernel<T, F, kPixel, K><<<grid, kPairThreads, 0, s>>>(
+      (const T*)img, (const F*)flow, (T*)out, C, groups, H, W, norm_x, norm_y, flags);
+  return (int)cudaGetLastError();
+}
+
+// pair_warp_kernel's channel group by C (ops/kernels/warp.py:pixel_warp_plan
+// has the same rule for its grid's limits).
+template <typename T, typename F, bool kPixel>
+int launch_pair_warp(const void* img, const void* flow, void* out, int B, int C, int H, int W,
+                     float norm_x, float norm_y, cudaStream_t s) {
+  if (C <= kPairFewChunk) {
+    return launch_pair_warp_of<T, F, kPixel, kPairFewChunk>(img, flow, out, B, C, H, W, norm_x,
+                                                            norm_y, s);
+  }
+  return launch_pair_warp_of<T, F, kPixel, kPairManyChunk>(img, flow, out, B, C, H, W, norm_x,
+                                                           norm_y, s);
 }
 
 template <typename T, int kFlow>
@@ -972,11 +1042,13 @@ extern "C" int fvc_flow_warp(const void* img, const void* flow, void* out, int B
                              int H, int W, float norm_x, float norm_y, int dtype,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || B > 65535 || !fits_int32((int64_t)max(C, 2) * H * W))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_flow_warp<float>(img, flow, out, B, C, H, W, norm_x, norm_y, s);
+  if (B < 1 || !fits_int32((int64_t)max(C, 2) * H * W)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return launch_pair_warp<float, float, false>(img, flow, out, B, C, H, W, norm_x, norm_y, s);
+  }
   if (dtype == 1) {
-    return launch_flow_warp<__nv_bfloat16>(img, flow, out, B, C, H, W, norm_x, norm_y, s);
+    return launch_pair_warp<__nv_bfloat16, __nv_bfloat16, false>(img, flow, out, B, C, H, W,
+                                                                norm_x, norm_y, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1006,6 +1078,23 @@ extern "C" int fvc_pixel_warp(const void* img, const void* flow, void* out, int 
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_pixel_warp<float>(img, flow, out, B, C, H, W, s);
   if (dtype == 1) return launch_pixel_warp<__nv_bfloat16>(img, flow, out, B, C, H, W, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The small-frame plan of fvc_pixel_warp (pair_warp_kernel), with its
+// arguments and results; ops/kernels/warp.py:pixel_warp_plan says which of
+// the two forms a launch takes.
+extern "C" int fvc_pixel_warp_small(const void* img, const void* flow, void* out, int B, int C,
+                                    int H, int W, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || !fits_int32((int64_t)max(C, 2) * H * W)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return launch_pair_warp<float, float, true>(img, flow, out, B, C, H, W, 0.0f, 0.0f, s);
+  }
+  if (dtype == 1) {
+    return launch_pair_warp<__nv_bfloat16, float, true>(img, flow, out, B, C, H, W, 0.0f, 0.0f,
+                                                        s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,14 +21,26 @@ All five are tiled: a block owns a tile of outputs. The three s2d warps
 share one kernel body, and ``flow_warp_s2d``'s block stages the tile's
 source footprint in shared memory when it fits a budget.
 ``tile_constants()`` reads that tile and budget from warp.cu itself, for
-``ops.warp.staged_tiles``.
+``ops.warp.staged_tiles``. ``flow_warp`` launches warp.cu's
+pair_warp_kernel at every shape; ``pixel_warp`` has two plans, chosen by
+shape (``pixel_warp_plan``, from warp.cu's constants too): its tiled
+kernel where its grid fills the card, pair_warp_kernel on the small frames
+where it would not (each plan a C entry point of its own,
+``PIXEL_ENTRIES``).
+
+A launch costs the host a few microseconds, which the small frames'
+launches feel: the launchers check their tensors with cheap attribute
+reads, cache each shape's arguments and plan, ask torch for the raw
+current stream (no Stream object) and switch devices only when the
+tensors lie on another card than the current one.
 """
 
 from __future__ import annotations
 
-import contextlib
+import ctypes
 import functools
 import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,13 +63,50 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
-def tile_constants() -> dict:
+def tile_constants(source: Path | None = None) -> dict:
     """warp.cu's constants written as plain numbers (``constexpr int kName =
     123;``), by name: among them kAlign, kS2dRows, kS2dCols and
-    kS2dStageElems, the s2d kernel's staging rule. Read from the source the
-    kernels are built from, so the host's copy of the rule cannot drift."""
-    text = build.SOURCE.read_text()
+    kS2dStageElems, the s2d kernel's staging rule, and those of
+    ``pixel_warp_plan``. Read from the source the kernels are built from
+    (``source``, default ``build.SOURCE``), so the host's copy of a rule
+    cannot drift."""
+    text = (source or build.SOURCE).read_text()
     return {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+# the C entry point of each plan of pixel_warp
+PIXEL_ENTRIES = {"tiled": "fvc_pixel_warp", "small": "fvc_pixel_warp_small"}
+
+
+def pixel_warp_plan(B: int, C: int, H: int, W: int, constants: dict | None = None) -> str:
+    """The launch plan of ``pixel_warp`` on an image [B, C, H, W] of either
+    dtype: "tiled" (pixel_warp_kernel) when that kernel's grid would hold
+    at least kTiledMinThreads threads, else "small" (pair_warp_kernel: a
+    thread a pair of outputs and a group of channels, kPairFewChunk of them
+    when C is at most that, else kPairManyChunk; blocks of kPairRows rows)
+    where that plan's grid fits CUDA's limits. A pure function of the shape
+    and of warp.cu's constants (``tile_constants()``, or ``constants`` read
+    from another version of the source)."""
+    k = constants or tile_constants()
+    tiled_threads = B * -(-H // k["kPwRows"]) * -(-W // k["kPairCols"]) * 32 * k["kPwRows"]
+    chunk = k["kPairFewChunk"] if C <= k["kPairFewChunk"] else k["kPairManyChunk"]
+    cells = B * -(-C // chunk)  # pair_warp_kernel's gridDim.z
+    fits = 1 <= cells <= k["kGridYZ"] and -(-H // k["kPairRows"]) <= k["kGridYZ"]
+    return "small" if tiled_threads < k["kTiledMinThreads"] and fits else "tiled"
+
+
+@functools.lru_cache(maxsize=512)
+def _pixel_entry(B: int, C: int, H: int, W: int) -> str:
+    """The C entry point of pixel_warp_plan's plan at this shape."""
+    return PIXEL_ENTRIES[pixel_warp_plan(B, C, H, W)]
+
+
+@functools.lru_cache(maxsize=512)
+def _flow_args(B: int, C: int, H: int, W: int) -> tuple:
+    """fvc_flow_warp's arguments after the three pointers but the dtype:
+    B, C, H, W and the two norms as ctypes floats, which cost the call less
+    to pass than Python floats."""
+    return B, C, H, W, ctypes.c_float(grid_norm(W)), ctypes.c_float(grid_norm(H))
 
 
 @functools.lru_cache(maxsize=64)
@@ -76,26 +125,28 @@ def _check(img: torch.Tensor, flow: torch.Tensor, flow_shape: tuple,
            flow_dtype: torch.dtype | None = None) -> int:
     """Raise unless img (4-D) and flow (of ``flow_shape``, and of
     ``flow_dtype`` or else img's dtype) are contiguous on one CUDA device;
-    return the kernels' dtype code of img."""
-    if img.device.type != "cuda" or flow.device != img.device:
+    return the kernels' dtype code of img. Cheap reads first; the messages
+    are built only on failure."""
+    if not img.is_cuda or flow.get_device() != img.get_device():
         raise ValueError(
             f"warp kernel needs img and flow on one CUDA device, got {img.device} "
             f"and {flow.device}"
         )
     want = img.dtype if flow_dtype is None else flow_dtype
-    if img.dtype not in _DTYPES or flow.dtype != want:
+    code = _DTYPES.get(img.dtype)
+    if code is None or flow.dtype != want:
         raise TypeError(
             f"warp kernel takes a float32 or bfloat16 img and a {want} flow, got "
             f"{img.dtype} and {flow.dtype}"
         )
-    if img.dim() != 4 or tuple(flow.shape) != tuple(flow_shape):
+    if img.dim() != 4 or flow.shape != flow_shape:
         raise ValueError(
             f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}: want "
             f"{tuple(flow_shape)}"
         )
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError("warp kernel needs contiguous img and flow")
-    return _DTYPES[img.dtype]
+    return code
 
 
 def _s2d_shape(img_s2d: torch.Tensor) -> tuple:
@@ -104,33 +155,45 @@ def _s2d_shape(img_s2d: torch.Tensor) -> tuple:
     return tuple(img_s2d.shape)
 
 
-def _on_device(t: torch.Tensor):
-    """A kernel launches in the current device's context: switch to t's
-    device only when it is another (the switch costs the host a few
-    microseconds a launch)."""
-    if t.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(t.device)
+@functools.cache
+def _cuda_calls():
+    """(the current device's index, the raw current stream of a device
+    index): torch's C calls behind ``torch.cuda.current_device()`` and
+    ``torch.cuda.current_stream(i).cuda_stream``, without the lazy-init
+    check and the Stream object those build at every call; the public
+    calls where this build of torch lacks them."""
+    device = getattr(torch._C, "_cuda_getDevice", None)
+    stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if device is None or stream is None:
+        return torch.cuda.current_device, lambda i: torch.cuda.current_stream(i).cuda_stream
+    return device, stream
 
 
-def _raise_if_failed(rc: int, name: str) -> None:
+def _launch(name: str, t: torch.Tensor, entry, *args) -> None:
+    """``entry(*args, stream)`` (a C entry point of the library) on the
+    current stream of t's device, in that device's context (switched to it
+    only when it is not the current device); raise if it failed, else
+    count a launch of ``name``."""
+    current, stream = _cuda_calls()
+    index = t.get_device()
+    if index == current():
+        rc = entry(*args, stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*args, stream(index))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
 
 
 def launch_flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Bilinear backward warp, img [B, C, H, W], flow [B, 2, H, W] pixels."""
     B, C, H, W = img.shape
     dtype = _check(img, flow, (B, 2, H, W))
-    lib = build.load()
+    entry = build.load().fvc_flow_warp
     out = torch.empty_like(img)
-    with _on_device(img):
-        rc = lib.fvc_flow_warp(
-            img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W,
-            grid_norm(W), grid_norm(H), dtype, torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_if_failed(rc, "flow_warp")
-    LAUNCHES["flow_warp"] += 1
+    _launch("flow_warp", img, entry, img.data_ptr(), flow.data_ptr(), out.data_ptr(),
+            *_flow_args(B, C, H, W), dtype)
     return out
 
 
@@ -139,32 +202,30 @@ def launch_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Ten
     flow [B, 2, H, W] full-res pixels; returns the warped image in s2d form."""
     B, C4, Hs, Ws = _s2d_shape(img_s2d)
     dtype = _check(img_s2d, flow, (B, 2, 2 * Hs, 2 * Ws))
-    lib = build.load()
+    entry = build.load().fvc_flow_warp_s2d
     out = torch.empty_like(img_s2d)
-    with _on_device(img_s2d):
-        rc = lib.fvc_flow_warp_s2d(
-            img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C4 // 4, Hs, Ws,
-            grid_norm(2 * Ws), grid_norm(2 * Hs), dtype, torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_if_failed(rc, "flow_warp_s2d")
-    LAUNCHES["flow_warp_s2d"] += 1
+    _launch("flow_warp_s2d", img_s2d, entry, img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(),
+            B, C4 // 4, Hs, Ws, grid_norm(2 * Ws), grid_norm(2 * Hs), dtype)
     return out
 
 
 def launch_pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Pixel-displacement warp (source = output + flow), img [B, C, H, W],
-    flow [B, 2, H, W] float32."""
+    flow [B, 2, H, W] float32, in ``pixel_warp_plan``'s plan."""
+    return _pixel_warp(img, flow, None)
+
+
+def _pixel_warp(img: torch.Tensor, flow: torch.Tensor, plan: str | None) -> torch.Tensor:
+    """``launch_pixel_warp`` in ``plan`` ("tiled" or "small"; None:
+    pixel_warp_plan's), so that the card's checks hold each plan at every
+    shape."""
     B, C, H, W = img.shape
     dtype = _check(img, flow, (B, 2, H, W), torch.float32)
-    lib = build.load()
+    symbol = _pixel_entry(B, C, H, W) if plan is None else PIXEL_ENTRIES[plan]
+    entry = getattr(build.load(), symbol)
     out = torch.empty_like(img)
-    with _on_device(img):
-        rc = lib.fvc_pixel_warp(
-            img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W, dtype,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_if_failed(rc, "pixel_warp")
-    LAUNCHES["pixel_warp"] += 1
+    _launch("pixel_warp", img, entry, img.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H,
+            W, dtype)
     return out
 
 
@@ -173,15 +234,10 @@ def _launch_pixel_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor, phase_flow
     B, C4, Hs, Ws = _s2d_shape(img_s2d)
     shape = (B, 8, Hs, Ws) if phase_flow else (B, 2, 2 * Hs, 2 * Ws)
     dtype = _check(img_s2d, flow, shape, torch.float32)
-    lib = build.load()
+    entry = build.load().fvc_pixel_warp_s2d
     out = torch.empty_like(img_s2d)
-    with _on_device(img_s2d):
-        rc = lib.fvc_pixel_warp_s2d(
-            img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C4 // 4, Hs, Ws,
-            int(phase_flow), dtype, torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_if_failed(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, img_s2d, entry, img_s2d.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C4 // 4,
+            Hs, Ws, int(phase_flow), dtype)
     return out
 
 
@@ -213,12 +269,8 @@ def _launch_backward(bname: str, img: torch.Tensor, flow: torch.Tensor, grad: to
     lib = build.load()
     grad_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_img else None
     grad_flow = torch.empty_like(flow) if need_flow else None
-    with _on_device(img):
-        rc = launch(lib, grad_img.data_ptr() if need_img else None,
-                    grad_flow.data_ptr() if need_flow else None,
-                    torch.cuda.current_stream().cuda_stream)
-    _raise_if_failed(rc, bname)
-    LAUNCHES[bname] += 1
+    _launch(bname, img, functools.partial(launch, lib), grad_img.data_ptr() if need_img else None,
+            grad_flow.data_ptr() if need_flow else None)
     return (grad_img.to(img.dtype) if need_img else None), grad_flow
 
 

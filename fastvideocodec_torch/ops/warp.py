@@ -374,9 +374,9 @@ def _dispatch(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The plain version for CPU tensors; else the kernel, through
     ``KernelWarp`` only when autograd needs its gradient (the launcher
     alone costs the host less, which the launch-bound rollouts feel)."""
-    if img.device.type == "cpu" and flow.device.type == "cpu":
+    if img.is_cpu and flow.is_cpu:
         return PLAIN[name](img, flow)
-    if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
+    if (img.requires_grad or flow.requires_grad) and torch.is_grad_enabled():
         return KernelWarp.apply(name, img, flow)
     return _launcher(name)(img, flow)
 

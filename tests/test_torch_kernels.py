@@ -1,7 +1,10 @@
 """The warp kernels' wrappers: their autograd Function, the dispatch rule
 (every warp's backward goes to its backward kernel off the CPU, never to
-the plain vjp) and the host-side tile rule on the CPU; on a CUDA card, the
-tiled kernels' exactness (NaN flows included), the Function's gradients
+the plain vjp), the host-side tile rule, pixel_warp's plan rule (read from
+warp.cu) and the launchers' checks (before the library loads) on the CPU;
+on a CUDA card, the tiled kernels' exactness (NaN flows included),
+flow_warp's kernel and both plans of pixel_warp on ragged shapes, small
+frames, NaN flows and unaligned pointers, the Function's gradients
 (pixel_warp also at MCVC's 18 channels on 4 views), the five backward
 kernels against the plain vjp (image and flow gradients each on and off),
 flow_warp at LSVC-TPU-RW's 12 channels and on LSVC-128's 15-frame SpyNet
@@ -255,6 +258,142 @@ def test_tile_rule_reads_the_kernel_source(tmp_path, monkeypatch):
         kwarp.tile_constants.cache_clear()
 
 
+# (image shape, plan) of pixel_warp on the paths: the tiled kernel keeps the
+# frames from 64K tiled threads up; the small-frame plan takes the rest
+PATH_PLANS = [
+    ((4, 18, 256, 256), "tiled"),  # MCVC-IA's volume, 4 views (and 2 to 6)
+    ((2, 18, 256, 256), "tiled"),
+    ((6, 18, 256, 256), "tiled"),
+    ((4, 18, 1024, 2048), "tiled"),
+    ((1, 15, 512, 1024), "tiled"),  # SSF-TPU's stack
+    ((1, 18, 1024, 2048), "tiled"),  # SSF-Official's volume
+    ((1, 15, 128, 128), "small"),  # SSF-TPU training's stack
+    ((1, 18, 256, 256), "small"),  # ELFVC-SP training's volume, MCVC-IA's 1 view
+]
+
+
+@pytest.mark.parametrize("shape, plan", PATH_PLANS)
+def test_plan_rule_on_the_paths(shape, plan):
+    """pixel_warp's plan rule keeps the tiled kernel at the paths' frames
+    from MCVC's 4 x 18 x 256x256 up and picks the small-frame plan at the
+    training warps' and a single view's, in either dtype (the rule reads
+    no dtype)."""
+    assert kwarp.pixel_warp_plan(*shape) == plan
+
+
+def test_plan_rule_reads_the_kernel_source(tmp_path):
+    """The rule's threshold, block rows and channel group are warp.cu's own
+    numbers, read from the source the kernels are built from: a source
+    with other numbers gives other plans. The small plan needs its grid
+    within CUDA's limits (B x channel groups and row tiles at most
+    65535), and no other plan name is taken."""
+    k = kwarp.tile_constants()
+    assert (k["kTiledMinThreads"], k["kPairRows"], k["kPairFewChunk"], k["kPairManyChunk"],
+            k["kGridYZ"]) == (65536, 2, 3, 6, 65535)
+    assert k["kTiledMinThreads"] < 132 * 2048  # below one wave of the card's thread slots
+    text = kwarp.build.SOURCE.read_text()
+    variants = {"never": ("kTiledMinThreads = 65536;", "kTiledMinThreads = 0;"),
+                "always": ("kTiledMinThreads = 65536;", "kTiledMinThreads = 1000000000;"),
+                "c1": ("kPairManyChunk = 6;", "kPairManyChunk = 1;")}
+    consts = {}
+    for name, (old, new) in variants.items():
+        assert text.count(old) == 1
+        variant = text.replace(old, new)
+        if name == "c1":  # and small wherever its grid fits
+            variant = variant.replace(*variants["always"])
+        source = tmp_path / f"{name}.cu"
+        source.write_text(variant)
+        consts[name] = kwarp.tile_constants(source)
+    for shape, plan in PATH_PLANS:
+        assert kwarp.pixel_warp_plan(*shape, constants=consts["never"]) == "tiled"
+        assert kwarp.pixel_warp_plan(*shape, constants=consts["always"]) == "small"
+    # 6,000 frames of 12 channels fit 2 groups each, not 12 of 1 channel;
+    # 3 channels take the few-channel group either way
+    assert kwarp.pixel_warp_plan(6000, 12, 8, 8, constants=consts["always"]) == "small"
+    assert kwarp.pixel_warp_plan(6000, 12, 8, 8, constants=consts["c1"]) == "tiled"
+    assert kwarp.pixel_warp_plan(6000, 3, 8, 8, constants=consts["c1"]) == "small"
+    assert kwarp.pixel_warp_plan(40000, 6, 8, 8, constants=consts["always"]) == "small"
+    assert kwarp.pixel_warp_plan(40000, 7, 8, 8, constants=consts["always"]) == "tiled"
+    # rows past the small plan's gridDim.y, and no channels
+    assert kwarp.pixel_warp_plan(1, 1, 2 * 65535 + 2, 1, constants=consts["always"]) == "tiled"
+    assert kwarp.pixel_warp_plan(1, 0, 8, 8) == "tiled"
+    with pytest.raises(KeyError):
+        kwarp._pixel_warp(CudaLike((1, 3, 8, 8)), CudaLike((1, 2, 8, 8)), "fast")
+
+
+class CudaLike:
+    """Stands in for a CUDA tensor as far as the launchers' checks read it,
+    so that they run without a card."""
+
+    is_cuda = True
+
+    def __init__(self, shape, dtype=torch.float32, contiguous=True, index=0):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.contiguous, self.index = contiguous, index
+        self.device = f"cuda:{index}"
+
+    def get_device(self):
+        return self.index
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return self.contiguous
+
+
+def _flow_dtype(name, dtype):
+    return torch.float32 if name.startswith("pixel") else dtype
+
+
+# what makes a launcher's inputs wrong, and the error it raises
+BAD_INPUTS = {
+    "cpu tensors": ValueError,
+    "flow on another card": ValueError,
+    "float16 image": TypeError,
+    "flow of another dtype": TypeError,
+    "flow of another shape": ValueError,
+    "image not contiguous": ValueError,
+    "flow not contiguous": ValueError,
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_INPUTS) + ["none"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_launchers_check_before_loading_the_library(name, bad, monkeypatch):
+    """Each launcher raises on CPU tensors, tensors on two cards, a wrong
+    dtype, a wrong flow shape or non-contiguous inputs before it loads (and
+    so builds) the library; inputs that pass every check reach the load."""
+
+    class Loaded(Exception):
+        pass
+
+    def load():
+        raise Loaded
+
+    monkeypatch.setattr(kwarp.build, "load", load)
+    img_shape, flow_shape = SHAPES[name]
+    dtype = torch.bfloat16
+    flow_dtype = _flow_dtype(name, dtype)
+    img, flow = CudaLike(img_shape, dtype), CudaLike(flow_shape, flow_dtype)
+    if bad == "cpu tensors":
+        img, flow = torch.zeros(img_shape, dtype=dtype), torch.zeros(flow_shape, dtype=flow_dtype)
+    elif bad == "flow on another card":
+        flow = CudaLike(flow_shape, flow_dtype, index=1)
+    elif bad == "float16 image":
+        img = CudaLike(img_shape, torch.float16)
+    elif bad == "flow of another dtype":
+        flow = CudaLike(flow_shape, torch.float16)
+    elif bad == "flow of another shape":
+        flow = CudaLike((*flow_shape[:3], flow_shape[3] + 1), flow_dtype)
+    elif bad == "image not contiguous":
+        img = CudaLike(img_shape, dtype, contiguous=False)
+    elif bad == "flow not contiguous":
+        flow = CudaLike(flow_shape, flow_dtype, contiguous=False)
+    with pytest.raises(BAD_INPUTS.get(bad, Loaded)):
+        getattr(kwarp, f"launch_{name}")(img, flow)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -295,6 +434,85 @@ def test_tiled_kernels_are_exact(card, name, kind, dtype):
         torch.cuda.synchronize()
         want = twarp.PLAIN[name](img, flow)
         assert torch.equal(got, want), (shape, (got.float() - want.float()).abs().max())
+
+
+# flow_warp's one kernel and each plan of pixel_warp, forced at any shape
+VARIANTS = {"flow_warp": lambda img, flow: kwarp.launch_flow_warp(img, flow),
+            "pixel_warp tiled": lambda img, flow: kwarp._pixel_warp(img, flow, "tiled"),
+            "pixel_warp small": lambda img, flow: kwarp._pixel_warp(img, flow, "small")}
+# the small-frame shapes beside RAGGED's: DVC's three SpyNet levels below
+# full resolution, MCVC's 4 x 18 x 256x256 volume, a frame smaller than one
+# tile, an odd width, and 1, 2, 4, 7 and 18 channels (the few-channel group
+# short; the many-channel group short, with a remainder and whole)
+SMALL_FRAMES = [(1, 3, 128, 256), (1, 3, 256, 512), (1, 3, 512, 1024), (4, 18, 256, 256),
+                (1, 3, 16, 32), (1, 3, 9, 33), (2, 1, 40, 70), (2, 2, 40, 70), (1, 4, 33, 65),
+                (1, 7, 24, 200), (3, 18, 20, 50)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(FLOWS))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_every_plan_is_exact(card, variant, kind, dtype):
+    """flow_warp's kernel and each plan of pixel_warp, whichever the rule
+    would pick at the shape, equal the plain version bit for bit on the
+    ragged shapes and the small frames, with smooth, random and mixed
+    flows."""
+    rng = np.random.default_rng(49)
+    name = variant.split()[0]
+    for shape in RAGGED[name] + SMALL_FRAMES:
+        img, flow = tiled_case(name, shape, kind, rng, dtype, "cuda")
+        got = VARIANTS[variant](img, flow)
+        torch.cuda.synchronize()
+        want = twarp.PLAIN[name](img, flow)
+        assert torch.equal(got, want), (shape, (got.float() - want.float()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_every_plan_follows_nan_flows(card, variant, dtype):
+    """NaN flows at the first pixel of the first item and the last pixel of
+    the last: NaN in every channel of those two outputs, exactly where the
+    plain version has NaN, every other output equal bit for bit, on the
+    small frames and MCVC's ragged 18 channels."""
+    rng = np.random.default_rng(50)
+    name = variant.split()[0]
+    for shape in SMALL_FRAMES + [C18]:
+        B, C, H, W = shape
+        img, flow = tiled_case(name, shape, "smooth", rng, dtype, "cuda")
+        flow[0, :, 0, 0] = flow[B - 1, :, H - 1, W - 1] = float("nan")
+        got = VARIANTS[variant](img, flow)
+        torch.cuda.synchronize()
+        want = twarp.PLAIN[name](img, flow)
+        nan = want.isnan()
+        assert int(nan.sum()) == 2 * C, shape
+        assert torch.equal(got.isnan(), nan), shape
+        assert torch.equal(got[~nan], want[~nan]), shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_every_plan_takes_unaligned_pointers(card, variant, dtype):
+    """An image or a flow that starts one element past a pair's alignment (a
+    contiguous view at an offset into a larger buffer): the kernels leave
+    their pair vectors for masked scalar accesses and still equal the
+    plain version bit for bit."""
+    rng = np.random.default_rng(51)
+    name = variant.split()[0]
+    for shape in [(1, 3, 128, 256), (4, 18, 64, 64), (1, 3, 16, 32)]:
+        img, flow = tiled_case(name, shape, "random", rng, dtype, "cuda")
+        want = twarp.PLAIN[name](img, flow)
+        for which in ("img", "flow"):
+            t = img if which == "img" else flow
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+            moved = buf[1:].view(t.shape)
+            moved.copy_(t)
+            assert moved.is_contiguous() and moved.data_ptr() % (2 * t.element_size())
+            got = VARIANTS[variant](*((moved, flow) if which == "img" else (img, moved)))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, which)
 
 
 # flow_warp's new callers: LSVC-TPU-RW's rigid MC warp of the s2d reference

@@ -101,7 +101,11 @@ class TestResampling:
 
 
 class TestWarp:
-    @pytest.mark.parametrize("B, H, W, C", [(2, 16, 24, 3), (1, 9, 33, 5), (3, 32, 32, 1)])
+    # the last three: MCVC's 18 channels on 4 views, a frame smaller than
+    # one tile of the kernels, an odd width (the shapes of the kernels'
+    # small-frame plan, held to the plain versions on the card)
+    @pytest.mark.parametrize("B, H, W, C", [(2, 16, 24, 3), (1, 9, 33, 5), (3, 32, 32, 1),
+                                            (4, 20, 28, 18), (1, 16, 32, 3), (1, 9, 33, 3)])
     def test_plain_flow_warp_matches_xla_exact_path(self, B, H, W, C):
         rng = np.random.default_rng(3)
         img = rng.random((B, H, W, C), dtype=np.float32)
@@ -157,7 +161,8 @@ class TestPixelWarp:
     exact paths, with displacements far past the TPU kernel's 56 px bound
     and samples off the border."""
 
-    @pytest.mark.parametrize("B, H, W, C", [(2, 16, 24, 3), (1, 9, 33, 15), (3, 32, 32, 1)])
+    @pytest.mark.parametrize("B, H, W, C", [(2, 16, 24, 3), (1, 9, 33, 15), (3, 32, 32, 1),
+                                            (4, 20, 28, 18), (1, 16, 32, 3), (1, 9, 33, 2)])
     def test_plain_pixel_warp_matches_xla_exact_path(self, B, H, W, C):
         rng = np.random.default_rng(11)
         img = rng.random((B, H, W, C), dtype=np.float32)
