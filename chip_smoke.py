@@ -221,8 +221,10 @@ Phases, each timed on its own line:
    bit for bit, and the next step runs; ms/step and peak GiB (the batch is
    not shrunk to fit: an out-of-memory error fails the phase);
 45. backward kernel timing on the captured step's inputs: each backward
-   kernel's ms per step's launches (warm, and with the L2 flushed), its
-   byte bound at 3.35 TB/s, the plain vjp's time and, for flow_warp,
+   kernel's ms per step's launches (warm, with the L2 flushed, and device
+   time under the profiler), its byte bound at 3.35 TB/s, its launch floor
+   (an empty kernel on each launch's backward grid, L2 flushed), ptxas's
+   report of its float32 entry, the plain vjp's time and, for flow_warp,
    F.grid_sample's forward and backward on the same inputs;
 46. ELFVC-SP-TPU and ELFVC-SP training, card vs CPU: one step of each at
    full width (seeded_flat(name, 0), sp_stage 1 as cli/train.py builds
@@ -249,7 +251,8 @@ Phases, each timed on its own line:
    parameters outside the keyframe's transforms moved; one step's
    backward inputs captured;
 49. the pixel warps' backward kernels timed on those inputs, by path:
-   ms per step's launches, warm and L2-flushed, against the byte bound,
+   ms per step's launches, warm, L2-flushed and device time, against the
+   byte bound and the launch floor (as phase 45), with ptxas's report,
    the plain vjp and, for pixel_warp, F.grid_sample's forward and backward
    on the prepared grid (pixel_warp_s2d, which no codec calls, on the
    sflow's inputs with the flow unpacked to full resolution).
@@ -358,6 +361,13 @@ REPLACES = {
     "pixel_warp_s2d_sflow_backward": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:698",
 }
 FLOW_BACKWARD = {"flow_warp_backward": "flow_warp", "flow_warp_s2d_backward": "flow_warp_s2d"}
+# each backward's float32 kernel entry in ptxas's report (a part of its
+# mangled name: the template's type and layout)
+BACKWARD_ENTRY = {"flow_warp_backward": "flow_warp_backward_kernelIfLb0E",
+                  "flow_warp_s2d_backward": "flow_warp_backward_kernelIfLb1E",
+                  "pixel_warp_backward": "pixel_warp_backward_kernelIfLi0E",
+                  "pixel_warp_s2d_backward": "pixel_warp_backward_kernelIfLi1E",
+                  "pixel_warp_s2d_sflow_backward": "pixel_warp_backward_kernelIfLi2E"}
 PIXEL_BACKWARD = {"pixel_warp_backward": "pixel_warp", "pixel_warp_s2d_backward": "pixel_warp_s2d",
                   "pixel_warp_s2d_sflow_backward": "pixel_warp_s2d_sflow"}
 BACKWARD = {**FLOW_BACKWARD, **PIXEL_BACKWARD}
@@ -514,6 +524,42 @@ def ptxas_report(build_log: str, part: str) -> list:
             if "Compiling entry function" in line and part in line]
 
 
+def plain_vjp_like(plain, img, flow, g, need_img, need_flow) -> list:
+    """The plain vjp ``plain`` (ops.warp.PLAIN_BACKWARD's) of the inputs
+    widened to float32 (exactly), each gradient rounded to its input's
+    dtype: what a backward kernel, which sums in float32 and rounds once,
+    is held to (the bfloat16 plain vjp scatter-adds bfloat16 terms, and
+    +-200 px flows pile hundreds onto a border pixel)."""
+    return [None if w is None else w.to(t) for w, t in zip(
+        plain(img.float(), flow.float(), g.float(), need_img, need_flow),
+        (img.dtype, flow.dtype))]
+
+
+def hold_gradients(torch, got, want, tol, what: str) -> float:
+    """A backward kernel's (grad_img, grad_flow) against the plain vjp's
+    ``want`` at ``tol`` (GRAD_TOL's rtol, atol x max(max |grad|, 1)): the
+    same gradients given (None where not asked for), NaN exactly where the
+    plain vjp has NaN, every other element within the tolerance. Returns
+    the max abs error over the two gradients."""
+    torch.cuda.synchronize()
+    require([t is None for t in got] == [w is None for w in want],
+            f"{what}: gradients given {[t is not None for t in got]}")
+    rtol, atol = tol
+    worst = 0.0
+    for t, w in zip(got, want):
+        if w is None:
+            continue
+        require(t.dtype == w.dtype and t.shape == w.shape, f"{what}: {t.dtype} {t.shape}")
+        nan = w.isnan()
+        require(torch.equal(t.isnan(), nan), f"{what}: NaN where the plain vjp has none")
+        d = (t[~nan].float() - w[~nan].float()).abs()
+        scale = w[~nan].float().abs().max().item() if bool((~nan).any()) else 0.0
+        require(bool((d <= atol * max(scale, 1.0) + rtol * w[~nan].float().abs()).all()),
+                f"{what}: max abs {d.max().item()}")
+        worst = max(worst, d.max().item() if d.numel() else 0.0)
+    return worst
+
+
 def bound_ms(img, flow) -> float:
     """Least milliseconds for one warp on the card: each input read once and
     the output written once (each tensor at its own element size), over the
@@ -524,6 +570,20 @@ def bound_ms(img, flow) -> float:
     pixels = flow.numel() // 2  # full-resolution output pixels, for every flow layout
     flops = pixels * (40 + 9 * img.numel() // pixels)
     require(flops / F32_FLOPS < nbytes / HBM_BYTES_PER_S, "warp bound by operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def backward_bound_ms(img, flow, need_img, need_flow) -> float:
+    """Least milliseconds for one backward: the image, the flow and the
+    incoming gradient read once, the asked-for gradients written once
+    (each in its dtype), over the HBM rate; its flops (about 40 a pixel
+    and 30 a pixel and channel) are far below the float32 rate."""
+    esize = img.element_size()
+    nbytes = (2 + int(need_img)) * img.numel() * esize + \
+        (1 + int(need_flow)) * flow.numel() * flow.element_size()
+    pixels = flow.numel() // 2
+    flops = pixels * (40 + 30 * img.numel() // pixels)
+    require(flops / F32_FLOPS < nbytes / HBM_BYTES_PER_S, "backward bound by operations")
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -957,24 +1017,8 @@ def main() -> int:
         flows pile hundreds onto a border pixel). Returns the max abs error
         over the two gradients."""
         got = backward_kernels[bname](img, flow, g, need_img, need_flow)
-        want = [None if w is None else w.to(t) for w, t in zip(backward_plains[bname](
-            img.float(), flow.float(), g.float(), need_img, need_flow), (img.dtype, flow.dtype))]
-        torch.cuda.synchronize()
-        require((got[0] is None) == (not need_img) and (got[1] is None) == (not need_flow),
-                f"{what}: gradients given {[t is not None for t in got]}")
-        rtol, atol = GRAD_TOL[dname]
-        worst = 0.0
-        for t, w in zip(got, want):
-            if w is None:
-                continue
-            require(t.dtype == w.dtype and t.shape == w.shape, f"{what}: {t.dtype} {t.shape}")
-            nan = w.isnan()
-            require(torch.equal(t.isnan(), nan), f"{what}: NaN where the plain vjp has none")
-            d = (t[~nan].float() - w[~nan].float()).abs()
-            scale = w[~nan].float().abs().max().item() if bool((~nan).any()) else 0.0
-            require(bool((d <= atol * max(scale, 1.0) + rtol * w[~nan].float().abs()).all()),
-                    f"{what}: max abs {d.max().item()}")
-            worst = max(worst, d.max().item() if d.numel() else 0.0)
+        worst = hold_gradients(torch, got, plain_vjp_like(
+            backward_plains[bname], img, flow, g, need_img, need_flow), GRAD_TOL[dname], what)
         if dname == "float32":
             max_err[bname] = max(max_err[bname], worst)
         return worst
@@ -2595,19 +2639,6 @@ def main() -> int:
         del spec, params, opt_state, batches, state, loaded
         torch.cuda.empty_cache()
 
-    def backward_bound_ms(img, flow, need_img, need_flow) -> float:
-        """Least milliseconds for one backward: the image, the flow and the
-        incoming gradient read once, the asked-for gradients written once
-        (each in its dtype), over the HBM rate; its flops (about 40 a pixel
-        and 30 a pixel and channel) are far below the float32 rate."""
-        esize = img.element_size()
-        nbytes = (2 + int(need_img)) * img.numel() * esize + \
-            (1 + int(need_flow)) * flow.numel() * flow.element_size()
-        pixels = flow.numel() // 2
-        flops = pixels * (40 + 30 * img.numel() // pixels)
-        require(flops / F32_FLOPS < nbytes / HBM_BYTES_PER_S, "backward bound by operations")
-        return nbytes / HBM_BYTES_PER_S * 1e3
-
     def grid_sample_fb(img, grid, grad, need_img, need_flow):
         """F.grid_sample's forward and backward on the same inputs (the
         flow's sampling grid built beforehand): the gradients of the image
@@ -2624,7 +2655,7 @@ def main() -> int:
             require(len(inputs) == per_lsvc_step[bname],
                     f"{bname}: captured {len(inputs)} launches")
             r = rows[bname] = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                               "launches": []}
+                               "floor_ms": 0.0, "launches": []}
             lib[bname] = 0.0 if name == "flow_warp" else None
             for img, flow, grad, need_img, need_flow in inputs:
                 hold_backward(bname, img, flow, grad, need_img, f"{bname} on training inputs")
@@ -2639,14 +2670,19 @@ def main() -> int:
                 r["bound_ms"] += backward_bound_ms(img, flow, need_img, need_flow)
                 r["launches"].append(f"{tuple(img.shape)} image grad {need_img}: "
                                      f"{warm:.4f} / {cold:.4f}")
+                r["floor_ms"] += cold_ms(torch, kw.launch_backward_floor, name, img, flush=flush)
                 if name == "flow_warp":
                     lib[bname] += cuda_ms(torch, grid_sample_fb, img, sample_grid(flow), grad,
                                           need_img, need_flow)
+            r["device_ms"] = device_ms(torch, backward_kernels[bname], inputs)[0]
             log(f"{bname} ({smi}): kernel {r['ms']:.4f} ms per training step's "
-                f"{len(inputs)} launches (L2 flushed before each: {r['cold_ms']:.4f}), plain "
+                f"{len(inputs)} launches (L2 flushed before each: {r['cold_ms']:.4f}; device "
+                f"time under the profiler {r['device_ms']}), plain "
                 f"vjp {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} (bytes at 3.35 TB/s), "
-                f"library {lib[bname]} "
-                f"({'F.grid_sample forward + backward' if lib[bname] is not None else 'none'})")
+                f"launch floor {r['floor_ms']:.4f} (an empty kernel on each launch's grid, L2 "
+                f"flushed), library {lib[bname]} "
+                f"({'F.grid_sample forward + backward' if lib[bname] is not None else 'none'}); "
+                f"ptxas {ptxas_report(build.build_log(), BACKWARD_ENTRY[bname])}")
             log(f"{bname} per launch, img shape: warm / L2-flushed ms: {r['launches']}")
         del captured
     training["backward_timing"] = {b: {**rows[b], "library_ms": lib[b]} for b in FLOW_BACKWARD}
@@ -2817,7 +2853,7 @@ def main() -> int:
                 require(all(not ni and nf for *_, ni, nf in inputs),
                         f"{bname} on {path}: an image gradient was asked for")
                 r = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "library_ms": 0.0 if name == "pixel_warp" else None,
+                     "floor_ms": 0.0, "library_ms": 0.0 if name == "pixel_warp" else None,
                      "launches": len(inputs),
                      "shape": f"{tuple(inputs[0][0].shape)} flow {tuple(inputs[0][1].shape)}"}
                 for img, flow, grad, need_img, need_flow in inputs:
@@ -2830,17 +2866,22 @@ def main() -> int:
                     r["plain_ms"] += cuda_ms(torch, backward_plains[bname], *args, iters=2,
                                              warmup=1)
                     r["bound_ms"] += backward_bound_ms(img, flow, need_img, need_flow)
+                    r["floor_ms"] += cold_ms(torch, kw.launch_backward_floor, name, img,
+                                             flush=flush, reps=3)
                     if name == "pixel_warp":
                         r["library_ms"] += cuda_ms(torch, grid_sample_fb, img, pixel_grid(flow),
                                                    grad, need_img, need_flow, iters=10)
+                r["device_ms"] = device_ms(torch, backward_kernels[bname], inputs)[0]
                 pixel_timing[bname][path] = r
                 library = ("F.grid_sample forward + backward, prepared grid"
                            if name == "pixel_warp" else "none: no single PyTorch call")
                 log(f"{bname} on {path}'s training step ({smi}): {r['launches']} launches of "
                     f"{r['shape']}, flow gradient only: kernel {r['ms']:.4f} ms (L2 flushed "
-                    f"before each: {r['cold_ms']:.4f}), bound {r['bound_ms']:.4f} (bytes at "
-                    f"3.35 TB/s), plain vjp {r['plain_ms']:.4f}, library {r['library_ms']} "
-                    f"({library})")
+                    f"before each: {r['cold_ms']:.4f}; device time under the profiler "
+                    f"{r['device_ms']}), bound {r['bound_ms']:.4f} (bytes at 3.35 TB/s), launch "
+                    f"floor {r['floor_ms']:.4f} (an empty kernel on each launch's grid, L2 "
+                    f"flushed), plain vjp {r['plain_ms']:.4f}, library {r['library_ms']} "
+                    f"({library}); ptxas {ptxas_report(build.build_log(), BACKWARD_ENTRY[bname])}")
         for bname, path in top_path.items():
             rows[bname] = pixel_timing[bname][path]
             lib[bname] = rows[bname]["library_ms"]

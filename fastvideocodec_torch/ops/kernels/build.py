@@ -126,4 +126,8 @@ def open_library(path: Path) -> ctypes.CDLL:
             *args[3:7], ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # B..W, layout, dtype, stream
         ]
         pixel_backward.restype = ctypes.c_int
+    floor = getattr(lib, "fvc_backward_floor", None)  # absent before the backward plan
+    if floor is not None:
+        floor.argtypes = [*args[3:7], ctypes.c_int, ctypes.c_void_p]  # B, C, H, W, s2d, stream
+        floor.restype = ctypes.c_int
     return lib

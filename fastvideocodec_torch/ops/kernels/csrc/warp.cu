@@ -2,9 +2,10 @@
 //
 // Three kernels, five entry points, and the backward of each entry point
 // (flow_warp_backward_kernel for the two normalized-grid warps,
-// pixel_warp_backward_kernel for the three pixel warps, after the s2d
-// warps). pair_warp_kernel serves flow_warp at every shape and pixel_warp
-// on the frames that would leave pixel_warp_kernel's grid idle
+// pixel_warp_backward_kernel for the three pixel warps, one body
+// backward_tile with its launch plan backward_plan, after the s2d warps).
+// pair_warp_kernel serves flow_warp at every shape and pixel_warp on the
+// frames that would leave pixel_warp_kernel's grid idle
 // (kTiledMinThreads).
 // The sample coordinate is built in float32 exactly as the exact path
 // builds it, in one of two conventions:
@@ -27,11 +28,13 @@
 //
 // All are bound by bytes: a few flops per byte moved. All are tiled: a
 // block owns a tile of outputs, a warp one row of it and a thread pairs of
-// neighbouring outputs. One s2d body (warp_s2d_kernel) serves the
-// normalized-grid s2d warp and the two pixel s2d entry points; only the
-// grid warp stages the tile's source footprint in shared memory when it
-// fits, the others gather from global memory through L1. The pixel-convention kernels take a float32 flow with a float32 or
-// bfloat16 image: a bfloat16 flow would be pixels coarse at 2048 wide.
+// neighbouring outputs (in the backward one output, for some channels).
+// One s2d body (warp_s2d_kernel) serves the normalized-grid s2d warp and
+// the two pixel s2d entry points; only the grid warp stages the tile's
+// source footprint in shared memory when it fits, the others gather from
+// global memory through L1. The pixel-convention kernels take a float32
+// flow with a float32 or bfloat16 image: a bfloat16 flow would be pixels
+// coarse at 2048 wide.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -735,17 +738,53 @@ warp_s2d_kernel(const T* __restrict__ img, const FlowT<T, kFlow>* __restrict__ f
 // The backward kernels
 // ---------------------------------------------------------------------------
 
-constexpr int kBwThreads = 256;  // a block: 256 consecutive full-res outputs of one image
+// The backward plan in plain numbers, which ops/kernels/warp.py:backward_plan
+// reads from this file: a thread owns one full-res output and takes
+// kBwChunk channels at a time; a block holds a tile of 32 neighbouring
+// outputs x `rows` rows for each of its `groups` channel groups. groups =
+// ceil(C / kBwChunk), at most kBwMaxGroups and at most kBwWaveThreads / (B
+// x H x W) (the frame's outputs times the groups stay near one wave of
+// the threads the card holds at the kernel's registers; group g takes
+// chunks g, g + groups, ...), and rows = kBwBlockThreads / (32 * groups),
+// at least 1 (NCHW) or 2 and even (s2d: a tile row is one phase rx of 32
+// s2d positions, rows 2i and 2i + 1 the phases 0 and 1 of one full-res
+// row).
+constexpr int kBwChunk = 3;
+constexpr int kBwMaxGroups = 8;
+constexpr int kBwBlockThreads = 128;
+constexpr int kBwWaveThreads = 131072;
+constexpr int kBwMaxThreads = 64 * kBwMaxGroups;  // 512: 32 x rows x groups never exceeds it
 
-// Where full-res pixel (y, x) of channel c lies in an NCHW plane stack, or
-// in its s2d form [4C, H/2, W/2], channel (ry*2 + rx)*C + c at (y/2, x/2).
+// The layouts of a backward (the C entry points' codes).
+enum BwLayout {
+  kBwNchw,   // img [B,C,H,W], flow [B,2,H,W]: flow_warp, pixel_warp
+  kBwS2d,    // img [B,4C,H/2,W/2], flow full-res [B,2,H,W]: flow_warp_s2d, pixel_warp_s2d
+  kBwPhase,  // img [B,4C,H/2,W/2], flow c-major phase form [B,8,H/2,W/2]: the sflow
+};
+
+// Where full-res pixel (y, x) of channel 0 lies in one image (or incoming
+// gradient) [C,H,W], or in its s2d form [4C,H/2,W/2], channel (ry*2 + rx)*C
+// + c at (y/2, x/2); channel c lies c planes further (H*W, or H*W/4).
 template <bool kS2d>
-__device__ __forceinline__ int pixel_offset(int c, int y, int x, int C, int H, int W) {
+__device__ __forceinline__ int pixel_at(int y, int x, int C, int H, int W) {
   if constexpr (kS2d) {
     const int Ws = W >> 1;
-    return ((((y & 1) * 2 + (x & 1)) * C + c) * (H >> 1) + (y >> 1)) * Ws + (x >> 1);
+    return ((y & 1) * 2 + (x & 1)) * C * (H >> 1) * Ws + (y >> 1) * Ws + (x >> 1);
   } else {
-    return (c * H + y) * W + x;
+    return y * W + x;
+  }
+}
+
+// Where flow component comp (0: x, 1: y) of full-res pixel (y, x) lies in
+// one image's flow: [2,H,W], or in c-major phase form [8,H/2,W/2], channel
+// comp*4 + 2*(y%2) + x%2 at (y/2, x/2) (the vjp of the phase form's
+// unpacking to full resolution is this permutation).
+template <int kLayout>
+__device__ __forceinline__ int flow_offset(int comp, int y, int x, int H, int W) {
+  if constexpr (kLayout == kBwPhase) {
+    return ((comp * 4 + (y & 1) * 2 + (x & 1)) * (H >> 1) + (y >> 1)) * (W >> 1) + (x >> 1);
+  } else {
+    return (comp * H + y) * W + x;
   }
 }
 
@@ -773,44 +812,176 @@ __device__ __forceinline__ float pixel_flow_grad(float gu, float g, int n) {
   return __fmul_rn(__fdiv_rn(__fmul_rn(__fmul_rn(gu, 0.5f), (float)n), (float)n), 2.0f);
 }
 
-// The channel loop of a backward, for full-res output pixel (y, x) of one
-// image of the batch (ib, gb, gi at that image) with its taps a (along x)
-// and t (along y): the sums over the C channels of the incoming gradient
-// times the lerp's derivative by its x weight and by its y weight, in
-// *gtx and *gty; and, when gi is given, g times each tap's weight added
-// into that float32 buffer by atomicAdd (several outputs may read one
-// source pixel).
-template <typename T, bool kS2d>
-__device__ __forceinline__ void backward_channels(const T* ib, const T* gb, float* gi, int C,
-                                                  int H, int W, int y, int x, Tap a, Tap t,
-                                                  float* gtx, float* gty) {
-  const float sx = __fsub_rn(1.0f, a.t), sy = __fsub_rn(1.0f, t.t);
-  const float w00 = __fmul_rn(sx, sy), w01 = __fmul_rn(a.t, sy);
-  const float w10 = __fmul_rn(sx, t.t), w11 = __fmul_rn(a.t, t.t);
-  float sum_x = 0.0f, sum_y = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const int o00 = pixel_offset<kS2d>(c, t.i0, a.i0, C, H, W);
-    const int o01 = pixel_offset<kS2d>(c, t.i0, a.i1, C, H, W);
-    const int o10 = pixel_offset<kS2d>(c, t.i1, a.i0, C, H, W);
-    const int o11 = pixel_offset<kS2d>(c, t.i1, a.i1, C, H, W);
-    const float g = to_f32(gb[pixel_offset<kS2d>(c, y, x, C, H, W)]);
-    const float v00 = to_f32(ib[o00]), v01 = to_f32(ib[o01]);
-    const float v10 = to_f32(ib[o10]), v11 = to_f32(ib[o11]);
-    const float top = __fadd_rn(__fmul_rn(v00, sx), __fmul_rn(v01, a.t));
-    const float bot = __fadd_rn(__fmul_rn(v10, sx), __fmul_rn(v11, a.t));
-    const float dtx =
-        __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), sy), __fmul_rn(__fsub_rn(v11, v10), t.t));
-    sum_x = __fadd_rn(sum_x, __fmul_rn(g, dtx));
-    sum_y = __fadd_rn(sum_y, __fmul_rn(g, __fsub_rn(bot, top)));
-    if (gi) {
-      atomicAdd(gi + o00, __fmul_rn(g, w00));
-      atomicAdd(gi + o01, __fmul_rn(g, w01));
-      atomicAdd(gi + o10, __fmul_rn(g, w10));
-      atomicAdd(gi + o11, __fmul_rn(g, w11));
+// A chunk of channels c0 .. c0 + K - 1 (those below C) of one output: the 4
+// taps (offsets o at channel 0) of each channel and its incoming gradient
+// (offset go), every load issued before any is used.
+template <int K, typename T>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ ib, const T* __restrict__ gb,
+                                           int c0, int C, int cstride, int4 o, int go,
+                                           T (&v)[K][4], T (&gr)[K]) {
+  const int nc = min(K, C - c0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < nc) {
+      const T* ic = ib + (c0 + k) * cstride;
+      v[k][0] = ic[o.x], v[k][1] = ic[o.y], v[k][2] = ic[o.z], v[k][3] = ic[o.w];
+      gr[k] = gb[(c0 + k) * cstride + go];
     }
   }
-  *gtx = sum_x;
-  *gty = sum_y;
+}
+
+// The same chunk used, channel by channel: the derivative of the lerp by
+// its x and y weights (w.x, w.y) times the incoming gradient g added into
+// *sum_x and *sum_y when want_flow, and g times each tap's weight added
+// into the float32 image gradient gi (at channel 0) by atomicAdd when gi is
+// given.
+template <int K, typename T>
+__device__ __forceinline__ void use_chunk(const T (&v)[K][4], const T (&gr)[K], int c0, int C,
+                                          int cstride, int4 o, float4 w, float* __restrict__ gi,
+                                          bool want_flow, float* sum_x, float* sum_y) {
+  const int nc = min(K, C - c0);
+  const float tx = w.x, ty = w.y, sx = __fsub_rn(1.0f, tx), sy = __fsub_rn(1.0f, ty);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < nc) {
+      const float g = to_f32(gr[k]);
+      const float v00 = to_f32(v[k][0]), v01 = to_f32(v[k][1]);
+      const float v10 = to_f32(v[k][2]), v11 = to_f32(v[k][3]);
+      if (want_flow) {
+        const float top = __fadd_rn(__fmul_rn(v00, sx), __fmul_rn(v01, tx));
+        const float bot = __fadd_rn(__fmul_rn(v10, sx), __fmul_rn(v11, tx));
+        const float dtx = __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), sy),
+                                    __fmul_rn(__fsub_rn(v11, v10), ty));
+        *sum_x = __fadd_rn(*sum_x, __fmul_rn(g, dtx));
+        *sum_y = __fadd_rn(*sum_y, __fmul_rn(g, __fsub_rn(bot, top)));
+      }
+      if (gi) {
+        float* gc = gi + (c0 + k) * cstride;
+        atomicAdd(gc + o.x, __fmul_rn(g, __fmul_rn(sx, sy)));
+        atomicAdd(gc + o.y, __fmul_rn(g, __fmul_rn(tx, sy)));
+        atomicAdd(gc + o.z, __fmul_rn(g, __fmul_rn(sx, ty)));
+        atomicAdd(gc + o.w, __fmul_rn(g, __fmul_rn(tx, ty)));
+      }
+    }
+  }
+}
+
+// The body of both backward kernels: the vjp of a warp in convention kGrid
+// (the normalized grid, flow of type F = T) or the pixel convention (F =
+// float), in layout kLayout, for the incoming gradient grad of the output's
+// shape. Thread (lane, row, group) of block (bx, by, b) owns full-res
+// output (y, x) of image b, x = 32*bx + lane and y = by*rows + row (NCHW),
+// or x = 2*(32*bx + lane) + row%2 and y = by*rows/2 + row/2 (s2d: a warp's
+// 32 outputs are 32 neighbouring positions of one phase plane), and the
+// channels of its group:
+// - group 0 loads the output's flow (a coalesced scalar a component),
+//   rebuilds the forward's taps (border_tap, the same float32
+//   arithmetic) and, when the block has other groups, hands them the
+//   taps' offsets and weights through shared memory;
+// - for each chunk of kBwChunk channels a thread issues every gather (4
+//   taps a channel) and the incoming gradient before the first FMA, then
+//   sums the derivative of the lerp by its x and y weights times g into
+//   the output's partial flow gradient, channel by channel;
+// - when grad_img is given, it adds g times each tap's weight into that
+//   zeroed float32 buffer by atomicAdd (several outputs may read one
+//   source pixel): not bit-reproducible, within float32 rounding of the
+//   plain vjp; the caller rounds it once to the image's type;
+// - when grad_flow is given, the groups' partials meet in shared memory
+//   and group 0 adds them in group order (no atomics: the flow gradient is
+//   the same bit for bit from run to run), applies the clamp's mask and
+//   scale per axis and writes it once (a coalesced scalar a component, in
+//   the flow's own layout), rounded to F.
+// A NaN flow gives NaN taps' weights: NaN in the image gradient at its
+// taps and 0 in its flow gradient (the clamp passes no NaN).
+template <typename T, typename F, bool kGrid, int kLayout>
+__device__ __forceinline__ void backward_tile(const T* __restrict__ img,
+                                              const F* __restrict__ flow,
+                                              const T* __restrict__ grad,
+                                              float* __restrict__ grad_img,
+                                              F* __restrict__ grad_flow, int C, int H, int W,
+                                              float norm_x, float norm_y) {
+  constexpr bool kS2d = kLayout != kBwNchw;
+  constexpr int K = kBwChunk;
+  // with two groups or more a tile holds at most half the block's threads
+  __shared__ int4 tap_at[kBwMaxThreads / 2];
+  __shared__ float4 tap_w[kBwMaxThreads / 2];  // tx, ty, gx, gy
+  __shared__ float2 part[kBwMaxThreads];
+  const int lane = threadIdx.x, row = threadIdx.y, group = threadIdx.z;
+  const int rows = blockDim.y, groups = blockDim.z, b = blockIdx.z;
+  int x, y;
+  if constexpr (kS2d) {
+    x = 2 * (blockIdx.x * 32 + lane) + (row & 1);
+    y = blockIdx.y * (rows >> 1) + (row >> 1);
+  } else {
+    x = blockIdx.x * 32 + lane;
+    y = blockIdx.y * rows + row;
+  }
+  const bool in = x < W && y < H;
+  const int slot = row * 32 + lane;  // the output's place in the tile
+  const int plane = H * W, cstride = kS2d ? plane >> 2 : plane;
+  const int64_t base = (int64_t)b * C * plane;   // one image of the batch, either layout
+  const int64_t fbase = (int64_t)b * 2 * plane;  // [2,H,W] or [8,H/2,W/2]: 2*plane either way
+
+  int4 o = make_int4(0, 0, 0, 0);  // the taps' offsets at channel 0
+  float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // tx, ty and the coordinates gx, gy
+  if (group == 0 && in) {
+    const float fx = to_f32(flow[fbase + flow_offset<kLayout>(0, y, x, H, W)]);
+    const float fy = to_f32(flow[fbase + flow_offset<kLayout>(1, y, x, H, W)]);
+    if constexpr (kGrid) {
+      w.z = grid_coord(linspace_at(x, W), fx, norm_x);
+      w.w = grid_coord(linspace_at(y, H), fy, norm_y);
+    } else {
+      w.z = pixel_norm(__fadd_rn((float)x, fx), W);
+      w.w = pixel_norm(__fadd_rn((float)y, fy), H);
+    }
+    const Tap a = border_tap(w.z, W), t = border_tap(w.w, H);
+    w.x = a.t, w.y = t.t;
+    o = make_int4(pixel_at<kS2d>(t.i0, a.i0, C, H, W), pixel_at<kS2d>(t.i0, a.i1, C, H, W),
+                  pixel_at<kS2d>(t.i1, a.i0, C, H, W), pixel_at<kS2d>(t.i1, a.i1, C, H, W));
+    if (groups > 1) tap_at[slot] = o, tap_w[slot] = w;
+  }
+  if (groups > 1) {
+    __syncthreads();
+    if (group > 0 && in) o = tap_at[slot], w = tap_w[slot];
+  }
+
+  float sum_x = 0.0f, sum_y = 0.0f;
+  if (in) {
+    const int go = pixel_at<kS2d>(y, x, C, H, W);
+    const T* ib = img + base;
+    const T* gb = grad + base;
+    float* gi = grad_img ? grad_img + base : nullptr;
+    // the group's chunks in order, each chunk's loads all in flight at once
+    for (int c0 = group * K; c0 < C; c0 += groups * K) {
+      T v[K][4], gr[K];
+      load_chunk<K>(ib, gb, c0, C, cstride, o, go, v, gr);
+      use_chunk<K>(v, gr, c0, C, cstride, o, w, gi, grad_flow != nullptr, &sum_x, &sum_y);
+    }
+  }
+  if (!grad_flow) return;  // the same for every thread of the block
+  if (groups > 1) {
+    const int stride = rows * 32;
+    if (group > 0) part[group * stride + slot] = make_float2(sum_x, sum_y);
+    __syncthreads();
+    if (group > 0) return;
+    for (int h = 1; h < groups; ++h) {
+      const float2 q = part[h * stride + slot];
+      sum_x = __fadd_rn(sum_x, q.x);
+      sum_y = __fadd_rn(sum_y, q.y);
+    }
+  }
+  if (!in) return;
+  float rx, ry;
+  if constexpr (kGrid) {
+    rx = flow_grad(sum_x, w.z, W, norm_x);
+    ry = flow_grad(sum_y, w.w, H, norm_y);
+  } else {
+    rx = pixel_flow_grad(sum_x, w.z, W);
+    ry = pixel_flow_grad(sum_y, w.w, H);
+  }
+  F* fo = grad_flow + fbase;
+  fo[flow_offset<kLayout>(0, y, x, H, W)] = from_f32<F>(rx);
+  fo[flow_offset<kLayout>(1, y, x, H, W)] = from_f32<F>(ry);
 }
 
 // Replaces the custom_vjp backwards _pfw_bwd and _pfws_bwd
@@ -819,109 +990,73 @@ __device__ __forceinline__ void backward_channels(const T* ib, const T* gb, floa
 // plain_flow_warp (kS2d false; img [B,C,H,W]) and of plain_flow_warp_s2d
 // (kS2d true; img [B,4C,H/2,W/2], the full-res image in s2d form), both by
 // flow [B,2,H,W] of the image's type, for the incoming gradient grad of
-// the output's shape. A thread owns one full-res output pixel: it rebuilds
-// the forward's four taps (border_tap, the same float32 arithmetic), then
-// over the C channels
-// - sums the derivative of the lerp by its two weights, g*((v01 - v00)*(1
-//   - ty) + (v11 - v10)*ty) and g*(bot - top), into the pixel's flow
-//   gradient (times 0.5*n*2/(n-1) and the clamp's mask, per axis), which it
-//   writes once, rounded to the flow's type: no atomics;
-// - when grad_img is given, adds g times each tap's weight into that float32
-//   buffer (zeroed by the caller) with atomicAdd: several outputs may read
-//   one source pixel. The caller rounds it once to the image's type. The
-//   order of the atomics changes from run to run, so grad_img is not
-//   bit-reproducible; it agrees with the plain vjp to float32 rounding.
-// grad_flow may be null (no flow gradient wanted).
+// the output's shape; grad_flow (the flow's type) and grad_img may each be
+// null (not wanted).
 //
-// Bound by bytes: it reads the image, the flow and the incoming gradient
-// once and writes the two gradients (the float32 image gradient by
-// atomics in L2), a few dozen flops per pixel and channel. A simple kernel:
-// consecutive threads own consecutive pixels of a row, so the flow, the
-// incoming gradient and the smooth-flow taps coalesce.
+// Both backward kernels are bound by bytes. A backward reads the image's
+// taps, the flow and the incoming gradient once and writes the gradients
+// once (the float32 image gradient by atomics in L2), a few dozen flops a
+// pixel and channel: on ELFVC-SP's training path (1 x 18 x 256x256, f32,
+// flow gradient only) 10.5 MB, 3.1 us at 3.35 TB/s, and 0.7 us at 1 x 15 x
+// 128x128. The first design (a thread a full-res pixel over all its
+// channels in series, 256-thread blocks: 64 blocks at 128x128) ran at
+// 4.5-17x that (warp_ab.py, PERF.md). backward_tile's design:
+// - channel groups spread a pixel's channels over the threads of a block
+//   while the grid is under a wave: 1 x 15 x 128x128 gives 512 blocks of
+//   160 threads (5 groups), not 64 blocks; 1 x 18 x 256x256 two groups;
+// - group 0 alone loads the flow and rebuilds the taps (two IEEE
+//   divisions an output), and hands them over through shared memory;
+// - a thread issues a chunk's 4 x kBwChunk gathers and incoming gradients
+//   before the first FMA: one round of latency a chunk, not a channel;
+// - a warp's 32 lanes own 32 neighbouring outputs of one phase plane, so
+//   every load and store of the flow, the incoming gradient and the flow
+//   gradient is one coalesced run (the first design's s2d warps split
+//   each between two phase planes);
+// - the groups' partial flow gradients are added in shared memory in a
+//   fixed order: no atomics, the same bits at every launch.
+// What it does not change: a 128x128 launch stays two dependent round
+// trips (the flow, then the taps) above the launch itself; the image
+// gradient's atomics hold LSVC-TPU's MC backward; on ELFVC-SP's volume the
+// gathers of 18 channel planes run at about 1.3 TB/s (an L2-flushed copy
+// of the image alone takes 0.70 of the kernel's time). Tried and slower
+// (warp_ab.py, PERF.md): a thread a pair of outputs (stride-2 lanes, 80-96
+// registers), 3 to 6 groups on ELFVC-SP (two or three waves), 2, 4 or 6
+// channels a chunk, and a second buffer of loads in flight (72-93
+// registers; wrong on a ragged tile with two groups, for a reason not
+// found).
 template <typename T, bool kS2d>
-__global__ void __launch_bounds__(kBwThreads)
+__global__ void __launch_bounds__(kBwMaxThreads)
 flow_warp_backward_kernel(const T* __restrict__ img, const T* __restrict__ flow,
                           const T* __restrict__ grad, float* __restrict__ grad_img,
                           T* __restrict__ grad_flow, int C, int H, int W, float norm_x,
                           float norm_y) {
-  const int plane = H * W, p = blockIdx.x * kBwThreads + threadIdx.x, b = blockIdx.y;
-  if (p >= plane) return;
-  const int y = p / W, x = p - y * W;
-  const int64_t base = (int64_t)b * C * plane;  // one image of the batch, either layout
-  const T* fb = flow + (int64_t)b * 2 * plane;
-  const float gx = grid_coord(linspace_at(x, W), to_f32(fb[p]), norm_x);
-  const float gy = grid_coord(linspace_at(y, H), to_f32(fb[plane + p]), norm_y);
-  float gtx, gty;
-  backward_channels<T, kS2d>(img + base, grad + base, grad_img ? grad_img + base : nullptr, C, H,
-                             W, y, x, border_tap(gx, W), border_tap(gy, H), &gtx, &gty);
-  if (grad_flow) {
-    T* fo = grad_flow + (int64_t)b * 2 * plane;
-    fo[p] = from_f32<T>(flow_grad(gtx, gx, W, norm_x));
-    fo[plane + p] = from_f32<T>(flow_grad(gty, gy, H, norm_y));
-  }
-}
-
-// The layouts of the pixel warps, for their backward.
-enum PixelLayout {
-  kPixelNchw,   // img [B,C,H,W], flow [B,2,H,W]: pixel_warp
-  kPixelS2d,    // img [B,4C,H/2,W/2], flow full-res [B,2,H,W]: pixel_warp_s2d
-  kPixelPhase,  // img [B,4C,H/2,W/2], flow c-major phase form [B,8,H/2,W/2]: the sflow
-};
-
-// Where flow component comp (0: x, 1: y) of full-res pixel (y, x) lies in
-// one image's flow: [2,H,W], or in c-major phase form [8,H/2,W/2], channel
-// comp*4 + 2*(y%2) + x%2 at (y/2, x/2) (the vjp of the phase form's
-// unpacking to full resolution is this permutation).
-template <int kLayout>
-__device__ __forceinline__ int flow_offset(int comp, int y, int x, int H, int W) {
-  if constexpr (kLayout == kPixelPhase) {
-    return ((comp * 4 + (y & 1) * 2 + (x & 1)) * (H >> 1) + (y >> 1)) * (W >> 1) + (x >> 1);
-  } else {
-    return (comp * H + y) * W + x;
-  }
+  backward_tile<T, T, true, kS2d ? kBwS2d : kBwNchw>(img, flow, grad, grad_img, grad_flow, C, H,
+                                                     W, norm_x, norm_y);
 }
 
 // Replaces the custom_vjp backwards _ppw_bwd, _ppws_bwd and _ppwss_bwd
 // (fastvideocodec_tpu/ops/pallas/warp_kernel.py:594, :642, :698), which
 // take the vjp of the XLA exact path (no Pallas kernel): the vjp of
-// plain_pixel_warp (kPixelNchw), plain_pixel_warp_s2d (kPixelS2d) and
-// plain_pixel_warp_s2d_sflow (kPixelPhase), img of type T and a float32
-// flow, for the incoming gradient grad of the output's shape (type T).
-// As flow_warp_backward_kernel: a thread owns one full-res output pixel,
-// rebuilds the forward's taps (pixel_tap's float32 arithmetic), sums the
-// flow gradient over the C channels in registers and writes it once as
-// float32 (in the flow's own layout: no atomics), and adds the image
-// gradient into the zeroed float32 grad_img by atomicAdd only when it is
-// given. grad_flow may be null (no flow gradient wanted); on the SSF and
-// ELFVC training path grad_img is null (the warped image is built from a
+// plain_pixel_warp (kBwNchw), plain_pixel_warp_s2d (kBwS2d) and
+// plain_pixel_warp_s2d_sflow (kBwPhase), img of type T and a float32
+// flow, for the incoming gradient grad of the output's shape (type T); the
+// float32 flow gradient in the flow's own layout. On the SSF and ELFVC
+// training path grad_img is null (the warped image is built from a
 // detached reference and holds no parameter), so that path allocates and
-// zeroes nothing of the image's size.
-//
-// Bound by bytes as the forward is: the image's taps, the flow and the
-// incoming gradient read once, the gradients written once.
+// zeroes nothing of the image's size. The design: flow_warp_backward_kernel's.
 template <typename T, int kLayout>
-__global__ void __launch_bounds__(kBwThreads)
+__global__ void __launch_bounds__(kBwMaxThreads)
 pixel_warp_backward_kernel(const T* __restrict__ img, const float* __restrict__ flow,
                            const T* __restrict__ grad, float* __restrict__ grad_img,
                            float* __restrict__ grad_flow, int C, int H, int W) {
-  constexpr bool kS2d = kLayout != kPixelNchw;
-  const int plane = H * W, p = blockIdx.x * kBwThreads + threadIdx.x, b = blockIdx.y;
-  if (p >= plane) return;
-  const int y = p / W, x = p - y * W;
-  const int64_t base = (int64_t)b * C * plane;  // one image of the batch, either layout
-  const int ox = flow_offset<kLayout>(0, y, x, H, W), oy = flow_offset<kLayout>(1, y, x, H, W);
-  const float* fb = flow + (int64_t)b * 2 * plane;  // [2,H,W] or [8,H/2,W/2]: 2*plane either way
-  const float gx = pixel_norm(__fadd_rn((float)x, fb[ox]), W);
-  const float gy = pixel_norm(__fadd_rn((float)y, fb[oy]), H);
-  float gtx, gty;
-  backward_channels<T, kS2d>(img + base, grad + base, grad_img ? grad_img + base : nullptr, C, H,
-                             W, y, x, border_tap(gx, W), border_tap(gy, H), &gtx, &gty);
-  if (grad_flow) {
-    float* fo = grad_flow + (int64_t)b * 2 * plane;
-    fo[ox] = pixel_flow_grad(gtx, gx, W);
-    fo[oy] = pixel_flow_grad(gty, gy, H);
-  }
+  backward_tile<T, float, false, kLayout>(img, flow, grad, grad_img, grad_flow, C, H, W, 0.0f,
+                                          0.0f);
 }
+
+// No work: the launch floor of a backward plan's grid and blocks, timed
+// beside the backward kernels (chip_smoke.py, warp_ab.py). No path
+// launches it.
+__global__ void empty_kernel() {}
 
 inline bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
@@ -992,17 +1127,40 @@ int launch_warp_s2d(const void* img, const void* flow, void* out, int B, int C, 
   return (int)cudaGetLastError();
 }
 
+// The backward plan (ops/kernels/warp.py:backward_plan has the same rule):
+// false where its grid would pass CUDA's limits.
+struct BwPlan {
+  dim3 grid, block;
+};
+
+inline bool backward_plan(int B, int C, int H, int W, bool s2d, BwPlan* plan) {
+  const int64_t outputs = (int64_t)B * H * W;  // a thread each, times the groups
+  const int wave = outputs >= kBwWaveThreads ? 1
+                   : outputs < 1             ? kBwMaxGroups
+                                             : (int)(kBwWaveThreads / outputs);
+  const int groups = max(1, min(min(kBwMaxGroups, (C + kBwChunk - 1) / kBwChunk), wave));
+  int rows = max(s2d ? 2 : 1, kBwBlockThreads / (32 * groups));
+  if (s2d) rows &= ~1;
+  const int cols = s2d ? 64 : 32, tile_rows = s2d ? rows / 2 : rows;
+  const int tiles = (H + tile_rows - 1) / tile_rows;
+  if (B < 1 || C < 1 || B > kGridYZ || tiles > kGridYZ) return false;
+  plan->grid = dim3((W + cols - 1) / cols, tiles, B);
+  plan->block = dim3(32, rows, groups);
+  return true;
+}
+
 template <typename T>
 int launch_flow_warp_backward(const void* img, const void* flow, const void* grad, void* grad_img,
                               void* grad_flow, int B, int C, int H, int W, float norm_x,
                               float norm_y, bool s2d, cudaStream_t s) {
-  dim3 grid((H * W + kBwThreads - 1) / kBwThreads, B);
+  BwPlan p;
+  if (!backward_plan(B, C, H, W, s2d, &p)) return (int)cudaErrorInvalidValue;
   if (s2d) {
-    flow_warp_backward_kernel<T, true><<<grid, kBwThreads, 0, s>>>(
+    flow_warp_backward_kernel<T, true><<<p.grid, p.block, 0, s>>>(
         (const T*)img, (const T*)flow, (const T*)grad, (float*)grad_img, (T*)grad_flow, C, H, W,
         norm_x, norm_y);
   } else {
-    flow_warp_backward_kernel<T, false><<<grid, kBwThreads, 0, s>>>(
+    flow_warp_backward_kernel<T, false><<<p.grid, p.block, 0, s>>>(
         (const T*)img, (const T*)flow, (const T*)grad, (float*)grad_img, (T*)grad_flow, C, H, W,
         norm_x, norm_y);
   }
@@ -1013,18 +1171,18 @@ template <typename T>
 int launch_pixel_warp_backward(const void* img, const void* flow, const void* grad,
                                void* grad_img, void* grad_flow, int B, int C, int H, int W,
                                int layout, cudaStream_t s) {
-  dim3 grid((H * W + kBwThreads - 1) / kBwThreads, B);
+  BwPlan p;
+  if (!backward_plan(B, C, H, W, layout != kBwNchw, &p)) return (int)cudaErrorInvalidValue;
   const T* i = (const T*)img;
   const float* f = (const float*)flow;
   const T* g = (const T*)grad;
   float *gi = (float*)grad_img, *gf = (float*)grad_flow;
-  if (layout == kPixelNchw) {
-    pixel_warp_backward_kernel<T, kPixelNchw><<<grid, kBwThreads, 0, s>>>(i, f, g, gi, gf, C, H, W);
-  } else if (layout == kPixelS2d) {
-    pixel_warp_backward_kernel<T, kPixelS2d><<<grid, kBwThreads, 0, s>>>(i, f, g, gi, gf, C, H, W);
+  if (layout == kBwNchw) {
+    pixel_warp_backward_kernel<T, kBwNchw><<<p.grid, p.block, 0, s>>>(i, f, g, gi, gf, C, H, W);
+  } else if (layout == kBwS2d) {
+    pixel_warp_backward_kernel<T, kBwS2d><<<p.grid, p.block, 0, s>>>(i, f, g, gi, gf, C, H, W);
   } else {
-    pixel_warp_backward_kernel<T, kPixelPhase><<<grid, kBwThreads, 0, s>>>(i, f, g, gi, gf, C, H,
-                                                                           W);
+    pixel_warp_backward_kernel<T, kBwPhase><<<p.grid, p.block, 0, s>>>(i, f, g, gi, gf, C, H, W);
   }
   return (int)cudaGetLastError();
 }
@@ -1158,8 +1316,8 @@ extern "C" int fvc_pixel_warp_backward(const void* img, const void* flow, const 
                                        void* grad_img, void* grad_flow, int B, int C, int H,
                                        int W, int layout, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || B > 65535 || !fits_int32((int64_t)max(C, 2) * H * W) || layout < kPixelNchw ||
-      layout > kPixelPhase || (layout != kPixelNchw && (H % 2 || W % 2)))
+  if (B < 1 || B > 65535 || !fits_int32((int64_t)max(C, 2) * H * W) || layout < kBwNchw ||
+      layout > kBwPhase || (layout != kBwNchw && (H % 2 || W % 2)))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     return launch_pixel_warp_backward<float>(img, flow, grad, grad_img, grad_flow, B, C, H, W,
@@ -1170,4 +1328,14 @@ extern "C" int fvc_pixel_warp_backward(const void* img, const void* flow, const 
                                                      H, W, layout, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// An empty kernel launched with the grid and blocks of the backward plan of
+// [B,C,H,W] (full-res C, H and W) in an NCHW (s2d 0) or s2d (s2d 1)
+// layout: the launch floor of that backward.
+extern "C" int fvc_backward_floor(int B, int C, int H, int W, int s2d, void* stream) {
+  BwPlan p;
+  if (!backward_plan(B, C, H, W, s2d, &p)) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<p.grid, p.block, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

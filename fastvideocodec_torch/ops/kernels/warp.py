@@ -15,7 +15,10 @@ zeroes the counts. A launcher gives no gradient: the dispatchers wrap it in
 the warp's backward kernel, ``launch_<name>_backward`` (counted as
 ``<name>_backward``): csrc/warp.cu's flow_warp_backward_kernel for the two
 normalized-grid warps, its pixel_warp_backward_kernel for the three pixel
-warps.
+warps, in the plan ``backward_plan`` gives (channel groups and rows of a
+block, from warp.cu's constants too; ``launch_backward_floor`` launches an
+empty kernel on the same grid, the launch floor its timings stand
+beside).
 
 All five are tiled: a block owns a tile of outputs. The three s2d warps
 share one kernel body, and ``flow_warp_s2d``'s block stages the tile's
@@ -29,10 +32,11 @@ where it would not (each plan a C entry point of its own,
 ``PIXEL_ENTRIES``).
 
 A launch costs the host a few microseconds, which the small frames'
-launches feel: the launchers check their tensors with cheap attribute
-reads, cache each shape's arguments and plan, ask torch for the raw
-current stream (no Stream object) and switch devices only when the
-tensors lie on another card than the current one.
+launches and every training step feel: the launchers, forward and
+backward, check their tensors with cheap attribute reads, cache each
+shape's arguments and plan (the backward's ctypes norms and plan check
+too), ask torch for the raw current stream (no Stream object) and switch
+devices only when the tensors lie on another card than the current one.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import ctypes
 import functools
 import re
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -254,40 +259,90 @@ def launch_pixel_warp_s2d_sflow(img_s2d: torch.Tensor, flow_s2d: torch.Tensor) -
     return _launch_pixel_warp_s2d(img_s2d, flow_s2d, True, "pixel_warp_s2d_sflow")
 
 
-def _launch_backward(bname: str, img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
-                     need_img: bool, need_flow: bool, launch):
-    """Check ``grad`` (a contiguous tensor of img's shape, dtype and device:
-    the output's gradient), allocate the asked-for gradients (the image's a
-    zeroed float32 buffer for the kernel's atomics, none of the image's size
-    without it), run ``launch(lib, grad_img_ptr, grad_flow_ptr, stream)`` on
-    img's device and count it under ``bname``: (grad_img in img's dtype,
-    grad_flow), each None unless asked for."""
-    if (grad.shape, grad.dtype, grad.device) != (img.shape, img.dtype, img.device) or (
-            not grad.is_contiguous()):
+# the layout of each warp's backward (csrc/warp.cu's BwLayout, by code)
+BACKWARD_LAYOUTS = {"flow_warp": "nchw", "flow_warp_s2d": "s2d", "pixel_warp": "nchw",
+                    "pixel_warp_s2d": "s2d", "pixel_warp_s2d_sflow": "phase"}
+_LAYOUT_CODES = {"nchw": 0, "s2d": 1, "phase": 2}
+NCHW = ("flow_warp", "pixel_warp")  # the warps of NCHW images
+
+
+class BackwardPlan(NamedTuple):
+    """A backward launch's plan: blocks of 32 x ``rows`` x ``groups``
+    threads (a thread an output, a tile of 32 outputs x rows for each
+    channel group), each thread taking ``passes`` chunks of kBwChunk
+    channels in turn; ``grid`` is (column tiles, row tiles, B); ``fits`` is
+    whether the kernel takes the launch."""
+
+    groups: int
+    rows: int
+    passes: int
+    grid: tuple
+    fits: bool
+
+
+def backward_plan(layout: str, B: int, C: int, H: int, W: int,
+                  constants: dict | None = None) -> BackwardPlan:
+    """The plan of a backward kernel (csrc/warp.cu's backward_plan) on a
+    full-res [B, C, H, W] image in ``layout`` ("nchw", "s2d" or "phase"):
+    ceil(C / kBwChunk) channel groups up to kBwMaxGroups; rows =
+    kBwBlockThreads / (32 x groups), at least 1 in NCHW, and in s2d at
+    least 2 and even (a tile row is one phase of 32 s2d positions: a tile
+    of 64 full-res columns x rows / 2 rows); the grid's rows and B within
+    CUDA's kGridYZ, and H and W even in the s2d layouts. A pure function of
+    the shape and of warp.cu's constants (``tile_constants()``, or
+    ``constants`` read from another version of the source)."""
+    k = constants or tile_constants()
+    s2d = layout != "nchw"
+    chunks = -(-C // k["kBwChunk"])
+    groups = max(1, min(k["kBwMaxGroups"], chunks, k["kBwWaveThreads"] // max(B * H * W, 1)))
+    rows = max(2 if s2d else 1, k["kBwBlockThreads"] // (32 * groups))
+    if s2d:
+        rows -= rows % 2
+    grid = (-(-W // (64 if s2d else 32)), -(-H // (rows // 2 if s2d else rows)), B)
+    fits = (C >= 1 and 1 <= B <= k["kGridYZ"] and grid[1] <= k["kGridYZ"]
+            and (not s2d or (H % 2 == 0 and W % 2 == 0)))
+    return BackwardPlan(groups, rows, -(-chunks // groups), grid, fits)
+
+
+@functools.lru_cache(maxsize=512)
+def _backward_args(name: str, B: int, C: int, H: int, W: int) -> tuple:
+    """The backward C entry point's arguments of warp ``name`` after the five
+    pointers but the dtype, at full-res [B, C, H, W]: B, C, H, W, then
+    flow_warp's two norms (ctypes floats) and s2d flag, or the pixel warps'
+    layout code. Raises unless the backward plan takes the shape."""
+    layout = BACKWARD_LAYOUTS[name]
+    if not backward_plan(layout, B, C, H, W).fits:
+        raise ValueError(f"{name}'s backward kernel does not take [{B}, {C}, {H}, {W}] "
+                         f"({layout} layout)")
+    if name.startswith("flow_warp"):
+        return (B, C, H, W, ctypes.c_float(grid_norm(W)), ctypes.c_float(grid_norm(H)),
+                int(layout == "s2d"))
+    return B, C, H, W, _LAYOUT_CODES[layout]
+
+
+def _check_grad(img: torch.Tensor, grad: torch.Tensor) -> None:
+    """Raise unless ``grad`` (the output's gradient) is a contiguous tensor
+    of img's shape and dtype on its device. Cheap reads; the message is
+    built only on failure."""
+    if grad.shape != img.shape or grad.dtype != img.dtype or (
+            grad.get_device() != img.get_device()) or not grad.is_contiguous():
         raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} on {grad.device} is not a "
                          f"contiguous tensor like img {tuple(img.shape)} {img.dtype}")
-    lib = build.load()
-    grad_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_img else None
+
+
+def _backward(bname: str, entry, img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
+              need_img: bool, need_flow: bool, args: tuple, dtype: int):
+    """Allocate the asked-for gradients (the image's a zeroed float32 buffer
+    for the kernel's atomics, none of the image's size without it), launch
+    ``entry`` (a backward C entry point) with ``args`` on img's device and
+    count it under ``bname``: (grad_img in img's dtype, grad_flow), each
+    None unless asked for."""
+    grad_img = torch.zeros_like(img, dtype=torch.float32) if need_img else None
     grad_flow = torch.empty_like(flow) if need_flow else None
-    _launch(bname, img, functools.partial(launch, lib), grad_img.data_ptr() if need_img else None,
-            grad_flow.data_ptr() if need_flow else None)
+    _launch(bname, img, entry, img.data_ptr(), flow.data_ptr(), grad.data_ptr(),
+            grad_img.data_ptr() if need_img else None,
+            grad_flow.data_ptr() if need_flow else None, *args, dtype)
     return (grad_img.to(img.dtype) if need_img else None), grad_flow
-
-
-def _launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
-                               need_img: bool, need_flow: bool, s2d: bool):
-    B = img.shape[0]
-    if s2d:
-        _, C4, Hs, Ws = _s2d_shape(img)
-        C, H, W = C4 // 4, 2 * Hs, 2 * Ws
-    else:
-        _, C, H, W = img.shape
-    dtype = _check(img, flow, (B, 2, H, W))
-    return _launch_backward(
-        "flow_warp_s2d_backward" if s2d else "flow_warp_backward", img, flow, grad, need_img,
-        need_flow, lambda lib, gi, gf, stream: lib.fvc_flow_warp_backward(
-            img.data_ptr(), flow.data_ptr(), grad.data_ptr(), gi, gf, B, C, H, W, grid_norm(W),
-            grid_norm(H), int(s2d), dtype, stream))
 
 
 def launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
@@ -296,8 +351,14 @@ def launch_flow_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch
     the output's gradient ``grad`` (img's shape and dtype): (grad_img,
     grad_flow), each None unless asked for. The image gradient is summed by
     float32 atomics and rounded once to img's dtype; its order changes
-    from run to run."""
-    return _launch_flow_warp_backward(img, flow, grad, need_img, need_flow, False)
+    from run to run. The flow gradient is the same bit for bit at every
+    launch."""
+    B, C, H, W = img.shape
+    dtype = _check(img, flow, (B, 2, H, W))
+    _check_grad(img, grad)
+    args = _backward_args("flow_warp", B, C, H, W)
+    return _backward("flow_warp_backward", build.load().fvc_flow_warp_backward, img, flow, grad,
+                     need_img, need_flow, args, dtype)
 
 
 def launch_flow_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
@@ -306,29 +367,12 @@ def launch_flow_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
     """The vjp of ``flow_warp_s2d`` at (img_s2d [B, 4C, H/2, W/2], flow
     [B, 2, H, W]) for the output's gradient ``grad`` (img_s2d's shape and
     dtype), as ``launch_flow_warp_backward``."""
-    return _launch_flow_warp_backward(img_s2d, flow, grad, need_img, need_flow, True)
-
-
-# the layouts of the pixel warps' backward (csrc/warp.cu's PixelLayout)
-_PIXEL_LAYOUT = {"pixel_warp": 0, "pixel_warp_s2d": 1, "pixel_warp_s2d_sflow": 2}
-
-
-def _launch_pixel_warp_backward(name: str, img: torch.Tensor, flow: torch.Tensor,
-                                grad: torch.Tensor, need_img: bool, need_flow: bool):
-    layout = _PIXEL_LAYOUT[name]
-    if layout == 0:
-        B, C, H, W = img.shape
-        flow_shape = (B, 2, H, W)
-    else:
-        B, C4, Hs, Ws = _s2d_shape(img)
-        C, H, W = C4 // 4, 2 * Hs, 2 * Ws
-        flow_shape = (B, 8, Hs, Ws) if layout == 2 else (B, 2, H, W)
-    dtype = _check(img, flow, flow_shape, torch.float32)
-    return _launch_backward(
-        f"{name}_backward", img, flow, grad, need_img, need_flow,
-        lambda lib, gi, gf, stream: lib.fvc_pixel_warp_backward(
-            img.data_ptr(), flow.data_ptr(), grad.data_ptr(), gi, gf, B, C, H, W, layout, dtype,
-            stream))
+    B, C4, Hs, Ws = _s2d_shape(img_s2d)
+    dtype = _check(img_s2d, flow, (B, 2, 2 * Hs, 2 * Ws))
+    _check_grad(img_s2d, grad)
+    args = _backward_args("flow_warp_s2d", B, C4 // 4, 2 * Hs, 2 * Ws)
+    return _backward("flow_warp_s2d_backward", build.load().fvc_flow_warp_backward, img_s2d,
+                     flow, grad, need_img, need_flow, args, dtype)
 
 
 def launch_pixel_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
@@ -338,8 +382,25 @@ def launch_pixel_warp_backward(img: torch.Tensor, flow: torch.Tensor, grad: torc
     (grad_img in img's dtype, grad_flow float32), each None unless asked
     for. The image gradient is summed by float32 atomics and rounded once
     to img's dtype; its order changes from run to run. Without it nothing
-    of the image's size is allocated."""
-    return _launch_pixel_warp_backward("pixel_warp", img, flow, grad, need_img, need_flow)
+    of the image's size is allocated. The flow gradient is the same bit for
+    bit at every launch."""
+    B, C, H, W = img.shape
+    dtype = _check(img, flow, (B, 2, H, W), torch.float32)
+    _check_grad(img, grad)
+    args = _backward_args("pixel_warp", B, C, H, W)
+    return _backward("pixel_warp_backward", build.load().fvc_pixel_warp_backward, img, flow,
+                     grad, need_img, need_flow, args, dtype)
+
+
+def _launch_pixel_warp_s2d_backward(name: str, img_s2d: torch.Tensor, flow: torch.Tensor,
+                                    grad: torch.Tensor, need_img: bool, need_flow: bool):
+    B, C4, Hs, Ws = _s2d_shape(img_s2d)
+    shape = (B, 8, Hs, Ws) if name == "pixel_warp_s2d_sflow" else (B, 2, 2 * Hs, 2 * Ws)
+    dtype = _check(img_s2d, flow, shape, torch.float32)
+    _check_grad(img_s2d, grad)
+    args = _backward_args(name, B, C4 // 4, 2 * Hs, 2 * Ws)
+    return _backward(f"{name}_backward", build.load().fvc_pixel_warp_backward, img_s2d, flow,
+                     grad, need_img, need_flow, args, dtype)
 
 
 def launch_pixel_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
@@ -347,8 +408,8 @@ def launch_pixel_warp_s2d_backward(img_s2d: torch.Tensor, flow: torch.Tensor,
                                    need_flow: bool = True):
     """The vjp of ``pixel_warp_s2d`` at (img_s2d [B, 4C, H/2, W/2], flow
     [B, 2, H, W] float32), as ``launch_pixel_warp_backward``."""
-    return _launch_pixel_warp_backward("pixel_warp_s2d", img_s2d, flow, grad, need_img,
-                                       need_flow)
+    return _launch_pixel_warp_s2d_backward("pixel_warp_s2d", img_s2d, flow, grad, need_img,
+                                           need_flow)
 
 
 def launch_pixel_warp_s2d_sflow_backward(img_s2d: torch.Tensor, flow_s2d: torch.Tensor,
@@ -357,5 +418,24 @@ def launch_pixel_warp_s2d_sflow_backward(img_s2d: torch.Tensor, flow_s2d: torch.
     """The vjp of ``pixel_warp_s2d_sflow`` at (img_s2d [B, 4C, H/2, W/2],
     flow_s2d [B, 8, H/2, W/2] float32 in c-major phase form), as
     ``launch_pixel_warp_backward``: the flow gradient in the phase form."""
-    return _launch_pixel_warp_backward("pixel_warp_s2d_sflow", img_s2d, flow_s2d, grad,
-                                       need_img, need_flow)
+    return _launch_pixel_warp_s2d_backward("pixel_warp_s2d_sflow", img_s2d, flow_s2d, grad,
+                                           need_img, need_flow)
+
+
+def launch_backward_floor(name: str, img: torch.Tensor) -> None:
+    """An empty kernel launched with the grid and blocks of the backward
+    plan of warp ``name`` on ``img`` (its s2d form for the s2d warps): the
+    launch floor that the backward's time is held against. Counted under
+    no name: no path launches it."""
+    if name in NCHW:
+        B, C, H, W = img.shape
+    else:
+        B, C4, Hs, Ws = _s2d_shape(img)
+        C, H, W = C4 // 4, 2 * Hs, 2 * Ws
+    _backward_args(name, B, C, H, W)  # raises unless the plan takes the shape
+    _, stream = _cuda_calls()
+    index = img.get_device()
+    with torch.cuda.device(index):
+        rc = build.load().fvc_backward_floor(B, C, H, W, int(name not in NCHW), stream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} backward floor launch failed: cudaError {rc}")

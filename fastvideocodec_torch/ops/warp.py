@@ -326,6 +326,11 @@ def _launcher(name: str):
     return getattr(kernels, f"launch_{name}")
 
 
+# the attribute of each warp's backward launcher in ops/kernels/warp.py,
+# looked up at each backward (so that a wrapped launcher is the one taken)
+_BACKWARD_LAUNCHER = {name: f"launch_{name}_backward" for name in PLAIN}
+
+
 def plain_warp_vjp(name: str, img: torch.Tensor, flow: torch.Tensor, grad: torch.Tensor,
                    need_img: bool = True, need_flow: bool = True) -> tuple:
     """The vjp of PLAIN[name] at (img, flow) for the output's gradient
@@ -366,7 +371,7 @@ class KernelWarp(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad: torch.Tensor):
         img, flow = ctx.saved_tensors
-        launch = getattr(kernels, f"launch_{ctx.name}_backward")
+        launch = getattr(kernels, _BACKWARD_LAUNCHER[ctx.name])
         return None, *launch(img, flow, grad.contiguous(), *ctx.needs_input_grad[1:])
 
 

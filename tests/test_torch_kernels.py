@@ -1,12 +1,16 @@
 """The warp kernels' wrappers: their autograd Function, the dispatch rule
 (every warp's backward goes to its backward kernel off the CPU, never to
-the plain vjp), the host-side tile rule, pixel_warp's plan rule (read from
-warp.cu) and the launchers' checks (before the library loads) on the CPU;
-on a CUDA card, the tiled kernels' exactness (NaN flows included),
+the plain vjp), the host-side tile rule, pixel_warp's and the backward
+kernels' plan rules (read from warp.cu) and the launchers' checks, forward
+and backward (before the library loads), on the CPU; on a CUDA card, the
+tiled kernels' exactness (NaN flows included),
 flow_warp's kernel and both plans of pixel_warp on ragged shapes, small
 frames, NaN flows and unaligned pointers, the Function's gradients
 (pixel_warp also at MCVC's 18 channels on 4 views), the five backward
-kernels against the plain vjp (image and flow gradients each on and off),
+kernels against the plain vjp (image and flow gradients each on and off;
+at 1 to 49 channels, at the training steps' shapes, on unaligned pointers
+and NaN flows at 18 channels; the flow gradient bit for bit from launch
+to launch),
 flow_warp at LSVC-TPU-RW's 12 channels and on LSVC-128's 15-frame SpyNet
 batch, one ELFVC-SP-TPU-TINY P-frame through both pixel kernels, one
 MCVC-IA-TINY P-frame through pixel_warp, and one DVC-TINY and one
@@ -394,6 +398,158 @@ def test_launchers_check_before_loading_the_library(name, bad, monkeypatch):
         getattr(kwarp, f"launch_{name}")(img, flow)
 
 
+# (warp, full-res image shape) of the backward kernels on the paths: the
+# training steps' (ELFVC-SP's volume, SSF-TPU's and ELFVC-SP-TPU's stack and
+# level-0 sample, LSVC-TPU's SpyNet levels and MC warps at 256x256) and the
+# largest frames a backward may meet (MCVC's 4 x 18 x 1024x2048 volume,
+# LSVC-TPU's and SSF-TPU's warps at 1024x2048)
+BACKWARD_PATHS = [
+    ("pixel_warp", (1, 18, 256, 256)),
+    ("pixel_warp", (1, 15, 128, 128)),
+    ("pixel_warp_s2d_sflow", (1, 3, 256, 256)),
+    ("pixel_warp_s2d", (1, 3, 256, 256)),
+    ("flow_warp", (15, 3, 32, 32)),
+    ("flow_warp", (15, 3, 64, 64)),
+    ("flow_warp", (15, 3, 128, 128)),
+    ("flow_warp_s2d", (1, 3, 256, 256)),
+    ("flow_warp_s2d", (8, 3, 256, 256)),
+    ("pixel_warp", (4, 18, 1024, 2048)),
+    ("pixel_warp", (1, 15, 512, 1024)),
+    ("pixel_warp_s2d_sflow", (1, 3, 1024, 2048)),
+    ("flow_warp_s2d", (1, 3, 1024, 2048)),
+    ("flow_warp", (1, 12, 512, 1024)),
+]
+
+
+@pytest.mark.parametrize("name, shape", BACKWARD_PATHS)
+def test_backward_plan_on_the_paths(name, shape):
+    """At every path shape the backward plan fits: its grid within CUDA's
+    limits (gridDim.x below 2**31, gridDim.y and z at most 65535), its
+    blocks of 32 to 512 threads (32 x rows x groups), its grid covering
+    every output (tiles of 32 columns x rows in NCHW, of 64 columns x rows
+    / 2 in s2d), and its channel groups covering C (groups x passes x
+    kBwChunk channels, groups not above C's chunks). The training steps'
+    frames fill the card: at least 132 blocks, one an SM."""
+    k = kwarp.tile_constants()
+    B, C, H, W = shape
+    s2d = name in S2D
+    plan = kwarp.backward_plan(kwarp.BACKWARD_LAYOUTS[name], B, C, H, W)
+    assert plan.fits
+    gx, gy, gz = plan.grid
+    assert gx < 2**31 and gy <= 65535 and gz == B <= 65535
+    assert 32 <= 32 * plan.rows * plan.groups <= 512
+    assert gx * (64 if s2d else 32) >= W and gy * (plan.rows // 2 if s2d else plan.rows) >= H
+    assert plan.rows % 2 == 0 or not s2d
+    assert plan.groups * plan.passes * k["kBwChunk"] >= C
+    assert plan.groups <= -(-C // k["kBwChunk"])
+    if H * W <= 256 * 256 and B == 1:
+        assert gx * gy * gz >= 132, plan
+
+
+def test_backward_plan_reads_the_kernel_source(tmp_path):
+    """The backward plan's chunk, group cap, block target and wave are
+    warp.cu's own numbers, read from the source the kernels are built from:
+    a source with other numbers gives other plans. Shapes the kernel does
+    not take do not fit: no channel, no image, odd s2d frames, more row
+    tiles or images than CUDA's grid holds."""
+    k = kwarp.tile_constants()
+    assert (k["kBwChunk"], k["kBwMaxGroups"], k["kBwBlockThreads"], k["kBwWaveThreads"]) == (
+        3, 8, 128, 131072)
+    plan = kwarp.backward_plan("nchw", 1, 15, 128, 128)
+    assert (plan.groups, plan.rows, plan.passes, plan.grid) == (5, 1, 1, (4, 128, 1))
+    plan = kwarp.backward_plan("nchw", 1, 18, 256, 256)  # two groups fill the wave
+    assert (plan.groups, plan.rows, plan.passes, plan.grid) == (2, 2, 3, (8, 128, 1))
+    plan = kwarp.backward_plan("phase", 1, 3, 256, 256)
+    assert (plan.groups, plan.rows, plan.passes, plan.grid) == (1, 4, 1, (4, 128, 1))
+    plan = kwarp.backward_plan("s2d", 1, 18, 128, 64)  # rows at least 2 in s2d
+    assert (plan.groups, plan.rows, plan.passes, plan.grid) == (6, 2, 1, (1, 128, 1))
+    plan = kwarp.backward_plan("s2d", 2, 18, 256, 256)  # a frame past the wave: one group
+    assert (plan.groups, plan.rows, plan.passes, plan.grid) == (1, 4, 6, (4, 128, 2))
+    assert kwarp.backward_plan("nchw", 1, 48, 8, 8)[:3] == (8, 1, 2)
+    text = kwarp.build.SOURCE.read_text()
+    variants = {"c1": ("kBwChunk = 3;", "kBwChunk = 1;"),
+                "g2": ("kBwMaxGroups = 8;", "kBwMaxGroups = 2;"),
+                "t256": ("kBwBlockThreads = 128;", "kBwBlockThreads = 256;"),
+                "w16k": ("kBwWaveThreads = 131072;", "kBwWaveThreads = 16384;")}
+    consts = {}
+    for name, (old, new) in variants.items():
+        assert text.count(old) == 1
+        source = tmp_path / f"{name}.cu"
+        source.write_text(text.replace(old, new))
+        consts[name] = kwarp.tile_constants(source)
+    assert kwarp.backward_plan("nchw", 1, 15, 128, 128, consts["c1"])[:3] == (8, 1, 2)
+    assert kwarp.backward_plan("nchw", 1, 15, 128, 128, consts["g2"])[:3] == (2, 2, 3)
+    assert kwarp.backward_plan("nchw", 1, 15, 128, 128, consts["t256"])[:3] == (5, 1, 1)
+    assert kwarp.backward_plan("nchw", 1, 3, 128, 128, consts["t256"])[:3] == (1, 8, 1)
+    assert kwarp.backward_plan("nchw", 1, 15, 128, 128, consts["w16k"])[:3] == (1, 4, 5)
+    assert not kwarp.backward_plan("nchw", 1, 0, 8, 8).fits
+    assert not kwarp.backward_plan("nchw", 0, 3, 8, 8).fits
+    assert not kwarp.backward_plan("nchw", 65536, 3, 8, 8).fits
+    assert kwarp.backward_plan("nchw", 65535, 3, 8, 8).fits
+    assert kwarp.backward_plan("nchw", 1, 3, 9, 33).fits
+    for layout in ("s2d", "phase"):
+        assert not kwarp.backward_plan(layout, 1, 3, 8, 10 + 1).fits
+        assert not kwarp.backward_plan(layout, 1, 3, 8 + 1, 10).fits
+    assert kwarp.backward_plan("nchw", 1, 3, 4 * 65535, 8).fits  # 4 rows a block
+    assert not kwarp.backward_plan("nchw", 1, 3, 4 * 65535 + 1, 8).fits
+    assert kwarp.backward_plan("s2d", 1, 3, 2 * 65535, 8).fits  # 2 full-res rows a tile
+    assert not kwarp.backward_plan("s2d", 1, 3, 2 * 65536, 8).fits
+    with pytest.raises(ValueError):
+        kwarp._backward_args("pixel_warp", 1, 0, 8, 8)
+
+
+# what makes a backward launcher's incoming gradient wrong (ValueError)
+BAD_GRADS = ("grad of another shape", "grad of another dtype", "grad on another card",
+             "grad not contiguous")
+
+
+@pytest.mark.parametrize("bad", list(BAD_INPUTS) + list(BAD_GRADS) + ["none"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_backward_launchers_check_before_loading_the_library(name, bad, monkeypatch):
+    """Each backward launcher raises on the forward's bad inputs and on an
+    incoming gradient of another shape, dtype or card, or not contiguous,
+    before it loads (and so builds) the library; inputs that pass every
+    check reach the load."""
+
+    class Loaded(Exception):
+        pass
+
+    def load():
+        raise Loaded
+
+    monkeypatch.setattr(kwarp.build, "load", load)
+    img_shape, flow_shape = SHAPES[name]
+    dtype = torch.bfloat16
+    flow_dtype = _flow_dtype(name, dtype)
+    img, flow = CudaLike(img_shape, dtype), CudaLike(flow_shape, flow_dtype)
+    grad = CudaLike(img_shape, dtype)
+    if bad == "cpu tensors":
+        img, flow = torch.zeros(img_shape, dtype=dtype), torch.zeros(flow_shape, dtype=flow_dtype)
+        grad = torch.zeros(img_shape, dtype=dtype)
+    elif bad == "flow on another card":
+        flow = CudaLike(flow_shape, flow_dtype, index=1)
+    elif bad == "float16 image":
+        img = grad = CudaLike(img_shape, torch.float16)
+    elif bad == "flow of another dtype":
+        flow = CudaLike(flow_shape, torch.float16)
+    elif bad == "flow of another shape":
+        flow = CudaLike((*flow_shape[:3], flow_shape[3] + 1), flow_dtype)
+    elif bad == "image not contiguous":
+        img = CudaLike(img_shape, dtype, contiguous=False)
+    elif bad == "flow not contiguous":
+        flow = CudaLike(flow_shape, flow_dtype, contiguous=False)
+    elif bad == "grad of another shape":
+        grad = CudaLike((*img_shape[:3], img_shape[3] + 1), dtype)
+    elif bad == "grad of another dtype":
+        grad = CudaLike(img_shape, torch.float32)
+    elif bad == "grad on another card":
+        grad = CudaLike(img_shape, dtype, index=1)
+    elif bad == "grad not contiguous":
+        grad = CudaLike(img_shape, dtype, contiguous=False)
+    with pytest.raises(BAD_INPUTS.get(bad, ValueError if bad in BAD_GRADS else Loaded)):
+        getattr(kwarp, f"launch_{name}_backward")(img, flow, grad, False, True)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -702,6 +858,136 @@ def test_backward_kernels_follow_the_plain_vjp_on_nan_flows(card, name):
         torch.testing.assert_close(t[~nan], w[~nan], rtol=1e-5,
                                    atol=1e-5 * float(w[~nan].abs().max()))
     assert float(got[1][:, :, 5, 7].abs().max()) == 0.0
+
+
+def hold_backward_to_plain_vjp(name, img, flow, g, need_img=True, need_flow=True):
+    """One launch of ``name``'s backward kernel against the plain vjp on the
+    card, as test_backward_kernels_are_the_plain_vjp holds it (float32 at
+    1e-5 relative and 1e-5 of the largest gradient; bfloat16 at 2e-2,
+    against the float32 plain vjp of the same inputs rounded to bfloat16);
+    NaN exactly where the plain vjp has NaN. Returns the kernel's
+    gradients."""
+    got = getattr(kwarp, f"launch_{name}_backward")(img, flow, g, need_img, need_flow)
+    want = [None if w is None else w.to(t) for w, t in zip(twarp.PLAIN_BACKWARD[name](
+        img.float(), flow.float(), g.float(), need_img, need_flow), (img.dtype, flow.dtype))]
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (not need_img) and (got[1] is None) == (not need_flow)
+    for t, w in zip(got, want):
+        if w is None:
+            continue
+        assert t.dtype == w.dtype and t.shape == w.shape
+        nan = w.isnan()
+        assert torch.equal(t.isnan(), nan)
+        scale = float(w[~nan].float().abs().max()) if bool((~nan).any()) else 0.0
+        rtol, atol = (1e-5, 1e-5 * scale) if img.dtype == torch.float32 else (2e-2, 2e-2 * scale)
+        torch.testing.assert_close(t[~nan].float(), w[~nan].float(), rtol=rtol, atol=atol)
+    return got
+
+
+def backward_case(name, shape, kind, rng, dtype):
+    """(img, flow, incoming gradient) of ``name``'s backward at full-res
+    [B, C, H, W] on the card, as tiled_case builds the forward's."""
+    img, flow = tiled_case(name, shape, kind, rng, dtype, "cuda")
+    g = torch.from_numpy(rng.normal(0, 1, img.shape).astype(np.float32)).to("cuda", dtype)
+    return img, flow, g
+
+
+# the channel counts of the backward plan's cases: fewer channels than a
+# chunk, one chunk, chunks with a remainder, 5 and 6 groups (the training
+# steps' 15 and 18), 7 groups with a short one, and past the group cap a
+# thread's two chunks and three (its double buffer's both turns and a
+# short tail)
+BACKWARD_CHANNELS = (1, 2, 3, 7, 13, 15, 18, 19, 30, 49)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_kernels_at_every_channel_count(card, name, dtype):
+    """Each backward kernel on a batch of 2 at every channel count of
+    BACKWARD_CHANNELS, on a ragged frame (odd width in NCHW; odd H/2 and W/2
+    in s2d) with mixed flows, image and flow gradients both asked for,
+    against the plain vjp."""
+    rng = np.random.default_rng(52)
+    H, W = (18, 70) if name in S2D else (17, 69)
+    for C in BACKWARD_CHANNELS:
+        hold_backward_to_plain_vjp(name, *backward_case(name, (2, C, H, W), "mixed", rng, dtype))
+
+
+# the training steps' backward shapes (full-res [B, C, H, W]) and whether
+# the path asks for the image gradient (BACKWARD_PATHS' first nine)
+TRAINING_BACKWARDS = {name: [(shape, name == "flow_warp_s2d" and shape[0] > 1)
+                             for n, shape in BACKWARD_PATHS[:9] if n == name]
+                      for name in SHAPES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["smooth", "random"])
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_kernels_at_the_training_shapes(card, name, kind):
+    """Each backward kernel at the training steps' shapes, in float32, with
+    the gradients the path asks for (the flow's alone, and the image's too
+    on LSVC-TPU's MC warps from the second tree layer on), against the
+    plain vjp on smooth and +-200 px random flows."""
+    rng = np.random.default_rng(53)
+    for shape, need_img in TRAINING_BACKWARDS[name]:
+        hold_backward_to_plain_vjp(name, *backward_case(name, shape, kind, rng, torch.float32),
+                                   need_img=need_img)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_kernels_take_unaligned_pointers(card, name, dtype):
+    """An image, a flow or an incoming gradient that starts one element past
+    its pair alignment (a contiguous view at an offset into a larger
+    buffer): the kernel leaves its pair vectors for scalar accesses and
+    still agrees with the plain vjp."""
+    rng = np.random.default_rng(54)
+    for shape in [(2, 15, 16, 64), (1, 3, 18, 70)]:
+        img, flow, g = backward_case(name, shape, "random", rng, dtype)
+        for which in range(3):
+            inputs = [img, flow, g]
+            t = inputs[which]
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+            moved = buf[1:].view(t.shape)
+            moved.copy_(t)
+            assert moved.is_contiguous() and moved.data_ptr() % (2 * t.element_size())
+            inputs[which] = moved
+            hold_backward_to_plain_vjp(name, *inputs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_flow_gradient_is_the_same_at_every_launch(card, name, dtype):
+    """The flow gradient sums the channel groups' partials in a fixed order
+    with no atomics: two launches on the same inputs give it bit for bit,
+    with and without the image gradient beside it, at 18 channels (6
+    groups) on a batch of 2 with random flows."""
+    rng = np.random.default_rng(55)
+    img, flow, g = backward_case(name, (2, 18, 32, 128), "random", rng, dtype)
+    launch = getattr(kwarp, f"launch_{name}_backward")
+    first = launch(img, flow, g, False, True)[1]
+    for need_img in (False, True, True):
+        again = launch(img, flow, g, need_img, True)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(again, first), need_img
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(twarp.PLAIN_BACKWARD))
+def test_backward_kernels_follow_nan_flows_at_18_channels(card, name):
+    """NaN flows at the first full-res pixel of the first item and the last
+    of the second, at 18 channels (6 groups): NaN in the image gradient
+    exactly where the plain vjp has it, 0 in the flow gradient at the NaN
+    pixels, the plain vjp's values elsewhere."""
+    rng = np.random.default_rng(56)
+    img, flow, g = backward_case(name, (2, 18, 32, 128), "smooth", rng, torch.float32)
+    flow[0, :, 0, 0] = flow[1, :, -1, -1] = float("nan")
+    got = hold_backward_to_plain_vjp(name, img, flow, g)
+    assert float(got[1][0, :, 0, 0].abs().max()) == 0.0
+    assert float(got[1][1, :, -1, -1].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
