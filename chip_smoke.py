@@ -250,7 +250,24 @@ Phases, each timed on its own line:
    pixel_warp_s2d_sflow, each with a flow-only backward kernel; the
    parameters outside the keyframe's transforms moved; one step's
    backward inputs captured;
-49. the pixel warps' backward kernels timed on those inputs, by path:
+49. MCVC-IA and MCVC-IA-OLFT training, card vs CPU: one step of each at
+   full width (seeded_flat) in float32 on 3 views of 64x128, GOP 4, view
+   2 failed, as phase 46 (the OLFT step's loss is olft_loss; the CPU also
+   takes the card's touch-up masks), with the same control;
+50. cli/train_multiview.py's loop at full width on 4 views of 256x256,
+   GOP 16, float32: 10 OLFT steps of MCVC-IA-OLFT (touch-up ratio 0.1,
+   each step's labels priced on the host) and 10 steps of MCVC-IA, the
+   view masks of --resilience 1 from the host's default_rng(0); the
+   readings of phase 48 and touch_bpp, each P-frame 1 pixel_warp at C = 18
+   and its flow-only backward kernel; the parameters OLFT's loss does not
+   reach (the plain decoders, the hyperpriors) bit for bit unchanged;
+   OLFT's checkpoint round trip; one MCVC-IA step's backward inputs
+   captured;
+51. OLFT on the card (JAX's TestOlftImprovesHeldout): MCVC-IA-OLFT-TINY
+   from tiny_mcvc_l3, 40 steps at lr 1e-5 on a gamma-shifted synth_mv_gop
+   category must lift the held-out PSNR (seed 555, 3 GOPs) by more than
+   0.6 dB;
+52. the pixel warps' backward kernels timed on those inputs, by path:
    ms per step's launches, warm, L2-flushed and device time, against the
    byte bound and the launch floor (as phase 45), with ptxas's report,
    the plain vjp and, for pixel_warp, F.grid_sample's forward and backward
@@ -268,8 +285,8 @@ SSF-Official timings, flow_warp's on DVC's, LSVC-128's and -RW's inputs
 and flow_warp_s2d's on -HF's stand under ``timing_by_path``; and the two
 backward kernels of the flow warps, their launches those of phase 43's 20
 training steps, their times those of phase 45; the three of the pixel
-warps, their launches those of phases 47 and 48, their times those of
-phase 49: ten kernels in all),
+warps, their launches those of phases 47, 48 and 50, their times those
+of phase 52: ten kernels in all),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -398,6 +415,20 @@ def train_launches_of(layers: int) -> dict:
 # the -TPU forms at phase 43's 256x256, GOP 16
 ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 10, 3, 10
 DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
+# MCVC training on the card, float32, full width from seeded_flat(name, 0):
+# one step card vs CPU of MCVC-IA and MCVC-IA-OLFT on 3 views of 64x128,
+# GOP 4, view 2 failed, at phase 46's bars; then cli/train_multiview.py's
+# loop on a category of 4 views of 256x256, GOP 16 (MCVC_VIEWS, MCVC_SIZE,
+# GOP): MCVC-IA-OLFT's online fine-tuning (touch-up ratio 0.1, view masks
+# of --resilience 1 from the host's default_rng) and MCVC-IA's RD training,
+# 10 steps each at the CLI's lr; and JAX's TestOlftImprovesHeldout on the
+# card: MCVC-IA-OLFT-TINY from tiny_mcvc_l3, 40 OLFT steps at lr 1e-5 on a
+# gamma-shifted synth_mv_gop must lift the held-out PSNR by more than 0.6 dB
+# (JAX measured +1.32 on the CPU)
+MCVC_TRAIN_STEPS, MCVC_TRAIN_LR, OLFT_RATIO, MCVC_RESILIENCE = 10, 1e-5, 0.1, 1
+OLFT_STEPS, OLFT_GAMMA, OLFT_GAIN_DB = 40, 1.8, 0.6
+OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyperprior.",
+                  "res_hyperprior.")
 # the launches of an SSF or ELFVC training step over ``p_frames`` P-frames:
 # each warp call a forward and a flow-only backward (the warped reference
 # is detached, the flow comes from the parameters); stock SSF warps its
@@ -2386,29 +2417,31 @@ def main() -> int:
         return {n: p.grad if p.grad is not None else torch.zeros_like(p)
                 for n, p in params.items()}
 
-    from fastvideocodec_torch.tools.train_parity import CardBranches, own_gaps
+    from fastvideocodec_torch.tools.train_parity import CardBranches, CardTouchups, own_gaps
 
-    def step_card_vs_cpu(label, make_spec, small, control=None):
+    def step_card_vs_cpu(label, make_spec, small, control=None, loss_fn=None):
         """One training step of ``make_spec(device)`` (spec, params) on the
         card and on the CPU on the clip ``small``, the same noise on both
         devices (drawn on the host from one seed, copied to the card), the
-        CPU on the card's ReLU branches (tools/train_parity.py's
-        CardBranches): the loss and metrics, each parameter's gradient and
-        the parameters after one Adam step, at the TRAIN_CPU_* bars.
-        ``control`` (name: a launcher to put in its place) runs the card's
-        step once more with those launchers, and that step's gradients
-        must fail the bar. Returns the numbers."""
+        CPU on the card's ReLU branches and OLFT touch-up masks
+        (tools/train_parity.py's CardBranches and CardTouchups): the loss
+        and metrics, each parameter's gradient and the parameters after one
+        Adam step, at the TRAIN_CPU_* bars. ``loss_fn(spec, clip, noise)``
+        gives (loss, metrics), by default gop_loss's. ``control`` (name: a
+        launcher to put in its place) runs the card's step once more with
+        those launchers, and that step's gradients must fail the bar.
+        Returns the numbers."""
         cfg = TrainConfig(learning_rate=TRAIN_LR)
+        loss_fn = loss_fn or (lambda spec, clip, noise: gop_loss(spec, clip, True, noise, cfg))
 
-        def run(device, replay=None, launchers=None):
+        def run(device, replay=(None, None), launchers=None):
             saved = {n: getattr(kw, n) for n in launchers or {}}
             try:
                 for n, fn in (launchers or {}).items():
                     setattr(kw, n, fn)
                 spec, params = make_spec(device)
-                with CardBranches(replay) as branches:
-                    loss, m = gop_loss(spec, small.to(device), True,
-                                       UniformNoise(0, device="cpu"), cfg)
+                with CardBranches(replay[0]) as branches, CardTouchups(replay[1]) as touchups:
+                    loss, m = loss_fn(spec, small.to(device), UniformNoise(0, device="cpu"))
                     loss.backward()
             finally:
                 for n, fn in saved.items():
@@ -2417,12 +2450,13 @@ def main() -> int:
             tx = make_optimizer(cfg)
             updates, _ = tx.update(grads, tx.init(params), params)
             apply_updates(params, updates)
-            return (branches, {k: float(v.detach()) for k, v in m.items()},
+            return ((branches, touchups),
+                    {k: float(v.detach()) for k, v in m.items() if v.dim() == 0},
                     {n: g.detach().float().cpu() for n, g in grads.items()},
                     {n: p.detach().cpu() for n, p in params.items()})
 
-        card, mg, gg, pg = run("cuda")
-        cpu, mc, gc, pc = run("cpu", replay=card.masks)
+        (card, card_touch), mg, gg, pg = run("cuda")
+        (cpu, cpu_touch), mc, gc, pc = run("cpu", replay=(card.masks, card_touch.masks))
         metric_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
         norms = [float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values())))
                  for grads in (gg, gc)]
@@ -2433,7 +2467,9 @@ def main() -> int:
             f"JAX's ELFVC-SP at its own random init, from {DEGENERATE_GRAD_NORM:.0e}); the CPU "
             f"on the card's branches: {cpu.flips} of "
             f"{sum(m.numel() for m in card.masks)} activation elements in "
-            f"{len(card.masks)} calls took the other branch on the CPU")
+            f"{len(card.masks)} calls took the other branch on the CPU; of "
+            f"{sum(m.numel() for m in card_touch.masks)} OLFT touch-up mask elements "
+            f"{cpu_touch.flips} took the other side of the threshold")
         log(f"{label} training step card vs cpu ({smi}): loss card {mg['loss']:.6f} cpu "
             f"{mc['loss']:.6f}; metrics max rel {max(metric_rel.values()):.2e} "
             f"{ {k: f'{v:.1e}' for k, v in metric_rel.items()} } (tolerance "
@@ -2447,10 +2483,11 @@ def main() -> int:
         require(param_abs <= 2 * TRAIN_LR + 1e-6,
                 f"{label} parameters card vs cpu at {param_name}")
         out = {"metric_rel": metric_rel, "grad_rel": grad_rel, "grad_rel_at": grad_name,
-               "param_abs": param_abs, "grad_norm": norms, "relu_flips": cpu.flips}
+               "param_abs": param_abs, "grad_norm": norms, "relu_flips": cpu.flips,
+               "touch_flips": cpu_touch.flips}
         if control:
-            control_rel, control_at = max((v, n) for n, v in own_gaps(run("cuda", None, control)[2],
-                                                                      gc).items())
+            control_grads = run("cuda", launchers=control)[2]
+            control_rel, control_at = max((v, n) for n, v in own_gaps(control_grads, gc).items())
             log(f"{label} control, {sorted(control)} replaced: worst gradient gap "
                 f"{control_rel:.2e} at {control_at} (must exceed {TRAIN_CPU_GRAD_REL})")
             require(control_rel > TRAIN_CPU_GRAD_REL, f"{label}: the control passed the bar")
@@ -2493,12 +2530,15 @@ def main() -> int:
             for b in captured:
                 setattr(kw, f"launch_{b}", saved[b])
 
-    def train_run(label, step_fn, params, opt_state, batches, noise):
-        """Every step of ``batches`` timed: CUDA events around each step,
-        and the host clock until the step returns (its enqueue); the
-        launch counts zeroed before the run and the plain warps' calls
-        counted in it. Returns (params, opt_state, per-step metrics,
-        times, enqueue, launches, plain calls, peak GiB)."""
+    def train_run(label, step_fn, params, opt_state, batches, noise, masks=None, after=None):
+        """Every step of ``batches`` timed (MCVC's with its view mask of
+        ``masks``): CUDA events around each step, and the host clock until
+        the step returns (its enqueue); ``after(gop, metrics)``, when
+        given, runs on the host after each step's end event (OLFT's
+        touch-up pricing, as the CLI's loop prices them) and adds its
+        metrics; the launch counts zeroed before the run and the plain
+        warps' calls counted in it. Returns (params, opt_state, per-step
+        metrics, times, enqueue, launches, plain calls, peak GiB)."""
         plain_calls = {}
         saved = dict(ow.PLAIN), dict(ow.PLAIN_BACKWARD)
         ow.PLAIN.update(count_calls(saved[0], plain_calls))
@@ -2508,14 +2548,19 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             kw.reset_launches()
             marks, enqueue, metrics = [], [], []
-            for gop_i in batches:
+            for i, gop_i in enumerate(batches):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 t0 = time.perf_counter()
-                params, opt_state, m = step_fn(params, opt_state, gop_i, noise)
+                if masks is None:
+                    params, opt_state, m = step_fn(params, opt_state, gop_i, noise)
+                else:
+                    params, opt_state, m = step_fn(params, opt_state, gop_i, noise, masks[i])
                 enqueue.append((time.perf_counter() - t0) * 1e3)
                 end.record()
+                if after is not None:
+                    m.update(after(gop_i, m))
                 marks.append((start, end))
                 metrics.append(m)
             torch.cuda.synchronize()
@@ -2828,6 +2873,157 @@ def main() -> int:
         del clips
         torch.cuda.empty_cache()
 
+    # ---- training: MCVC-IA and MCVC-IA-OLFT at full width, float32 ----
+    from fastvideocodec_torch.models import sample_view_mask
+    from fastvideocodec_torch.train import make_olft_step, olft_loss
+    from fastvideocodec_torch.train.olft import touchup_bytes
+
+    def mcvc_train_spec(name, views, device):
+        """``name`` at full width on seeded_flat(name, 0) over ``views``
+        views, readied for training: (spec, params)."""
+        spec = get_codec_model(name, device=device, num_views=views)
+        load_flat(spec.module, seeded_flat(name, 0))
+        return spec, ready_for_training(spec)
+
+    def views_nchw(frames) -> "torch.Tensor":
+        """synth_mv_gop's [T, V, H, W, 3] as MCVC's gop [T, V, 3, H, W]."""
+        return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 1, 4, 2, 3)))
+
+    with phase("mcvc-ia and mcvc-ia-olft training step, card vs cpu, 3x64x128 GOP4 f32, "
+               "view 2 failed"):
+        small = views_nchw(synth_mv_gop(np.random.default_rng(0), views=3, size=128,
+                                        gop=4)[:, :, :64])
+        failed2 = np.array([1, 1, 0], np.float32)
+        control = {"launch_pixel_warp_backward": zero_flow_gradient(kw.launch_pixel_warp_backward)}
+        mcvc_losses = {
+            "MCVC-IA": lambda spec, clip, noise: gop_loss(spec, clip, True, noise, TrainConfig(),
+                                                          failed2),
+            "MCVC-IA-OLFT": lambda spec, clip, noise: olft_loss(spec, clip, noise, failed2,
+                                                                OLFT_RATIO)}
+        training["mcvc_card_vs_cpu"] = {
+            name: step_card_vs_cpu(name, lambda device, name=name: mcvc_train_spec(name, 3, device),
+                                   small, control, loss_fn)
+            for name, loss_fn in mcvc_losses.items()}
+
+    def price_touchups(gop, m):
+        """The CLI's host pricing of one OLFT step's touch-up labels: bits a
+        pixel of the GOP."""
+        n = touchup_bytes(m.pop("touch_refs"), m.pop("touch_labels"), m.pop("touch_mask"))
+        return {"touch_bpp": n * 8 / (gop.numel() // 3)}
+
+    with phase(f"mcvc-ia-olft and mcvc-ia train {MCVC_VIEWS}x{MCVC_SIZE}x{MCVC_SIZE} GOP{GOP} f32, "
+               f"{MCVC_TRAIN_STEPS} steps each, checkpoint round trip"):
+        rng = np.random.default_rng(4)
+        clips = [views_nchw(synth_mv_gop(rng, views=MCVC_VIEWS, size=MCVC_SIZE, gop=GOP)).cuda()
+                 for _ in range(MCVC_TRAIN_STEPS + 1)]
+        host_rng = np.random.default_rng(0)  # the CLI's --seed 0 masks
+        masks = [sample_view_mask(host_rng, 1, MCVC_VIEWS, max_failed=MCVC_RESILIENCE)
+                 for _ in range(MCVC_TRAIN_STEPS + 1)]
+        log(f"view masks: {[m.tolist() for m in masks]}")
+        per_step = pixel_per_step["mcvc-ia"] = pixel_train_launches("MCVC-IA", GOP - 1)
+        log(f"mcvc launches a step, stated beforehand: {per_step}")
+        cfg = TrainConfig(learning_rate=MCVC_TRAIN_LR)
+        for name in ("MCVC-IA-OLFT", "MCVC-IA"):
+            label = name.lower()
+            spec, params = mcvc_train_spec(name, MCVC_VIEWS, "cuda")
+            start = {k: p.detach().clone() for k, p in params.items()}
+            init_fn, step_fn = (make_olft_step(spec, cfg, OLFT_RATIO) if spec.olft
+                                else make_train_step(spec, cfg))
+            noise = UniformNoise(4)
+            params, opt_state, metrics, times, enqueue, launches, plain_calls, peak = train_run(
+                label, step_fn, params, init_fn(params), clips[:MCVC_TRAIN_STEPS], noise,
+                masks[:MCVC_TRAIN_STEPS], price_touchups if spec.olft else None)
+            want = {**zero_counts, **{k: v * MCVC_TRAIN_STEPS for k, v in per_step.items()}}
+            require(launches == want, f"{label} launches {launches}, want {want}")
+            require(not plain_calls, f"{label} called plain warps: {plain_calls}")
+            for k, v in launches.items():
+                pixel_launches[k] += v
+            moved = {k for k, p in params.items() if not torch.equal(p.detach(), start[k])}
+            # OLFT's loss reaches neither the plain decoders (their frames are
+            # only the detached references the labels are built from) nor the
+            # hyperpriors (no rate term, and the means reach y_hat through the
+            # straight-through round alone): those stay bit for bit
+            unreached = {k for k in params if spec.olft and k.startswith(OLFT_UNREACHED)}
+            log(f"{label}: launches {launches}; plain warp calls none; parameters moved "
+                f"{len(moved)} of {len(params)}, of them {len(moved & unreached)} of the "
+                f"{len(unreached)} OLFT's loss does not reach")
+            require(not moved & unreached, f"{label}: {sorted(moved & unreached)} moved")
+            require(len(moved) >= 0.9 * (len(params) - len(unreached)),
+                    f"{label}: the parameters did not move")
+            moved = len(moved)
+            row = training[f"{label}_{MCVC_VIEWS}x{MCVC_SIZE}_gop{GOP}"] = {
+                **run_summary(label, metrics, times, enqueue, peak, 2), "launches": launches,
+                "moved": moved}
+            if spec.olft:
+                row["touch_bpp"] = [m["touch_bpp"] for m in metrics]
+                log(f"{label}: touch-up bits a pixel by step {row['touch_bpp']}")
+                state = {"params": {n: p.detach() for n, p in params.items()},
+                         "opt_state": opt_state}
+                with tempfile.TemporaryDirectory() as d:
+                    save_checkpoint(d, state, best=True)
+                    loaded = load_checkpoint(d)
+                require(equal_trees(loaded, state),
+                        f"{label}: the checkpoint did not round-trip bit for bit")
+                with torch.no_grad():
+                    for n, p in params.items():
+                        p.copy_(loaded["params"][n])
+                opt_state = {g: {"count": v["count"], **{k: {n: t.cuda() for n, t in v[k].items()}
+                                                        for k in ("mu", "nu")}}
+                             for g, v in loaded["opt_state"].items()}
+                params, opt_state, m = step_fn(params, opt_state, clips[MCVC_TRAIN_STEPS], noise,
+                                               masks[MCVC_TRAIN_STEPS])
+                m = {**price_touchups(clips[MCVC_TRAIN_STEPS], m),
+                     **{k: float(v) for k, v in m.items()}}
+                require(all(np.isfinite(v) for v in m.values()), f"step after the round trip {m}")
+                require(opt_state["main"]["count"] == MCVC_TRAIN_STEPS + 1, "optimizer count")
+                log(f"{label} checkpoint: params and optimizer state equal bit for bit after "
+                    f"save_checkpoint/load_checkpoint; the next step ran: {m}")
+                del state, loaded
+            else:
+                captured = pixel_captured["mcvc-ia"] = {b: [] for b in PIXEL_BACKWARD}
+                with capture_backward(captured):
+                    step_fn(params, opt_state, clips[MCVC_TRAIN_STEPS], noise,
+                            masks[MCVC_TRAIN_STEPS])
+            del spec, params, opt_state, start
+        del clips
+        torch.cuda.empty_cache()
+
+    with phase(f"mcvc-ia-olft-tiny online fine-tuning on a shifted category, {OLFT_STEPS} "
+               f"steps, held-out psnr"):
+        # JAX's tests/test_aux.py TestOlftImprovesHeldout on the card
+        spec = get_codec_model("MCVC-IA-OLFT-TINY", num_views=3)
+        load_asset(spec.module, "tiny_mcvc_l3")
+        every_view = np.ones(3, np.float32)
+
+        def shifted(rng):
+            return views_nchw(synth_mv_gop(rng) ** OLFT_GAMMA).cuda()  # the "new category"
+
+        def heldout_psnr():
+            rng = np.random.default_rng(555)
+            return float(np.mean([float(torch.mean(rollout(spec, shifted(rng), every_view)[1]
+                                                   ["psnr"])) for _ in range(3)]))
+
+        base = heldout_psnr()
+        params = ready_for_training(spec)
+        init_fn, step_fn = make_olft_step(spec, TrainConfig(learning_rate=1e-5), OLFT_RATIO)
+        opt_state, rng, noise = init_fn(params), np.random.default_rng(77), UniformNoise(77)
+        kw.reset_launches()
+        for _ in range(OLFT_STEPS):
+            params, opt_state, m = step_fn(params, opt_state, shifted(rng), noise, every_view)
+        torch.cuda.synchronize()
+        olft_launches = {k: v for k, v in kw.LAUNCHES.items() if v}
+        after = heldout_psnr()
+        log(f"olft on the card ({smi}): held-out psnr {base:.4f} -> {after:.4f} dB "
+            f"({after - base:+.4f}; bar +{OLFT_GAIN_DB}, JAX measured +1.32 on the CPU) after "
+            f"{OLFT_STEPS} steps; launches {olft_launches}; last step "
+            f"{ {k: float(v) for k, v in m.items() if v.dim() == 0} }")
+        require(olft_launches == {k: 3 * OLFT_STEPS for k in ("pixel_warp", "pixel_warp_backward")},
+                f"olft launches {olft_launches}")
+        require(after - base > OLFT_GAIN_DB, f"OLFT gained {after - base:.4f} dB")
+        training["olft_heldout"] = {"base_psnr": base, "after_psnr": after, "gain_db": after - base,
+                                    "launches": olft_launches}
+        del spec, params, opt_state
+
     with phase("pixel warps' backward kernel timing (f32, one training step's launches)"):
         # pixel_warp_s2d has no caller: time it on the sflow's inputs, its
         # phase flow unpacked to full resolution
@@ -2941,8 +3137,8 @@ def main() -> int:
         for name in kernels
     ] + [
         # the backward kernels: launches over the training runs (the flow
-        # warps' over LSVC-TPU's 20 steps, the pixel warps' over phases 47
-        # and 48), times per step's launches on one step's inputs
+        # warps' over LSVC-TPU's 20 steps, the pixel warps' over phases 47,
+        # 48 and 50), times per step's launches on one step's inputs
         {
             "name": bname,
             "route": "cuda",

@@ -5,7 +5,8 @@ JAX and nothing of the JAX package, which stays the reference. Ported:
 every codec of the JAX registry's rollout (``rollout`` dispatches on the
 codec family), the LSVC decode graph, the real bitstreams
 (``coder.video``: the networks on the card, a C++ range coder on host
-threads), and LSVC's training (``train``, ``cli.train``). Tensors are
+threads), and the training of the LSVC, SSF, ELFVC and MCVC families
+(``train``, ``cli.train``, ``cli.train_multiview``). Tensors are
 NCHW; space-to-depth keeps the JAX channel order (ry, rx, c). Entry points
 run on the card unless the caller passes ``device="cpu"``. The bilinear
 warps are hand-written CUDA kernels (ops/kernels/csrc/warp.cu, built with

@@ -91,12 +91,12 @@ def _state(params: dict, opt_state: dict, epoch: int, score: float) -> dict:
             "epoch": epoch, "score": score}
 
 
-def _on(tree, device):
+def on_device(tree, device):
     """A checkpoint's optimizer state moved to ``device``."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, dict):
-        return {k: _on(v, device) for k, v in tree.items()}
+        return {k: on_device(v, device) for k, v in tree.items()}
     return tree
 
 
@@ -133,7 +133,7 @@ def main(argv=None):
             with torch.no_grad():
                 for name, p in params.items():
                     p.copy_(state["params"][name])
-            opt_state = _on(state["opt_state"], device)
+            opt_state = on_device(state["opt_state"], device)
             start_epoch = int(state["epoch"]) + 1
             best_score = float(state["score"])
             print(f"resumed from epoch {start_epoch - 1}, score {best_score:.4f}")

@@ -161,30 +161,47 @@ def elfvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=
         return _unfold(module, recons, gop), _stack(per_frame)
 
 
-@torch.inference_mode()
-def mcvc_gop(spec: CodecSpec, gop: torch.Tensor, mask=None):
+def view_weights(mask, n: int, device) -> torch.Tensor:
+    """MCVC's view mask (numpy, a tensor or None: every view alive) as a
+    float32 tensor [n] on ``device``."""
+    mask = torch.ones(n) if mask is None else torch.as_tensor(mask)
+    return mask.to(device, torch.float32)
+
+
+def alive_mse(frames: torch.Tensor, target: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Per-frame MSE over the alive views only, float32 [T]: frames and
+    target [T, B*V, 3, H, W], alive the float32 view mask [B*V]."""
+    per_view = torch.mean((frames.float() - target.float()) ** 2, dim=(2, 3, 4))  # [T, B*V]
+    return torch.sum(per_view * alive, dim=1) / torch.clamp(torch.sum(alive), min=1.0)
+
+
+def mcvc_gop(spec: CodecSpec, gop: torch.Tensor, mask=None, training: bool = False,
+             noise=None):
     """gop [T, B*V, 3, H, W], the views folded into the batch (b*V + v);
     mask [B*V] of {0, 1} (numpy or tensor; None: every view alive). The
     keyframe is coded. Returns (the enhanced recon [T, B*V, 3, H, W] in the
     model dtype, metrics), the metrics float32 as in the reference's
-    metrics_per_gop (train_multiview.py:161-210): ``img_loss`` and ``psnr``
-    [T] of the distortion averaged over the alive views only, ``bpp_est``
+    metrics_per_gop (train_multiview.py:161-210): ``psnr`` [T] of the
+    distortion averaged over the alive views only, ``img_loss`` [T] that
+    distortion (in training the mean of it and the plain references'
+    distortion, which trains the reference chain alongside), ``bpp_est``
     [T] over the B*V*H*W pixels of each frame, and ``completeness``, the
-    share of the views alive."""
+    share of the views alive. Eval runs under ``torch.inference_mode``;
+    ``training`` draws the quantizers' noise from ``noise`` and keeps the
+    autograd graph."""
     _, N, _, H, W = gop.shape
-    mask = torch.ones(N) if mask is None else torch.as_tensor(mask)
-    alive = mask.to(gop.device, torch.float32)
-    recons, liks, _ = spec.module(gop, alive)
-    bpps = [sum(bits_estimate(part[key]) for part in lik.values() for key in ("y", "z"))
-            / (N * H * W) for lik in liks]
-    per_view = torch.mean((recons.float() - gop.float()) ** 2, dim=(2, 3, 4))  # [T, B*V]
-    mse = torch.sum(per_view * alive, dim=1) / torch.clamp(torch.sum(alive), min=1.0)
-    metrics = {
-        "img_loss": mse,
-        "psnr": psnr_from_mse(mse),
-        "bpp_est": torch.stack(bpps),
-        "completeness": torch.sum(alive) / N,
-    }
+    with torch.inference_mode(not training):
+        alive = view_weights(mask, N, gop.device)
+        recons, liks, refs = spec.module(gop, alive, training, noise)
+        bpps = [sum(bits_estimate(part[key]) for part in lik.values() for key in ("y", "z"))
+                / (N * H * W) for lik in liks]
+        mse = alive_mse(recons, gop, alive)
+        metrics = {
+            "img_loss": 0.5 * (mse + alive_mse(refs, gop, alive)) if training else mse,
+            "psnr": psnr_from_mse(mse),
+            "bpp_est": torch.stack(bpps),
+            "completeness": torch.sum(alive) / N,
+        }
     return recons, metrics
 
 
@@ -198,8 +215,8 @@ def estimated_bits(liks) -> float:
 ROLLOUTS = {"lsvc": lsvc_gop, "dvc": sequential_gop, "base": sequential_gop,
             "rlvc": rlvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
 # the families that train, and the ROADMAP.md item that brings each other's
-TRAINED = ("lsvc", "ssf", "elfvc")
-TRAINING_ITEM = {"mcvc": "7.2", "dvc": "7.3", "rlvc": "7.3", "base": "7.3"}
+TRAINED = ("lsvc", "ssf", "elfvc", "mcvc")
+TRAINING_ITEM = {"dvc": "7.3", "rlvc": "7.3", "base": "7.3"}
 
 
 def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = False,
@@ -208,15 +225,15 @@ def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = F
     MCVC's alone (it stays the third argument, as callers pass it).
     ``training``: the quantizers take U(-0.5, 0.5) noise from ``noise``
     (``ops.math.UniformNoise``, or any callable shaped like it) and the
-    autograd graph is kept; the LSVC, SSF and ELFVC families train (the
-    others wait for ROADMAP.md queue 1, item 7)."""
+    autograd graph is kept; the LSVC, SSF, ELFVC and MCVC families train
+    (the others wait for ROADMAP.md queue 1, item 7)."""
     if training and spec.family not in TRAINED:
         item = TRAINING_ITEM.get(spec.family, "7")
         raise NotImplementedError(
             f"training the {spec.family!r} family is not ported yet (ROADMAP.md queue 1, "
             f"item {item}: training for the ported codecs)")
     if spec.family == "mcvc":
-        return mcvc_gop(spec, gop, mask)
+        return mcvc_gop(spec, gop, mask, training, noise)
     if mask is not None:
         raise ValueError(f"family {spec.family!r} takes no view mask")
     if spec.family not in ROLLOUTS:

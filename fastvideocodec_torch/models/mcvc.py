@@ -11,7 +11,13 @@ attention over (view, y, x) tokens, decoding the masked latents so that
 the surviving views reconstruct the lost ones; the GOP's output is their
 enhanced frames, while the plain decoders' frames stay the references.
 OLFT changes training only, so MCVC-IA-OLFT serves as MCVC-IA does.
-Eval only.
+
+``training`` (with ``noise``, an ``ops.math.UniformNoise``-like source)
+draws each hyperprior's noise in the JAX package's order: the keyframe's,
+then for each P-frame the motion hyperprior's before the residual's. As in
+the JAX package, each P-frame predicts from the previous plain recon
+detached (the keyframe's too), while the returned frames and references
+stay attached.
 """
 
 from __future__ import annotations
@@ -129,36 +135,41 @@ class MCVC(FullResPrediction, nn.Module):
         return (self.img_hyperprior.aux_loss() + self.motion_hyperprior.aux_loss()
                 + self.res_hyperprior.aux_loss())
 
-    def forward_keyframe(self, x: torch.Tensor, mask: torch.Tensor):
+    def forward_keyframe(self, x: torch.Tensor, mask: torch.Tensor, training: bool = False,
+                         noise=None):
         """(x_hat, the enhanced x_hat, {"keyframe": lik})."""
-        y_hat, lik = self.img_hyperprior(self.img_encoder(mask_views(x, mask)))
+        y_hat, lik = self.img_hyperprior(self.img_encoder(mask_views(x, mask)), training, noise)
         x_hat = self.img_decoder(y_hat)
         return x_hat, self.enhance_keyframe(x_hat, y_hat, mask), {"keyframe": lik}
 
-    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, mask: torch.Tensor):
+    def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, mask: torch.Tensor,
+                      training: bool = False, noise=None):
         """(x_rec, the enhanced x_rec, {"motion": lik, "residual": lik}):
         both frames masked, then encoded, and the prediction made from the
         masked reference."""
         x_cur = mask_views(x_cur, mask)
         x_ref = mask_views(x_ref, mask)
         y_motion = self.motion_encoder(torch.cat([x_cur, x_ref], dim=1))
-        y_motion_hat, motion_lik = self.motion_hyperprior(y_motion)
+        y_motion_hat, motion_lik = self.motion_hyperprior(y_motion, training, noise)
         x_pred = self.forward_prediction(x_ref, self.motion_decoder(y_motion_hat))
-        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred))
+        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred), training,
+                                                 noise)
         x_rec = x_pred + self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1))
         x_enh = self.enhance_inter(x_rec, x_pred, y_res_hat, y_motion_hat, mask)
         return x_rec, x_enh, {"motion": motion_lik, "residual": res_lik}
 
-    def forward(self, frames: torch.Tensor, mask: torch.Tensor):
+    def forward(self, frames: torch.Tensor, mask: torch.Tensor, training: bool = False,
+                noise=None):
         """frames [T, B*V, 3, H, W] (cast to the model dtype), mask [B*V] ->
         (the enhanced frames [T, B*V, 3, H, W], per-frame likelihood dicts,
         the references [T, B*V, 3, H, W]): the keyframe is coded, and each
-        P-frame predicts from the previous plain recon."""
+        P-frame predicts from the previous plain recon, detached."""
         frames = frames.to(self.dtype)
-        x_ref, x_enh, lik = self.forward_keyframe(frames[0], mask)
+        x_ref, x_enh, lik = self.forward_keyframe(frames[0], mask, training, noise)
         recons, liks, refs = [x_enh], [lik], [x_ref]
         for t in range(1, frames.shape[0]):
-            x_ref, x_enh, lik = self.forward_inter(frames[t], x_ref, mask)
+            x_ref, x_enh, lik = self.forward_inter(frames[t], x_ref.detach(), mask, training,
+                                                   noise)
             recons.append(x_enh)
             liks.append(lik)
             refs.append(x_ref)

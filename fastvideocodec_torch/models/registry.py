@@ -48,6 +48,13 @@ class CodecSpec:
         table = PSNR_LAMBDAS if self.loss_type == "P" else MSSSIM_LAMBDAS
         return float(table[self.compression_level])
 
+    @property
+    def olft(self) -> bool:
+        """MCVC-IA-OLFT's online fine-tuning: touch-up labels in place of
+        the rate term (the JAX registry's ``extras["olft"]``, an MCVC name
+        holding "OLFT")."""
+        return self.family == "mcvc" and "OLFT" in self.name
+
 
 def _lsvc(name: str, dtype: torch.dtype) -> LSVC:
     """The JAX registry's LSVC branch. -L/-O pick the chain/one-hop graph;

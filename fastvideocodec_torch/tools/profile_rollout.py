@@ -7,9 +7,9 @@
 
 ``--train`` profiles one training step in place of a rollout (an LSVC,
 SSF or ELFVC form, float32, --h x --w, 256x256 unless given, GOP 16 of
-synth_gop_multi
-seed 0, the step of ``train.make_train_step`` at lr 1e-4 after a warm-up
-step): its card ms beside its host enqueue ms, and the kernel section
+synth_gop_multi seed 0; or MCVC-IA on ``--views`` views of MCVC's clip
+below, every view alive; the step of ``train.make_train_step`` at lr 1e-4
+after a warm-up step): its card ms beside its host enqueue ms, and the kernel section
 below; no module split.
 
 The cell of ``chip_smoke.py``: bf16, 1024x2048, GOP 16, synth_gop_multi
@@ -166,26 +166,33 @@ def profile_train_step(args) -> int:
     from fastvideocodec_torch.ops.math import UniformNoise
     from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training
 
-    spec, trained = load_model(args.codec, 2, torch.float32, "cuda", 1)
+    views = args.views if args.codec.startswith("MCVC-IA") else 1
+    spec, trained = load_model(args.codec, 2, torch.float32, "cuda", views)
     if spec.family not in TRAINED:
         raise SystemExit(f"--train: {args.codec} does not train in the port yet")
     h, w = args.h, args.w
     rng = np.random.default_rng(0)
-    clips = [torch.from_numpy(np.ascontiguousarray(synth_gop_multi(rng, size=max(h, w), gop=GOP)
-                                                   [:, :h, :w])).permute(0, 3, 1, 2)
-             .contiguous().cuda() for _ in range(4)]
+    if spec.family == "mcvc":  # every view alive
+        clips = [mcvc_clip(i, views, h, w, GOP)[0].cuda() for i in range(4)]
+        masks = (np.ones(views, np.float32),)
+    else:
+        clips = [torch.from_numpy(np.ascontiguousarray(
+            synth_gop_multi(rng, size=max(h, w), gop=GOP)[:, :h, :w])).permute(0, 3, 1, 2)
+            .contiguous().cuda() for _ in range(4)]
+        masks = ()
     params = ready_for_training(spec)
     init_fn, step_fn = make_train_step(spec, TrainConfig(learning_rate=1e-4))
     state = {"params": params, "opt": init_fn(params), "noise": UniformNoise(0), "i": 0}
     name = torch.cuda.get_device_name(0)
-    print(f"{args.codec} {'trained' if trained else 'seeded'} training step {h}x{w} GOP{GOP} "
-          f"f32 on {name}", flush=True)
+    what = f"{views} views of " if spec.family == "mcvc" else ""
+    print(f"{args.codec} {'trained' if trained else 'seeded'} training step {what}{h}x{w} "
+          f"GOP{GOP} f32 on {name}", flush=True)
 
     def step():
         clip = clips[state["i"] % len(clips)]
         state["i"] += 1
         state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], clip,
-                                                   state["noise"])
+                                                   state["noise"], *masks)
 
     step()  # warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -210,7 +217,8 @@ def profile_train_step(args) -> int:
         with open(args.json, "a") as f:
             f.write(json.dumps({
                 "tool": "fastvideocodec_torch.tools.profile_rollout", "codec": args.codec,
-                "train": True, "device": name, "dtype": "f32", "h": h, "w": w, "gop": GOP,
+                "train": True, "device": name, "dtype": "f32", "h": h, "w": w, "views": views,
+                "gop": GOP,
                 "step_ms": step_ms, "enqueue_ms": enqueue_ms, **k}) + "\n")
     return 0
 

@@ -37,13 +37,16 @@ import torch.nn.functional as F
 
 from fastvideocodec_torch import get_codec_model
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from fastvideocodec_torch.layers.transforms import SSFHyperDecoder
 from fastvideocodec_torch.ops.math import UniformNoise
+from fastvideocodec_torch.train import olft
 from fastvideocodec_torch.train import TrainConfig, gop_loss, ready_for_training
 from fastvideocodec_torch.weights import load_flat, seeded_flat
 
 
 class CardBranches:
-    """F.relu and F.leaky_relu wrapped, as a context. Without ``replay``
+    """F.relu and F.leaky_relu wrapped (the SSF hyper decoders' ReLU too,
+    a class attribute), as a context. Without ``replay``
     each call records the elements on the positive branch (x > 0) in
     ``masks``; with the masks another run recorded (the card's) each call
     takes that run's branch, its value and its gradient, and counts in
@@ -71,10 +74,43 @@ class CardBranches:
         F.relu = lambda x, inplace=False: self.take(x, relu(x), 0.0)
         F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self.take(
             x, leaky(x, negative_slope), negative_slope)
+        SSFHyperDecoder.act = staticmethod(F.relu)  # the hyper decoders' ReLU
         return self
 
     def __exit__(self, *exc):
         F.relu, F.leaky_relu = self.orig
+        SSFHyperDecoder.act = staticmethod(self.orig[0])
+
+
+class CardTouchups:
+    """``train.olft.touchup_labels`` wrapped, as a context: without
+    ``replay`` each call records its touch-up mask in ``masks``; with the
+    masks another run recorded (the card's) each call takes that run's
+    mask (the label raw there, the recon elsewhere), and counts in
+    ``flips`` the elements whose own mask differed. The mask is a top-k
+    threshold of |recon - raw|: an error within float32 noise of the
+    threshold may fall on either side on two devices, as a ReLU input
+    near 0 may."""
+
+    def __init__(self, replay=None):
+        self.orig = olft.touchup_labels
+        self.masks, self.replay, self.flips = [], replay, 0
+
+    def take(self, recon, raw, ratio):
+        label, mask = self.orig(recon, raw, ratio)
+        self.masks.append(mask.cpu())
+        if self.replay is None:
+            return label, mask
+        want = self.replay[len(self.masks) - 1].to(mask.device)
+        self.flips += int((want != mask).sum())
+        return torch.where(want, raw.to(recon.dtype), recon), want
+
+    def __enter__(self):
+        olft.touchup_labels = self.take
+        return self
+
+    def __exit__(self, *exc):
+        olft.touchup_labels = self.orig
 
 
 def own_gaps(got: dict, want: dict) -> dict:

@@ -1,5 +1,6 @@
 """Training of the port: the RD loss, the optimizer, the train and eval
-steps (trainer.py) and checkpoints (checkpoint.py)."""
+steps (trainer.py), MCVC-IA-OLFT's online fine-tuning (olft.py) and
+checkpoints (checkpoint.py)."""
 
 from fastvideocodec_torch.train.checkpoint import (
     asset_params,
@@ -7,6 +8,13 @@ from fastvideocodec_torch.train.checkpoint import (
     load_whatever,
     load_with_copy,
     save_checkpoint,
+)
+from fastvideocodec_torch.train.olft import (
+    make_olft_step,
+    olft_loss,
+    probe_sample_interval,
+    touchup_bits,
+    touchup_labels,
 )
 from fastvideocodec_torch.train.trainer import (
     TrainConfig,
@@ -33,8 +41,13 @@ __all__ = [
     "load_with_copy",
     "make_elfvc_stage_optimizer",
     "make_eval_step",
+    "make_olft_step",
     "make_optimizer",
     "make_train_step",
+    "olft_loss",
+    "probe_sample_interval",
     "ready_for_training",
     "save_checkpoint",
+    "touchup_bits",
+    "touchup_labels",
 ]

@@ -18,9 +18,10 @@ runs autograd over ``spec.module``'s own parameters, readied by
 ``ready_for_training`` (float32, requiring grad), and updates them in
 place. Every warp's backward on the card is a hand-written backward
 kernel (ops/warp.py:KernelWarp), exact like JAX's training warp
-(``exact_warp``). The LSVC, SSF and ELFVC families train; ELFVC-SP's staged
-recipe freezes by ``make_elfvc_stage_optimizer``. Float32 only; MCVC, DVC,
-RLVC and Base wait (ROADMAP.md queue 1, item 7).
+(``exact_warp``). The LSVC, SSF, ELFVC and MCVC families train (MCVC-IA-OLFT's
+online fine-tuning step is ``train/olft.py``); ELFVC-SP's staged recipe
+freezes by ``make_elfvc_stage_optimizer``. Float32 only; DVC, RLVC and
+Base wait (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def gop_loss(spec: CodecSpec, gop: torch.Tensor, training: bool, noise, cfg: Tra
         loss = r * m["rec_loss"] + cfg.r_bpp * m["bpp"]
     elif spec.family == "mcvc":
         loss = torch.sum(r * m["img_loss"])
-        if "OLFT" not in spec.name:
+        if not spec.olft:
             loss = loss + torch.sum(m["bpp_est"])
     else:
         loss = torch.sum(r * m["img_loss"] + m["bpp_est"])
@@ -268,11 +269,12 @@ def make_train_step(spec: CodecSpec, cfg: TrainConfig, optimizer=None,
     step_fn(params, opt_state, gop, noise[, mask]) -> (params, opt_state,
     metrics): ``params`` are spec.module's parameters
     (``ready_for_training``), updated in place and returned; ``noise`` the
-    quantizers' source (``ops.math.UniformNoise``); gop [T, 3, H, W].
-    With ``batched=True`` gop (and mask) carry a leading batch axis; the
-    loss and the metrics are the means over the clips (JAX vmaps the
-    loss; here each clip's loss / B is backpropagated in turn, so one
-    clip's graph is alive at a time). ``grad_norm`` is the norm of all
+    quantizers' source (``ops.math.UniformNoise``); gop [T, 3, H, W], or
+    MCVC's [T, B*V, 3, H, W] with its view mask [B*V] (``mask``). With
+    ``batched=True`` gop (and mask) carry a leading batch axis; the loss
+    and the metrics are the means over the clips (JAX vmaps the loss;
+    here each clip's loss / B is backpropagated in turn, so one clip's
+    graph is alive at a time). ``grad_norm`` is the norm of all
     gradients (frozen ones too); a parameter the loss does not reach has a
     zero gradient, as in JAX."""
     tx = make_optimizer(cfg) if optimizer is None else optimizer
@@ -296,16 +298,24 @@ def make_train_step(spec: CodecSpec, cfg: TrainConfig, optimizer=None,
             loss, metrics = gop_loss(spec, gop, True, noise, cfg, mask)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = {}
-        for name, p in params.items():
-            grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
-            p.grad = None
-        updates, opt_state = tx.update(grads, opt_state, params)
-        apply_updates(params, updates)
-        metrics["grad_norm"] = global_norm(grads.values())
+        params, opt_state, metrics["grad_norm"] = descend(tx, params, opt_state)
         return params, opt_state, metrics
 
     return init_fn, step_fn
+
+
+def descend(tx: Optimizer, params: dict, opt_state: dict):
+    """``tx``'s step on the gradients a backward left in ``params``, which
+    it clears (a parameter the loss does not reach has a zero gradient, as
+    in JAX): (params, the new optimizer state, the norm of all gradients,
+    frozen ones too)."""
+    grads = {}
+    for name, p in params.items():
+        grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+        p.grad = None
+    updates, opt_state = tx.update(grads, opt_state, params)
+    apply_updates(params, updates)
+    return params, opt_state, global_norm(grads.values())
 
 
 def make_eval_step(spec: CodecSpec, cfg: TrainConfig | None = None):

@@ -405,6 +405,7 @@ def test_launchers_check_before_loading_the_library(name, bad, monkeypatch):
 # LSVC-TPU's and SSF-TPU's warps at 1024x2048)
 BACKWARD_PATHS = [
     ("pixel_warp", (1, 18, 256, 256)),
+    ("pixel_warp", (4, 18, 256, 256)),  # MCVC's training step: 4 views
     ("pixel_warp", (1, 15, 128, 128)),
     ("pixel_warp_s2d_sflow", (1, 3, 256, 256)),
     ("pixel_warp_s2d", (1, 3, 256, 256)),
@@ -444,6 +445,21 @@ def test_backward_plan_on_the_paths(name, shape):
     assert plan.groups <= -(-C // k["kBwChunk"])
     if H * W <= 256 * 256 and B == 1:
         assert gx * gy * gz >= 132, plan
+
+
+MCVC_TRAIN = (4, 18, 256, 256)  # MCVC's training step: the volume of 4 views at 256x256
+
+
+def test_backward_plan_at_mcvc_training_shape():
+    """MCVC's training step warps the 18-channel volume of 4 views of
+    256x256: B*H*W alone is 262,144 outputs, two waves of kBwWaveThreads,
+    so the plan takes one channel group (its 6 chunks of 3 channels in
+    turn) in blocks of 32 x 4 threads over all 4 views: 2048 blocks."""
+    plan = kwarp.backward_plan("nchw", *MCVC_TRAIN)
+    assert plan.fits
+    assert (plan.groups, plan.rows, plan.passes, plan.grid) == (1, 4, 6, (8, 64, 4))
+    gx, gy, gz = plan.grid
+    assert gx * gy * gz * 32 * plan.rows * plan.groups == 4 * 256 * 256
 
 
 def test_backward_plan_reads_the_kernel_source(tmp_path):
@@ -835,6 +851,29 @@ def test_backward_kernels_are_the_plain_vjp(card, name, kind, dtype, need_img, n
             scale = float(w.float().abs().max())
             rtol, atol = (1e-5, 1e-5 * scale) if dtype == torch.float32 else (2e-2, 2e-2 * scale)
             torch.testing.assert_close(t.float(), w.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_pixel_warp_backward_at_mcvc_training_shape(card):
+    """pixel_warp's backward kernel at MCVC's training step, 4 x 18 x
+    256x256 float32, the flow gradient alone (the volume comes from the
+    detached reference): one launch a call, within 1e-5 relative and 1e-5
+    of the largest gradient of the plain vjp, and the same flow gradient
+    bit for bit over two launches (each output's channel groups add in a
+    fixed order)."""
+    rng = np.random.default_rng(52)
+    img, flow = tiled_case("pixel_warp", MCVC_TRAIN, "smooth", rng, torch.float32, "cuda")
+    g = torch.from_numpy(rng.normal(0, 1, MCVC_TRAIN).astype(np.float32)).to("cuda")
+    kwarp.reset_launches()
+    first = kwarp.launch_pixel_warp_backward(img, flow, g, False, True)
+    second = kwarp.launch_pixel_warp_backward(img, flow, g, False, True)
+    want = twarp.PLAIN_BACKWARD["pixel_warp"](img, flow, g, False, True)
+    torch.cuda.synchronize()
+    assert kwarp.LAUNCHES["pixel_warp_backward"] == 2
+    assert first[0] is None and second[0] is None and want[0] is None
+    assert torch.equal(first[1], second[1])
+    scale = float(want[1].abs().max())
+    torch.testing.assert_close(first[1], want[1], rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.gpu

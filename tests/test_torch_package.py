@@ -1,7 +1,8 @@
 """Package-level guards of the PyTorch port.
 
-- The port (its training modules too: train/, cli/train.py, utils/,
-  data/vimeo.py, data/loader.py), chip_smoke.py, warp_ab.py and
+- The port (its training modules too: train/, cli/train.py,
+  cli/train_multiview.py, utils/, data/vimeo.py, data/loader.py,
+  data/multiview.py), chip_smoke.py, warp_ab.py and
   real_bits_ab.py import with jax, flax, optax, orbax, PIL and
   fastvideocodec_tpu unimportable (the card's machine has none of them);
   real_bits_ab.py's synchronous copies are swapped in for their scope
@@ -36,6 +37,9 @@
   flow_warp and each layer's MC warp to the kernel of its branch:
   flow_warp for s2d=1 (3 channels) and -RW (12 channels at half
   resolution), flow_warp_s2d for the full-resolution s2d warps.
+- An LSVC-TPU-TINY training step and checkpoint, and an MCVC-IA-OLFT-TINY
+  online fine-tuning step with its touch-up labels priced, run without
+  JAX.
 """
 
 import inspect
@@ -85,7 +89,8 @@ def test_port_imports_without_jax():
         "assert 'fastvideocodec_torch.models.mcvc' in sys.modules\n"
         "for name in ('models.dvc', 'models.base', 'models.rlvc', 'entropy.rpm',\n"
         "             'layers.codecnet', 'train.trainer', 'train.checkpoint',\n"
-        "             'cli.train', 'utils.meters', 'data.vimeo', 'data.loader'):\n"
+        "             'train.olft', 'cli.train', 'cli.train_multiview', 'utils.meters',\n"
+        "             'utils.logs', 'data.vimeo', 'data.loader', 'data.multiview'):\n"
         "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
@@ -910,6 +915,39 @@ def test_training_step_runs_without_jax():
         "    train.save_checkpoint(d, {'params': params, 'opt_state': state, 'epoch': 0,\n"
         "                              'score': 1.0})\n"
         "    assert train.load_checkpoint(d)['opt_state']['main']['count'] == 1\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+        "                              'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_olft_step_runs_without_jax():
+    """One OLFT step of MCVC-IA-OLFT-TINY on the CPU, its touch-up labels
+    priced on the host, with train.olft, data.multiview and
+    cli.train_multiview imported and JAX, optax, orbax and PIL
+    unimportable."""
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.cli import train_multiview\n"
+        "from fastvideocodec_torch.data import multiview\n"
+        "from fastvideocodec_torch.data.synthetic import synth_mv_gop\n"
+        "from fastvideocodec_torch.ops.math import UniformNoise\n"
+        "from fastvideocodec_torch.train import olft, TrainConfig, ready_for_training\n"
+        "spec = ft.get_codec_model('MCVC-IA-OLFT-TINY', device='cpu', num_views=3)\n"
+        "ft.load_asset(spec.module, 'tiny_mcvc_l3')\n"
+        "assert spec.olft\n"
+        "clip = synth_mv_gop(np.random.default_rng(0), views=3, size=64, gop=3)\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))\n"
+        "params = ready_for_training(spec)\n"
+        "init_fn, step_fn = olft.make_olft_step(spec, TrainConfig(learning_rate=1e-5), 0.1)\n"
+        "mask = np.array([1, 1, 0], np.float32)\n"
+        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0), mask)\n"
+        "n = olft.touchup_bytes(m.pop('touch_refs'), m.pop('touch_labels'), m.pop('touch_mask'))\n"
+        "assert n > 0 and all(bool(torch.isfinite(v)) for v in m.values()), m\n"
+        "assert state['main']['count'] == 1\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
         "                              'fastvideocodec_tpu')]\n"

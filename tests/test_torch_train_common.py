@@ -38,6 +38,17 @@ The bars:
   max (SSF-TPU-TINY's motion_encoder.Conv_2.weight) moved 1.2e-6.
   ``assert_params_close`` prints how many elements it holds to 2 lr a
   step.
+- MCVC's motion decoder (``flow_path``): its gradient reaches it only
+  through the volume warp's flow gradient, sums of differences of
+  neighbouring samples that cancel to 1e-5 of the largest gradient or
+  less, where the float32 sums of either package move with their order:
+  the port's own gradient there moves 9.5e-4 of its max between one and
+  eight CPU threads, and JAX's stands up to 3.1e-3 from it (MCVC-IA-TINY
+  on tiny_mcvc_l3). There GRAD_REL gives way to FLOW_GRAD_REL = 5e-3,
+  and SETTLED to 3 FLOW_GRAD_REL of the gradient bar's floored scale (an
+  element near 1e-5 of the largest gradient is noise in its relative
+  size too, and Adam's first step turns on that size near eps); every
+  other parameter keeps the bars above.
 """
 
 import copy
@@ -48,8 +59,10 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from fastvideocodec_torch.data.synthetic import synth_gop
+from fastvideocodec_torch.layers.transforms import SSFHyperDecoder
 from fastvideocodec_torch.weights import load_flat
 
 GOP, SIZE = 4, 64
@@ -59,6 +72,7 @@ NOISE_FLOOR = 1e-5  # of the largest gradient: a smaller gradient scale is float
 METRIC_REL = 1e-5
 PARAM_ABS = 1e-6
 SETTLED = 3 * GRAD_REL  # from this share of the max up a gradient's sign is JAX's
+FLOW_GRAD_REL = 5e-3  # a gradient that reaches its parameter only through a flow gradient
 METRICS = ("loss", "psnr", "bpp", "img_loss", "aux")
 
 
@@ -103,6 +117,71 @@ class JaxDraws:
         return out
 
 
+class JaxBranches:
+    """``jax.nn.relu`` wrapped, as ``JaxDraws`` wraps the draws: each call
+    records the elements on its positive branch (x > 0), in the order the
+    run makes them. JAX's PolyphaseDeconv applies its activation before
+    its depth-to-space, on [B, h, w, (sy, sx, f)]; ``OnJaxBranches`` lays
+    such a mask out as the port's [B, f, 2h, 2w]."""
+
+    def __init__(self):
+        self.orig = jax.nn.relu
+        self.masks = []
+
+    def __call__(self, x):
+        jax.debug.callback(lambda v: self.masks.append(np.asarray(v)), x > 0, ordered=True)
+        return self.orig(x)
+
+    def take(self) -> list:
+        out, self.masks = self.masks, []
+        return out
+
+
+class OnJaxBranches:
+    """The port's ReLUs (``F.relu`` and the hyper decoders' ``act``) on the
+    branches a ``JaxBranches`` recorded, as a context: each call takes the
+    recorded call's branch, its value and its gradient (as
+    tools/train_parity.py's ``CardBranches`` puts the CPU on the card's),
+    and counts in ``flips`` the elements whose own branch differed. Both
+    runs must make the same calls in the same order. A pre-activation
+    within float32 noise of 0 may take the other branch in the other
+    package; that is a branch, not an error of either package's
+    arithmetic, and it parts the gradients by far more than the arithmetic
+    does (MCVC's failed views feed the decoders constant fields, whole
+    regions of which sit at such a pre-activation)."""
+
+    def __init__(self, masks: list):
+        self.masks, self.calls, self.flips = masks, 0, 0
+
+    def _mask(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.masks[self.calls]
+        self.calls += 1
+        B, C, H, W = x.shape
+        if m.shape == (B, H, W, C):
+            return torch.from_numpy(np.ascontiguousarray(m.transpose(0, 3, 1, 2)))
+        if m.shape == (B, H // 2, W // 2, 4 * C):  # before the depth-to-space
+            m = m.reshape(B, H // 2, W // 2, 2, 2, C).transpose(0, 5, 1, 3, 2, 4)
+            return torch.from_numpy(np.ascontiguousarray(m.reshape(B, C, H, W)))
+        raise RuntimeError(f"ReLU call {self.calls - 1}: JAX's {m.shape}, the port's "
+                           f"{tuple(x.shape)}")
+
+    def relu(self, x, inplace=False):
+        want = self._mask(x)
+        self.flips += int((want != (x > 0)).sum())
+        return x * want.to(x.dtype)
+
+    def __enter__(self):
+        self.saved = F.relu, SSFHyperDecoder.act
+        F.relu = self.relu
+        SSFHyperDecoder.act = staticmethod(self.relu)
+        return self
+
+    def __exit__(self, *exc):
+        F.relu, SSFHyperDecoder.act = self.saved[0], staticmethod(self.saved[1])
+        assert exc[0] is not None or self.calls == len(self.masks), (self.calls,
+                                                                     len(self.masks))
+
+
 class Replay:
     """The port's noise source: the recorded NHWC draws, in order, as NCHW."""
 
@@ -144,15 +223,24 @@ def assert_close_to_scale(got: torch.Tensor, want: torch.Tensor, rel: float, wha
     assert err <= rel * max(scale, 1e-12), (what, err, scale)
 
 
-def assert_grads_close(port: dict, jax_grads: dict, rel: float = GRAD_REL):
-    """Each parameter's gradient within ``rel`` of its max |grad|, that
-    scale floored at NOISE_FLOOR of the largest gradient of all."""
+def assert_grads_close(port: dict, jax_grads: dict, rel: float = GRAD_REL,
+                       flow_path: tuple = ()):
+    """Each parameter's gradient within ``rel`` of its max |grad|
+    (FLOW_GRAD_REL for a name that starts with one of ``flow_path``), that
+    scale floored at NOISE_FLOOR of the largest gradient of all. Prints
+    the worst gap in each set."""
     assert set(port) == set(jax_grads)
     floor = NOISE_FLOOR * max(float(w.abs().max()) for w in jax_grads.values())
+    worst = {}
     for name, want in jax_grads.items():
         scale = max(float(want.abs().max()), floor)
         err = float((port[name] - want).abs().max())
-        assert err <= rel * scale, (name, err, scale)
+        flow = name.startswith(flow_path) if flow_path else False
+        bar = FLOW_GRAD_REL if flow else rel
+        worst[flow] = max(worst.get(flow, (0.0, "")), (err / scale, name))
+        assert err <= bar * scale, (name, err, scale)
+    print(f"worst gradient gap over its scale: {worst[False]}"
+          + (f"; on the flow path {worst[True]}" if True in worst else ""))
 
 
 def assert_metrics_close(got: dict, want: dict, keys=METRICS):
@@ -161,7 +249,7 @@ def assert_metrics_close(got: dict, want: dict, keys=METRICS):
         assert abs(value - want[k]) <= METRIC_REL * max(abs(want[k]), 1e-6), (k, value, want[k])
 
 
-def assert_params_close(params: dict, want: dict, jax_grads: list):
+def assert_params_close(params: dict, want: dict, jax_grads: list, flow_path: tuple = ()):
     """The parameters after len(jax_grads) steps against JAX's, at each
     element whose gradient in every step (JAX's, ``jax_grads``) is 0 or at
     least SETTLED of its parameter's max |grad|: within PARAM_ABS, or one
@@ -171,19 +259,25 @@ def assert_params_close(params: dict, want: dict, jax_grads: list):
     2 lr a step."""
     steps = len(jax_grads)
     loose = 2 * LR * steps + PARAM_ABS
+    floors = [NOISE_FLOOR * max(float(t.abs().max()) for t in g.values()) for g in jax_grads]
     exempt = total = 0
     for name, p in params.items():
         w = want[name]
         a = w.abs()
         ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+        flow = bool(flow_path) and name.startswith(flow_path)
+        rel = FLOW_GRAD_REL if flow else GRAD_REL
         share = torch.full_like(w, float("inf"))  # the smallest nonzero share of the max
-        for g in jax_grads:
+        for g, floor in zip(jax_grads, floors):
             mag = g[name].abs()
-            share = torch.where(mag > 0, torch.minimum(share, mag / mag.max()), share)
-        signed = share >= SETTLED
+            # on the flow path, of the gradient bar's scale (floored at
+            # NOISE_FLOOR of the step's largest gradient)
+            scale = max(float(mag.max()), floor) if flow else mag.max()
+            share = torch.where(mag > 0, torch.minimum(share, mag / scale), share)
+        signed = share >= 3 * rel
         bar = torch.clamp(ulp, min=PARAM_ABS)
         if steps > 1:
-            bar = bar + 2 * LR * GRAD_REL / share
+            bar = bar + 2 * LR * rel / share
         bar = torch.where(signed, torch.clamp(bar, max=loose), torch.full_like(w, loose))
         exempt += int((~signed).sum())
         total += w.numel()

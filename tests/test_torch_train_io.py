@@ -155,10 +155,10 @@ def test_batched_step_is_the_mean_of_the_clips():
 
 
 @pytest.mark.parametrize("name, kw", [("RLVC-TINY", {}), ("DVC-TINY", {}),
-                                      ("MCVC-IA-TINY", {"num_views": 3})])
+                                      ("Base-ER-TINY", {})])
 def test_training_other_families_raises(name, kw):
     spec = ft.get_codec_model(name, device="cpu", **kw)
-    gop = clip()[:, None] if name.startswith("MCVC") else clip()
+    gop = clip()
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         gop_loss(spec, gop, True, UniformNoise(0), TrainConfig())
 
