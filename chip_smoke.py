@@ -272,7 +272,28 @@ Phases, each timed on its own line:
    byte bound and the launch floor (as phase 45), with ptxas's report,
    the plain vjp and, for pixel_warp, F.grid_sample's forward and backward
    on the prepared grid (pixel_warp_s2d, which no codec calls, on the
-   sflow's inputs with the flow unpacked to full resolution).
+   sflow's inputs with the flow unpacked to full resolution);
+53. DVC, RLVC and Base-EC-ER training, card vs CPU: one step of each at
+   full width (seeded_flat with the pretrained SpyNet, Base-EC-ER with the
+   soft2hard three passes) in float32 at 64x128, GOP 4, as phase 46 (the
+   CPU also on RLVC's clip as the card took it), under deterministic
+   cuDNN (the seeded DVC step's SpyNet gradient, a small sum of large
+   terms, moves with the order of cuDNN's atomic backward), with a control
+   that zeroes flow_warp_backward's flow gradient;
+54. those three for 10 steps each and RLVC2 and RLVC-HP for 3 on
+   cli/train.py's default batch of 4 x 7 x 256x256, float32, the readings
+   of phase 47; each P-frame 5 flow_warp and 4 flow-only backward launches
+   (Base-EC-ER's soft2hard 15 and 5: ``chain_train_launches``), stated
+   beforehand and exact, no plain warp or vjp, every parameter moved; one
+   DVC step's warp inputs captured;
+55. cli/train.py --codec DVC --loss-type M through its main, on the card,
+   on a tree of 7-frame PNG clips of 256x448 the phase writes: 1 epoch of
+   3 steps of 4 clips, finite metrics, the launches exact, the checkpoint
+   written; the checkpoint's img_loss on a clip equal to 1 - ms_ssim of
+   its recon, and that MS-SSIM on the card against the CPU's;
+56. flow_warp and flow_warp_backward on DVC's training step's 120 and 96
+   launches, by shape: as phases 31 and 45 (the backward held to the
+   plain vjp on each launch).
 
 Along the way it prints a JSON line of MCVC's numbers, one of the stock
 codecs', one of the DVC family's, one of the training numbers and one of
@@ -284,7 +305,8 @@ ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's MCVC-IA and
 SSF-Official timings, flow_warp's on DVC's, LSVC-128's and -RW's inputs
 and flow_warp_s2d's on -HF's stand under ``timing_by_path``; and the two
 backward kernels of the flow warps, their launches those of phase 43's 20
-training steps, their times those of phase 45; the three of the pixel
+training steps, their times those of phase 45 (flow_warp_backward's
+launches in phase 54 by codec and its times on DVC's step beside them); the three of the pixel
 warps, their launches those of phases 47, 48 and 50, their times those
 of phase 52: ten kernels in all),
 the card's name and power limit,
@@ -429,6 +451,28 @@ MCVC_TRAIN_STEPS, MCVC_TRAIN_LR, OLFT_RATIO, MCVC_RESILIENCE = 10, 1e-5, 0.1, 1
 OLFT_STEPS, OLFT_GAMMA, OLFT_GAIN_DB = 40, 1.8, 0.6
 OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyperprior.",
                   "res_hyperprior.")
+# DVC, RLVC (RLVC2, RLVC-HP) and Base-EC-ER training on the card, float32,
+# full width from seeded_flat(name, 0) with the pretrained SpyNet, Base-ER's
+# form with the soft2hard three passes (TrainConfig.soft2hard): one step card
+# vs CPU at 64x128, GOP 4, at phase 46's bars; then cli/train.py's default
+# batch of 4 x 7 x 256x256, CHAIN_TRAIN_STEPS steps each (CHAIN_SHORT_STEPS
+# for RLVC2 and RLVC-HP); then cli/train.py --codec DVC --loss-type M through
+# its main on a tree of CLI_CLIPS 7-frame clips of 256x448 PNGs, 1 epoch of
+# CLI_STEPS steps, its checkpoint's MS-SSIM on the card against the CPU's
+CHAIN_TRAIN = {"DVC": 10, "RLVC": 10, "Base-EC-ER": 10, "RLVC2": 3, "RLVC-HP": 3}
+SOFT2HARD = ("Base-EC-ER",)
+CLI_CLIPS, CLI_STEPS, MSSSIM_CARD_CPU_REL = 12, 3, 1e-5
+# the launches of a DVC, RLVC or Base training step over ``p_frames``
+# P-frames, derived from the code: each P-frame warps 4 SpyNet levels and
+# its MC warp forward; the backward reaches the 3 finer levels (the
+# coarsest level's flow is zeros) and the MC warp (the reference is the
+# input or a detached recon: flow gradient only). Base-ER's soft2hard runs
+# the P-frame three times (15 forward): pass 1's decoders take round(l), so
+# its backward reaches the MC warp alone (its mv decoder's input is the
+# detached round), and pass 2 detaches the motion compensation (none)
+def chain_train_launches(name: str, p_frames: int) -> dict:
+    forward, backward = (15, 5) if name in SOFT2HARD else (5, 4)
+    return {"flow_warp": forward * p_frames, "flow_warp_backward": backward * p_frames}
 # the launches of an SSF or ELFVC training step over ``p_frames`` P-frames:
 # each warp call a forward and a flow-only backward (the warped reference
 # is detached, the flow comes from the parameters); stock SSF warps its
@@ -3083,6 +3127,217 @@ def main() -> int:
             lib[bname] = rows[bname]["library_ms"]
         del pixel_captured, flush
     training["pixel_backward_timing"] = pixel_timing
+
+    # ---- training: DVC, RLVC (RLVC2, RLVC-HP) and Base-EC-ER at full width, float32 ----
+    from fastvideocodec_torch.cli import train as train_cli
+    from fastvideocodec_torch.ops import ms_ssim
+    from fastvideocodec_torch.train.trainer import msssim_distortion
+
+    def chain_train_spec(name, device, loss_type="P"):
+        """``name`` at full width on seeded_flat(name, 0) with the pretrained
+        SpyNet, readied for training: (spec, params)."""
+        spec = get_codec_model(name, device=device, loss_type=loss_type)
+        load_flat(spec.module, seeded_flat(name, 0))
+        load_pretrained_spynet(spec.module.optic_flow)
+        return spec, ready_for_training(spec)
+
+    def chain_cfg(name):
+        return TrainConfig(learning_rate=TRAIN_LR, soft2hard=name in SOFT2HARD)
+
+    with phase("dvc, rlvc and base-ec-er training step, card vs cpu, 64x128 GOP4 f32, "
+               "soft2hard on, deterministic cuDNN"), deterministic_convs():
+        # cuDNN's deterministic algorithms on the card: with its default
+        # (atomic) backward algorithms the seeded DVC step's SpyNet gradient,
+        # a small sum of large terms, moved 4.0e-2 of its max from one card
+        # run to the next on an H100; deterministic, card runs are bit for
+        # bit equal and 3.8e-5 from the CPU on the card's branches
+        clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
+        control = {"launch_flow_warp_backward": zero_flow_gradient(kw.launch_flow_warp_backward)}
+        training["chain_card_vs_cpu"] = {
+            name: step_card_vs_cpu(
+                name, lambda device, name=name: chain_train_spec(name, device), nchw_clip(clip),
+                control, lambda spec, c, noise, name=name: gop_loss(spec, c, True, noise,
+                                                                     chain_cfg(name)))
+            for name in ("DVC", "RLVC", "Base-EC-ER")}
+
+    chain_per_step, chain_train_counts = {}, {}
+    with phase(f"dvc, rlvc, base-ec-er, rlvc2, rlvc-hp train {BATCH_CLIPS} x {BATCH_GOP} x "
+               f"{TRAIN_SIZE}x{TRAIN_SIZE} f32, steps {CHAIN_TRAIN}"):
+        # cli/train.py's default batch; one synth_gop_multi clip an item
+        rng = np.random.default_rng(5)
+        batches = [torch.stack([nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=BATCH_GOP))
+                                for _ in range(BATCH_CLIPS)]).cuda()
+                   for _ in range(max(CHAIN_TRAIN.values()) + 1)]
+        for name, steps in CHAIN_TRAIN.items():
+            label = name.lower()
+            spec, params = chain_train_spec(name, "cuda")
+            init_fn, step_fn = make_train_step(spec, chain_cfg(name), batched=True)
+            per_step = chain_per_step[label] = chain_train_launches(
+                name, BATCH_CLIPS * (BATCH_GOP - 1))
+            log(f"{label} launches a step, stated beforehand: {per_step}")
+            start = {k: p.detach().clone() for k, p in params.items()}
+            params, opt_state, metrics, times, enqueue, launches, plain_calls, peak = train_run(
+                label, step_fn, params, init_fn(params), batches[:steps], UniformNoise(5))
+            want = {**zero_counts, **{k: v * steps for k, v in per_step.items()}}
+            require(launches == want, f"{label} launches {launches}, want {want}")
+            require(not plain_calls, f"{label} called plain warps: {plain_calls}")
+            chain_train_counts[label] = launches
+            moved = sum(not torch.equal(p.detach(), start[k]) for k, p in params.items())
+            log(f"{label}: launches {launches}; plain warp calls none; parameters moved {moved} "
+                f"of {len(params)}")
+            require(moved >= 0.9 * len(params), f"{label}: the parameters did not move")
+            training[f"{label}_4x7x256"] = {**run_summary(label, metrics, times, enqueue, peak,
+                                                          2 if steps > 3 else 1),
+                                            "launches": launches, "moved": moved}
+            if name == "DVC":  # one more step with the warps' inputs captured
+                chain_bwd, chain_fwd = {"flow_warp_backward": []}, {}
+                with capture_backward(chain_bwd), capture_warp_inputs(chain_fwd):
+                    step_fn(params, opt_state, batches[steps], UniformNoise(6))
+                chain_fwd = [(img.detach(), flow.detach()) for img, flow in chain_fwd["flow_warp"]]
+                chain_bwd = chain_bwd["flow_warp_backward"]
+            del spec, params, opt_state, start
+        del batches
+        torch.cuda.empty_cache()
+
+    with phase(f"cli/train.py --codec DVC --loss-type M, {CLI_CLIPS} clips of 7 x 256x448 PNGs, "
+               f"1 epoch of {CLI_STEPS} steps, MS-SSIM card vs cpu"):
+        from PIL import Image
+
+        step_metrics = []
+
+        def recording(spec, cfg, **kw_args):
+            init_fn, step_fn = make_train_step(spec, cfg, **kw_args)
+
+            def step(*args):
+                out = step_fn(*args)
+                step_metrics.append({k: float(v) for k, v in out[2].items()})
+                return out
+            return init_fn, step
+
+        rng = np.random.default_rng(7)
+        with tempfile.TemporaryDirectory() as d:
+            root = Path(d) / "vimeo"
+            names = []
+            for k in range(CLI_CLIPS):
+                seq = root / "sequences" / f"{k:05d}" / "0001"
+                seq.mkdir(parents=True)
+                for i, frame in enumerate(synth_gop_multi(rng, size=448, gop=7)[:, :256],
+                                          start=1):
+                    Image.fromarray((frame * 255).astype(np.uint8)).save(seq / f"im{i}.png")
+                names.append(f"{k:05d}/0001")
+            (root / "sep_trainlist.txt").write_text("\n".join(names) + "\n")
+            saved = train_cli.make_train_step
+            train_cli.make_train_step = recording
+            kw.reset_launches()
+            try:
+                train_cli.main(["--codec", "DVC", "--loss-type", "M", "--dataset-dir", str(root),
+                                "--epochs", "1", "--steps-per-epoch", str(CLI_STEPS),
+                                "--ckpt-dir", str(Path(d) / "ckpt")])
+            finally:
+                train_cli.make_train_step = saved
+            torch.cuda.synchronize()
+            cli_launches = {k: v for k, v in kw.LAUNCHES.items() if v}
+            state = load_checkpoint(str(Path(d) / "ckpt" / "DVC-2M"), prefer_best=False)
+        want = chain_train_launches("DVC", CLI_STEPS * BATCH_CLIPS * (BATCH_GOP - 1))
+        log(f"cli --codec DVC --loss-type M ({smi}): steps {step_metrics}; launches "
+            f"{cli_launches} (want {want}); checkpoint epoch {state['epoch']} score "
+            f"{state['score']}")
+        require(len(step_metrics) == CLI_STEPS and all(
+            np.isfinite(v) for m in step_metrics for v in m.values()), "cli: a metric")
+        require(cli_launches == want, f"cli launches {cli_launches}, want {want}")
+        require(state["opt_state"]["main"]["count"] == CLI_STEPS and np.isfinite(state["score"]),
+                "cli: the checkpoint")
+        # img_loss under M is 1 - ms_ssim of the recon: the checkpoint's
+        # weights on one clip, the metric against the recon's MS-SSIM on the
+        # card and on the CPU (the same recon)
+        spec = get_codec_model("DVC", loss_type="M")
+        with torch.no_grad():
+            for n, p in spec.module.named_parameters():
+                p.copy_(state["params"][n])
+        clip = nchw_clip(synth_gop_multi(np.random.default_rng(8), size=TRAIN_SIZE,
+                                         gop=BATCH_GOP)).cuda()
+        _, m = gop_loss(spec, clip, False, None, TrainConfig())
+        recon, _ = rollout(spec, clip)
+        card_q = float(ms_ssim(recon.float(), clip[1:]))
+        cpu_q = float(ms_ssim(recon.float().cpu(), clip[1:].cpu()))
+        rel = abs(card_q - cpu_q) / cpu_q
+        log(f"cli checkpoint: img_loss {float(m['img_loss']):.7f} = 1 - ms_ssim "
+            f"{1 - card_q:.7f}; ms_ssim of one recon card {card_q:.7f} cpu {cpu_q:.7f} (rel "
+            f"{rel:.2e}, tolerance {MSSSIM_CARD_CPU_REL}); msssim_distortion "
+            f"{float(msssim_distortion(spec, recon, clip)):.7f}")
+        require(abs(float(m["img_loss"]) - (1 - card_q)) <= MSSSIM_CARD_CPU_REL,
+                "cli: img_loss is not 1 - ms_ssim")
+        require(rel <= MSSSIM_CARD_CPU_REL, f"ms_ssim card vs cpu {rel}")
+        training["cli_dvc_msssim"] = {"steps": step_metrics, "launches": cli_launches,
+                                      "score": state["score"], "ms_ssim_card": card_q,
+                                      "ms_ssim_cpu": cpu_q, "ms_ssim_rel": rel}
+        del spec, state, clip, recon
+
+    with phase("flow_warp and flow_warp_backward on DVC's training step (f32, 4 x 7 x "
+               "256x256: 120 and 96 launches)"):
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+        per_dvc = chain_per_step["dvc"]
+        require(len(chain_fwd) == per_dvc["flow_warp"] and
+                len(chain_bwd) == per_dvc["flow_warp_backward"],
+                f"captured {len(chain_fwd)} forward and {len(chain_bwd)} backward launches")
+        require(all(not ni and nf for *_, ni, nf in chain_bwd), "an image gradient was asked for")
+
+        def by_shape(inputs):
+            groups = {}
+            for args in inputs:
+                groups.setdefault(tuple(args[0].shape[-2:]), []).append(args)
+            return groups
+
+        fwd_rows, bwd_rows = {}, {}
+        for hw, inputs in sorted(by_shape(chain_fwd).items()):
+            drows, dlib = {}, {}
+            time_kernels(("flow_warp",), {"flow_warp": inputs}, drows, dlib,
+                         lambda name, img, flow: cuda_ms(torch, grid_sample, img,
+                                                         sample_grid(flow)))
+            t = fwd_rows[f"{hw[0]}x{hw[1]}"] = {
+                **{k: drows["flow_warp"][k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                                                      "smooth_ms", "random_ms")},
+                "library_ms": dlib["flow_warp"], "launches": len(inputs),
+                "device_ms": device_ms(torch, kernels["flow_warp"], inputs)[0],
+                "library_device_ms": device_ms(torch, grid_sample, [
+                    (img, sample_grid(flow)) for img, flow in inputs])[0]}
+            log(f"flow_warp forward, DVC training step, {len(inputs)} launches of "
+                f"{tuple(inputs[0][0].shape)} ({smi}): warm {t['ms']:.4f} ms, L2 flushed "
+                f"{t['cold_ms']:.4f}, device {t['device_ms']}, bound {t['bound_ms']:.4f}, plain "
+                f"{t['plain_ms']:.4f}, F.grid_sample {t['library_ms']:.4f} (device "
+                f"{t['library_device_ms']})")
+        for hw, inputs in sorted(by_shape(chain_bwd).items()):
+            r = bwd_rows[f"{hw[0]}x{hw[1]}"] = {
+                "ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "floor_ms": 0.0,
+                "library_ms": 0.0, "launches": len(inputs)}
+            for img, flow, grad, need_img, need_flow in inputs:
+                hold_backward("flow_warp_backward", img, flow, grad, need_img,
+                              "flow_warp_backward on DVC's training inputs")
+                args = (img, flow, grad, need_img, need_flow)
+                r["ms"] += cuda_ms(torch, backward_kernels["flow_warp_backward"], *args, iters=10)
+                r["cold_ms"] += cold_ms(torch, backward_kernels["flow_warp_backward"], *args,
+                                        flush=flush, reps=3)
+                r["plain_ms"] += cuda_ms(torch, backward_plains["flow_warp_backward"], *args,
+                                         iters=2, warmup=1)
+                r["bound_ms"] += backward_bound_ms(*args[:2], need_img, need_flow)
+                r["floor_ms"] += cold_ms(torch, kw.launch_backward_floor, "flow_warp", img,
+                                         flush=flush, reps=3)
+                r["library_ms"] += cuda_ms(torch, grid_sample_fb, img, sample_grid(flow), grad,
+                                           need_img, need_flow, iters=10)
+            r["device_ms"] = device_ms(torch, backward_kernels["flow_warp_backward"], inputs)[0]
+            log(f"flow_warp_backward, DVC training step, {len(inputs)} launches of "
+                f"{tuple(inputs[0][0].shape)}, flow gradient only ({smi}): warm {r['ms']:.4f} "
+                f"ms, L2 flushed {r['cold_ms']:.4f}, device {r['device_ms']}, bound "
+                f"{r['bound_ms']:.4f}, launch floor {r['floor_ms']:.4f}, plain vjp "
+                f"{r['plain_ms']:.4f}, F.grid_sample forward + backward {r['library_ms']:.4f}")
+        for what, table in (("forward", fwd_rows), ("backward", bwd_rows)):
+            keys = [k for k in next(iter(table.values())) if k != "launches"]
+            total = table["step"] = {
+                k: None if any(t[k] is None for t in table.values()) else
+                sum(t[k] for t in table.values()) for k in keys + ["launches"]}
+            log(f"flow_warp {what} over DVC's training step ({smi}): {total}")
+        training["dvc_train_flow_warp"] = {"forward": fwd_rows, "backward": bwd_rows}
+        del chain_fwd, chain_bwd, flush
     log(json.dumps({"training": training}))
 
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
@@ -3101,7 +3356,8 @@ def main() -> int:
                       "mcvc_real_bits_decode": mcvc_dec[name],
                       **{path: n[name] for path, n in stock_launches.items()},
                       **{path: n[name] for path, n in chain_launches.items()},
-                      **{path: n[name] for path, n in lsvc_launches.items()}}
+                      **{path: n[name] for path, n in lsvc_launches.items()},
+                      **{f"{path}_train": n[name] for path, n in chain_train_counts.items()}}
                 for name in kernels}
     # each kernel's top-level numbers stay on the path that defined them in
     # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
@@ -3114,7 +3370,8 @@ def main() -> int:
     timing.update(stock_timing)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "launches")
     by_kernel_timing = {"pixel_warp": timing,
-                        "flow_warp": {**chain_timing, **lsvc_timing["flow_warp"]},
+                        "flow_warp": {**chain_timing, **lsvc_timing["flow_warp"],
+                                      "dvc_train_step": fwd_rows["step"]},
                         "flow_warp_s2d": lsvc_timing["flow_warp_s2d"]}
     report = {"kernels": [
         {
@@ -3157,6 +3414,12 @@ def main() -> int:
             **({"timing_by_path": {path: {k: t[k] for k in keys}
                                    for path, t in pixel_timing[bname].items()}}
                if bname in PIXEL_BACKWARD else {}),
+            # DVC, RLVC and Base's training runs (phase 54): launches by codec,
+            # and the times of DVC's step's launches
+            **({"launches_by_training_path": {path: n[bname]
+                                              for path, n in chain_train_counts.items()},
+                "timing_by_path": {"dvc_train_step": {k: bwd_rows["step"][k] for k in keys}}}
+               if bname == "flow_warp_backward" else {}),
         }
         for bname in BACKWARD
     ]}

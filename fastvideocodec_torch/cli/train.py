@@ -13,10 +13,13 @@ Usage:
   python -m fastvideocodec_torch.cli.train --codec LSVC-TPU \\
       --dataset-dir /data/vimeo_septuplet --epochs 10
 
-The LSVC, SSF and ELFVC families train in float32 (every name of them;
-the default is the JAX CLI's ELFVC-SP); MCVC, DVC, RLVC and Base,
-``--bf16``, ``--loss-type M``, ``--evaluate`` and ``--evolve`` wait for
-later slices (ROADMAP.md queue 1, items 7 and 8).
+Every single-view name trains in float32 (the LSVC, SSF, ELFVC, DVC, RLVC
+and Base families; the default is the JAX CLI's ELFVC-SP), under loss type
+P (MSE) or M (1 - MS-SSIM, frames above 160 px); MCVC trains through
+``cli/train_multiview.py``. Base-ER's soft2hard schedule is a
+``TrainConfig`` field with no flag, as in the JAX CLI. ``--bf16``,
+``--evaluate`` and ``--evolve`` wait for later slices (ROADMAP.md queue 1,
+items 7.4 and 7.6).
 """
 
 from __future__ import annotations
@@ -104,9 +107,10 @@ def main(argv=None):
     args = parse_args(argv)
     if args.evaluate or args.evolve:
         raise SystemExit("--evaluate and --evolve need train/evaluate.py and train/evolve.py, "
-                         f"not ported yet ({ROADMAP_TRAINING})")
+                         f"not ported yet ({ROADMAP_TRAINING}.6: evaluation and evolve)")
     if args.bf16:
-        raise NotImplementedError(f"--bf16 training is not ported yet ({ROADMAP_TRAINING})")
+        raise NotImplementedError(f"--bf16 training is not ported yet ({ROADMAP_TRAINING}.4: "
+                                  "bf16 training)")
     device = torch.device(args.device)
     spec = get_codec_model(args.codec, device=device, loss_type=args.loss_type,
                            compression_level=args.compression_level)

@@ -7,7 +7,8 @@ MeanScaleHyperPriors: a stride-1 hyper analysis (four 3x3 convs,
 LeakyReLU(0.01) between) gives z at x's size, coded by a factorized
 bottleneck; the hyper synthesis (three convs with LeakyReLU(0.01), a conv
 to 2C) gives (sigma_raw, mu), sigma = exp(max(sigma_raw, -7)) (no /10,
-unlike the RPM's), and x is coded Gaussian with those means.
+unlike the RPM's), and x is coded Gaussian with those means. In training
+z and x take noise from an explicit source, z's draw first.
 
 SSFHyperprior:
 y -> hyper encoder -> z; z is coded by the factorized bottleneck; the mean
@@ -73,12 +74,14 @@ class MeanScaleHyperPriors(nn.Module):
         sigma_raw, mu = self.h_s_3(z_hat).chunk(2, dim=1)
         return torch.exp(torch.clamp(sigma_raw, min=-7.0)), mu
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, training: bool = False, noise=None):
         """x -> (x_hat in x's dtype, (x likelihoods, z likelihoods), sigma,
-        mu); the likelihoods float32, both of x's shape."""
-        z_hat, z_lik = self.bottleneck(self.hyper_encode(x))
+        mu); the likelihoods float32, both of x's shape. ``training`` draws
+        the noise of z, then of x, from ``noise``."""
+        z = self.hyper_encode(x)
+        z_hat, z_lik = self.bottleneck(z, True, noise) if training else self.bottleneck(z)
         sigma, mu = self.hyper_decode(z_hat.to(x.dtype))
-        x_hat, x_lik = self.gaussian(x, sigma, mu)
+        x_hat, x_lik = self.gaussian(x, sigma, mu, training, noise)
         return x_hat, (x_lik, z_lik), sigma, mu
 
     def aux_loss(self) -> torch.Tensor:

@@ -10,7 +10,7 @@ never negative.
 ``RecProbModel``: the first P-frame's latent is coded by the factorized
 bottleneck; later frames' by a Gaussian with the RPM's means and scales
 sigma = exp(max(sigma_raw, -7)) / 10, and only those frames advance the RPM
-state. The JAX module runs both branches and selects with ``jnp.where`` so
+state. In training x_hat = x + U, one draw from an explicit source. The JAX module runs both branches and selects with ``jnp.where`` so
 that a scan can carry a traced flag; the port is eager, takes a Python
 bool and runs only the selected branch, with the same outputs. The next
 prior is round(latent), as the JAX rollout takes it (its real-bits coder
@@ -64,18 +64,23 @@ class RecProbModel(nn.Module):
         self.bottleneck = EntropyBottleneck(channels)
         self.gaussian = GaussianConditional()
 
-    def forward(self, x, rpm_hidden, rpm_flag: bool, prior_latent):
+    def forward(self, x, rpm_hidden, rpm_flag: bool, prior_latent, training: bool = False,
+                noise=None):
         """(x_hat, likelihoods, new hidden, new prior, sigma, mu); sigma and
         mu are None on the factorized frame. x_hat is float32 on the
         factorized frame (the bottleneck's), in x's dtype on the Gaussian
-        ones; the likelihoods are float32."""
-        new_prior = quantize(x)
+        ones; the likelihoods are float32. ``training`` draws one U(-0.5,
+        0.5) from ``noise``, for the selected branch (JAX gives both of its
+        branches the same key, so both draw this same U). The new prior is
+        round(x), detached; the RPM's hidden state stays attached, so the
+        gradient runs through it from frame to frame."""
+        new_prior = quantize(x).detach()
         if not rpm_flag:
-            x_hat, lik = self.bottleneck(x)
+            x_hat, lik = self.bottleneck(x, training, noise)
             return x_hat, lik, rpm_hidden, new_prior, None, None
         sigma_raw, mu, rpm_hidden = self.rpm(prior_latent.to(x.dtype), rpm_hidden)
         sigma = rpm_sigma(sigma_raw)
-        x_hat, lik = self.gaussian(x, sigma, mu)
+        x_hat, lik = self.gaussian(x, sigma, mu, training, noise)
         return x_hat, lik, rpm_hidden, new_prior, sigma, mu
 
     def aux_loss(self) -> torch.Tensor:

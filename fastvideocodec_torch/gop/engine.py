@@ -74,43 +74,47 @@ def _stack(per_frame: list) -> dict:
 def _chain(module, gop: torch.Tensor, step):
     """The P-frames of gop [T, 3, H, W] or [T, B, 3, H, W], frame 0 the
     (uncoded) reference, each coded by ``step(t, x_cur, x_prev)`` ->
-    (recon, metrics) against the previous recon. Returns (recon
+    (recon, metrics) against the previous recon, detached. Returns (recon
     [T-1, (B,) 3, H, W] in the model dtype, metrics): float32 [T-1] stacks
     of the model's metrics and ``psnr`` from ``img_loss``."""
     x = _fold(module, gop)
     x_prev = x[0]
     recons, per_frame = [], []
     for t in range(1, x.shape[0]):
-        x_prev, metrics = step(t, x[t], x_prev)
+        x_rec, metrics = step(t, x[t], x_prev)
         metrics["psnr"] = psnr_from_mse(metrics["img_loss"])
-        recons.append(x_prev)
+        recons.append(x_rec)
         per_frame.append(metrics)
+        x_prev = x_rec.detach()
     return _unfold(module, recons, gop), _stack(per_frame)
 
 
-@torch.inference_mode()
-def sequential_gop(spec: CodecSpec, gop: torch.Tensor):
+def sequential_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
     """DVC and Base: each P-frame coded against the previous recon, as
-    ``_chain``."""
-    return _chain(spec.module, gop, lambda t, x_cur, x_prev: spec.module(x_cur, x_prev))
+    ``_chain``. Eval runs under ``torch.inference_mode``; ``training``
+    draws the quantizers' noise from ``noise``, frame by frame, and keeps
+    the autograd graph."""
+    with torch.inference_mode(not training):
+        return _chain(spec.module, gop,
+                      lambda t, x_cur, x_prev: spec.module(x_cur, x_prev, training, noise))
 
 
-@torch.inference_mode()
-def rlvc_gop(spec: CodecSpec, gop: torch.Tensor):
+def rlvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
     """RLVC, RLVC2, RLVC-HP: as ``sequential_gop``, the recurrent state
     starting at zeros and carried from frame to frame; the entropy model is
     the factorized one on the first P-frame and the RPM's after
     (rpm_flag = t > 1)."""
     module = spec.module
-    hidden = module.init_hidden(gop.shape[1] if gop.dim() == 5 else 1, *gop.shape[-2:],
-                                gop.device)
+    with torch.inference_mode(not training):
+        hidden = module.init_hidden(gop.shape[1] if gop.dim() == 5 else 1, *gop.shape[-2:],
+                                    gop.device)
 
-    def step(t, x_cur, x_prev):
-        nonlocal hidden
-        x_prev, hidden, metrics = module(x_prev, x_cur, hidden, t > 1)
-        return x_prev, metrics
+        def step(t, x_cur, x_prev):
+            nonlocal hidden
+            x_rec, hidden, metrics = module(x_prev, x_cur, hidden, t > 1, training, noise)
+            return x_rec, metrics
 
-    return _chain(module, gop, step)
+        return _chain(module, gop, step)
 
 
 def ssf_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
@@ -214,9 +218,6 @@ def estimated_bits(liks) -> float:
 
 ROLLOUTS = {"lsvc": lsvc_gop, "dvc": sequential_gop, "base": sequential_gop,
             "rlvc": rlvc_gop, "ssf": ssf_gop, "elfvc": elfvc_gop}
-# the families that train, and the ROADMAP.md item that brings each other's
-TRAINED = ("lsvc", "ssf", "elfvc", "mcvc")
-TRAINING_ITEM = {"dvc": "7.3", "rlvc": "7.3", "base": "7.3"}
 
 
 def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = False,
@@ -225,19 +226,11 @@ def rollout(spec: CodecSpec, gop: torch.Tensor, mask=None, *, training: bool = F
     MCVC's alone (it stays the third argument, as callers pass it).
     ``training``: the quantizers take U(-0.5, 0.5) noise from ``noise``
     (``ops.math.UniformNoise``, or any callable shaped like it) and the
-    autograd graph is kept; the LSVC, SSF, ELFVC and MCVC families train
-    (the others wait for ROADMAP.md queue 1, item 7)."""
-    if training and spec.family not in TRAINED:
-        item = TRAINING_ITEM.get(spec.family, "7")
-        raise NotImplementedError(
-            f"training the {spec.family!r} family is not ported yet (ROADMAP.md queue 1, "
-            f"item {item}: training for the ported codecs)")
+    autograd graph is kept; every family trains."""
     if spec.family == "mcvc":
         return mcvc_gop(spec, gop, mask, training, noise)
     if mask is not None:
         raise ValueError(f"family {spec.family!r} takes no view mask")
     if spec.family not in ROLLOUTS:
         raise ValueError(f"family {spec.family!r} is not ported yet")
-    if training:
-        return ROLLOUTS[spec.family](spec, gop, training, noise)
-    return ROLLOUTS[spec.family](spec, gop)
+    return ROLLOUTS[spec.family](spec, gop, training, noise)

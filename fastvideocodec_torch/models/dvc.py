@@ -14,7 +14,9 @@ One call codes one P-frame against the previous recon, statelessly:
 The transforms are the stock ones (``stages=4``; the mv decoder's last
 stride-2 deconv runs at full resolution). The warp is the hand-written
 ``flow_warp`` kernel on CUDA tensors: four SpyNet levels and the MC warp, 5
-launches a P-frame. The real-bits coder (coder/video.py) runs the same
+launches a P-frame; in training the quantizers add U(-0.5, 0.5) noise from an
+explicit source, and the warps whose flow needs a gradient (three SpyNet
+levels, the MC warp) take ``flow_warp``'s backward kernel. The real-bits coder (coder/video.py) runs the same
 network in pieces (``mv_symbols`` .. ``reconstruct``), which Base
 (models/base.py) overrides with its error restoration and concealment.
 """
@@ -85,16 +87,19 @@ class DVC(nn.Module):
     # decoder take the motion compensation, the scales and the recon from
     # these same functions on the same shapes and dtypes, so that decode ==
     # encode holds bit for bit; symbols arrive in the model dtype.
-    def mv_symbols(self, x_cur: torch.Tensor, x_ref: torch.Tensor) -> torch.Tensor:
-        return quantize(self.mv_encoder(self.optic_flow(x_cur, x_ref)))
+    def mv_symbols(self, x_cur: torch.Tensor, x_ref: torch.Tensor, training: bool = False,
+                   noise=None) -> torch.Tensor:
+        return quantize(self.mv_encoder(self.optic_flow(x_cur, x_ref)), training, noise)
 
     def mc(self, x_ref: torch.Tensor, mv_q: torch.Tensor) -> torch.Tensor:
         return self.motion_compensation(x_ref, self.mv_decoder(mv_q))[0]
 
-    def analyze(self, x_cur: torch.Tensor, x_mc: torch.Tensor):
-        """(z_q, feat_q) of the residual."""
+    def analyze(self, x_cur: torch.Tensor, x_mc: torch.Tensor, training: bool = False,
+                noise=None):
+        """(z_q, feat_q) of the residual; in training z's draw comes first."""
         feature = self.res_encoder(x_cur - x_mc)
-        return quantize(self.prior_encoder(feature)), quantize(feature)
+        z_q = quantize(self.prior_encoder(feature), training, noise)
+        return z_q, quantize(feature, training, noise)
 
     def sigma(self, z_q: torch.Tensor):
         """(the features' Laplace scales, Base-EC's correction or None)."""
@@ -119,12 +124,16 @@ class DVC(nn.Module):
         BitEstimators and a Laplace)."""
         return torch.zeros((), device=next(self.parameters()).device)
 
-    def forward(self, x_cur: torch.Tensor, x_ref: torch.Tensor):
+    def forward(self, x_cur: torch.Tensor, x_ref: torch.Tensor, training: bool = False,
+                noise=None):
+        """``training``: the mv, z and feature latents take U(-0.5, 0.5) noise
+        from ``noise``, drawn in that order (JAX's). ``img_loss`` is the MSE
+        of the unclipped recon."""
         x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
         B, _, H, W = x_cur.shape
-        mv_q = self.mv_symbols(x_cur, x_ref)
+        mv_q = self.mv_symbols(x_cur, x_ref, training, noise)
         x_mc, x_warp = self.motion_compensation(x_ref, self.mv_decoder(mv_q))
-        z_q, feature_q = self.analyze(x_cur, x_mc)
+        z_q, feature_q = self.analyze(x_cur, x_mc, training, noise)
         sigma, _ = self.sigma(z_q)
         x_rec = x_mc + self.res_decoder(feature_q)
         metrics = {

@@ -1,5 +1,5 @@
 """RLVC / RLVC2 / RLVC-HP: sequential P-frame codecs with recurrent
-autoencoders, ported at eval time from fastvideocodec_tpu/models/rlvc.py
+autoencoders, ported from fastvideocodec_tpu/models/rlvc.py
 (reference IterPredVideoCodecs, models.py:954-1051, and Coder2D,
 models.py:520-681).
 
@@ -22,7 +22,11 @@ polyphase deconv of the DVC transforms. State is carried in ``RlvcHidden``
 (NCHW): the autoencoders' [B, 4C, H/4, W/4] (encoder 2C, decoder 2C), the
 RPMs' [B, 2C, H/16, W/16] and the previous latents [B, C, H/16, W/16].
 The warp is the ``flow_warp`` kernel on CUDA tensors, 5 launches a
-P-frame. The real-bits coder (coder/video.py) runs the Coder2D in pieces
+P-frame. In training the latents take noise from an explicit source (RLVC's
+RecProbModel one draw for its selected branch, RLVC-HP's hyperprior z's
+then the latent's), the autoencoders' states are detached from frame to
+frame and the RPMs' are not, so the gradient runs through the RPMs across
+the GOP's P-frames. The real-bits coder (coder/video.py) runs the Coder2D in pieces
 (``encode``, ``decode``, the entropy model's nets).
 """
 
@@ -95,22 +99,31 @@ class Coder2D(nn.Module):
         x = self.igdn3(self.dec3(x))
         return dec4(x), state_dec
 
-    def entropy_code(self, latent, rpm_hidden, rpm_flag: bool, prior_latent):
-        """(latent_hat, likelihoods float32, rpm_hidden, prior_latent)."""
+    def entropy_code(self, latent, rpm_hidden, rpm_flag: bool, prior_latent,
+                     training: bool = False, noise=None):
+        """(latent_hat, likelihoods float32, rpm_hidden, prior_latent).
+        ``training`` draws the latent's noise from ``noise`` (mshyper: z's,
+        then the latent's); the next prior is round(latent), detached."""
         if self.entropy_type == "mshyper":
-            latent_hat, (x_lik, z_lik), _, _ = self.entropy(latent)
+            latent_hat, (x_lik, z_lik), _, _ = self.entropy(latent, training, noise)
             return latent_hat, torch.cat([x_lik, z_lik], dim=1), rpm_hidden, prior_latent
         if self.entropy_type == "rpm2":
-            latent_hat = quantize(latent)
+            latent_hat = quantize(latent, training, noise)
             if rpm_flag:
                 sigma_raw, _, rpm_hidden = self.rpm(prior_latent.to(latent.dtype), rpm_hidden)
                 lik = laplace_likelihood(latent_hat.float(), sigma_raw.float())
             else:
                 lik = self.bit_estimator.likelihood(latent_hat)
-            return latent_hat, lik, rpm_hidden, latent_hat  # the prior: round(latent)
+            return latent_hat, lik, rpm_hidden, quantize(latent).detach()
         latent_hat, lik, rpm_hidden, prior_latent, _, _ = self.entropy(
-            latent, rpm_hidden, rpm_flag, prior_latent)
+            latent, rpm_hidden, rpm_flag, prior_latent, training, noise)
         return latent_hat, lik, rpm_hidden, prior_latent
+
+
+def clip_recon(x: torch.Tensor) -> torch.Tensor:
+    """The recon clipped to [0, 1] (a branch that tools/train_parity.py's
+    CardBranches can pin: its gradient passes inside [0, 1] alone)."""
+    return torch.clamp(x, 0.0, 1.0)
 
 
 class RlvcHidden(NamedTuple):
@@ -159,28 +172,33 @@ class RLVC(nn.Module):
         x_warp = flow_warp(x_ref, mv_hat)
         return self.warpnet(torch.cat([x_warp, x_ref], dim=1)) + x_warp, x_warp
 
-    def _run_codec(self, codec, dec4, x, rae_hidden, rpm_hidden, rpm_flag, prior_latent):
+    def _run_codec(self, codec, dec4, x, rae_hidden, rpm_hidden, rpm_flag, prior_latent,
+                   training: bool = False, noise=None):
         state_enc, state_dec = rae_hidden.chunk(2, dim=1)
         latent, state_enc = codec.encode(x, state_enc)
         latent_hat, lik, rpm_hidden, prior_latent = codec.entropy_code(
-            latent, rpm_hidden, rpm_flag, prior_latent)
+            latent, rpm_hidden, rpm_flag, prior_latent, training, noise)
         hat, state_dec = codec.decode(latent_hat.to(self.dtype), state_dec, dec4)
-        rae_hidden = torch.cat([state_enc, state_dec], dim=1)
+        rae_hidden = torch.cat([state_enc, state_dec], dim=1).detach()
         return hat, rae_hidden, rpm_hidden, bits_estimate(lik), prior_latent
 
     def forward(self, x_ref: torch.Tensor, x_cur: torch.Tensor, hidden: RlvcHidden,
-                rpm_flag: bool):
+                rpm_flag: bool, training: bool = False, noise=None):
+        """``training``: the mv codec's latent takes its noise from
+        ``noise``, then the residual codec's. The autoencoders' states
+        leave detached; the RPMs' stay attached. ``img_loss`` is the MSE of
+        the clipped recon, so its gradient passes the clip."""
         x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
         B, _, H, W = x_cur.shape
         mv = self.optic_flow(x_cur, x_ref)
         mv_hat, rae_mv, rpm_mv, mv_bits, mv_prior = self._run_codec(
             self.mv_codec, self.mv_dec4, mv, hidden.rae_mv, hidden.rpm_mv, rpm_flag,
-            hidden.mv_prior)
+            hidden.mv_prior, training, noise)
         x_mc, x_warp = self.motion_compensation(x_ref, mv_hat)
         res_hat, rae_res, rpm_res, res_bits, res_prior = self._run_codec(
             self.res_codec, self.res_dec4, x_cur - x_mc, hidden.rae_res, hidden.rpm_res,
-            rpm_flag, hidden.res_prior)
-        x_rec = torch.clamp(res_hat + x_mc, 0.0, 1.0)
+            rpm_flag, hidden.res_prior, training, noise)
+        x_rec = clip_recon(res_hat + x_mc)
         denom = B * H * W
         metrics = {
             "bpp_est": (mv_bits + res_bits) / denom,

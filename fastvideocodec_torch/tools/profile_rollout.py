@@ -6,8 +6,9 @@
         [--views 4] [--h 256 --w 256] [--json PATH] [--train]
 
 ``--train`` profiles one training step in place of a rollout (an LSVC,
-SSF or ELFVC form, float32, --h x --w, 256x256 unless given, GOP 16 of
-synth_gop_multi seed 0; or MCVC-IA on ``--views`` views of MCVC's clip
+SSF, ELFVC, DVC, RLVC or Base form, float32, --h x --w, 256x256 unless
+given, GOP 16 of synth_gop_multi seed 0, Base-ER's forms with the
+soft2hard three passes; or MCVC-IA on ``--views`` views of MCVC's clip
 below, every view alive; the step of ``train.make_train_step`` at lr 1e-4
 after a warm-up step): its card ms beside its host enqueue ms, and the kernel section
 below; no module split.
@@ -162,14 +163,11 @@ def call_kernels(module, args, kwargs) -> dict:
 
 def profile_train_step(args) -> int:
     """``--train``: one training step, timed and profiled."""
-    from fastvideocodec_torch.gop.engine import TRAINED
     from fastvideocodec_torch.ops.math import UniformNoise
     from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training
 
     views = args.views if args.codec.startswith("MCVC-IA") else 1
     spec, trained = load_model(args.codec, 2, torch.float32, "cuda", views)
-    if spec.family not in TRAINED:
-        raise SystemExit(f"--train: {args.codec} does not train in the port yet")
     h, w = args.h, args.w
     rng = np.random.default_rng(0)
     if spec.family == "mcvc":  # every view alive
@@ -181,7 +179,8 @@ def profile_train_step(args) -> int:
             .contiguous().cuda() for _ in range(4)]
         masks = ()
     params = ready_for_training(spec)
-    init_fn, step_fn = make_train_step(spec, TrainConfig(learning_rate=1e-4))
+    cfg = TrainConfig(learning_rate=1e-4, soft2hard="-ER" in args.codec)
+    init_fn, step_fn = make_train_step(spec, cfg)
     state = {"params": params, "opt": init_fn(params), "noise": UniformNoise(0), "i": 0}
     name = torch.cuda.get_device_name(0)
     what = f"{views} views of " if spec.family == "mcvc" else ""

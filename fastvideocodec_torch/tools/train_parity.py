@@ -5,10 +5,11 @@ and where the two part.
         [--codec ELFVC-SP-TPU ELFVC-SP] [--h 64 --w 128 --gop 4]
 
 Each codec at full width on seeded_flat(name, 0) (sp_stage 1 for the
-ELFVC-SP forms, as cli/train.py builds them), float32 with TF32 off: one
-backward of ``gop_loss`` on the top-left h x w of a synth_gop_multi clip
-(seed 0), the noise drawn on the host from seed 0 for both devices
-(``chip_smoke.py`` phase 46's step). It prints:
+ELFVC-SP forms, as cli/train.py builds them; DVC, RLVC and Base with the
+pretrained SpyNet but in their -TINY forms, Base-ER's forms with the soft2hard three passes),
+float32 with TF32 off: one backward of ``gop_loss`` on the top-left h x w
+of a synth_gop_multi clip (seed 0), the noise drawn on the host from seed
+0 for both devices (``chip_smoke.py`` phase 46's step). It prints:
 
 - each parameter's gradient gap (max abs over its max |grad|), the worst
   first, each device on its own ReLU branches;
@@ -18,8 +19,8 @@ backward of ``gop_loss`` on the top-left h x w of a synth_gop_multi clip
   tensors (the layer above's output gradient and this layer's output),
   and the elements whose ReLU mask differs between the devices;
 - the same gaps with the CPU on the card's ReLU and leaky ReLU branches
-  (``CardBranches``), and how many activation elements took the other
-  branch on the CPU.
+  and RLVC's clip of the recon (``CardBranches``), and how many activation
+  elements took the other branch on the CPU.
 
 A pre-activation within float32 noise of 0 may pass its gradient on one
 device and not on the other; that is a branch, not an error of either
@@ -37,7 +38,9 @@ import torch.nn.functional as F
 
 from fastvideocodec_torch import get_codec_model
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from fastvideocodec_torch.layers.spynet import load_pretrained_spynet
 from fastvideocodec_torch.layers.transforms import SSFHyperDecoder
+from fastvideocodec_torch.models import rlvc
 from fastvideocodec_torch.ops.math import UniformNoise
 from fastvideocodec_torch.train import olft
 from fastvideocodec_torch.train import TrainConfig, gop_loss, ready_for_training
@@ -46,39 +49,52 @@ from fastvideocodec_torch.weights import load_flat, seeded_flat
 
 class CardBranches:
     """F.relu and F.leaky_relu wrapped (the SSF hyper decoders' ReLU too,
-    a class attribute), as a context. Without ``replay``
-    each call records the elements on the positive branch (x > 0) in
-    ``masks``; with the masks another run recorded (the card's) each call
-    takes that run's branch, its value and its gradient, and counts in
-    ``flips`` the elements whose own branch differed. Both runs must make
-    the same calls in the same order (the same model and clip)."""
+    a class attribute), and RLVC's clip of the recon to [0, 1]
+    (``models.rlvc.clip_recon``), as a context. Without ``replay`` each
+    call records its branch in ``masks``: the activations' positive one (x
+    > 0), the clip's inside one (0 <= x <= 1, where its gradient passes);
+    with the masks another run recorded (the card's) each call takes that
+    run's branch, its value and its gradient, and counts in ``flips`` the
+    elements whose own branch differed. Both runs must make the same calls
+    in the same order (the same model and clip)."""
 
     def __init__(self, replay=None):
-        self.orig = (F.relu, F.leaky_relu)
+        self.orig = (F.relu, F.leaky_relu, rlvc.clip_recon)
         self.masks, self.replay, self.flips = [], replay, 0
 
-    def take(self, x, out, slope):
-        pos = (x > 0).detach()
-        self.masks.append(pos.cpu())
+    def branch(self, mine: torch.Tensor):
+        """The card's branch of this call where replaying, else None;
+        records ``mine`` and counts the flips."""
+        self.masks.append(mine.cpu())
         if self.replay is None:
-            return out
-        want = self.replay[len(self.masks) - 1].to(x.device)
-        if want.shape != pos.shape:
+            return None
+        want = self.replay[len(self.masks) - 1].to(mine.device)
+        if want.shape != mine.shape:
             raise RuntimeError("the two runs called the activations apart")
-        flipped = int((want != pos).sum())
+        flipped = int((want != mine).sum())
         self.flips += flipped
-        return out if not flipped else x * torch.where(want, 1.0, slope).to(x.dtype)
+        return want if flipped else None
+
+    def take(self, x, out, slope):
+        want = self.branch((x > 0).detach())
+        return out if want is None else x * torch.where(want, 1.0, slope).to(x.dtype)
+
+    def clip(self, x):
+        out = self.orig[2](x)
+        want = self.branch(((x >= 0) & (x <= 1)).detach())
+        return out if want is None else torch.where(want, x, out.detach())
 
     def __enter__(self):
-        relu, leaky = self.orig
+        relu, leaky, _ = self.orig
         F.relu = lambda x, inplace=False: self.take(x, relu(x), 0.0)
         F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self.take(
             x, leaky(x, negative_slope), negative_slope)
         SSFHyperDecoder.act = staticmethod(F.relu)  # the hyper decoders' ReLU
+        rlvc.clip_recon = self.clip
         return self
 
     def __exit__(self, *exc):
-        F.relu, F.leaky_relu = self.orig
+        F.relu, F.leaky_relu, rlvc.clip_recon = self.orig
         SSFHyperDecoder.act = staticmethod(self.orig[0])
 
 
@@ -125,6 +141,8 @@ def step(name: str, clip: torch.Tensor, device: str, replay=None):
     at the output)}, the module, the CardBranches)."""
     spec = get_codec_model(name, device=device)
     load_flat(spec.module, seeded_flat(name, 0))
+    if spec.family in ("dvc", "rlvc", "base") and "-TINY" not in name:
+        load_pretrained_spynet(spec.module.optic_flow)
     params = ready_for_training(spec)
     frames = []
     hooks = []
@@ -140,7 +158,7 @@ def step(name: str, clip: torch.Tensor, device: str, replay=None):
                   for n, mod in decoder.named_children()]
     with CardBranches(replay) as branches:
         loss, _ = gop_loss(spec, clip.to(device), True, UniformNoise(0, device="cpu"),
-                           TrainConfig(learning_rate=1e-4))
+                           TrainConfig(learning_rate=1e-4, soft2hard="-ER" in name))
         loss.backward()
     for h in hooks:
         h.remove()

@@ -18,14 +18,17 @@ runs autograd over ``spec.module``'s own parameters, readied by
 ``ready_for_training`` (float32, requiring grad), and updates them in
 place. Every warp's backward on the card is a hand-written backward
 kernel (ops/warp.py:KernelWarp), exact like JAX's training warp
-(``exact_warp``). The LSVC, SSF, ELFVC and MCVC families train (MCVC-IA-OLFT's
-online fine-tuning step is ``train/olft.py``); ELFVC-SP's staged recipe
-freezes by ``make_elfvc_stage_optimizer``. Float32 only; DVC, RLVC and
-Base wait (ROADMAP.md queue 1, item 7).
+(``exact_warp``). Every family trains, under loss type "P" (MSE) or "M"
+(1 - MS-SSIM): LSVC, SSF, ELFVC, MCVC (MCVC-IA-OLFT's online fine-tuning
+step is ``train/olft.py``), DVC, RLVC and Base (Base-ER with the soft2hard
+three passes under ``TrainConfig.soft2hard``); ELFVC-SP's staged recipe
+freezes by ``make_elfvc_stage_optimizer``. Float32 only: bfloat16 training
+waits (ROADMAP.md queue 1, item 7.4).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -34,15 +37,14 @@ import torch
 
 from fastvideocodec_torch.gop.engine import rollout
 from fastvideocodec_torch.models.registry import CodecSpec
+from fastvideocodec_torch.ops.msssim import ms_ssim
 
-ROADMAP_TRAINING = "ROADMAP.md queue 1, item 7: training for the ported codecs"
+ROADMAP_TRAINING = "ROADMAP.md queue 1, item 7"
 
 
 @dataclass
 class TrainConfig:
-    """JAX's TrainConfig but for ``r_img``, which no code reads, and
-    ``soft2hard``, Base-ER's three-pass schedule, which comes with Base's
-    training (ROADMAP.md queue 1, item 7)."""
+    """JAX's TrainConfig but for ``r_img``, which no code reads."""
 
     learning_rate: float = 1e-4
     aux_learning_rate: float = 1e-3
@@ -51,6 +53,7 @@ class TrainConfig:
     alpha: float = 1.0       # ELFVC-SP pred_err weight
     r_bpp: float = 1.0
     r_aux: float = 1.0
+    soft2hard: bool = False  # Base-ER's s2h three-pass schedule (reference models.py:318-344)
 
 
 def ready_for_training(spec: CodecSpec) -> dict:
@@ -62,9 +65,55 @@ def ready_for_training(spec: CodecSpec) -> dict:
     module = spec.module
     if getattr(module, "dtype", torch.float32) != torch.float32 or any(
             p.dtype != torch.float32 for p in module.parameters()):
-        raise NotImplementedError(f"bfloat16 training is not ported yet ({ROADMAP_TRAINING})")
+        raise NotImplementedError(f"bfloat16 training is not ported yet ({ROADMAP_TRAINING}.4: bf16 "
+                                  "training)")
     module.train().requires_grad_(True)
     return dict(module.named_parameters())
+
+
+class RecordedNoise:
+    """A noise source that keeps each of its draws, in order, for
+    ``replay``."""
+
+    def __init__(self, noise):
+        self.noise, self.draws = noise, []
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        u = self.noise(x)
+        self.draws.append(u)
+        return u
+
+    def replay(self):
+        """A noise source that gives the recorded draws again, in order."""
+        draws = iter(self.draws)
+
+        def again(x: torch.Tensor) -> torch.Tensor:
+            u = next(draws)
+            if u.shape != x.shape:
+                raise RuntimeError(f"replayed draw {tuple(u.shape)} for {tuple(x.shape)}")
+            return u
+
+        return again
+
+
+@contextlib.contextmanager
+def s2h_stage(module, stage: int):
+    """Base-ER's soft2hard stage set on ``module`` for the context."""
+    saved = module.s2h_stage
+    module.s2h_stage = stage
+    try:
+        yield module
+    finally:
+        module.s2h_stage = saved
+
+
+def msssim_distortion(spec: CodecSpec, x_hat: torch.Tensor, gop: torch.Tensor) -> torch.Tensor:
+    """1 - ms_ssim of the recon against its frames (loss type "M"): the
+    whole GOP for MCVC, whose recon holds the keyframe, the P-frames
+    otherwise; every frame of every item in one batch."""
+    target = gop if spec.family == "mcvc" else gop[1:]
+    return 1.0 - ms_ssim(x_hat.float().reshape((-1,) + x_hat.shape[-3:]),
+                         target.float().reshape((-1,) + target.shape[-3:]))
 
 
 def gop_loss(spec: CodecSpec, gop: torch.Tensor, training: bool, noise, cfg: TrainConfig,
@@ -74,15 +123,28 @@ def gop_loss(spec: CodecSpec, gop: torch.Tensor, training: bool, noise, cfg: Tra
     unless OLFT); the others sum(r * img_loss + bpp_est), plus Base-ER's
     sum(pred_err) and ELFVC-SP's alpha * sum(pred_err_norm); then r_aux
     times the model's aux loss. Metrics: loss, mean psnr, mean bpp, mean
-    img_loss (LSVC's rec_loss), aux. Loss type "M" (MS-SSIM) waits for
-    ops/msssim.py (ROADMAP.md queue 1, item 8)."""
-    if spec.loss_type == "M":
-        raise NotImplementedError("loss type 'M' needs ops/msssim.py, not ported yet "
-                                  "(ROADMAP.md queue 1, item 8)")
+    img_loss (LSVC's rec_loss), aux.
+
+    Loss type "M": d = 1 - MS-SSIM over the GOP (``msssim_distortion``)
+    replaces LSVC's rec_loss and everyone's img_loss, broadcast to the
+    shape of psnr (so the summed loss counts r * d once a frame, as JAX's
+    does). Base-ER with ``cfg.soft2hard`` in training reruns the GOP at
+    s2h_stage 1 and 2 under pass 0's draws (recorded and replayed: JAX
+    reuses one key) and takes r times the mean of the three passes'
+    img_loss (their MSE) with pass 0's rates."""
     r = spec.r
-    _, m = rollout(spec, gop, mask, training=training, noise=noise)
-    img = m["img_loss"] if "img_loss" in m else m["rec_loss"]
     module = spec.module
+    soft2hard = training and cfg.soft2hard and spec.family == "base" and module.use_er
+    if soft2hard:
+        noise = RecordedNoise(noise)
+    x_hat, m = rollout(spec, gop, mask, training=training, noise=noise)
+    if spec.loss_type == "M":
+        d = msssim_distortion(spec, x_hat, gop)
+        m = dict(m)
+        m["img_loss"] = d.expand(m["psnr"].shape) if m["psnr"].dim() > 0 else d
+        if "rec_loss" in m:
+            m["rec_loss"] = d
+    img = m["img_loss"] if "img_loss" in m else m["rec_loss"]
     if spec.family == "lsvc":
         loss = r * m["rec_loss"] + cfg.r_bpp * m["bpp"]
     elif spec.family == "mcvc":
@@ -91,6 +153,13 @@ def gop_loss(spec: CodecSpec, gop: torch.Tensor, training: bool, noise, cfg: Tra
             loss = loss + torch.sum(m["bpp_est"])
     else:
         loss = torch.sum(r * m["img_loss"] + m["bpp_est"])
+        if soft2hard:
+            mses = [m["img_loss"]]
+            for stage in (1, 2):
+                with s2h_stage(module, stage):
+                    mses.append(rollout(spec, gop, mask, training=True,
+                                        noise=noise.replay())[1]["img_loss"])
+            loss = torch.sum(r * ((mses[0] + mses[1] + mses[2]) / 3.0) + m["bpp_est"])
         if spec.family == "base" and module.use_er:
             loss = loss + torch.sum(m["pred_err"])
         if spec.family == "elfvc" and module.super_prec:

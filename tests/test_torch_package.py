@@ -90,7 +90,8 @@ def test_port_imports_without_jax():
         "for name in ('models.dvc', 'models.base', 'models.rlvc', 'entropy.rpm',\n"
         "             'layers.codecnet', 'train.trainer', 'train.checkpoint',\n"
         "             'train.olft', 'cli.train', 'cli.train_multiview', 'utils.meters',\n"
-        "             'utils.logs', 'data.vimeo', 'data.loader', 'data.multiview'):\n"
+        "             'utils.logs', 'data.vimeo', 'data.loader', 'data.multiview',\n"
+        "             'ops.msssim'):\n"
         "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
@@ -948,6 +949,36 @@ def test_olft_step_runs_without_jax():
         "n = olft.touchup_bytes(m.pop('touch_refs'), m.pop('touch_labels'), m.pop('touch_mask'))\n"
         "assert n > 0 and all(bool(torch.isfinite(v)) for v in m.values()), m\n"
         "assert state['main']['count'] == 1\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+        "                              'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_dvc_step_runs_without_jax():
+    """One training step of DVC-TINY on tiny_dvc_l2 on the CPU, and the
+    MS-SSIM loss of the module's ops, with JAX, optax, orbax and PIL
+    unimportable."""
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+        "from fastvideocodec_torch.ops import ms_ssim\n"
+        "from fastvideocodec_torch.ops.math import UniformNoise\n"
+        "from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training\n"
+        "spec = ft.get_codec_model('DVC-TINY', device='cpu')\n"
+        "ft.load_asset(spec.module, 'tiny_dvc_l2')\n"
+        "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))\n"
+        "params = ready_for_training(spec)\n"
+        "init_fn, step_fn = make_train_step(spec, TrainConfig())\n"
+        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
+        "assert all(bool(torch.isfinite(v)) for v in m.values()), m\n"
+        "assert state['main']['count'] == 1\n"
+        "x = torch.rand(1, 3, 176, 176)\n"
+        "assert abs(float(ms_ssim(x, x)) - 1.0) < 1e-5\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
         "                              'fastvideocodec_tpu')]\n"

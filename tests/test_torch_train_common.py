@@ -1,6 +1,9 @@
-"""What tests/test_torch_train_ssf.py and tests/test_torch_train_elfvc.py
-share: the tiny clip, the recording of JAX's draws and their replay in the
-port, the carrying of JAX's flat tensors onto the port's parameter names,
+"""What the training parity tests (tests/test_torch_train_{ssf,elfvc,mcvc,
+olft,dvc,rlvc}.py, tests/test_torch_msssim.py) share: the tiny clip, the
+recording of JAX's draws and their replay in the port, the carrying of
+JAX's flat tensors onto the port's parameter names, JAX's references
+(``jax_loss_grads``: gop_loss and its gradient under one ``jax.jit`` a
+case, compiled on threads; ``jax_train_steps``: JAX's make_train_step),
 and the bars that hold the port's training to JAX's (one copy of each).
 It holds no test of its own.
 
@@ -52,6 +55,7 @@ The bars:
 """
 
 import copy
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -61,9 +65,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import fastvideocodec_torch as ft
 from fastvideocodec_torch.data.synthetic import synth_gop
 from fastvideocodec_torch.layers.transforms import SSFHyperDecoder
-from fastvideocodec_torch.weights import load_flat
+from fastvideocodec_torch.weights import asset_path, flatten_params, load_flat
 
 GOP, SIZE = 4, 64
 LR = 1e-4
@@ -74,6 +79,7 @@ PARAM_ABS = 1e-6
 SETTLED = 3 * GRAD_REL  # from this share of the max up a gradient's sign is JAX's
 FLOW_GRAD_REL = 5e-3  # a gradient that reaches its parameter only through a flow gradient
 METRICS = ("loss", "psnr", "bpp", "img_loss", "aux")
+COMPILE_THREADS = 3  # JAX compiles at once in jax_loss_grads
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -287,3 +293,97 @@ def assert_params_close(params: dict, want: dict, jax_grads: list, flow_path: tu
     print(f"parameters after {steps} step(s): {exempt} of {total} elements "
           f"({exempt / total:.3%}) have a gradient under SETTLED = {SETTLED:.0e} of their "
           f"parameter's max in some step and are held to 2 lr a step")
+
+
+def asset_flat(name: str) -> dict:
+    """A shipped checkpoint's flat '/'-joined flax names (under params/),
+    float32."""
+    with np.load(asset_path(name)) as data:
+        return {k: data[k].astype(np.float32) for k in data.files}
+
+
+def seeded_with_asset(name: str, asset: str, rename=lambda key: key) -> dict:
+    """seeded_flat(name, 0) with the shipped ``asset``'s tensors where they
+    fit (each asset key through ``rename`` first)."""
+    flat = ft.seeded_flat(name, 0)
+    for key, value in asset_flat(asset).items():
+        key = rename(key)
+        if key in flat and flat[key].shape == value.shape:
+            flat[key] = value
+    return flat
+
+
+def port_spec(name: str, flat: dict, fields: dict | None = None):
+    """The port's ``name`` on the CPU with the flat weights loaded and the
+    module's ``fields`` set."""
+    spec = ft.get_codec_model(name, device="cpu")
+    load_flat(spec.module, flat)
+    for key, value in (fields or {}).items():
+        setattr(spec.module, key, value)
+    return spec
+
+
+def jax_tree(flat: dict) -> dict:
+    """A flax variables dict {"params": {...}} from flat '/'-joined names."""
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        for part in key.split("/")[:-1]:
+            node = node.setdefault(part, {})
+        node[key.split("/")[-1]] = jnp.asarray(value)
+    return tree
+
+
+def jax_loss_grads(jax_gop_loss, cases: list, seed: int = 3, grads: bool = True) -> list:
+    """JAX's ``gop_loss`` in training with its gradient (none without
+    ``grads``), for each case (jspec, flat variables, gop, TrainConfig[,
+    mask]), each under one ``jax.jit``: [(metrics as floats, flat gradients
+    or None, the draws in the run's order)]. Each case compiles on a thread
+    of its own while the next is traced (XLA's compile releases the GIL; a
+    trace does not)."""
+    lowered = []
+    with pytest.MonkeyPatch.context() as mp, jax.default_matmul_precision("highest"), \
+            ThreadPoolExecutor(max_workers=COMPILE_THREADS) as pool:
+        for jspec, flat, gop, cfg, *mask in cases:
+            rec = JaxDraws()
+            mp.setattr(jax.random, "uniform", rec)
+            params = jax_tree(flat)
+
+            def fn(p, jspec=jspec, gop=jnp.asarray(gop), cfg=cfg, mask=(mask or [None])[0]):
+                return jax_gop_loss(jspec, p, gop, True, jax.random.PRNGKey(seed), cfg, mask)
+
+            if grads:
+                fn = jax.value_and_grad(fn, has_aux=True)
+            lowered.append((pool.submit(jax.jit(fn).lower(params).compile), params, rec))
+    out = []
+    for compiled, params, rec in lowered:
+        result = compiled.result()(params)
+        jax.block_until_ready(result)
+        (_, jm), g = result if grads else (result, None)
+        out.append(({k: float(v) for k, v in jm.items()},
+                    None if g is None else flatten_params(g), rec.take()))
+    return out
+
+
+def jax_train_steps(jax_trainer, jspec, flat: dict, gop, seeds=(1, 2)) -> list:
+    """JAX's make_train_step (jitted once) from ``flat``, a step per seed:
+    each step's draws, gradients (from a pass-through optax stage chained
+    before the optimizer), parameters and metrics."""
+    cfg = jax_trainer.TrainConfig(learning_rate=LR)
+    params = jax_tree(flat)
+    rec = JaxDraws()
+    steps = []
+    with pytest.MonkeyPatch.context() as mp, jax.default_matmul_precision("highest"):
+        mp.setattr(jax.random, "uniform", rec)
+        tx = optax.chain(grab_grads(), jax_trainer.make_optimizer(cfg))
+        init_fn, step_fn = jax_trainer.make_train_step(jspec, cfg, optimizer=tx)
+        opt_state = init_fn(params)
+        step = jax.jit(step_fn)
+        for seed in seeds:
+            params, opt_state, metrics = step(params, opt_state, jnp.asarray(gop),
+                                              jax.random.PRNGKey(seed))
+            jax.block_until_ready(params)
+            steps.append({"draws": rec.take(), "grads": flatten_params(opt_state[0]["g"]),
+                          "params": flatten_params(params),
+                          "metrics": {k: float(v) for k, v in metrics.items()}})
+    return steps
