@@ -203,11 +203,13 @@ Phases, each timed on its own line:
    each ReLU's and leaky ReLU's positive set, the CPU's takes it, and the
    elements that differed are counted): loss and metrics, each parameter's
    gradient (the worst max abs / max |grad| named) and the parameters
-   after one Adam step, at the TRAIN_CPU_* bars;
+   after one Adam step, at the TRAIN_CPU_* bars; the card under
+   deterministic cuDNN from an emptied cache, as in phase 53 (phases 46
+   and 49 keep cuDNN's defaults, as users train);
 43. LSVC-TPU train at 256x256, GOP 16, float32 (tools/train_tiny.py's
-   lsvctpu256_hd rung): 20 steps of make_train_step from
+   lsvctpu256_hd rung): 10 steps of make_train_step from
    hd_lsvctpuf2_l2, one synth_gop_multi clip a step from default_rng(0),
-   lr 1e-4: ms/step by CUDA events (median and range over steps 5-20),
+   lr 1e-4: ms/step by CUDA events (median and range over steps 5-10),
    host enqueue ms/step, peak GiB, loss/PSNR/bpp/grad_norm of the first
    and last step; the launches exact (a step: 4 + 4 forward warps, 3
    flow_warp and 4 flow_warp_s2d backward kernels), no plain warp called
@@ -215,7 +217,7 @@ Phases, each timed on its own line:
    the parameters moved; then one more step with the backward kernels'
    inputs captured;
 44. the batched train, 4 clips x 7 frames x 256x256 float32 (cli/train.py's
-   default shape), 10 steps under a staircase exponential decay, launches
+   default shape), 5 steps under a staircase exponential decay, launches
    exact, no plain warp; then save_checkpoint/load_checkpoint in a
    temporary directory: parameters, optimizer state, epoch and score equal
    bit for bit, and the next step runs; ms/step and peak GiB (the batch is
@@ -234,7 +236,7 @@ Phases, each timed on its own line:
    the pixel warps' backward kernels' flow gradient zeroed, which must
    fail the gradient bar at the motion decoder;
 47. ELFVC-SP, cli/train.py's default codec, on its default batch of 4
-   clips x 7 frames x 256x256, float32, full width from seeded_flat: 10
+   clips x 7 frames x 256x256, float32, full width from seeded_flat: 5
    steps of the default stage, then 3 steps each of
    make_elfvc_stage_optimizer's stages 0, 1 and 2; per stage ms/step by
    CUDA events (median and range), host enqueue, peak GiB, and loss, PSNR,
@@ -245,7 +247,7 @@ Phases, each timed on its own line:
    unit gradients (JAX's test); then one step with the pixel warps'
    backward inputs captured;
 48. SSF-TPU and ELFVC-SP-TPU at 256x256, GOP 16, float32 (phase 43's
-   shape), 10 steps each from seeded_flat, the same readings: each
+   shape), 5 steps each from seeded_flat, the same readings: each
    P-frame 1 (SSF-TPU) or 2 (ELFVC-SP-TPU) pixel_warp at C = 15 and
    pixel_warp_s2d_sflow, each with a flow-only backward kernel; the
    parameters outside the keyframe's transforms moved; one step's
@@ -255,8 +257,8 @@ Phases, each timed on its own line:
    2 failed, as phase 46 (the OLFT step's loss is olft_loss; the CPU also
    takes the card's touch-up masks), with the same control;
 50. cli/train_multiview.py's loop at full width on 4 views of 256x256,
-   GOP 16, float32: 10 OLFT steps of MCVC-IA-OLFT (touch-up ratio 0.1,
-   each step's labels priced on the host) and 10 steps of MCVC-IA, the
+   GOP 16, float32: 5 OLFT steps of MCVC-IA-OLFT (touch-up ratio 0.1,
+   each step's labels priced on the host) and 5 steps of MCVC-IA, the
    view masks of --resilience 1 from the host's default_rng(0); the
    readings of phase 48 and touch_bpp, each P-frame 1 pixel_warp at C = 18
    and its flow-only backward kernel; the parameters OLFT's loss does not
@@ -280,7 +282,7 @@ Phases, each timed on its own line:
    cuDNN (the seeded DVC step's SpyNet gradient, a small sum of large
    terms, moves with the order of cuDNN's atomic backward), with a control
    that zeroes flow_warp_backward's flow gradient;
-54. those three for 10 steps each and RLVC2 and RLVC-HP for 3 on
+54. those three for 5 steps each and RLVC2 and RLVC-HP for 3 on
    cli/train.py's default batch of 4 x 7 x 256x256, float32, the readings
    of phase 47; each P-frame 5 flow_warp and 4 flow-only backward launches
    (Base-EC-ER's soft2hard 15 and 5: ``chain_train_launches``), stated
@@ -293,7 +295,37 @@ Phases, each timed on its own line:
    its recon, and that MS-SSIM on the card against the CPU's;
 56. flow_warp and flow_warp_backward on DVC's training step's 120 and 96
    launches, by shape: as phases 31 and 45 (the backward held to the
-   plain vjp on each launch).
+   plain vjp on each launch);
+57. bf16 training (flax's mixed precision, JAX's --bf16: float32 masters,
+   bfloat16 convs and Denses, the masters cast once a step), card against
+   itself under deterministic cuDNN: one step of LSVC-TPU, SSF-TPU,
+   ELFVC-SP-TPU, MCVC-IA (3 views, view 2 failed) and DVC at full width
+   (the weights of phases 42-53) at 64x128, GOP 4, in bf16 and in float32
+   on the card and on the CPU: the card's bf16 gradient's relative L2
+   distance from its own float32 step within BF16_DRIFT times the CPU's
+   (each top-level submodule within BF16_SUB_DRIFT times, or
+   BF16_SUB_FLOOR), its distance from the CPU's bf16 gradient within
+   1 + BF16_DRIFT times the CPU's drift plus the two float32 steps' gap,
+   and a control with the warps' flow gradient zeroed (MCVC's scaled by
+   BF16_MCVC_CONTROL_SCALE) that must miss;
+58. those five at the float32 phases' shapes (LSVC-TPU, SSF-TPU and
+   ELFVC-SP-TPU at 256x256 GOP 16, MCVC-IA at 4 x 256x256 GOP 16, DVC on
+   4 x 7 x 256x256): BF16_STEPS steps in float32 and as many in bf16 in
+   the same call, each with ms/step by CUDA events, enqueue ms and peak
+   GiB; the warp launches of the two equal, no plain warp or vjp, every
+   value finite, parameters and Adam moments float32; one more bf16 step's
+   backward inputs captured (their image dtype printed: float32 but
+   MCVC's, as the frames keep their dtype in training);
+59. the launches of those steps that run a bf16 backward kernel
+   (MCVC-IA's pixel_warp_backward: every other warp takes a float32 image
+   in training), on their captured inputs, held to the float32 plain vjp
+   at GRAD_TOL["bfloat16"]: warm, L2-flushed and device ms, the byte
+   bound at bf16 bytes, the plain vjp and F.grid_sample's bf16 forward
+   and backward;
+60. cli/train.py --bf16 --codec LSVC-TPU through its main on PNG clips the
+   phase writes: 1 epoch of 3 steps (the float32 CLI's launches), then
+   --resume for a second: float32 checkpoints, the optimizer's count 3
+   then 6.
 
 Along the way it prints a JSON line of MCVC's numbers, one of the stock
 codecs', one of the DVC family's, one of the training numbers and one of
@@ -304,11 +336,12 @@ LSVC-TPU's rollout for the two flow warps, SSF-TPU's timing and
 ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's MCVC-IA and
 SSF-Official timings, flow_warp's on DVC's, LSVC-128's and -RW's inputs
 and flow_warp_s2d's on -HF's stand under ``timing_by_path``; and the two
-backward kernels of the flow warps, their launches those of phase 43's 20
+backward kernels of the flow warps, their launches those of phase 43's
 training steps, their times those of phase 45 (flow_warp_backward's
 launches in phase 54 by codec and its times on DVC's step beside them); the three of the pixel
 warps, their launches those of phases 47, 48 and 50, their times those
-of phase 52: ten kernels in all),
+of phase 52: ten kernels in all; pixel_warp_backward's bf16 instantiation
+on phase 58's bf16 launches under ``bf16_timing_by_path``),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -412,8 +445,8 @@ PIXEL_BACKWARD = {"pixel_warp_backward": "pixel_warp", "pixel_warp_s2d_backward"
 BACKWARD = {**FLOW_BACKWARD, **PIXEL_BACKWARD}
 # LSVC-TPU training on the card (train_tiny.py's lsvctpu256_hd rung, and
 # cli/train.py's default batch): full width, float32, hd_lsvctpuf2_l2
-TRAIN_SIZE, TRAIN_GOP, TRAIN_STEPS, TRAIN_LR = 256, 16, 20, 1e-4
-BATCH_CLIPS, BATCH_GOP, BATCH_STEPS = 4, 7, 10
+TRAIN_SIZE, TRAIN_GOP, TRAIN_STEPS, TRAIN_LR = 256, 16, 10, 1e-4
+BATCH_CLIPS, BATCH_GOP, BATCH_STEPS = 4, 7, 5
 # card vs CPU, one training step at 64x128, GOP 4 (float32, TF32 off): the
 # loss and metrics within 1e-4 relative, each parameter's gradient within
 # 5e-3 of its max |grad| (cuDNN's algorithms and the backward's atomics
@@ -432,10 +465,10 @@ def train_launches_of(layers: int) -> dict:
             "flow_warp_s2d_backward": layers}
 # SSF and ELFVC training on the card, float32, full width from
 # seeded_flat(name, 0), the ELFVC-SP forms at sp_stage 1 (cli/train.py's):
-# ELFVC-SP's default stage, then 3 steps of each make_elfvc_stage_optimizer
+# ELFVC-SP's default stage (5 steps), then 3 steps of each make_elfvc_stage_optimizer
 # stage (JAX's staged recipe, tools/train_tiny.py:train_elfvc, shortened);
 # the -TPU forms at phase 43's 256x256, GOP 16
-ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 10, 3, 10
+ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 5, 3, 5
 DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
 # MCVC training on the card, float32, full width from seeded_flat(name, 0):
 # one step card vs CPU of MCVC-IA and MCVC-IA-OLFT on 3 views of 64x128,
@@ -443,11 +476,11 @@ DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
 # loop on a category of 4 views of 256x256, GOP 16 (MCVC_VIEWS, MCVC_SIZE,
 # GOP): MCVC-IA-OLFT's online fine-tuning (touch-up ratio 0.1, view masks
 # of --resilience 1 from the host's default_rng) and MCVC-IA's RD training,
-# 10 steps each at the CLI's lr; and JAX's TestOlftImprovesHeldout on the
+# 5 steps each at the CLI's lr; and JAX's TestOlftImprovesHeldout on the
 # card: MCVC-IA-OLFT-TINY from tiny_mcvc_l3, 40 OLFT steps at lr 1e-5 on a
 # gamma-shifted synth_mv_gop must lift the held-out PSNR by more than 0.6 dB
 # (JAX measured +1.32 on the CPU)
-MCVC_TRAIN_STEPS, MCVC_TRAIN_LR, OLFT_RATIO, MCVC_RESILIENCE = 10, 1e-5, 0.1, 1
+MCVC_TRAIN_STEPS, MCVC_TRAIN_LR, OLFT_RATIO, MCVC_RESILIENCE = 5, 1e-5, 0.1, 1
 OLFT_STEPS, OLFT_GAMMA, OLFT_GAIN_DB = 40, 1.8, 0.6
 OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyperprior.",
                   "res_hyperprior.")
@@ -459,7 +492,7 @@ OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyp
 # for RLVC2 and RLVC-HP); then cli/train.py --codec DVC --loss-type M through
 # its main on a tree of CLI_CLIPS 7-frame clips of 256x448 PNGs, 1 epoch of
 # CLI_STEPS steps, its checkpoint's MS-SSIM on the card against the CPU's
-CHAIN_TRAIN = {"DVC": 10, "RLVC": 10, "Base-EC-ER": 10, "RLVC2": 3, "RLVC-HP": 3}
+CHAIN_TRAIN = {"DVC": 5, "RLVC": 5, "Base-EC-ER": 5, "RLVC2": 3, "RLVC-HP": 3}
 SOFT2HARD = ("Base-EC-ER",)
 CLI_CLIPS, CLI_STEPS, MSSSIM_CARD_CPU_REL = 12, 3, 1e-5
 # the launches of a DVC, RLVC or Base training step over ``p_frames``
@@ -482,6 +515,19 @@ def pixel_train_launches(name: str, p_frames: int) -> dict:
     per = 2 if name.startswith("ELFVC") else 1
     warps = ("pixel_warp", "pixel_warp_s2d_sflow") if "-TPU" in name else ("pixel_warp",)
     return {f"{k}{part}": per * p_frames for k in warps for part in ("", "_backward")}
+# bf16 training on the card (flax's mixed precision, JAX's --bf16: float32
+# masters, bfloat16 convs and Denses): one step card against the card's own
+# float32 step at 64x128, GOP 4, each bf16 gradient's relative L2 distance
+# within BF16_DRIFT times the CPU's own (every top-level submodule within
+# BF16_SUB_DRIFT times the CPU's, or BF16_SUB_FLOOR), a control with the
+# warps' flow gradient zeroed (MCVC's times BF16_MCVC_CONTROL_SCALE: its
+# motion decoder's gradient is float32 noise, and bf16 rounding moves it
+# more than zeroing its flow part does) that must miss them; then
+# BF16_STEPS steps of each at the float32 phases' shapes beside as many
+# float32 steps in the same call
+BF16_CASES = ("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU", "MCVC-IA", "DVC")
+BF16_DRIFT, BF16_SUB_DRIFT, BF16_SUB_FLOOR = 1.5, 2.0, 1e-2
+BF16_MCVC_CONTROL_SCALE, BF16_STEPS = 100.0, 3
 NCHW_KERNELS = ("flow_warp", "pixel_warp")
 PLANS = ("tiled", "small")  # of pixel_warp (ops/kernels/warp.py:pixel_warp_plan)
 # the small-frame plan's shapes beside the ragged ones: DVC's three SpyNet
@@ -662,6 +708,44 @@ def backward_bound_ms(img, flow, need_img, need_flow) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def grad_drifts(torch, got: dict, want: dict) -> dict:
+    """Relative L2 distances of the gradients ``got`` from ``want``: the
+    whole set's ("whole") and each top-level submodule's that ``want``
+    reaches (a name's first part)."""
+    def rel(names):
+        num = sum(float(torch.sum((got[n].double() - want[n].double()) ** 2)) for n in names)
+        return (num / sum(float(torch.sum(want[n].double() ** 2)) for n in names)) ** 0.5
+
+    out = {"whole": rel(list(want))}
+    for part in sorted({n.split(".")[0] for n in want}):
+        names = [n for n in want if n.split(".")[0] == part]
+        if any(float(want[n].abs().max()) > 0 for n in names):
+            out[part] = rel(names)
+    return out
+
+
+def bf16_misses(card: dict, cpu: dict, cross: dict | None = None,
+                gap32: dict | None = None) -> dict:
+    """The bars of the bf16 card phase the card's drifts ``card`` miss
+    against the CPU's ``cpu`` (grad_drifts of each bf16 step from its
+    float32 step): {part: (card, bar)}. With ``cross`` (grad_drifts of the
+    card's bf16 step from the CPU's) and ``gap32`` (of the card's float32
+    step from the CPU's), also each part's distance from the CPU's bf16
+    gradient within (1 + BF16_DRIFT) times the CPU's drift plus the float32
+    gap (the triangle through the two float32 steps), keyed "... vs cpu"."""
+    misses = {}
+    for part, d in card.items():
+        bar = (BF16_DRIFT * cpu[part] if part == "whole"
+               else max(BF16_SUB_DRIFT * cpu[part], BF16_SUB_FLOOR))
+        if d > bar:
+            misses[part] = (d, bar)
+        if cross is not None and part in cross and part in gap32:
+            bar = (1 + BF16_DRIFT) * cpu[part] + gap32[part]
+            if cross[part] > bar:
+                misses[f"{part} vs cpu"] = (cross[part], bar)
+    return misses
+
+
 @contextlib.contextmanager
 def capture_warp_inputs(captured: dict):
     """Record a clone of the inputs of every warp the models call, by kernel
@@ -792,7 +876,12 @@ def main() -> int:
         space_to_depth,
         staged_tiles,
     )
-    from fastvideocodec_torch.weights import load_flat, seeded_flat
+    from fastvideocodec_torch import weights
+    from fastvideocodec_torch.weights import load_flat
+
+    # one codec's seeded weights at a time, kept while consecutive phases
+    # build it again (drawing ELFVC-SP-TPU's takes seconds)
+    seeded_flat = functools.lru_cache(maxsize=1)(weights.seeded_flat)
 
     def sample_grid(flow):
         """The normalized sampling grid of a flow, in the flow's dtype."""
@@ -2451,11 +2540,13 @@ def main() -> int:
     def nchw_clip(frames) -> "torch.Tensor":
         return torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2).contiguous()
 
-    def train_spec(device):
-        """LSVC-TPU on hd_lsvctpuf2_l2, readied for training: (spec, params)."""
+    def train_spec(device, dtype=torch.float32):
+        """LSVC-TPU on hd_lsvctpuf2_l2, readied for training in ``dtype``
+        (bfloat16: flax's mixed precision, float32 masters): (spec,
+        params)."""
         spec = get_codec_model("LSVC-TPU", device=device)
         load_asset(spec.module, "hd_lsvctpuf2_l2")
-        return spec, ready_for_training(spec)
+        return spec, ready_for_training(spec, dtype)
 
     def grads_of(params):
         return {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -2463,7 +2554,8 @@ def main() -> int:
 
     from fastvideocodec_torch.tools.train_parity import CardBranches, CardTouchups, own_gaps
 
-    def step_card_vs_cpu(label, make_spec, small, control=None, loss_fn=None):
+    def step_card_vs_cpu(label, make_spec, small, control=None, loss_fn=None,
+                         deterministic=False):
         """One training step of ``make_spec(device)`` (spec, params) on the
         card and on the CPU on the clip ``small``, the same noise on both
         devices (drawn on the host from one seed, copied to the card), the
@@ -2474,17 +2566,26 @@ def main() -> int:
         gives (loss, metrics), by default gop_loss's. ``control`` (name: a
         launcher to put in its place) runs the card's step once more with
         those launchers, and that step's gradients must fail the bar.
+        ``deterministic``: the card runs cuDNN's deterministic algorithms,
+        from an emptied cache (with cuDNN's defaults an H100 once gave
+        LSVC-TPU's gradient 2.25e-2 of its max from the CPU's at
+        res_encoder.Conv_2.weight, its norm 1.5e-4 off, where 43 other card
+        steps stood at 4e-6 to 6e-4: the cause is not found, cuDNN's choice
+        of algorithm the suspect); else cuDNN's defaults, as users train.
         Returns the numbers."""
         cfg = TrainConfig(learning_rate=TRAIN_LR)
         loss_fn = loss_fn or (lambda spec, clip, noise: gop_loss(spec, clip, True, noise, cfg))
 
         def run(device, replay=(None, None), launchers=None):
             saved = {n: getattr(kw, n) for n in launchers or {}}
+            if deterministic:
+                torch.cuda.empty_cache()
             try:
                 for n, fn in (launchers or {}).items():
                     setattr(kw, n, fn)
                 spec, params = make_spec(device)
-                with CardBranches(replay[0]) as branches, CardTouchups(replay[1]) as touchups:
+                with CardBranches(replay[0]) as branches, CardTouchups(replay[1]) as touchups, \
+                        deterministic_convs() if deterministic else contextlib.nullcontext():
                     loss, m = loss_fn(spec, small.to(device), UniformNoise(0, device="cpu"))
                     loss.backward()
             finally:
@@ -2539,10 +2640,11 @@ def main() -> int:
         return out
 
     training = {"card": smi}
-    with phase("lsvc-tpu training step, card vs cpu, 64x128 GOP4 f32"):
+    with phase("lsvc-tpu training step, card vs cpu, 64x128 GOP4 f32, deterministic cuDNN"):
         # the clip of phase 4
         clip = synth_gop_multi(np.random.default_rng(0), size=128, gop=4)[:, :64, :128]
-        training["card_vs_cpu"] = step_card_vs_cpu("lsvc-tpu", train_spec, nchw_clip(clip))
+        training["card_vs_cpu"] = step_card_vs_cpu("lsvc-tpu", train_spec, nchw_clip(clip),
+                                                    deterministic=True)
 
     def count_calls(table, calls):
         """``table``'s functions wrapped to count their calls in ``calls``."""
@@ -2779,20 +2881,22 @@ def main() -> int:
     # ---- training: SSF and ELFVC at full width, float32 ----
     from fastvideocodec_torch.train import make_elfvc_stage_optimizer
 
-    def seeded_train_spec(name, device):
+    def seeded_train_spec(name, device, dtype=torch.float32):
         """``name`` at full width on seeded_flat(name, 0) (sp_stage 1 for the
-        ELFVC-SP forms, as cli/train.py builds them), readied for training:
-        (spec, params)."""
+        ELFVC-SP forms, as cli/train.py builds them), readied for training
+        in ``dtype``: (spec, params)."""
         spec = get_codec_model(name, device=device)
         load_flat(spec.module, seeded_flat(name, 0))
-        return spec, ready_for_training(spec)
+        return spec, ready_for_training(spec, dtype)
 
-    def zero_flow_gradient(launch):
-        """``launch`` (a pixel warp's backward launcher) with its flow
-        gradient zeroed: the control of phase 46."""
+    def zero_flow_gradient(launch, scale=0.0):
+        """``launch`` (a warp's backward launcher) with its flow gradient
+        zeroed (or times ``scale``): the control of phase 46."""
         def zeroed(img, flow, grad, need_img, need_flow):
             grad_img, grad_flow = launch(img, flow, grad, need_img, need_flow)
-            return grad_img, None if grad_flow is None else torch.zeros_like(grad_flow)
+            if grad_flow is not None:
+                grad_flow = torch.zeros_like(grad_flow) if scale == 0 else grad_flow * scale
+            return grad_img, grad_flow
         return zeroed
 
     with phase("elfvc-sp-tpu and elfvc-sp training step, card vs cpu, 64x128 GOP4 f32"):
@@ -2922,12 +3026,12 @@ def main() -> int:
     from fastvideocodec_torch.train import make_olft_step, olft_loss
     from fastvideocodec_torch.train.olft import touchup_bytes
 
-    def mcvc_train_spec(name, views, device):
+    def mcvc_train_spec(name, views, device, dtype=torch.float32):
         """``name`` at full width on seeded_flat(name, 0) over ``views``
-        views, readied for training: (spec, params)."""
+        views, readied for training in ``dtype``: (spec, params)."""
         spec = get_codec_model(name, device=device, num_views=views)
         load_flat(spec.module, seeded_flat(name, 0))
-        return spec, ready_for_training(spec)
+        return spec, ready_for_training(spec, dtype)
 
     def views_nchw(frames) -> "torch.Tensor":
         """synth_mv_gop's [T, V, H, W, 3] as MCVC's gop [T, V, 3, H, W]."""
@@ -3133,13 +3237,13 @@ def main() -> int:
     from fastvideocodec_torch.ops import ms_ssim
     from fastvideocodec_torch.train.trainer import msssim_distortion
 
-    def chain_train_spec(name, device, loss_type="P"):
+    def chain_train_spec(name, device, loss_type="P", dtype=torch.float32):
         """``name`` at full width on seeded_flat(name, 0) with the pretrained
-        SpyNet, readied for training: (spec, params)."""
+        SpyNet, readied for training in ``dtype``: (spec, params)."""
         spec = get_codec_model(name, device=device, loss_type=loss_type)
         load_flat(spec.module, seeded_flat(name, 0))
         load_pretrained_spynet(spec.module.optic_flow)
-        return spec, ready_for_training(spec)
+        return spec, ready_for_training(spec, dtype)
 
     def chain_cfg(name):
         return TrainConfig(learning_rate=TRAIN_LR, soft2hard=name in SOFT2HARD)
@@ -3338,6 +3442,247 @@ def main() -> int:
             log(f"flow_warp {what} over DVC's training step ({smi}): {total}")
         training["dvc_train_flow_warp"] = {"forward": fwd_rows, "backward": bwd_rows}
         del chain_fwd, chain_bwd, flush
+
+    # ---- training in bf16: flax's mixed precision (float32 masters) ----
+    from fastvideocodec_torch.layers.blocks import cast_once
+
+    def bf16_case(name, device, dtype):
+        """(spec, params, clip, mask, cfg) of a BF16_CASES codec at 64x128,
+        GOP 4, as phases 42-53 build it in float32: LSVC-TPU on
+        hd_lsvctpuf2_l2, the others on seeded_flat (MCVC-IA over 3 views
+        with view 2 failed, DVC with the pretrained SpyNet)."""
+        if name == "LSVC-TPU":
+            spec, params = train_spec(device, dtype)
+        elif name == "MCVC-IA":
+            spec, params = mcvc_train_spec(name, 3, device, dtype)
+        elif name == "DVC":
+            spec, params = chain_train_spec(name, device, dtype=dtype)
+        else:
+            spec, params = seeded_train_spec(name, device, dtype)
+        if name == "MCVC-IA":
+            clip = views_nchw(synth_mv_gop(np.random.default_rng(0), views=3, size=128,
+                                           gop=4)[:, :, :64])
+            mask = np.array([1, 1, 0], np.float32)
+        else:
+            clip = nchw_clip(synth_gop_multi(np.random.default_rng(0), size=128,
+                                             gop=4)[:, :64, :128])
+            mask = None
+        return spec, params, clip.to(device), mask, TrainConfig(learning_rate=TRAIN_LR)
+
+    def bf16_grads(name, device, dtype, launchers=None):
+        """One gop_loss backward of ``name`` (``bf16_case``) on ``device``
+        in ``dtype``, the masters cast once as make_train_step casts them,
+        the noise drawn on the host from seed 0; ``launchers`` put in place
+        of kernel launchers for the run: (float32 gradients on the host,
+        the loss)."""
+        saved = {n: getattr(kw, n) for n in launchers or {}}
+        try:
+            for n, fn in (launchers or {}).items():
+                setattr(kw, n, fn)
+            spec, params, clip, mask, cfg = bf16_case(name, device, dtype)
+            with cast_once():
+                loss, _ = gop_loss(spec, clip, True, UniformNoise(0, device="cpu"), cfg, mask)
+                loss.backward()
+        finally:
+            for n, fn in saved.items():
+                setattr(kw, n, fn)
+        require(all(p.dtype == torch.float32 for p in params.values()), f"{name}: a master")
+        return {n: g.detach().float().cpu() for n, g in grads_of(params).items()}, float(loss)
+
+    bf16_rows = {"card": smi}
+    with phase("bf16 training step, card against its own float32 step and the cpu's drift, "
+               "64x128 GOP4, deterministic cuDNN"), deterministic_convs():
+        for name in BF16_CASES:
+            scale = BF16_MCVC_CONTROL_SCALE if name == "MCVC-IA" else 0.0
+            control = {f"launch_{b}": zero_flow_gradient(getattr(kw, f"launch_{b}"), scale)
+                       for b in BACKWARD}
+            card32, loss32 = bf16_grads(name, "cuda", torch.float32)
+            card16, loss16 = bf16_grads(name, "cuda", torch.bfloat16)
+            cpu32, _ = bf16_grads(name, "cpu", torch.float32)
+            cpu16, _ = bf16_grads(name, "cpu", torch.bfloat16)
+            ctl16, _ = bf16_grads(name, "cuda", torch.bfloat16, control)
+            card, cpu = grad_drifts(torch, card16, card32), grad_drifts(torch, cpu16, cpu32)
+            cross, gap32 = grad_drifts(torch, card16, cpu16), grad_drifts(torch, card32, cpu32)
+            ctl = grad_drifts(torch, ctl16, card32)
+            misses, ctl_misses = bf16_misses(card, cpu, cross, gap32), bf16_misses(ctl, cpu)
+            log(f"{name} bf16 step ({smi}): loss f32 {loss32:.6f} bf16 {loss16:.6f}; bf16 "
+                f"gradient's relative L2 distance from float32 on the card {card['whole']:.4e}, "
+                f"on the cpu {cpu['whole']:.4e} (bar {BF16_DRIFT} x the cpu's); by submodule "
+                f"card / cpu {({k: f'{card[k]:.3e} / {cpu[k]:.3e}' for k in cpu if k != 'whole'})}")
+            log(f"{name} bf16 card from the cpu's bf16 gradient {cross['whole']:.4e} (bar "
+                f"{1 + BF16_DRIFT} x the cpu's drift + the float32 gap {gap32['whole']:.2e}); "
+                f"by submodule {({k: f'{cross[k]:.3e}' for k in cross if k != 'whole'})}")
+            log(f"{name} bf16 control (flow gradient {'x ' + str(scale) if scale else 'zeroed'})"
+                f": whole {ctl['whole']:.4e}; misses {ctl_misses}")
+            require(not misses, f"{name}: the bf16 card step misses {misses}")
+            require(ctl_misses, f"{name}: the bf16 control passed every bar")
+            bf16_rows[f"{name}_card_vs_cpu_drift"] = {"card": card, "cpu": cpu, "control": ctl,
+                                                      "card_from_cpu": cross, "gap32": gap32,
+                                                      "loss": [loss32, loss16]}
+            del card32, card16, cpu32, cpu16, ctl16
+        torch.cuda.empty_cache()
+
+    def moments_f32(opt_state) -> bool:
+        return all(t.dtype == torch.float32 for g in ("main", "aux") for k in ("mu", "nu")
+                   for t in opt_state[g][k].values())
+
+    # the float32 phases' shapes: (label, make(dtype) -> (spec, params),
+    # batches, masks, batched, cfg)
+    rng = np.random.default_rng(9)
+    clips256 = [nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=TRAIN_GOP)).cuda()
+                for _ in range(BF16_STEPS + 1)]
+    views256 = [views_nchw(synth_mv_gop(rng, views=MCVC_VIEWS, size=MCVC_SIZE, gop=GOP)).cuda()
+                for _ in range(BF16_STEPS + 1)]
+    batches256 = [torch.stack([nchw_clip(synth_gop_multi(rng, size=TRAIN_SIZE, gop=BATCH_GOP))
+                               for _ in range(BATCH_CLIPS)]).cuda()
+                  for _ in range(BF16_STEPS + 1)]
+    alive = [np.ones(MCVC_VIEWS, np.float32)] * (BF16_STEPS + 1)
+    cfg = TrainConfig(learning_rate=TRAIN_LR)
+    bf16_runs = [
+        ("lsvc-tpu", lambda dtype: train_spec("cuda", dtype), clips256, None, False),
+        ("ssf-tpu", lambda dtype: seeded_train_spec("SSF-TPU", "cuda", dtype), clips256, None,
+         False),
+        ("elfvc-sp-tpu", lambda dtype: seeded_train_spec("ELFVC-SP-TPU", "cuda", dtype),
+         clips256, None, False),
+        ("mcvc-ia", lambda dtype: mcvc_train_spec("MCVC-IA", MCVC_VIEWS, "cuda", dtype),
+         views256, alive, False),
+        ("dvc", lambda dtype: chain_train_spec("DVC", "cuda", dtype=dtype), batches256, None,
+         True),
+    ]
+    bf16_captured = {}
+    with phase(f"bf16 training at the float32 phases' shapes, {BF16_STEPS} steps each beside "
+               f"{BF16_STEPS} float32 steps: lsvc-tpu and ssf-tpu and elfvc-sp-tpu "
+               f"{TRAIN_SIZE}x{TRAIN_SIZE} GOP{TRAIN_GOP}, mcvc-ia {MCVC_VIEWS}x{MCVC_SIZE}x"
+               f"{MCVC_SIZE} GOP{GOP}, dvc {BATCH_CLIPS} x {BATCH_GOP} x {TRAIN_SIZE}x"
+               f"{TRAIN_SIZE}"):
+        for label, make, batches, masks, batched in bf16_runs:
+            row = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = "bf16" if dtype == torch.bfloat16 else "f32"
+                spec, params = make(dtype)
+                init_fn, step_fn = make_train_step(spec, cfg, batched=batched)
+                params, opt_state, metrics, times, enqueue, launches, plain_calls, peak = \
+                    train_run(f"{label} {dname}", step_fn, params, init_fn(params),
+                              batches[:BF16_STEPS], UniformNoise(9),
+                              None if masks is None else masks[:BF16_STEPS])
+                require(not plain_calls, f"{label} {dname} called plain warps: {plain_calls}")
+                require(all(p.dtype == torch.float32 for p in params.values())
+                        and moments_f32(opt_state), f"{label} {dname}: a parameter or an Adam "
+                        f"moment is not float32")
+                row[dname] = {**run_summary(f"{label} {dname}", metrics, times, enqueue, peak, 1),
+                              "launches": {k: v for k, v in launches.items() if v}}
+                if dtype == torch.bfloat16:  # one more step, its backward inputs captured
+                    captured = {b: [] for b in BACKWARD}
+                    with capture_backward(captured):
+                        step_fn(params, opt_state, batches[BF16_STEPS], UniformNoise(10),
+                                *([] if masks is None else [masks[BF16_STEPS]]))
+                    row["bf16_backward_dtypes"] = {
+                        b: sorted({str(x[0].dtype).split(".")[1] for x in v})
+                        for b, v in captured.items() if v}
+                    bf16_captured[label] = {  # the launches of the bf16 kernels
+                        b: [x for x in v if x[0].dtype == torch.bfloat16]
+                        for b, v in captured.items()}
+                    del captured
+                del spec, params, opt_state
+            require(row["bf16"]["launches"] == row["f32"]["launches"],
+                    f"{label}: bf16 launches {row['bf16']['launches']}, float32 "
+                    f"{row['f32']['launches']}")
+            log(f"{label} ({smi}): ms/step median f32 {row['f32']['ms_median']:.3f} bf16 "
+                f"{row['bf16']['ms_median']:.3f}; enqueue f32 {row['f32']['enqueue_median']:.3f} "
+                f"bf16 {row['bf16']['enqueue_median']:.3f}; peak GiB f32 "
+                f"{row['f32']['peak_gib']:.3f} bf16 {row['bf16']['peak_gib']:.3f}; launches "
+                f"{row['bf16']['launches']} (equal); the bf16 step's backward kernels' image "
+                f"dtypes {row['bf16_backward_dtypes']}")
+            bf16_rows[f"{label}_train"] = row
+            torch.cuda.empty_cache()
+        del clips256, views256, batches256
+
+    bf16_timing = {}  # backward name: {path: the bf16 kernel's numbers on that step}
+    with phase("bf16 backward kernels on the bf16 training steps' bf16 launches, against "
+               "the float32 plain vjp"):
+        require(bf16_captured["mcvc-ia"]["pixel_warp_backward"],
+                "MCVC-IA's bf16 step launched no bf16 pixel_warp_backward")
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+        bf16 = torch.bfloat16
+        for label, captured in bf16_captured.items():
+            for bname, inputs in captured.items():
+                if not inputs:
+                    continue
+                name = BACKWARD[bname]
+                r = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0 if name in NCHW_KERNELS else None,
+                     "launches": len(inputs), "max_abs_err": 0.0}
+                for img, flow, grad, need_img, need_flow in inputs:
+                    args = (img, flow, grad, need_img, need_flow)
+                    r["max_abs_err"] = max(r["max_abs_err"], hold_backward(
+                        bname, img, flow, grad, need_img, f"{bname} bf16 on {label}'s step",
+                        "bfloat16", need_flow))
+                    r["ms"] += cuda_ms(torch, backward_kernels[bname], *args, iters=10)
+                    r["cold_ms"] += cold_ms(torch, backward_kernels[bname], *args, flush=flush,
+                                            reps=3)
+                    r["plain_ms"] += cuda_ms(torch, backward_plains[bname], *args, iters=2,
+                                             warmup=1)
+                    r["bound_ms"] += backward_bound_ms(img, flow, need_img, need_flow)
+                    if r["library_ms"] is not None:
+                        grid = sample_grid(flow) if name == "flow_warp" else pixel_grid(flow)
+                        r["library_ms"] += cuda_ms(torch, grid_sample_fb, img, grid.to(bf16),
+                                                   grad, need_img, need_flow, iters=10)
+                r["device_ms"] = device_ms(torch, backward_kernels[bname], inputs)[0]
+                bf16_timing.setdefault(bname, {})[label] = r
+                log(f"{bname} bf16 on {label}'s training step ({smi}), {len(inputs)} launches "
+                    f"of {tuple(inputs[0][0].shape)}: warm "
+                    f"{r['ms']:.4f} ms, L2 flushed {r['cold_ms']:.4f}, device {r['device_ms']}, "
+                    f"bound {r['bound_ms']:.4f} (bytes at bf16), plain vjp {r['plain_ms']:.4f}, "
+                    f"F.grid_sample forward + backward in bf16 {r['library_ms']}, max abs err "
+                    f"{r['max_abs_err']:.3e} (tolerance GRAD_TOL bfloat16 {GRAD_TOL['bfloat16']})")
+        del bf16_captured, flush
+    bf16_rows["backward_timing"] = bf16_timing
+
+    with phase(f"cli/train.py --bf16 --codec LSVC-TPU, {CLI_CLIPS} clips of 7 x 256x448 PNGs, "
+               f"1 epoch of {CLI_STEPS} steps, then --resume for a second"):
+        from PIL import Image
+
+        rng = np.random.default_rng(11)
+        with tempfile.TemporaryDirectory() as d:
+            root = Path(d) / "vimeo"
+            names = []
+            for k in range(CLI_CLIPS):
+                seq = root / "sequences" / f"{k:05d}" / "0001"
+                seq.mkdir(parents=True)
+                for i, frame in enumerate(synth_gop_multi(rng, size=448, gop=7)[:, :256],
+                                          start=1):
+                    Image.fromarray((frame * 255).astype(np.uint8)).save(seq / f"im{i}.png")
+                names.append(f"{k:05d}/0001")
+            (root / "sep_trainlist.txt").write_text("\n".join(names) + "\n")
+            args = ["--codec", "LSVC-TPU", "--bf16", "--dataset-dir", str(root),
+                    "--steps-per-epoch", str(CLI_STEPS), "--ckpt-dir", str(Path(d) / "ckpt")]
+            ckpt = str(Path(d) / "ckpt" / "LSVC-TPU-2P")
+            kw.reset_launches()
+            train_cli.main([*args, "--epochs", "1"])
+            torch.cuda.synchronize()
+            cli_launches = {k: v for k, v in kw.LAUNCHES.items() if v}
+            first = load_checkpoint(ckpt, prefer_best=False)
+            train_cli.main([*args, "--epochs", "2", "--resume"])
+            second = load_checkpoint(ckpt, prefer_best=False)
+        per_clip = train_launches_of(get_codec_model("LSVC-TPU", device="cpu").module
+                                     .schedule(BATCH_GOP - 1).depth)
+        want = {k: n * CLI_STEPS * BATCH_CLIPS for k, n in per_clip.items()}
+        dtypes = {t.dtype for s in (first, second) for t in s["params"].values()}
+        log(f"cli --bf16 --codec LSVC-TPU ({smi}): launches {cli_launches} (want {want}); "
+            f"checkpoint after epoch 0: count {first['opt_state']['main']['count']}, score "
+            f"{first['score']}; after the resumed epoch 1: count "
+            f"{second['opt_state']['main']['count']}, score {second['score']}; parameter "
+            f"dtypes {dtypes}")
+        require(cli_launches == want, f"cli --bf16 launches {cli_launches}, want {want}")
+        require(first["opt_state"]["main"]["count"] == CLI_STEPS and np.isfinite(first["score"])
+                and second["epoch"] == 1 and
+                second["opt_state"]["main"]["count"] == 2 * CLI_STEPS and
+                np.isfinite(second["score"]), "cli --bf16: the checkpoints")
+        require(dtypes == {torch.float32}, f"cli --bf16 checkpointed {dtypes}")
+        bf16_rows["cli_lsvc_tpu"] = {"launches": cli_launches, "scores": [first["score"],
+                                                                         second["score"]]}
+        del first, second
+    training["bf16"] = bf16_rows
     log(json.dumps({"training": training}))
 
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
@@ -3394,7 +3739,7 @@ def main() -> int:
         for name in kernels
     ] + [
         # the backward kernels: launches over the training runs (the flow
-        # warps' over LSVC-TPU's 20 steps, the pixel warps' over phases 47,
+        # warps' over LSVC-TPU's TRAIN_STEPS steps, the pixel warps' over phases 47,
         # 48 and 50), times per step's launches on one step's inputs
         {
             "name": bname,
@@ -3420,6 +3765,11 @@ def main() -> int:
                                               for path, n in chain_train_counts.items()},
                 "timing_by_path": {"dvc_train_step": {k: bwd_rows["step"][k] for k in keys}}}
                if bname == "flow_warp_backward" else {}),
+            # the bf16 instantiation on the bf16 training steps' bf16
+            # launches, by codec
+            **({"bf16_timing_by_path": {path: {k: t[k] for k in (*keys, "cold_ms", "device_ms")}
+                                        for path, t in bf16_timing[bname].items()}}
+               if bname in bf16_timing else {}),
         }
         for bname in BACKWARD
     ]}

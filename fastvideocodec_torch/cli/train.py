@@ -13,13 +13,15 @@ Usage:
   python -m fastvideocodec_torch.cli.train --codec LSVC-TPU \\
       --dataset-dir /data/vimeo_septuplet --epochs 10
 
-Every single-view name trains in float32 (the LSVC, SSF, ELFVC, DVC, RLVC
-and Base families; the default is the JAX CLI's ELFVC-SP), under loss type
-P (MSE) or M (1 - MS-SSIM, frames above 160 px); MCVC trains through
-``cli/train_multiview.py``. Base-ER's soft2hard schedule is a
-``TrainConfig`` field with no flag, as in the JAX CLI. ``--bf16``,
-``--evaluate`` and ``--evolve`` wait for later slices (ROADMAP.md queue 1,
-items 7.4 and 7.6).
+Every single-view name trains (the LSVC, SSF, ELFVC, DVC, RLVC and Base
+families; the default is the JAX CLI's ELFVC-SP), under loss type P (MSE)
+or M (1 - MS-SSIM, frames above 160 px), in float32 or with ``--bf16`` in
+flax's mixed precision as JAX's ``--bf16`` trains (float32 parameters,
+Adam state and checkpoints; convs and Denses in bfloat16; no loss
+scaling); MCVC trains through ``cli/train_multiview.py``. Base-ER's
+soft2hard schedule is a ``TrainConfig`` field with no flag, as in the JAX
+CLI. ``--evaluate`` and ``--evolve`` wait for a later slice (ROADMAP.md
+queue 1, item 7.6).
 """
 
 from __future__ import annotations
@@ -108,15 +110,12 @@ def main(argv=None):
     if args.evaluate or args.evolve:
         raise SystemExit("--evaluate and --evolve need train/evaluate.py and train/evolve.py, "
                          f"not ported yet ({ROADMAP_TRAINING}.6: evaluation and evolve)")
-    if args.bf16:
-        raise NotImplementedError(f"--bf16 training is not ported yet ({ROADMAP_TRAINING}.4: "
-                                  "bf16 training)")
     device = torch.device(args.device)
     spec = get_codec_model(args.codec, device=device, loss_type=args.loss_type,
                            compression_level=args.compression_level)
     train_ds = FrameDataset(args.dataset_dir, args.frame_size, split="train")
     init_params(spec, args.seed)
-    params = ready_for_training(spec)
+    params = ready_for_training(spec, torch.bfloat16 if args.bf16 else torch.float32)
 
     ckpt_dir = f"{args.ckpt_dir}/{args.codec}-{args.compression_level}{args.loss_type}"
     cfg = TrainConfig(learning_rate=args.lr, grad_clip=args.grad_clip, alpha=args.alpha)

@@ -83,8 +83,9 @@ class EntropyBottleneck(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False, noise=None):
         """x [B, C, H, W] -> (x_hat, likelihoods), both float32 [B, C, H, W]:
         x_hat the round around the medians, or in training x + noise(x)
-        (``noise`` an ``ops.math.UniformNoise``-like source)."""
-        x_hat = quantize_noise(x.float(), noise) if training else self.dequantize(x)
+        (``noise`` an ``ops.math.UniformNoise``-like source), drawn and
+        added in x's dtype as the JAX package adds it."""
+        x_hat = quantize_noise(x, noise).float() if training else self.dequantize(x)
         # channel-major flattening for the per-channel cumulative
         v = x_hat.transpose(0, 1).reshape(self.channels, 1, -1)
         lower = self._logits_cumulative(v - 0.5)

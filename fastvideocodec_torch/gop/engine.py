@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from fastvideocodec_torch.layers.blocks import frame_dtype
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.math import bits_estimate, psnr_from_mse
 
@@ -51,11 +52,12 @@ def _ssf_metrics(x_cur: torch.Tensor, x_rec: torch.Tensor, lik: dict) -> dict:
     }
 
 
-def _fold(module, gop: torch.Tensor) -> torch.Tensor:
+def _fold(module, gop: torch.Tensor, training: bool) -> torch.Tensor:
     """gop [T, 3, H, W] (batch 1) or [T, B, 3, H, W] -> the codec's domain,
-    [T, B, ...] in the model dtype, folded once by the codec's ``fold_gop``
-    where it has one (SSF's s2d form; DVC, Base and RLVC have none)."""
-    frames = (gop[:, None] if gop.dim() == 4 else gop).to(module.dtype)
+    [T, B, ...], folded once by the codec's ``fold_gop`` where it has one
+    (SSF's s2d form; DVC, Base and RLVC have none). Eval casts the frames
+    to the model dtype; training keeps gop's (``frame_dtype``)."""
+    frames = (gop[:, None] if gop.dim() == 4 else gop).to(frame_dtype(module, gop, training))
     return module.fold_gop(frames) if hasattr(module, "fold_gop") else frames
 
 
@@ -71,13 +73,13 @@ def _stack(per_frame: list) -> dict:
     return {k: torch.stack([m[k] for m in per_frame]) for k in per_frame[0]}
 
 
-def _chain(module, gop: torch.Tensor, step):
+def _chain(module, gop: torch.Tensor, step, training: bool):
     """The P-frames of gop [T, 3, H, W] or [T, B, 3, H, W], frame 0 the
     (uncoded) reference, each coded by ``step(t, x_cur, x_prev)`` ->
     (recon, metrics) against the previous recon, detached. Returns (recon
-    [T-1, (B,) 3, H, W] in the model dtype, metrics): float32 [T-1] stacks
-    of the model's metrics and ``psnr`` from ``img_loss``."""
-    x = _fold(module, gop)
+    [T-1, (B,) 3, H, W], metrics): float32 [T-1] stacks of the model's
+    metrics and ``psnr`` from ``img_loss``; the frames in ``frame_dtype``."""
+    x = _fold(module, gop, training)
     x_prev = x[0]
     recons, per_frame = [], []
     for t in range(1, x.shape[0]):
@@ -96,7 +98,8 @@ def sequential_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, n
     the autograd graph."""
     with torch.inference_mode(not training):
         return _chain(spec.module, gop,
-                      lambda t, x_cur, x_prev: spec.module(x_cur, x_prev, training, noise))
+                      lambda t, x_cur, x_prev: spec.module(x_cur, x_prev, training, noise),
+                      training)
 
 
 def rlvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
@@ -114,7 +117,7 @@ def rlvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=N
             x_rec, hidden, metrics = module(x_prev, x_cur, hidden, t > 1, training, noise)
             return x_rec, metrics
 
-        return _chain(module, gop, step)
+        return _chain(module, gop, step, training)
 
 
 def ssf_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
@@ -126,10 +129,11 @@ def ssf_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=No
     views as the batch. Metrics are float32 [T-1] stacks of ``img_loss``,
     ``psnr``, ``bpp_est`` and ``bpp_res_est``. Eval runs under
     ``torch.inference_mode``; ``training`` draws the quantizers' noise
-    from ``noise``, frame by frame, and keeps the autograd graph."""
+    from ``noise``, frame by frame, and keeps the autograd graph, the
+    frames in gop's dtype (``frame_dtype``)."""
     module = spec.module
     with torch.inference_mode(not training):
-        x = _fold(module, gop)
+        x = _fold(module, gop, training)
         x_prev = x[0]
         recons, per_frame = [], []
         for i in range(1, x.shape[0]):
@@ -147,7 +151,7 @@ def elfvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=
     and of round(y - means) + means - y. All float32 [T-1]."""
     module = spec.module
     with torch.inference_mode(not training):
-        x = _fold(module, gop)
+        x = _fold(module, gop, training)
         x_prev = x[0]
         B, _, h, w = x_prev.shape
         state = module.init_state(B, h, w)

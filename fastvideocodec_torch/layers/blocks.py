@@ -7,7 +7,8 @@ ConvLSTM and flax's transposed conv with ``padding="SAME"``
 (``SameConvTranspose``), QReLU with its surrogate gradient for the SSF
 hyper decoders, the super-precision SPnet of ELFVC-SP with its blocks
 (ChannelLayerNorm, WSConvBlock, ResnetBlock, ConvAttention), and
-ConvAttention across views for MCVC-IA.
+ConvAttention across views for MCVC-IA, and the training build's mixed
+precision (``mixed_precision``, ``cast_once``, ``frame_dtype``).
 
 The SPnet blocks keep the flax names of their parameters (``g``,
 GroupNorm ``scale``/``bias``, the WSConvBlock's ``weight`` (its flax
@@ -17,6 +18,8 @@ float32 and cast to the activation dtype only for its conv, and the norms
 reduce in float32."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +41,140 @@ def same_transpose_padding(k: int, s: int) -> tuple:
     return before, pad_len - before
 
 
+# ---------------------------------------------------------------------------
+# Mixed precision for training: flax's float32 parameters, bfloat16 compute
+# ---------------------------------------------------------------------------
+
+_CASTS = None  # inside cast_once(): {id(master): (master, its compute-dtype copy)}
+
+
+class _Widen(torch.autograd.Function):
+    """One use of a master's cached copy: forward the copy; backward this
+    use's cotangent widened to the master's dtype, so that the uses'
+    gradients add up in float32, as flax's cast at each call gives them."""
+
+    @staticmethod
+    def forward(ctx, master, copy):
+        ctx.dtype = master.dtype
+        return copy
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+def at_use(master: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``master`` in ``dtype`` for one use, as flax's ``promote_dtype``
+    casts a kernel or bias, its gradient this use's cotangent widened to
+    the master's dtype: inside ``cast_once`` one cast serves every use
+    until the context ends, each use widening its own cotangent; else cast
+    at this use."""
+    if master.dtype == dtype:
+        return master
+    if _CASTS is None:
+        return master.to(dtype)
+    entry = _CASTS.get(id(master))
+    if entry is None:
+        entry = _CASTS[id(master)] = (master, master.detach().to(dtype))
+    if master.requires_grad and torch.is_grad_enabled():
+        return _Widen.apply(master, entry[1])
+    return entry[1]
+
+
+@contextlib.contextmanager
+def cast_once():
+    """Within the context each float32 master of a ``mixed_precision``
+    module is cast to its compute dtype at its first use and the copy
+    serves every later use: one cast a weight a step, not one a call (the
+    recurrent codecs call each conv once a P-frame, and a training step is
+    bound by the host's launches). The parameters must not change inside
+    it."""
+    global _CASTS
+    saved, _CASTS = _CASTS, {}
+    try:
+        yield
+    finally:
+        _CASTS = saved
+
+
+def compute_params(m: nn.Module) -> tuple:
+    """(weight, bias) of a conv or Dense as its call takes them: the
+    parameters, or in a ``mixed_precision`` module their copies in its
+    compute dtype."""
+    dtype = getattr(m, "compute_dtype", None)
+    if dtype is None:
+        return m.weight, m.bias
+    return at_use(m.weight, dtype), None if m.bias is None else at_use(m.bias, dtype)
+
+
+def low_precision(fn, x: torch.Tensor, w: torch.Tensor, b, *args) -> torch.Tensor:
+    """``fn(x, w, b, *args)``, a conv or Dense of operands in one dtype. On
+    the CPU a bfloat16 one that needs a gradient runs in float32 on its
+    bfloat16 operands and rounds its result once, as cuDNN and XLA compute
+    it (their gradients then round once to bfloat16 at the casts):
+    PyTorch's CPU bfloat16 convolutions are not fit to train on (in 2.13
+    oneDNN's weight gradient is garbage on some small inputs, up to 1e34
+    for a 5x5 stride-2 conv of a 1x1 input, and the native path
+    accumulates in bfloat16). Anything else, eval included, runs ``fn``
+    as it is."""
+    if (x.is_cpu and x.dtype == torch.bfloat16 and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        return fn(x.float(), w.float(), None if b is None else b.float(), *args).to(x.dtype)
+    return fn(x, w, b, *args)
+
+
+class _CastConv2d(nn.Conv2d):
+    def forward(self, x):
+        w, b = compute_params(self)
+        return low_precision(self._conv_forward, x.to(w.dtype), w, b)
+
+
+class _CastConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x):
+        w, b = compute_params(self)
+        return low_precision(F.conv_transpose2d, x.to(w.dtype), w, b, self.stride, self.padding,
+                             self.output_padding, self.groups, self.dilation)
+
+
+class _CastLinear(nn.Linear):
+    def forward(self, x):
+        w, b = compute_params(self)
+        return low_precision(F.linear, x.to(w.dtype), w, b)
+
+
+def mixed_precision(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """flax's mixed precision on a float32 build, in place: the codecs
+    compute in ``dtype`` as that dtype's build does, and each conv,
+    transposed conv and Dense keeps its weight and bias in float32 and
+    casts them and its input to ``dtype`` at its call (``compute_params``);
+    the parameters keep their names. Every other layer already computes as
+    the bf16 build does (GDN, the entropy models, the rates, the SPnet's
+    weight-standardized kernels and norms in float32)."""
+    swap = {nn.Conv2d: _CastConv2d, nn.ConvTranspose2d: _CastConvTranspose2d,
+            nn.Linear: _CastLinear}
+    for m in module.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):  # a codec's model dtype
+            m.dtype = dtype
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if type(m) in swap:
+                m.__class__ = swap[type(m)]
+            elif not isinstance(m, (SameConvTranspose, *swap.values())):
+                raise TypeError(f"no mixed-precision form of {type(m).__name__}")
+            m.compute_dtype = dtype
+    return module
+
+
+def frame_dtype(module, frames: torch.Tensor, training: bool) -> torch.dtype:
+    """The dtype a codec takes its frames in: the model dtype in eval (the
+    bf16 build rounds its frames once, at the start); in training the
+    frames' own promoted with it, as JAX's modules keep them: a flax conv
+    casts its input at the call, so in a bf16 run on float32 frames the
+    frames, the warped references and the recons (the image chain) stay
+    float32 beside bfloat16 features, and the distortion is taken against
+    the float32 frames."""
+    return torch.promote_types(frames.dtype, module.dtype) if training else module.dtype
+
+
 class SameConvTranspose(nn.ConvTranspose2d):
     """flax ``nn.ConvTranspose((k, k), strides=(s, s), padding="SAME")``:
     the stride-dilated input padded (before, after) and correlated with the
@@ -56,7 +193,9 @@ class SameConvTranspose(nn.ConvTranspose2d):
     def forward(self, x):
         H, W = x.shape[-2:]
         s, c = self.stride[0], self.crop
-        y = F.conv_transpose2d(x, self.weight.flip(-1, -2), self.bias, stride=s)
+        w, b = compute_params(self)
+        y = low_precision(lambda x, w, b: F.conv_transpose2d(x, w.flip(-1, -2), b, stride=s),
+                          x.to(w.dtype), w, b)
         return y[..., c:c + s * H, c:c + s * W].contiguous()
 
 
@@ -259,7 +398,7 @@ class WSConvBlock(nn.Module):
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = ((w - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
         w = (w - mean) * torch.rsqrt(var + NORM_EPS)
-        y = F.conv2d(x, w.to(x.dtype), padding=1) + self.bias[None, :, None, None]
+        y = low_precision(F.conv2d, x, w.to(x.dtype), None, 1, 1) + self.bias[None, :, None, None]
         return F.silu(self.GroupNorm_0(y).to(x.dtype))
 
 
@@ -412,7 +551,8 @@ class ConvAttention(nn.Module):
         if B % V:
             raise ValueError(f"batch {B} is not a whole number of {V} views")
         b, N = B // V, V * H * W
-        qkv = self.Conv_0(x.to(self.Conv_0.weight.dtype))
+        conv_in = getattr(self.Conv_0, "compute_dtype", None) or self.Conv_0.weight.dtype
+        qkv = self.Conv_0(x.to(conv_in))
         # channel head*d + i of each third, tokens in (view, y, x) order; q, k
         # and v contiguous [b, heads, N, d], which the fused attention needs
         # (on a view whose last dim is strided it falls back to its float32

@@ -25,6 +25,7 @@ import torch
 
 from fastvideocodec_torch.layers.codecnet import CodecNet, er_gen_config
 from fastvideocodec_torch.layers.transforms import OUT_CHANNEL_M, OUT_CHANNEL_MV, OUT_CHANNEL_N
+from fastvideocodec_torch.layers.blocks import frame_dtype
 from fastvideocodec_torch.models.dvc import DVC, as_frames, mse
 from fastvideocodec_torch.ops import quantize
 
@@ -58,18 +59,22 @@ class Base(DVC):
         quantized ``q``. Eval: gen(q) + q, q the round. Training (JAX's
         ``_er_correct``): pred = gen(round(l)) + round(l) and its error
         against l (detached under detach mode 0); the input is round(l)
-        when ``hard``, else l plus that error (detached under mode 1)."""
+        when ``hard``, else l plus that error (detached under mode 1). The
+        training chain runs in float32 from the generator's output and
+        rounds once, at the decoder's input, as XLA computes JAX's chain
+        (one elementwise fusion) in a bf16 run."""
         if not self.use_er:
             return q, None
         if not training:
             restored = self._restore(gen_name, q)
             return restored, restored.float() - latent.float()
         rounded = torch.round(latent.detach())
-        pred_err = self._restore(gen_name, rounded) - (
-            latent.detach() if 0 in self.detach_mode else latent)
+        pred_err = getattr(self, gen_name)(rounded).float() + rounded.float() - (
+            latent.detach() if 0 in self.detach_mode else latent).float()
         if hard:
             return rounded, pred_err
-        return latent + (pred_err.detach() if 1 in self.detach_mode else pred_err), pred_err
+        corr = latent.float() + (pred_err.detach() if 1 in self.detach_mode else pred_err)
+        return corr.to(latent.dtype), pred_err
 
     def mc(self, x_ref, mv_q):
         return self.motion_compensation(x_ref, self.mv_decoder(self._restore("mv_gen", mv_q)))[0]
@@ -98,7 +103,7 @@ class Base(DVC):
         noise from ``noise``, drawn in that order (JAX's; DVC draws z
         before the feature); the rates are those of the noisy latents.
         ``img_loss`` is the MSE of the unclipped recon."""
-        x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
+        x_cur, x_ref = as_frames(frame_dtype(self, x_cur, training), x_cur, x_ref)
         B, _, H, W = x_cur.shape
         hard = training and self.use_er and self.s2h_stage > 0
         hard2 = hard and self.s2h_stage > 1

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from fastvideocodec_torch.entropy.bit_estimator import BitEstimator
-from fastvideocodec_torch.layers.blocks import WarpNet
+from fastvideocodec_torch.layers.blocks import WarpNet, frame_dtype
 from fastvideocodec_torch.layers.spynet import SpyNet
 from fastvideocodec_torch.layers.transforms import (
     OUT_CHANNEL_M,
@@ -128,8 +128,8 @@ class DVC(nn.Module):
                 noise=None):
         """``training``: the mv, z and feature latents take U(-0.5, 0.5) noise
         from ``noise``, drawn in that order (JAX's). ``img_loss`` is the MSE
-        of the unclipped recon."""
-        x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
+        of the unclipped recon. The frames come in ``frame_dtype``."""
+        x_cur, x_ref = as_frames(frame_dtype(self, x_cur, training), x_cur, x_ref)
         B, _, H, W = x_cur.shape
         mv_q = self.mv_symbols(x_cur, x_ref, training, noise)
         x_mc, x_warp = self.motion_compensation(x_ref, self.mv_decoder(mv_q))

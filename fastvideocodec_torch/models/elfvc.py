@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from fastvideocodec_torch.entropy.hyperprior import SSFHyperprior
+from fastvideocodec_torch.layers.blocks import frame_dtype
 from fastvideocodec_torch.layers.transforms import FlowPredictor
 from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 
@@ -107,7 +108,7 @@ class ELFVC(ScaleSpaceFlow):
         per-frame dicts: the keyframe's {"keyframe": lik}, then each inter
         frame's ``forward_inter`` dict); each inter frame takes the previous
         recon detached."""
-        x = self.fold_gop(frames.to(self.dtype))
+        x = self.fold_gop(frames.to(frame_dtype(self, frames, training)))
         x_ref, lik0 = self.forward_keyframe(x[0], training, noise)
         B, _, h, w = x_ref.shape
         state = self.init_state(B, h, w)

@@ -47,7 +47,7 @@ from torch import nn
 
 from fastvideocodec_torch.entropy.bit_estimator import BitEstimator
 from fastvideocodec_torch.gop.graph import TreeSchedule, tree_schedule
-from fastvideocodec_torch.layers.blocks import WarpNet, WarpNetTPU
+from fastvideocodec_torch.layers.blocks import WarpNet, WarpNetTPU, frame_dtype
 from fastvideocodec_torch.layers.spynet import SpyNet
 from fastvideocodec_torch.layers.transforms import (
     OUT_CHANNEL_M,
@@ -227,8 +227,9 @@ class LSVC(nn.Module):
         latent, then per layer (chunk) z before the feature; with
         ``per_layer_mv`` each chunk's mv latent first, inside its layer.
         The stop-gradient on the parents of ``detach_tree`` and of the
-        chain graph holds in both modes."""
-        x = x.to(self.dtype)
+        chain graph holds in both modes. The frames come in
+        ``frame_dtype``."""
+        x = x.to(frame_dtype(self, x, training))
         T, _, H, W = x.shape
         bs = T - 1
         sched = self.schedule(bs)

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from fastvideocodec_torch.entropy.hyperprior import SSFHyperprior
-from fastvideocodec_torch.layers.blocks import ConvAttention
+from fastvideocodec_torch.layers.blocks import ConvAttention, frame_dtype
 from fastvideocodec_torch.layers.transforms import SSFDecoder, SSFEncoder
 from fastvideocodec_torch.models.ssf import FullResPrediction
 
@@ -160,11 +160,11 @@ class MCVC(FullResPrediction, nn.Module):
 
     def forward(self, frames: torch.Tensor, mask: torch.Tensor, training: bool = False,
                 noise=None):
-        """frames [T, B*V, 3, H, W] (cast to the model dtype), mask [B*V] ->
+        """frames [T, B*V, 3, H, W] (in ``frame_dtype``), mask [B*V] ->
         (the enhanced frames [T, B*V, 3, H, W], per-frame likelihood dicts,
         the references [T, B*V, 3, H, W]): the keyframe is coded, and each
         P-frame predicts from the previous plain recon, detached."""
-        frames = frames.to(self.dtype)
+        frames = frames.to(frame_dtype(self, frames, training))
         x_ref, x_enh, lik = self.forward_keyframe(frames[0], mask, training, noise)
         recons, liks, refs = [x_enh], [lik], [x_ref]
         for t in range(1, frames.shape[0]):

@@ -40,7 +40,13 @@ from torch import nn
 from fastvideocodec_torch.entropy.bit_estimator import BitEstimator
 from fastvideocodec_torch.entropy.hyperprior import MeanScaleHyperPriors
 from fastvideocodec_torch.entropy.rpm import RPM, RecProbModel
-from fastvideocodec_torch.layers.blocks import ConvLSTM, SameConvTranspose, WarpNet, conv
+from fastvideocodec_torch.layers.blocks import (
+    ConvLSTM,
+    SameConvTranspose,
+    WarpNet,
+    conv,
+    frame_dtype,
+)
 from fastvideocodec_torch.layers.spynet import SpyNet
 from fastvideocodec_torch.models.dvc import as_frames, mse
 from fastvideocodec_torch.ops import GDN, bits_estimate, flow_warp, laplace_likelihood, quantize
@@ -187,8 +193,9 @@ class RLVC(nn.Module):
         """``training``: the mv codec's latent takes its noise from
         ``noise``, then the residual codec's. The autoencoders' states
         leave detached; the RPMs' stay attached. ``img_loss`` is the MSE of
-        the clipped recon, so its gradient passes the clip."""
-        x_cur, x_ref = as_frames(self.dtype, x_cur, x_ref)
+        the clipped recon, so its gradient passes the clip. The frames come
+        in ``frame_dtype``."""
+        x_cur, x_ref = as_frames(frame_dtype(self, x_cur, training), x_cur, x_ref)
         B, _, H, W = x_cur.shape
         mv = self.optic_flow(x_cur, x_ref)
         mv_hat, rae_mv, rpm_mv, mv_bits, mv_prior = self._run_codec(

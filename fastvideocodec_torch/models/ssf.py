@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from fastvideocodec_torch.entropy.hyperprior import SSFHyperprior
+from fastvideocodec_torch.layers.blocks import frame_dtype
 from fastvideocodec_torch.layers.transforms import SSFDecoder, SSFEncoder
 from fastvideocodec_torch.ops.warp import (
     depth_to_space,
@@ -153,7 +154,7 @@ class ScaleSpaceFlow(nn.Module):
         returns (recon [T, B, 3, H, W], per-frame likelihood dicts). The
         frames fold into the form's domain once and the recon unfolds once;
         each inter frame takes the previous recon detached."""
-        x = self.fold_gop(frames.to(self.dtype))
+        x = self.fold_gop(frames.to(frame_dtype(self, frames, training)))
         x_ref, lik0 = self.forward_keyframe(x[0], training, noise)
         recons, liks = [x_ref], [lik0]
         for i in range(1, x.shape[0]):

@@ -245,17 +245,26 @@ def plain_flow_warp_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tens
     return space_to_depth(plain_flow_warp(depth_to_space(img_s2d, 2), flow), 2)
 
 
+def _flow_like(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The flow of a flow warp in the image's dtype where the image is
+    float32: a bf16 training step warps its float32 frames and recons by a
+    bf16 flow from a conv, and JAX's warp takes the coordinates in float32
+    whatever the flow's dtype (the cast is exact; its gradient rounds once
+    to the flow's dtype). The kernels take one dtype for both."""
+    return flow.float() if img.dtype == torch.float32 else flow
+
+
 def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Bilinear backward warp, img [B, C, H, W], flow [B, 2, H, W] pixels:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    return _dispatch("flow_warp", img, flow)
+    return _dispatch("flow_warp", img, _flow_like(img, flow))
 
 
 def flow_warp_fullres_s2d(img_s2d: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Full-resolution warp of an s2d image: img_s2d [B, 4C, H/2, W/2],
     flow [B, 2, H, W] full-res pixels; returns the warped image in s2d form.
     Equal to space_to_depth(flow_warp(depth_to_space(img_s2d), flow))."""
-    return _dispatch("flow_warp_s2d", img_s2d, flow)
+    return _dispatch("flow_warp_s2d", img_s2d, _flow_like(img_s2d, flow))
 
 
 def plain_pixel_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,11 @@
     python -m fastvideocodec_torch.tools.profile_rollout
         [--codec ELFVC-SP-TPU|ELFVC-SP|SSF-TPU|SSF-Official|LSVC-TPU|LSVC-128|LSVC-TPU-RW
                  |...|MCVC-IA|MCVC-Original|DVC|RLVC|RLVC-HP|Base-EC-ER]
-        [--views 4] [--h 256 --w 256] [--json PATH] [--train]
+        [--views 4] [--h 256 --w 256] [--json PATH] [--train [--bf16]]
 
 ``--train`` profiles one training step in place of a rollout (an LSVC,
-SSF, ELFVC, DVC, RLVC or Base form, float32, --h x --w, 256x256 unless
+SSF, ELFVC, DVC, RLVC or Base form, float32 or with ``--bf16`` the
+mixed-precision step of ``cli/train.py --bf16``, --h x --w, 256x256 unless
 given, GOP 16 of synth_gop_multi seed 0, Base-ER's forms with the
 soft2hard three passes; or MCVC-IA on ``--views`` views of MCVC's clip
 below, every view alive; the step of ``train.make_train_step`` at lr 1e-4
@@ -167,6 +168,7 @@ def profile_train_step(args) -> int:
     from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training
 
     views = args.views if args.codec.startswith("MCVC-IA") else 1
+    dtype, label = (torch.bfloat16, "bf16") if args.bf16 else (torch.float32, "f32")
     spec, trained = load_model(args.codec, 2, torch.float32, "cuda", views)
     h, w = args.h, args.w
     rng = np.random.default_rng(0)
@@ -178,14 +180,14 @@ def profile_train_step(args) -> int:
             synth_gop_multi(rng, size=max(h, w), gop=GOP)[:, :h, :w])).permute(0, 3, 1, 2)
             .contiguous().cuda() for _ in range(4)]
         masks = ()
-    params = ready_for_training(spec)
+    params = ready_for_training(spec, dtype)
     cfg = TrainConfig(learning_rate=1e-4, soft2hard="-ER" in args.codec)
     init_fn, step_fn = make_train_step(spec, cfg)
     state = {"params": params, "opt": init_fn(params), "noise": UniformNoise(0), "i": 0}
     name = torch.cuda.get_device_name(0)
     what = f"{views} views of " if spec.family == "mcvc" else ""
     print(f"{args.codec} {'trained' if trained else 'seeded'} training step {what}{h}x{w} "
-          f"GOP{GOP} f32 on {name}", flush=True)
+          f"GOP{GOP} {label} on {name}", flush=True)
 
     def step():
         clip = clips[state["i"] % len(clips)]
@@ -216,7 +218,7 @@ def profile_train_step(args) -> int:
         with open(args.json, "a") as f:
             f.write(json.dumps({
                 "tool": "fastvideocodec_torch.tools.profile_rollout", "codec": args.codec,
-                "train": True, "device": name, "dtype": "f32", "h": h, "w": w, "views": views,
+                "train": True, "device": name, "dtype": label, "h": h, "w": w, "views": views,
                 "gop": GOP,
                 "step_ms": step_ms, "enqueue_ms": enqueue_ms, **k}) + "\n")
     return 0
@@ -231,7 +233,11 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default="", help="append the summary as one JSON line here")
     ap.add_argument("--train", action="store_true",
                     help="profile one training step (float32) in place of a rollout")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --train: the bf16 mixed-precision step")
     args = ap.parse_args(argv)
+    if args.bf16 and not args.train:
+        ap.error("--bf16 profiles a training step: add --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False

@@ -2,12 +2,13 @@
 and where the two part.
 
     python -m fastvideocodec_torch.tools.train_parity
-        [--codec ELFVC-SP-TPU ELFVC-SP] [--h 64 --w 128 --gop 4]
+        [--codec ELFVC-SP-TPU ELFVC-SP] [--h 64 --w 128 --gop 4] [--bf16]
 
 Each codec at full width on seeded_flat(name, 0) (sp_stage 1 for the
 ELFVC-SP forms, as cli/train.py builds them; DVC, RLVC and Base with the
 pretrained SpyNet but in their -TINY forms, Base-ER's forms with the soft2hard three passes),
-float32 with TF32 off: one backward of ``gop_loss`` on the top-left h x w
+float32 with TF32 off (with ``--bf16``, both devices in bf16 mixed
+precision, as ``cli/train.py --bf16`` trains): one backward of ``gop_loss`` on the top-left h x w
 of a synth_gop_multi clip (seed 0), the noise drawn on the host from seed
 0 for both devices (``chip_smoke.py`` phase 46's step). It prints:
 
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from fastvideocodec_torch import get_codec_model
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from fastvideocodec_torch.layers.blocks import cast_once
 from fastvideocodec_torch.layers.spynet import load_pretrained_spynet
 from fastvideocodec_torch.layers.transforms import SSFHyperDecoder
 from fastvideocodec_torch.models import rlvc
@@ -119,7 +121,7 @@ class CardTouchups:
             return label, mask
         want = self.replay[len(self.masks) - 1].to(mask.device)
         self.flips += int((want != mask).sum())
-        return torch.where(want, raw.to(recon.dtype), recon), want
+        return torch.where(want, raw, recon), want
 
     def __enter__(self):
         olft.touchup_labels = self.take
@@ -135,15 +137,17 @@ def own_gaps(got: dict, want: dict) -> dict:
             / max(want[n].double().abs().max().item(), 1e-300) for n in want}
 
 
-def step(name: str, clip: torch.Tensor, device: str, replay=None):
-    """One gop_loss backward of ``name`` on ``device``: (gradients on the
-    host, the motion decoder's layers by frame {layer: (output, gradient
-    at the output)}, the module, the CardBranches)."""
+def step(name: str, clip: torch.Tensor, device: str, replay=None, dtype=torch.float32):
+    """One gop_loss backward of ``name`` on ``device`` in ``dtype`` (bf16:
+    the mixed-precision build, its masters cast once as make_train_step
+    casts them): (float32 gradients on the host, the motion decoder's
+    layers by frame {layer: (output, gradient at the output)}, the module,
+    the CardBranches)."""
     spec = get_codec_model(name, device=device)
     load_flat(spec.module, seeded_flat(name, 0))
     if spec.family in ("dvc", "rlvc", "base") and "-TINY" not in name:
         load_pretrained_spynet(spec.module.optic_flow)
-    params = ready_for_training(spec)
+    params = ready_for_training(spec, dtype)
     frames = []
     hooks = []
     decoder = getattr(spec.module, "motion_decoder", None)
@@ -156,13 +160,13 @@ def step(name: str, clip: torch.Tensor, device: str, replay=None):
 
         hooks += [mod.register_forward_hook(lambda m, i, o, n=n: capture(n, o))
                   for n, mod in decoder.named_children()]
-    with CardBranches(replay) as branches:
+    with CardBranches(replay) as branches, cast_once():
         loss, _ = gop_loss(spec, clip.to(device), True, UniformNoise(0, device="cpu"),
                            TrainConfig(learning_rate=1e-4, soft2hard="-ER" in name))
         loss.backward()
     for h in hooks:
         h.remove()
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu()
              for n, p in params.items()}
     return grads, frames, spec.module, branches
 
@@ -184,10 +188,10 @@ def worst(gaps: dict, n: int = 6) -> list:
     return [(k, float(f"{v:.3g}")) for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])[:n]]
 
 
-def compare(name: str, clip: torch.Tensor) -> dict:
-    card, card_frames, module, branches = step(name, clip, "cuda")
-    cpu, cpu_frames, _, _ = step(name, clip, "cpu")
-    replayed, _, _, cpu_branches = step(name, clip, "cpu", replay=branches.masks)
+def compare(name: str, clip: torch.Tensor, dtype=torch.float32) -> dict:
+    card, card_frames, module, branches = step(name, clip, "cuda", dtype=dtype)
+    cpu, cpu_frames, _, _ = step(name, clip, "cpu", dtype=dtype)
+    replayed, _, _, cpu_branches = step(name, clip, "cpu", replay=branches.masks, dtype=dtype)
     out = {"codec": name, "own_branches": worst(own_gaps(card, cpu)),
            "card_branches": worst(own_gaps(card, replayed)), "flips": cpu_branches.flips,
            "activation_elements": sum(m.numel() for m in branches.masks), "decoder": []}
@@ -221,6 +225,7 @@ def main(argv=None) -> int:
     ap.add_argument("--h", type=int, default=64)
     ap.add_argument("--w", type=int, default=128)
     ap.add_argument("--gop", type=int, default=4)
+    ap.add_argument("--bf16", action="store_true", help="both devices in bf16 mixed precision")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_parity needs a CUDA card")
@@ -229,7 +234,8 @@ def main(argv=None) -> int:
     frames = synth_gop_multi(np.random.default_rng(0), size=max(args.h, args.w),
                              gop=args.gop)[:, :args.h, :args.w]
     clip = torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2).contiguous()
-    rows = [compare(name, clip) for name in args.codec]
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    rows = [compare(name, clip, dtype) for name in args.codec]
     print(json.dumps({"card": torch.cuda.get_device_name(0), "rows": rows}))
     return 0
 

@@ -21,21 +21,23 @@ import torch
 
 from fastvideocodec_torch.gop.engine import alive_mse, rollout, view_weights
 from fastvideocodec_torch.ops.math import bits_estimate, psnr_from_mse
+from fastvideocodec_torch.layers.blocks import cast_once
 from fastvideocodec_torch.train.trainer import descend, make_optimizer
 
 
 def touchup_labels(recon: torch.Tensor, raw: torch.Tensor, ratio: float):
     """(label, mask): the mask holds every element of |recon - raw| at or
     above its k-th largest value, k = int(ratio * numel) (ties included),
-    and the label is raw there and recon elsewhere. ``ratio`` <= 0 gives
-    (recon, an all-false mask)."""
+    and the label is raw there and recon elsewhere, in their promoted
+    dtype as JAX's ``jnp.where`` gives it (float32 beside a bf16 recon).
+    ``ratio`` <= 0 gives (recon, an all-false mask)."""
     if ratio <= 0:
         return recon, torch.zeros_like(recon, dtype=torch.bool)
     diff = torch.abs(recon - raw)
     k = int(ratio * diff.numel())
     thresh = torch.topk(diff.flatten(), k).values[-1]
     mask = diff >= thresh
-    return torch.where(mask, raw.to(recon.dtype), recon), mask
+    return torch.where(mask, raw, recon), mask
 
 
 def olft_loss(spec, gop: torch.Tensor, noise, mask, ratio: float):
@@ -81,8 +83,9 @@ def make_olft_step(spec, cfg, ratio: float, optimizer=None):
     def step_fn(params: dict, opt_state: dict, gop: torch.Tensor, noise, mask=None):
         for p in params.values():
             p.grad = None
-        loss, metrics = olft_loss(spec, gop, noise, mask, ratio)
-        loss.backward()
+        with cast_once():
+            loss, metrics = olft_loss(spec, gop, noise, mask, ratio)
+            loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         params, opt_state, metrics["grad_norm"] = descend(tx, params, opt_state)
         return params, opt_state, metrics

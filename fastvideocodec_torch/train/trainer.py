@@ -22,8 +22,12 @@ kernel (ops/warp.py:KernelWarp), exact like JAX's training warp
 (1 - MS-SSIM): LSVC, SSF, ELFVC, MCVC (MCVC-IA-OLFT's online fine-tuning
 step is ``train/olft.py``), DVC, RLVC and Base (Base-ER with the soft2hard
 three passes under ``TrainConfig.soft2hard``); ELFVC-SP's staged recipe
-freezes by ``make_elfvc_stage_optimizer``. Float32 only: bfloat16 training
-waits (ROADMAP.md queue 1, item 7.4).
+freezes by ``make_elfvc_stage_optimizer``. In float32, or in bfloat16 as
+JAX's ``--bf16`` trains (flax's mixed precision): a spec readied by
+``ready_for_training(spec, torch.bfloat16)`` keeps every parameter, gradient and Adam moment in float32, its convs and Denses
+compute in bfloat16 from copies cast once a step (``layers.blocks.
+cast_once``), each use's gradient widened to float32 before the uses add
+up, and there is no loss scaling, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from fastvideocodec_torch.gop.engine import rollout
+from fastvideocodec_torch.layers.blocks import cast_once, mixed_precision
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.msssim import ms_ssim
 
@@ -56,17 +61,23 @@ class TrainConfig:
     soft2hard: bool = False  # Base-ER's s2h three-pass schedule (reference models.py:318-344)
 
 
-def ready_for_training(spec: CodecSpec) -> dict:
-    """Ready a built spec for training: its module in train mode with every
-    parameter requiring grad. Returns its parameters, {name: Parameter}.
-    Float32 only: ``get_codec_model`` builds bfloat16 modules with bfloat16
-    conv weights, and flax's mixed precision (float32 parameters, bfloat16
-    compute: JAX's --bf16) waits for a later slice."""
+def ready_for_training(spec: CodecSpec, compute_dtype: torch.dtype | None = None) -> dict:
+    """Ready a float32 build for training: its module in train mode with
+    every parameter requiring grad, computing in ``compute_dtype`` (None
+    or float32: as it computes). Returns its parameters, {name:
+    Parameter}, every one float32: the master weights. ``torch.bfloat16``
+    is flax's mixed precision, JAX's
+    ``--bf16`` training (``layers.blocks.mixed_precision``): the convs and
+    Denses compute as ``get_codec_model(..., dtype=torch.bfloat16)``'s do,
+    from float32 weights. The bfloat16 inference build, whose conv weights
+    were rounded, raises."""
     module = spec.module
-    if getattr(module, "dtype", torch.float32) != torch.float32 or any(
-            p.dtype != torch.float32 for p in module.parameters()):
-        raise NotImplementedError(f"bfloat16 training is not ported yet ({ROADMAP_TRAINING}.4: bf16 "
-                                  "training)")
+    for name, p in module.named_parameters():
+        if p.dtype != torch.float32:
+            raise ValueError(f"{spec.name}: parameter {name} is {p.dtype}, not a float32 master: "
+                             "train a float32 build (get_codec_model's default dtype)")
+    if compute_dtype not in (None, torch.float32):
+        mixed_precision(module, compute_dtype)
     module.train().requires_grad_(True)
     return dict(module.named_parameters())
 
@@ -354,19 +365,20 @@ def make_train_step(spec: CodecSpec, cfg: TrainConfig, optimizer=None,
     def step_fn(params: dict, opt_state: dict, gop: torch.Tensor, noise, mask=None):
         for p in params.values():
             p.grad = None
-        if batched:
-            n = gop.shape[0]
-            metrics = {}
-            for b in range(n):
-                loss, m = gop_loss(spec, gop[b], True, noise, cfg,
-                                   None if mask is None else mask[b])
-                (loss / n).backward()
-                for k, v in m.items():
-                    metrics[k] = metrics.get(k, 0.0) + v.detach() / n
-        else:
-            loss, metrics = gop_loss(spec, gop, True, noise, cfg, mask)
-            loss.backward()
-            metrics = {k: v.detach() for k, v in metrics.items()}
+        with cast_once():  # one cast a master a step
+            if batched:
+                n = gop.shape[0]
+                metrics = {}
+                for b in range(n):
+                    loss, m = gop_loss(spec, gop[b], True, noise, cfg,
+                                       None if mask is None else mask[b])
+                    (loss / n).backward()
+                    for k, v in m.items():
+                        metrics[k] = metrics.get(k, 0.0) + v.detach() / n
+            else:
+                loss, metrics = gop_loss(spec, gop, True, noise, cfg, mask)
+                loss.backward()
+                metrics = {k: v.detach() for k, v in metrics.items()}
         params, opt_state, metrics["grad_norm"] = descend(tx, params, opt_state)
         return params, opt_state, metrics
 
@@ -393,7 +405,7 @@ def make_eval_step(spec: CodecSpec, cfg: TrainConfig | None = None):
     cfg = cfg or TrainConfig()
 
     def eval_fn(gop: torch.Tensor, mask=None) -> dict:
-        with torch.no_grad():
+        with torch.no_grad(), cast_once():
             _, metrics = gop_loss(spec, gop, False, None, cfg, mask)
         return metrics
 

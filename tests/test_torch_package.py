@@ -986,3 +986,32 @@ def test_dvc_step_runs_without_jax():
         "print('ok')\n"
     )
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_bf16_step_runs_without_jax():
+    """One bf16 training step (float32 masters, bf16 compute) of
+    SSF-TPU-TINY on tiny_ssftpu_l2 on the CPU with JAX, optax, orbax and
+    PIL unimportable: finite metrics, float32 parameters that moved."""
+    r = run_blocked(
+        "import numpy as np, torch, fastvideocodec_torch as ft\n"
+        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+        "from fastvideocodec_torch.ops.math import UniformNoise\n"
+        "from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training\n"
+        "spec = ft.get_codec_model('SSF-TPU-TINY', device='cpu')\n"
+        "ft.load_asset(spec.module, 'tiny_ssftpu_l2')\n"
+        "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
+        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))\n"
+        "params = ready_for_training(spec, torch.bfloat16)\n"
+        "start = {n: p.detach().clone() for n, p in params.items()}\n"
+        "init_fn, step_fn = make_train_step(spec, TrainConfig())\n"
+        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
+        "assert all(bool(torch.isfinite(v)) for v in m.values()), m\n"
+        "assert {p.dtype for p in params.values()} == {torch.float32}\n"
+        "assert any(not torch.equal(p, start[n]) for n, p in params.items())\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+        "                              'fastvideocodec_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

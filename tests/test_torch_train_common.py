@@ -5,7 +5,9 @@ JAX's flat tensors onto the port's parameter names, JAX's references
 (``jax_loss_grads``: gop_loss and its gradient under one ``jax.jit`` a
 case, compiled on threads; ``jax_train_steps``: JAX's make_train_step),
 and the bars that hold the port's training to JAX's (one copy of each).
-It holds no test of its own.
+It holds no test of its own. The bf16 training files
+(tests/test_torch_train_bf16*.py) take their bars from here too
+(``bf16_drift_failures``).
 
 JAX draws its training noise inline with ``jax.random.uniform``. For each
 traced call that function is replaced by a ``JaxDraws`` (with pytest's
@@ -387,3 +389,134 @@ def jax_train_steps(jax_trainer, jspec, flat: dict, gop, seeds=(1, 2)) -> list:
                           "params": flatten_params(params),
                           "metrics": {k: float(v) for k, v in metrics.items()}})
     return steps
+
+
+# bf16 training (tests/test_torch_train_bf16*.py): a bf16 step is held to
+# the port's float32 step on the same weights and draws, no farther from it
+# than JAX's own bf16 step is. JAX's bf16 gradient stands 1.8% to 36% (by
+# relative L2) from that float32 step on the tiny models at 64x64, so no
+# fixed bar fits every family.
+BF16_DRIFT = 1.5  # metrics and the whole gradient: at most this times JAX's drift
+BF16_METRIC_REL = 1e-3  # plus this share of the float32 value, for a metric
+BF16_SUB_DRIFT = 2.0  # a top-level submodule's gradient: this times JAX's drift,
+BF16_SUB_FLOOR = 1e-2  # or this where that is smaller
+
+
+def bf16_spec(name: str, flat: dict, fields: dict | None = None, **kw):
+    """The port's ``name`` on the CPU, the flat weights loaded and the
+    module's ``fields`` set, readied for bf16 training (float32 masters,
+    bf16 compute)."""
+    from fastvideocodec_torch.train import ready_for_training
+
+    spec = ft.get_codec_model(name, device="cpu", **kw)
+    load_flat(spec.module, flat)
+    for key, value in (fields or {}).items():
+        setattr(spec.module, key, value)
+    ready_for_training(spec, torch.bfloat16)
+    return spec
+
+
+def replay32(draws: list) -> "Replay":
+    """A Replay of JAX's draws, which a bf16 run makes in bfloat16 (the
+    values widen exactly)."""
+    return Replay([np.asarray(d, np.float32) for d in draws])
+
+
+def port_step_grads(spec, gop, draws, cfg, mask=None):
+    """One backward of the port's gop_loss under JAX's ``draws`` (replayed,
+    all of them used), the masters cast once as make_train_step casts
+    them: (metrics as floats, gradients)."""
+    from fastvideocodec_torch.layers.blocks import cast_once
+    from fastvideocodec_torch.train import gop_loss, ready_for_training
+
+    params = ready_for_training(spec)
+    noise = replay32(draws)
+    with cast_once():
+        loss, metrics = gop_loss(spec, gop, True, noise, cfg, mask)
+        loss.backward()
+    assert noise.used == len(noise.draws)
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {n: g.detach().clone() for n, g in port_grads(params).items()})
+
+
+def rel_l2(got: dict, want: dict, names=None) -> float:
+    """||got - want|| / ||want|| over ``names`` (every key by default)."""
+    names = list(want) if names is None else names
+    num = sum(float(torch.sum((got[n].double() - want[n].double()) ** 2)) for n in names)
+    den = sum(float(torch.sum(want[n].double() ** 2)) for n in names)
+    return (num / den) ** 0.5
+
+
+def bf16_drift_failures(port: tuple, jax_bf16: tuple, f32: tuple) -> dict:
+    """The bars a port bf16 step (metrics, gradients) misses, against JAX's
+    bf16 step (metrics, gradients in the port's layout), both measured from
+    the port's float32 step ``f32`` on the same weights and draws: each of
+    METRICS within BF16_DRIFT times JAX's distance plus BF16_METRIC_REL of
+    the float32 value; the whole gradient's relative L2 distance within
+    BF16_DRIFT times JAX's; each top-level submodule's (those the loss
+    reaches) within BF16_SUB_DRIFT times JAX's, or BF16_SUB_FLOOR where
+    that is smaller. And the port's bf16 gradient against JAX's bf16 one,
+    the whole and each submodule: within (1 + BF16_DRIFT) times JAX's
+    distance from float32 (so that a bf16 fault as large as JAX's drift
+    but in another direction misses, and none hides under the floor).
+    Returns {"metrics": {...}, "grads": {...}} of the misses (empty where
+    every bar holds; a miss against JAX's bf16 gradient is keyed "... vs
+    jax"), and prints every distance."""
+    (pm, pg), (jm, jg), (fm, fg) = port, jax_bf16, f32
+    misses = {"metrics": {}, "grads": {}}
+    for k in METRICS:
+        got, want = abs(pm[k] - fm[k]), abs(jm[k] - fm[k])
+        bar = BF16_DRIFT * want + BF16_METRIC_REL * abs(fm[k])
+        print(f"{k}: float32 {fm[k]:.7g}, the port's bf16 {got:.3g} from it, JAX's {want:.3g}")
+        if got > bar:
+            misses["metrics"][k] = (got, bar)
+    whole = (rel_l2(pg, fg), rel_l2(jg, fg))
+    cross = rel_l2(pg, jg)
+    print(f"gradient, relative L2 from float32: the port's bf16 {whole[0]:.4f}, JAX's "
+          f"{whole[1]:.4f}; the port's bf16 from JAX's bf16 {cross:.4f}")
+    if whole[0] > BF16_DRIFT * whole[1]:
+        misses["grads"]["whole"] = whole
+    if cross > (1 + BF16_DRIFT) * whole[1]:
+        misses["grads"]["whole vs jax"] = (cross, whole[1])
+    for sub in sorted({n.split(".")[0] for n in fg}):
+        names = [n for n in fg if n.split(".")[0] == sub]
+        if not any(float(fg[n].abs().max()) > 0 for n in names):
+            continue  # the loss does not reach it (the keyframe's transforms)
+        got, want, cross = rel_l2(pg, fg, names), rel_l2(jg, fg, names), rel_l2(pg, jg, names)
+        print(f"  {sub}: the port's bf16 {got:.4f}, JAX's {want:.4f}; from JAX's {cross:.4f}")
+        if got > max(BF16_SUB_DRIFT * want, BF16_SUB_FLOOR):
+            misses["grads"][sub] = (got, want)
+        if cross > (1 + BF16_DRIFT) * want:
+            misses["grads"][f"{sub} vs jax"] = (cross, want)
+    return misses
+
+
+class ZeroFlowGradient:
+    """The plain warps' flow gradient zeroed (or times ``scale``), as a
+    context: the control that shows a bar bites (the flow gradient carries
+    the motion path's whole gradient)."""
+
+    def __init__(self, scale: float = 0.0):
+        import fastvideocodec_torch.ops.warp as ow
+
+        self.plain, self.scale = ow.PLAIN, scale
+
+    def __enter__(self):
+        self.saved = dict(self.plain)
+        scale = self.scale
+
+        class Cut(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, flow):
+                return flow.view_as(flow)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g * scale
+
+        for name, fn in self.saved.items():
+            self.plain[name] = lambda img, flow, fn=fn: fn(img, Cut.apply(flow))
+        return self
+
+    def __exit__(self, *exc):
+        self.plain.update(self.saved)

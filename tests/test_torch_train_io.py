@@ -175,13 +175,19 @@ def test_training_other_families_raises(name, kw):
 
 def test_msssim_loss_and_bf16_training_raise():
     """Loss type M trains (it raised before ops/msssim.py was ported; MS-SSIM
-    needs frames above 160 px); bfloat16 training still raises."""
+    needs frames above 160 px). bfloat16 training raised before its port:
+    a bf16 spec now readies float32 masters, and the bf16 inference build,
+    its weights rounded, is refused."""
     spec = ft.get_codec_model("LSVC-TPU-TINY", device="cpu", loss_type="M")
     assert spec.r == 32.0
     big = synth_gop(np.random.default_rng(0), size=192, gop=3)
     trains(spec, torch.from_numpy(np.array(big.transpose(0, 3, 1, 2))))
+    spec = ft.get_codec_model("LSVC-TPU-TINY", device="cpu")
+    params = ready_for_training(spec, torch.bfloat16)
+    assert params and {p.dtype for p in params.values()} == {torch.float32}
+    assert spec.module.dtype == torch.bfloat16
     spec = ft.get_codec_model("LSVC-TPU-TINY", device="cpu", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    with pytest.raises(ValueError, match="float32 master"):
         ready_for_training(spec)
     with pytest.raises(ValueError, match="noise"):
         ft.ops.quantize(torch.zeros(2), training=True)
@@ -333,5 +339,10 @@ def test_cli_trains_writes_ckpt_and_resumes(septuplets, tmp_path, capsys):
     assert second["epoch"] == 1 and second["opt_state"]["main"]["count"] == 4
     with pytest.raises(SystemExit, match="item 7"):
         cli.main([*args, "--evaluate"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        cli.main([*args, "--bf16"])
+    # --bf16 raised before bf16 training was ported: it trains 2 steps and
+    # checkpoints float32 parameters
+    bf16_dir = tmp_path / "bf16"
+    cli.main([*args[:-1], str(bf16_dir), "--bf16"])
+    state = load_checkpoint(str(bf16_dir / "LSVC-TPU-TINY-2P"), prefer_best=False)
+    assert state["opt_state"]["main"]["count"] == 2 and np.isfinite(state["score"])
+    assert {t.dtype for t in state["params"].values()} == {torch.float32}
