@@ -236,7 +236,7 @@ Phases, each timed on its own line:
    the pixel warps' backward kernels' flow gradient zeroed, which must
    fail the gradient bar at the motion decoder;
 47. ELFVC-SP, cli/train.py's default codec, on its default batch of 4
-   clips x 7 frames x 256x256, float32, full width from seeded_flat: 5
+   clips x 7 frames x 256x256, float32, full width from seeded_flat: 3
    steps of the default stage, then 3 steps each of
    make_elfvc_stage_optimizer's stages 0, 1 and 2; per stage ms/step by
    CUDA events (median and range), host enqueue, peak GiB, and loss, PSNR,
@@ -247,7 +247,7 @@ Phases, each timed on its own line:
    unit gradients (JAX's test); then one step with the pixel warps'
    backward inputs captured;
 48. SSF-TPU and ELFVC-SP-TPU at 256x256, GOP 16, float32 (phase 43's
-   shape), 5 steps each from seeded_flat, the same readings: each
+   shape), 3 steps each from seeded_flat, the same readings: each
    P-frame 1 (SSF-TPU) or 2 (ELFVC-SP-TPU) pixel_warp at C = 15 and
    pixel_warp_s2d_sflow, each with a flow-only backward kernel; the
    parameters outside the keyframe's transforms moved; one step's
@@ -257,8 +257,8 @@ Phases, each timed on its own line:
    2 failed, as phase 46 (the OLFT step's loss is olft_loss; the CPU also
    takes the card's touch-up masks), with the same control;
 50. cli/train_multiview.py's loop at full width on 4 views of 256x256,
-   GOP 16, float32: 5 OLFT steps of MCVC-IA-OLFT (touch-up ratio 0.1,
-   each step's labels priced on the host) and 5 steps of MCVC-IA, the
+   GOP 16, float32: 3 OLFT steps of MCVC-IA-OLFT (touch-up ratio 0.1,
+   each step's labels priced on the host) and 3 steps of MCVC-IA, the
    view masks of --resilience 1 from the host's default_rng(0); the
    readings of phase 48 and touch_bpp, each P-frame 1 pixel_warp at C = 18
    and its flow-only backward kernel; the parameters OLFT's loss does not
@@ -282,7 +282,7 @@ Phases, each timed on its own line:
    cuDNN (the seeded DVC step's SpyNet gradient, a small sum of large
    terms, moves with the order of cuDNN's atomic backward), with a control
    that zeroes flow_warp_backward's flow gradient;
-54. those three for 5 steps each and RLVC2 and RLVC-HP for 3 on
+54. those three and RLVC2 and RLVC-HP for 3 steps each on
    cli/train.py's default batch of 4 x 7 x 256x256, float32, the readings
    of phase 47; each P-frame 5 flow_warp and 4 flow-only backward launches
    (Base-EC-ER's soft2hard 15 and 5: ``chain_train_launches``), stated
@@ -325,12 +325,25 @@ Phases, each timed on its own line:
 60. cli/train.py --bf16 --codec LSVC-TPU through its main on PNG clips the
    phase writes: 1 epoch of 3 steps (the float32 CLI's launches), then
    --resume for a second: float32 checkpoints, the optimizer's count 3
-   then 6.
+   then 6;
+61-64. the evaluation path (``fastvideocodec_torch/tools/eval_smoke.py``,
+   which states each gate): ``evaluate_video`` of LSVC-TPU at 1024x2048
+   bf16 GOP 16 on a .yuv clip through ``VideoDataset``, estimated and real
+   bits (4 + 4 warp launches a GOP, no plain warp, decode == encode, real
+   bpp within 5%, the log read back by ``rd_points``); SSF-TPU,
+   ELFVC-SP-TPU and DVC through ``_real_bits_gop`` and
+   ``cli/train_multiview.py --task eval --real-bits`` of MCVC-IA (decode
+   == encode); ``evolve_on_video`` of LSVC-TPU at 256x256 (both flow
+   backward kernels, frozen parameters bit for bit, the evolved stream
+   decoding on an un-evolved receiver) and ``cli/train.py --evaluate
+   --evolve``; ``cli/eval.py --real-bits``, ``--task speed`` for 1..6
+   views and the x26x anchors where ffmpeg is there.
 
 Along the way it prints a JSON line of MCVC's numbers, one of the stock
-codecs', one of the DVC family's, one of the training numbers and one of
-the LSVC forms'; then a JSON line of the kernels (the five warps, each
-with its launches on every path it was counted on; ``launches`` and the
+codecs', one of the DVC family's, one of the training numbers, one of the
+evaluation path's and one of the LSVC forms'; then a JSON line of the
+kernels (the five warps, each with its launches on every path it was
+counted on; ``launches`` and the
 times stay those of the path that defined them in earlier slices:
 LSVC-TPU's rollout for the two flow warps, SSF-TPU's timing and
 ELFVC-SP-TPU's launches for the pixel warps; pixel_warp's MCVC-IA and
@@ -341,7 +354,9 @@ training steps, their times those of phase 45 (flow_warp_backward's
 launches in phase 54 by codec and its times on DVC's step beside them); the three of the pixel
 warps, their launches those of phases 47, 48 and 50, their times those
 of phase 52: ten kernels in all; pixel_warp_backward's bf16 instantiation
-on phase 58's bf16 launches under ``bf16_timing_by_path``),
+on phase 58's bf16 launches under ``bf16_timing_by_path``; the launches
+of phases 61-64 by path under ``launches_by_path`` and
+``launches_by_eval_path``),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -465,10 +480,10 @@ def train_launches_of(layers: int) -> dict:
             "flow_warp_s2d_backward": layers}
 # SSF and ELFVC training on the card, float32, full width from
 # seeded_flat(name, 0), the ELFVC-SP forms at sp_stage 1 (cli/train.py's):
-# ELFVC-SP's default stage (5 steps), then 3 steps of each make_elfvc_stage_optimizer
+# ELFVC-SP's default stage (3 steps), then 3 steps of each make_elfvc_stage_optimizer
 # stage (JAX's staged recipe, tools/train_tiny.py:train_elfvc, shortened);
 # the -TPU forms at phase 43's 256x256, GOP 16
-ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 5, 3, 5
+ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 3, 3, 3
 DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
 # MCVC training on the card, float32, full width from seeded_flat(name, 0):
 # one step card vs CPU of MCVC-IA and MCVC-IA-OLFT on 3 views of 64x128,
@@ -476,11 +491,11 @@ DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
 # loop on a category of 4 views of 256x256, GOP 16 (MCVC_VIEWS, MCVC_SIZE,
 # GOP): MCVC-IA-OLFT's online fine-tuning (touch-up ratio 0.1, view masks
 # of --resilience 1 from the host's default_rng) and MCVC-IA's RD training,
-# 5 steps each at the CLI's lr; and JAX's TestOlftImprovesHeldout on the
+# 3 steps each at the CLI's lr; and JAX's TestOlftImprovesHeldout on the
 # card: MCVC-IA-OLFT-TINY from tiny_mcvc_l3, 40 OLFT steps at lr 1e-5 on a
 # gamma-shifted synth_mv_gop must lift the held-out PSNR by more than 0.6 dB
 # (JAX measured +1.32 on the CPU)
-MCVC_TRAIN_STEPS, MCVC_TRAIN_LR, OLFT_RATIO, MCVC_RESILIENCE = 5, 1e-5, 0.1, 1
+MCVC_TRAIN_STEPS, MCVC_TRAIN_LR, OLFT_RATIO, MCVC_RESILIENCE = 3, 1e-5, 0.1, 1
 OLFT_STEPS, OLFT_GAMMA, OLFT_GAIN_DB = 40, 1.8, 0.6
 OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyperprior.",
                   "res_hyperprior.")
@@ -492,7 +507,7 @@ OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyp
 # for RLVC2 and RLVC-HP); then cli/train.py --codec DVC --loss-type M through
 # its main on a tree of CLI_CLIPS 7-frame clips of 256x448 PNGs, 1 epoch of
 # CLI_STEPS steps, its checkpoint's MS-SSIM on the card against the CPU's
-CHAIN_TRAIN = {"DVC": 5, "RLVC": 5, "Base-EC-ER": 5, "RLVC2": 3, "RLVC-HP": 3}
+CHAIN_TRAIN = {"DVC": 3, "RLVC": 3, "Base-EC-ER": 3, "RLVC2": 3, "RLVC-HP": 3}
 SOFT2HARD = ("Base-EC-ER",)
 CLI_CLIPS, CLI_STEPS, MSSSIM_CARD_CPU_REL = 12, 3, 1e-5
 # the launches of a DVC, RLVC or Base training step over ``p_frames``
@@ -527,7 +542,7 @@ def pixel_train_launches(name: str, p_frames: int) -> dict:
 # float32 steps in the same call
 BF16_CASES = ("LSVC-TPU", "SSF-TPU", "ELFVC-SP-TPU", "MCVC-IA", "DVC")
 BF16_DRIFT, BF16_SUB_DRIFT, BF16_SUB_FLOOR = 1.5, 2.0, 1e-2
-BF16_MCVC_CONTROL_SCALE, BF16_STEPS = 100.0, 3
+BF16_MCVC_CONTROL_SCALE, BF16_STEPS = 100.0, 2
 NCHW_KERNELS = ("flow_warp", "pixel_warp")
 PLANS = ("tiled", "small")  # of pixel_warp (ops/kernels/warp.py:pixel_warp_plan)
 # the small-frame plan's shapes beside the ragged ones: DVC's three SpyNet
@@ -3685,6 +3700,12 @@ def main() -> int:
     training["bf16"] = bf16_rows
     log(json.dumps({"training": training}))
 
+    # ---- the evaluation path (phases 61-64, tools/eval_smoke.py) ----
+    from fastvideocodec_torch.tools import eval_smoke
+
+    evaluation = eval_smoke.run(smi)
+    log(json.dumps({"evaluation": evaluation}, default=str))
+
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
         k: {path: {key: t[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms",
                                            "library_ms", "launches")}
@@ -3702,7 +3723,8 @@ def main() -> int:
                       **{path: n[name] for path, n in stock_launches.items()},
                       **{path: n[name] for path, n in chain_launches.items()},
                       **{path: n[name] for path, n in lsvc_launches.items()},
-                      **{f"{path}_train": n[name] for path, n in chain_train_counts.items()}}
+                      **{f"{path}_train": n[name] for path, n in chain_train_counts.items()},
+                      **{path: n.get(name, 0) for path, n in evaluation["launches"].items()}}
                 for name in kernels}
     # each kernel's top-level numbers stay on the path that defined them in
     # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
@@ -3753,6 +3775,8 @@ def main() -> int:
             "bound_ms": rows[bname]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": lib[bname],
+            "launches_by_eval_path": {path: n[bname] for path, n in
+                                      evaluation["launches"].items() if n.get(bname)},
             "launches_per_training_step": (
                 per_lsvc_step[bname] if bname in FLOW_BACKWARD
                 else {path: n.get(bname, 0) for path, n in pixel_per_step.items()}),

@@ -20,8 +20,16 @@ flax's mixed precision as JAX's ``--bf16`` trains (float32 parameters,
 Adam state and checkpoints; convs and Denses in bfloat16; no loss
 scaling); MCVC trains through ``cli/train_multiview.py``. Base-ER's
 soft2hard schedule is a ``TrainConfig`` field with no flag, as in the JAX
-CLI. ``--evaluate`` and ``--evolve`` wait for a later slice (ROADMAP.md
-queue 1, item 7.6).
+CLI.
+
+``--evaluate`` skips training and evaluates the seeded weights on the
+videos of ``--test-dataset-dir`` (``train/evaluate.py``), appending to
+``{codec}.{dataset}.{evolve}.log``; ``--evolve`` first fine-tunes the
+encoder side on each video's leading GOPs (``train/evolve.py``, in
+float32: with ``--bf16`` the evolved weights are then rounded into the
+bfloat16 build that evaluates). ``--test-size HxW`` resizes the frames to
+H x W, as its help says; the JAX CLI hands (H, W) to a reader that takes
+(width, height) and so gives W x H frames (ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -44,7 +52,6 @@ from fastvideocodec_torch.train import (
     ready_for_training,
     save_checkpoint,
 )
-from fastvideocodec_torch.train.trainer import ROADMAP_TRAINING
 from fastvideocodec_torch.utils import AverageMeter
 from fastvideocodec_torch.weights import load_flat, seeded_flat
 
@@ -71,15 +78,15 @@ def parse_args(argv=None):
     p.add_argument(
         "--evaluate", action="store_true",
         help="skip training; sweep 8 compression levels over --test-dataset-dir "
-        "(reference train.py:431-436; not ported yet)",
+        "(reference train.py:431-436)",
     )
     p.add_argument(
         "--evolve", action="store_true",
         help="per-video encoder overfitting before each eval video "
-        "(reference train.py:315-401); implies --evaluate (not ported yet)",
+        "(reference train.py:315-401); implies --evaluate",
     )
     p.add_argument("--test-dataset-dir", default=None)
-    p.add_argument("--test-size", default="1024x2048")
+    p.add_argument("--test-size", default="1024x2048", help="HxW of the evaluated frames")
     p.add_argument("--max-files", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return p.parse_args(argv)
@@ -89,6 +96,62 @@ def init_params(spec, seed: int) -> None:
     """The module's weights from the JAX modules' initialisers, drawn with
     numpy from ``seed`` (``weights.seeded_flat``)."""
     load_flat(spec.module, seeded_flat(spec.name, seed))
+
+
+def leading_gops(dataset, gop: int = 16, most: int = 4) -> list:
+    """The first ``most`` GOPs of ``dataset``'s next video (NHWC clips of
+    ``gop`` frames, a shorter tail of at least 2), then ``reset``: what
+    evolve fine-tunes on (reference train.py:315-401)."""
+    gops, buf = [], []
+    for i in range(len(dataset)):
+        frame, eof = dataset[i]
+        buf.append(frame)
+        if len(buf) == gop or eof:
+            if len(buf) >= 2:
+                gops.append(np.stack(buf))
+            buf = []
+        if len(gops) >= most or eof:
+            break
+    dataset.reset()
+    return gops
+
+
+def run_evaluate_sweep(args, device) -> None:
+    """--evaluate: the seeded weights (``--seed``) evaluated over the test
+    dataset, one log record a video (reference train.py:431-436; only
+    ELFVC-L, the level-conditioned codec, sweeps all 8 levels). With
+    --evolve the encoder side is first fine-tuned on the video's leading
+    GOPs, in float32, from the same weights at every level."""
+    from fastvideocodec_torch.data import VideoDataset
+    from fastvideocodec_torch.train.evaluate import evaluate_video
+    from fastvideocodec_torch.train.evolve import evolve_on_video
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    spec = get_codec_model(args.codec, dtype=dtype, device=device, loss_type=args.loss_type,
+                           compression_level=args.compression_level)
+    init_params(spec, args.seed)
+    h, w = (int(v) for v in args.test_size.split("x"))
+    test_ds = VideoDataset(args.test_dataset_dir, (w, h), args.max_files or 0)
+    ds_name = args.test_dataset_dir.rstrip("/").split("/")[-1]
+    log_path = f"{args.codec}.{ds_name}.{args.evolve}.log"
+    # the reference's condition is the exact name ELFVC-L (train.py:434): a
+    # substring test would sweep the chain-graph LSVC-L too
+    levels = range(8) if args.codec == "ELFVC-L" else range(1)
+    seeded = {k: v.clone() for k, v in spec.module.state_dict().items()}
+    for level in levels:
+        if args.evolve:
+            tune = spec
+            if dtype != torch.float32:
+                tune = get_codec_model(args.codec, device=device, loss_type=args.loss_type,
+                                       compression_level=args.compression_level)
+                tune.module.load_state_dict(seeded)
+            evolve_on_video(tune, leading_gops(test_ds))
+            if tune is not spec:
+                spec.module.load_state_dict(tune.module.state_dict())
+        stats = evaluate_video(spec, test_ds, log_path=log_path, level=level)
+        print(f"level {level}: {stats}", flush=True)
+        test_ds.reset()
+        spec.module.load_state_dict(seeded)
 
 
 def _state(params: dict, opt_state: dict, epoch: int, score: float) -> dict:
@@ -107,10 +170,14 @@ def on_device(tree, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.evaluate or args.evolve:
-        raise SystemExit("--evaluate and --evolve need train/evaluate.py and train/evolve.py, "
-                         f"not ported yet ({ROADMAP_TRAINING}.6: evaluation and evolve)")
     device = torch.device(args.device)
+    if args.evolve:
+        args.evaluate = True
+    if args.evaluate:
+        if not args.test_dataset_dir:
+            raise SystemExit("--evaluate requires --test-dataset-dir")
+        run_evaluate_sweep(args, device)
+        return
     spec = get_codec_model(args.codec, device=device, loss_type=args.loss_type,
                            compression_level=args.compression_level)
     train_ds = FrameDataset(args.dataset_dir, args.frame_size, split="train")

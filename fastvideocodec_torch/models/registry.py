@@ -29,6 +29,7 @@ from fastvideocodec_torch.models.ssf import ScaleSpaceFlow
 # the reference's RD lambdas by compression level (models.py:72-76)
 PSNR_LAMBDAS = [256, 512, 1024, 2048, 4096, 8192, 16384, 16384 * 2, 16384 * 4]
 MSSSIM_LAMBDAS = [8, 16, 32, 64]
+I_LEVELS = [37, 32, 27, 22, 17, 12, 7, 2, 1]  # BPG's -q by compression level
 
 
 @dataclass
@@ -47,6 +48,11 @@ class CodecSpec:
     def r(self) -> float:
         table = PSNR_LAMBDAS if self.loss_type == "P" else MSSSIM_LAMBDAS
         return float(table[self.compression_level])
+
+    @property
+    def I_level(self) -> int:
+        """BPG's quantizer for the I-frame at this compression level."""
+        return I_LEVELS[self.compression_level]
 
     @property
     def olft(self) -> bool:

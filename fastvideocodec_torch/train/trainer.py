@@ -44,8 +44,6 @@ from fastvideocodec_torch.layers.blocks import cast_once, mixed_precision
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.msssim import ms_ssim
 
-ROADMAP_TRAINING = "ROADMAP.md queue 1, item 7"
-
 
 @dataclass
 class TrainConfig:

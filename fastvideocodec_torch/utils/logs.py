@@ -4,11 +4,14 @@ keep parsing them (reference eval.py:332-337, plot_vesper.py:520-537):
 
 line 1: 'level,bpp,enc_t,dec_t[,aux,...]'
 line 2: the Python repr of the list of per-frame PSNRs
+
+The reader also takes the ``inf`` that a lossless frame's quality writes
+(the pass-through I-frame's MS-SSIM quality, -10 log10(0)), where the JAX
+package's ``ast.literal_eval`` raises.
 """
 
 from __future__ import annotations
 
-import ast
 import os
 
 
@@ -39,5 +42,6 @@ def read_eval_log(path: str):
             "dec_t": float(parts[3]),
             "aux": [float(p) for p in parts[4:]],
         }
-        records.append((header, ast.literal_eval(lines[i + 1])))
+        values = lines[i + 1].strip("[]").split(",")
+        records.append((header, [float(v) for v in values if v.strip()]))
     return records

@@ -64,6 +64,7 @@ from fastvideocodec_torch.ops.kernels import warp as kw
 from fastvideocodec_tpu.coder import video as jv
 from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 from fastvideocodec_tpu.train.checkpoint import asset_params
+from test_torch_train_common import one_torch_thread  # noqa: F401 (autouse)
 
 RECON_ATOL = 1e-4
 ELFVC_ATOL = 3e-6

@@ -42,6 +42,7 @@ from fastvideocodec_tpu.gop import rollout as jax_rollout
 from fastvideocodec_tpu.layers import blocks as jblocks
 from fastvideocodec_tpu.layers import transforms as jtf
 from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
+from test_torch_train_common import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 H, W = 64, 128

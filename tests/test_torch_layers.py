@@ -26,6 +26,7 @@ from fastvideocodec_tpu.entropy import hyperprior as jhyper
 from fastvideocodec_tpu.layers import blocks as jblocks
 from fastvideocodec_tpu.layers import spynet as jspynet
 from fastvideocodec_tpu.layers import transforms as jtf
+from test_torch_train_common import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 

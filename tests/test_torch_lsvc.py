@@ -27,6 +27,7 @@ from fastvideocodec_tpu.gop.decode_graph import build_lsvc_decode as jax_build_d
 from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 from fastvideocodec_tpu.train.checkpoint import asset_params
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
+from test_torch_train_common import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIGS = [("LSVC-TPU", "hd_lsvctpuf2_l2"), ("LSVC-TPU-TINY", "tiny_lsvctpu_l2")]
 GOP, H, W = 4, 64, 128

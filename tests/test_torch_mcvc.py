@@ -50,6 +50,7 @@ from fastvideocodec_tpu.layers import transforms as jtf
 from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 from fastvideocodec_tpu.models import mcvc as jmcvc
 from fastvideocodec_tpu.ops import warp as jwarp
+from test_torch_train_common import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 V = 3

@@ -1,12 +1,14 @@
 """Package-level guards of the PyTorch port.
 
-- The port (its training modules too: train/, cli/train.py,
-  cli/train_multiview.py, utils/, data/vimeo.py, data/loader.py,
-  data/multiview.py), chip_smoke.py, warp_ab.py and
-  real_bits_ab.py import with jax, flax, optax, orbax, PIL and
-  fastvideocodec_tpu unimportable (the card's machine has none of them);
-  real_bits_ab.py's synchronous copies are swapped in for their scope
-  only.
+- The port (its training and evaluation modules too: train/, cli/,
+  utils/, data/, anchors/, analysis/), chip_smoke.py, warp_ab.py and
+  real_bits_ab.py import with jax, flax, optax, orbax, PIL, OpenCV,
+  matplotlib and fastvideocodec_tpu unimportable (the card's machine has
+  none of the JAX ones and no matplotlib); real_bits_ab.py's synchronous
+  copies are swapped in for their scope only. These checks, and the
+  runs below "without JAX", are snippets (``runs_blocked``) that run one
+  after another in one interpreter on one torch thread; each test reads
+  its own snippet's outcome.
 - chip_smoke.py exits non-zero, printing no result, without a CUDA card and
   in a directory that holds nothing else of the repo.
 - The weight loader raises on unknown and on missing parameters.
@@ -39,10 +41,14 @@
   resolution), flow_warp_s2d for the full-resolution s2d warps.
 - An LSVC-TPU-TINY training step and checkpoint, and an MCVC-IA-OLFT-TINY
   online fine-tuning step with its touch-up labels priced, run without
-  JAX.
+  JAX; so do an evolve step and a real-bits evaluate_video of
+  LSVC-TPU-TINY with its log read back, and VideoDataset raises JAX's
+  error without OpenCV. cli/eval.py, cli/train.py --evaluate and
+  cli/train_multiview.py --task speed build on the card by default.
 """
 
 import inspect
+import json
 import os
 import shutil
 import subprocess
@@ -65,7 +71,7 @@ import sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "fastvideocodec_tpu", "PIL"):
+                                  "fastvideocodec_tpu", "PIL", "cv2", "matplotlib"):
             raise ImportError(f"blocked: {{name}}")
         return None
 sys.meta_path.insert(0, _Block())
@@ -73,55 +79,100 @@ sys.path.insert(0, {repo!r})
 """
 
 
-def run_blocked(code: str) -> subprocess.CompletedProcess:
+# The checks that run with those modules unimportable, by test name: all
+# of them run in one interpreter (``blocked_results``), one after another,
+# each in a namespace of its own, and each test reads its own check's
+# outcome, so that a check fails its own test alone.
+BLOCKED_CHECKS: dict = {}
+RUNNER = """
+import contextlib, io, json, traceback
+results = {}
+for name, code in json.loads(sys.stdin.read()).items():
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            exec(compile(code, name, "exec"), {"__name__": "__check__", "sys": sys})
+        results[name] = [out.getvalue().strip() == "ok", out.getvalue()[-4000:]]
+    except BaseException:
+        results[name] = [False, out.getvalue()[-4000:] + traceback.format_exc()]
+print("RESULTS " + json.dumps(results))
+"""
+
+
+def runs_blocked(code: str):
+    """Registers ``code`` as the blocked check of the test it decorates: it
+    passes when it prints 'ok' and raises nothing."""
+    def register(test):
+        BLOCKED_CHECKS[test.__name__] = code
+        return test
+    return register
+
+
+@pytest.fixture(scope="module")
+def blocked_results() -> dict:
+    """Every registered check's (passed, output), run in one interpreter
+    with the BLOCKER's modules unimportable, on one torch thread (the
+    suite's workers share the host's cores)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    return subprocess.run(
-        [sys.executable, "-c", BLOCKER.format(repo=str(REPO)) + code],
-        capture_output=True, text=True, timeout=120, cwd=str(REPO), env=env,
+    env["OMP_NUM_THREADS"] = "1"
+    r = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(repo=str(REPO)) + RUNNER],
+        input=json.dumps(BLOCKED_CHECKS), capture_output=True, text=True, timeout=900,
+        cwd=str(REPO), env=env,
     )
+    found = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULTS ")]
+    assert r.returncode == 0 and found, r.stdout[-4000:] + r.stderr[-4000:]
+    return json.loads(found[-1][len("RESULTS "):])
 
 
-def test_port_imports_without_jax():
-    r = run_blocked(
-        "import pkgutil, importlib, fastvideocodec_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'fastvideocodec_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "assert 'fastvideocodec_torch.models.mcvc' in sys.modules\n"
-        "for name in ('models.dvc', 'models.base', 'models.rlvc', 'entropy.rpm',\n"
-        "             'layers.codecnet', 'train.trainer', 'train.checkpoint',\n"
-        "             'train.olft', 'cli.train', 'cli.train_multiview', 'utils.meters',\n"
-        "             'utils.logs', 'data.vimeo', 'data.loader', 'data.multiview',\n"
-        "             'ops.msssim'):\n"
-        "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
-        "                              'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+def check_blocked(results: dict, name: str) -> None:
+    passed, output = results[name]
+    assert passed, output
 
 
-def test_chip_smoke_imports_without_jax():
-    r = run_blocked(
-        "import chip_smoke\n"
-        "assert callable(chip_smoke.main)\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import pkgutil, importlib, fastvideocodec_torch as p\n"
+    "for m in pkgutil.walk_packages(p.__path__, 'fastvideocodec_torch.'):\n"
+    "    importlib.import_module(m.name)\n"
+    "assert 'fastvideocodec_torch.models.mcvc' in sys.modules\n"
+    "for name in ('models.dvc', 'models.base', 'models.rlvc', 'entropy.rpm',\n"
+    "             'layers.codecnet', 'train.trainer', 'train.checkpoint',\n"
+    "             'train.olft', 'cli.train', 'cli.train_multiview', 'utils.meters',\n"
+    "             'utils.logs', 'data.vimeo', 'data.loader', 'data.multiview',\n"
+    "             'ops.msssim', 'data.video', 'anchors', 'train.evaluate',\n"
+    "             'train.evolve', 'cli.eval', 'cli.plot', 'analysis.plots',\n"
+    "             'utils.torch_import'):\n"
+    "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu', 'cv2', 'matplotlib')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_port_imports_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_port_imports_without_jax")
+
+
+@runs_blocked(
+    "import chip_smoke\n"
+    "assert callable(chip_smoke.main)\n"
+    "print('ok')\n"
+)
+def test_chip_smoke_imports_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_chip_smoke_imports_without_jax")
 
 
 def _no_result(r: subprocess.CompletedProcess) -> bool:
     return r.returncode != 0 and '"ok"' not in r.stdout
 
 
-def test_warp_ab_imports_without_jax_and_needs_a_card():
-    r = run_blocked(
-        "import warp_ab\n"
-        "assert callable(warp_ab.main)\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import warp_ab\n"
+    "assert callable(warp_ab.main)\n"
+    "print('ok')\n"
+)
+def test_warp_ab_imports_without_jax_and_needs_a_card(blocked_results):
+    check_blocked(blocked_results, "test_warp_ab_imports_without_jax_and_needs_a_card")
     if not torch.cuda.is_available():
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         r = subprocess.run([sys.executable, "warp_ab.py", f"warp={build.SOURCE}"],
@@ -129,25 +180,25 @@ def test_warp_ab_imports_without_jax_and_needs_a_card():
         assert r.returncode != 0 and "median" not in r.stdout, r.stdout
 
 
-def test_real_bits_ab_imports_without_jax_and_restores_the_copies():
-    r = run_blocked(
-        "import torch, real_bits_ab as ab\n"
-        "from fastvideocodec_torch.coder import video as cv\n"
-        "shipped = cv.HostCopy\n"
-        "with ab.copies('shipped'):\n"
-        "    assert cv.HostCopy is shipped\n"
-        "try:\n"
-        "    with ab.copies('synchronous'):\n"
-        "        assert cv.HostCopy is ab._SyncCopy\n"
-        "        t = torch.arange(6).reshape(2, 3)\n"
-        "        assert (cv.HostCopy(t).numpy() == t.numpy()).all()\n"
-        "        raise KeyError('inside')\n"
-        "except KeyError:\n"
-        "    pass\n"
-        "assert cv.HostCopy is shipped\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import torch, real_bits_ab as ab\n"
+    "from fastvideocodec_torch.coder import video as cv\n"
+    "shipped = cv.HostCopy\n"
+    "with ab.copies('shipped'):\n"
+    "    assert cv.HostCopy is shipped\n"
+    "try:\n"
+    "    with ab.copies('synchronous'):\n"
+    "        assert cv.HostCopy is ab._SyncCopy\n"
+    "        t = torch.arange(6).reshape(2, 3)\n"
+    "        assert (cv.HostCopy(t).numpy() == t.numpy()).all()\n"
+    "        raise KeyError('inside')\n"
+    "except KeyError:\n"
+    "    pass\n"
+    "assert cv.HostCopy is shipped\n"
+    "print('ok')\n"
+)
+def test_real_bits_ab_imports_without_jax_and_restores_the_copies(blocked_results):
+    check_blocked(blocked_results, "test_real_bits_ab_imports_without_jax_and_restores_the_copies")
 
 
 def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
@@ -162,23 +213,23 @@ def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
     assert _no_result(r), r.stdout
 
 
-def test_ssf_rollout_runs_without_jax():
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop_multi\n"
-        "spec = ft.get_codec_model('SSF-TPU-TINY', device='cpu')\n"
-        "ft.load_asset(spec.module, 'tiny_ssftpu_l2')\n"
-        "clip = synth_gop_multi(np.random.default_rng(0), size=64, gop=2)[:, :32]\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)\n"
-        "recon, m = ft.rollout(spec, gop)\n"
-        "assert recon.shape == (1, 3, 32, 64) and bool(torch.isfinite(recon).all())\n"
-        "assert float(m['bpp_est'][0]) > 0\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop_multi\n"
+    "spec = ft.get_codec_model('SSF-TPU-TINY', device='cpu')\n"
+    "ft.load_asset(spec.module, 'tiny_ssftpu_l2')\n"
+    "clip = synth_gop_multi(np.random.default_rng(0), size=64, gop=2)[:, :32]\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)\n"
+    "recon, m = ft.rollout(spec, gop)\n"
+    "assert recon.shape == (1, 3, 32, 64) and bool(torch.isfinite(recon).all())\n"
+    "assert float(m['bpp_est'][0]) > 0\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_ssf_rollout_runs_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_ssf_rollout_runs_without_jax")
 
 
 def _tiny_cpu_model():
@@ -376,26 +427,26 @@ def test_port_builds_without_torch_extensions():
             assert word not in text, f"{path} uses {word}"
 
 
-def test_elfvc_rollout_and_real_bits_run_without_jax():
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.coder import video as cv\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop_multi\n"
-        "spec = ft.get_codec_model('ELFVC-SP-TPU-TINY', device='cpu', sp_stage=2)\n"
-        "ft.load_asset(spec.module, 'tiny_elfvctpu_l3')\n"
-        "clip = synth_gop_multi(np.random.default_rng(0), size=64, gop=2)[:, :32]\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)\n"
-        "recon, m = ft.rollout(spec, gop)\n"
-        "assert recon.shape == (1, 3, 32, 64) and bool(torch.isfinite(recon).all())\n"
-        "assert float(m['bpp_est'][0]) > 0 and float(m['pred_err_norm'][0]) > 0\n"
-        "streams, rec, bits = cv.elfvc_compress_gop(spec, gop[:, None])\n"
-        "assert torch.equal(cv.elfvc_decompress_gop(spec, streams), rec) and bits > 0\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.coder import video as cv\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop_multi\n"
+    "spec = ft.get_codec_model('ELFVC-SP-TPU-TINY', device='cpu', sp_stage=2)\n"
+    "ft.load_asset(spec.module, 'tiny_elfvctpu_l3')\n"
+    "clip = synth_gop_multi(np.random.default_rng(0), size=64, gop=2)[:, :32]\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(clip)).permute(0, 3, 1, 2)\n"
+    "recon, m = ft.rollout(spec, gop)\n"
+    "assert recon.shape == (1, 3, 32, 64) and bool(torch.isfinite(recon).all())\n"
+    "assert float(m['bpp_est'][0]) > 0 and float(m['pred_err_norm'][0]) > 0\n"
+    "streams, rec, bits = cv.elfvc_compress_gop(spec, gop[:, None])\n"
+    "assert torch.equal(cv.elfvc_decompress_gop(spec, streams), rec) and bits > 0\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_elfvc_rollout_and_real_bits_run_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_elfvc_rollout_and_real_bits_run_without_jax")
 
 
 @pytest.mark.parametrize("name", ["ELFVC-TPU", "ELFVC-SP-TPU", "ELFVC-TPU-TINY",
@@ -484,27 +535,27 @@ def test_seeded_ssf_weights_are_unchanged():
     assert h.hexdigest() == "b0fd06ea58fc48050865cd7aee59ad3ddce4cc9b75eb7a81f0cc76b791ed9dcc"
 
 
-def test_mcvc_rollout_and_real_bits_run_without_jax():
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.coder import video as cv\n"
-        "from fastvideocodec_torch.data.synthetic import synth_mv_gop\n"
-        "spec = ft.get_codec_model('MCVC-IA-TINY', device='cpu', num_views=3)\n"
-        "ft.load_asset(spec.module, 'tiny_mcvc_l3')\n"
-        "clip = synth_mv_gop(np.random.default_rng(0), views=3, size=32, gop=2)\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))\n"
-        "mask = np.asarray([1, 0, 1], np.float32)\n"
-        "recon, m = ft.rollout(spec, gop, mask)\n"
-        "assert recon.shape == (2, 3, 3, 32, 32) and bool(torch.isfinite(recon).all())\n"
-        "assert float(m['bpp_est'][1]) > 0 and abs(float(m['completeness']) - 2 / 3) < 1e-6\n"
-        "streams, rec, bits = cv.mcvc_compress_gop(spec, gop, mask)\n"
-        "assert torch.equal(cv.mcvc_decompress_gop(spec, streams), rec) and bits > 0\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.coder import video as cv\n"
+    "from fastvideocodec_torch.data.synthetic import synth_mv_gop\n"
+    "spec = ft.get_codec_model('MCVC-IA-TINY', device='cpu', num_views=3)\n"
+    "ft.load_asset(spec.module, 'tiny_mcvc_l3')\n"
+    "clip = synth_mv_gop(np.random.default_rng(0), views=3, size=32, gop=2)\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))\n"
+    "mask = np.asarray([1, 0, 1], np.float32)\n"
+    "recon, m = ft.rollout(spec, gop, mask)\n"
+    "assert recon.shape == (2, 3, 3, 32, 32) and bool(torch.isfinite(recon).all())\n"
+    "assert float(m['bpp_est'][1]) > 0 and abs(float(m['completeness']) - 2 / 3) < 1e-6\n"
+    "streams, rec, bits = cv.mcvc_compress_gop(spec, gop, mask)\n"
+    "assert torch.equal(cv.mcvc_decompress_gop(spec, streams), rec) and bits > 0\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_mcvc_rollout_and_real_bits_run_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_mcvc_rollout_and_real_bits_run_without_jax")
 
 
 @pytest.mark.parametrize("name", ["MCVC", "MCVC-IA", "MCVC-IA-OLFT", "MCVC-IA-TINY"])
@@ -606,37 +657,37 @@ def test_shipped_stock_weights_map_completely(asset, name, n_keys):
     assert set(ft.weights.flax_shapes(spec.module)) == set(data.files)
 
 
-def test_stock_rollouts_and_real_bits_run_without_jax():
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.coder import video as cv\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop, synth_mv_gop\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(\n"
-        "    synth_gop(np.random.default_rng(0), size=32, gop=2).transpose(0, 3, 1, 2)))\n"
-        "for name, asset, fns in (\n"
-        "        ('SSF-TINY', 'tiny_ssf_l2', (cv.ssf_compress_gop, cv.ssf_decompress_gop)),\n"
-        "        ('ELFVC-SP-TINY', 'tiny_elfvc_l3',\n"
-        "         (cv.elfvc_compress_gop, cv.elfvc_decompress_gop))):\n"
-        "    spec = ft.get_codec_model(name, device='cpu', sp_stage=2)\n"
-        "    ft.load_asset(spec.module, asset)\n"
-        "    recon, m = ft.rollout(spec, gop)\n"
-        "    assert recon.shape == (1, 3, 32, 32) and bool(torch.isfinite(recon).all())\n"
-        "    assert float(m['bpp_est'][0]) > 0\n"
-        "    streams, rec, bits = fns[0](spec, gop[:, None])\n"
-        "    assert torch.equal(fns[1](spec, streams), rec) and bits > 0\n"
-        "views = torch.from_numpy(np.ascontiguousarray(\n"
-        "    synth_mv_gop(np.random.default_rng(0), views=2, size=32, gop=2)\n"
-        "    .transpose(0, 1, 4, 2, 3)))\n"
-        "spec = ft.get_codec_model('MCVC-Original', device='cpu')\n"
-        "ft.load_flat(spec.module, ft.seeded_flat('MCVC-Original', 0))\n"
-        "recon, m = ft.rollout(spec, views)\n"
-        "assert spec.family == 'ssf' and recon.shape == (1, 2, 3, 32, 32)\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.coder import video as cv\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop, synth_mv_gop\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(\n"
+    "    synth_gop(np.random.default_rng(0), size=32, gop=2).transpose(0, 3, 1, 2)))\n"
+    "for name, asset, fns in (\n"
+    "        ('SSF-TINY', 'tiny_ssf_l2', (cv.ssf_compress_gop, cv.ssf_decompress_gop)),\n"
+    "        ('ELFVC-SP-TINY', 'tiny_elfvc_l3',\n"
+    "         (cv.elfvc_compress_gop, cv.elfvc_decompress_gop))):\n"
+    "    spec = ft.get_codec_model(name, device='cpu', sp_stage=2)\n"
+    "    ft.load_asset(spec.module, asset)\n"
+    "    recon, m = ft.rollout(spec, gop)\n"
+    "    assert recon.shape == (1, 3, 32, 32) and bool(torch.isfinite(recon).all())\n"
+    "    assert float(m['bpp_est'][0]) > 0\n"
+    "    streams, rec, bits = fns[0](spec, gop[:, None])\n"
+    "    assert torch.equal(fns[1](spec, streams), rec) and bits > 0\n"
+    "views = torch.from_numpy(np.ascontiguousarray(\n"
+    "    synth_mv_gop(np.random.default_rng(0), views=2, size=32, gop=2)\n"
+    "    .transpose(0, 1, 4, 2, 3)))\n"
+    "spec = ft.get_codec_model('MCVC-Original', device='cpu')\n"
+    "ft.load_flat(spec.module, ft.seeded_flat('MCVC-Original', 0))\n"
+    "recon, m = ft.rollout(spec, views)\n"
+    "assert spec.family == 'ssf' and recon.shape == (1, 2, 3, 32, 32)\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_stock_rollouts_and_real_bits_run_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_stock_rollouts_and_real_bits_run_without_jax")
 
 
 DVC_FAMILY = ["DVC", "DVC-TINY", "DVC-pretrained", "RLVC", "RLVC2", "RLVC-HP", "RLVC-TINY",
@@ -733,36 +784,36 @@ def test_dvc_family_seeded_flat_has_the_jax_init(name):
         assert h and 0.005 < np.concatenate(h).std() < 0.015
 
 
-def test_dvc_family_rollouts_and_real_bits_run_without_jax():
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.coder import video as cv\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(\n"
-        "    synth_gop(np.random.default_rng(0), size=64, gop=3).transpose(0, 3, 1, 2)))\n"
-        "for name, asset, fns in (\n"
-        "        ('DVC-TINY', 'tiny_dvc_l2', (cv.dvc_compress_gop, cv.dvc_decompress_gop)),\n"
-        "        ('Base-ER-TINY', 'tiny_base_l2', (cv.base_compress_gop, cv.base_decompress_gop)),\n"
-        "        ('RLVC-TINY', 'tiny_rlvc_l2', (cv.rlvc_compress_gop, cv.rlvc_decompress_gop))):\n"
-        "    spec = ft.get_codec_model(name, device='cpu')\n"
-        "    ft.load_asset(spec.module, asset)\n"
-        "    recon, m = ft.rollout(spec, gop)\n"
-        "    assert recon.shape == (2, 3, 64, 64) and bool(torch.isfinite(recon).all())\n"
-        "    assert float(m['bpp_est'][0]) > 0\n"
-        "    streams, rec, bits = fns[0](spec, gop)\n"
-        "    assert torch.equal(fns[1](spec, gop[0], streams), rec) and bits > 0\n"
-        "from fastvideocodec_torch.layers.spynet import load_pretrained_spynet\n"
-        "spec = ft.get_codec_model('RLVC-HP', device='cpu')\n"
-        "ft.load_flat(spec.module, ft.seeded_flat('RLVC-HP', 0))\n"
-        "load_pretrained_spynet(spec.module.optic_flow)\n"
-        "recon, m = ft.rollout(spec, gop)\n"
-        "assert spec.family == 'rlvc' and recon.shape == (2, 3, 64, 64)\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.coder import video as cv\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(\n"
+    "    synth_gop(np.random.default_rng(0), size=64, gop=3).transpose(0, 3, 1, 2)))\n"
+    "for name, asset, fns in (\n"
+    "        ('DVC-TINY', 'tiny_dvc_l2', (cv.dvc_compress_gop, cv.dvc_decompress_gop)),\n"
+    "        ('Base-ER-TINY', 'tiny_base_l2', (cv.base_compress_gop, cv.base_decompress_gop)),\n"
+    "        ('RLVC-TINY', 'tiny_rlvc_l2', (cv.rlvc_compress_gop, cv.rlvc_decompress_gop))):\n"
+    "    spec = ft.get_codec_model(name, device='cpu')\n"
+    "    ft.load_asset(spec.module, asset)\n"
+    "    recon, m = ft.rollout(spec, gop)\n"
+    "    assert recon.shape == (2, 3, 64, 64) and bool(torch.isfinite(recon).all())\n"
+    "    assert float(m['bpp_est'][0]) > 0\n"
+    "    streams, rec, bits = fns[0](spec, gop)\n"
+    "    assert torch.equal(fns[1](spec, gop[0], streams), rec) and bits > 0\n"
+    "from fastvideocodec_torch.layers.spynet import load_pretrained_spynet\n"
+    "spec = ft.get_codec_model('RLVC-HP', device='cpu')\n"
+    "ft.load_flat(spec.module, ft.seeded_flat('RLVC-HP', 0))\n"
+    "load_pretrained_spynet(spec.module.optic_flow)\n"
+    "recon, m = ft.rollout(spec, gop)\n"
+    "assert spec.family == 'rlvc' and recon.shape == (2, 3, 64, 64)\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_dvc_family_rollouts_and_real_bits_run_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_dvc_family_rollouts_and_real_bits_run_without_jax")
 
 
 @pytest.mark.parametrize("name", ["DVC", "Base-EC-ER", "RLVC", "RLVC-HP", "RLVC2"])
@@ -863,155 +914,224 @@ def test_lsvc_forward_off_cpu_sends_each_warp_to_its_kernel(monkeypatch, name):
     assert not reached
 
 
-def test_lsvc_forms_run_without_jax():
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.coder import video as cv\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(\n"
-        "    synth_gop(np.random.default_rng(0), size=64, gop=3).transpose(0, 3, 1, 2)))\n"
-        "for name, weights in (('LSVC-TINY', 'tiny_lsvc_l2'), ('LSVC-TPU-HF-TINY', None),\n"
-        "                      ('LSVC-TPU-TINY-L', 'tiny_lsvctpu_l2')):\n"
-        "    spec = ft.get_codec_model(name, device='cpu')\n"
-        "    if weights:\n"
-        "        ft.load_asset(spec.module, weights)\n"
-        "    else:\n"
-        "        ft.load_flat(spec.module, ft.seeded_flat(name, 0))\n"
-        "    recon, m = ft.rollout(spec, gop)\n"
-        "    assert recon.shape == (2, 3, 64, 64) and bool(torch.isfinite(recon).all())\n"
-        "    streams, rec, bits = cv.lsvc_compress(spec, gop)\n"
-        "    assert torch.equal(cv.lsvc_decompress(spec, gop[0], streams, 2), rec) and bits > 0\n"
-        "    decode, (mv, zs, fs) = ft.build_lsvc_decode(spec.module, 3, 64, 64)\n"
-        "    iframe = spec.module.fold(gop[:1])[0][0]\n"
-        "    assert decode(iframe, mv, zs, fs)[2].shape == (2, 3, 64, 64)\n"
-        "from fastvideocodec_torch.analysis import bd_rate\n"
-        "curve = ([1, 2, 3, 4], [30, 32, 33, 34])\n"
-        "assert abs(bd_rate(*curve, *curve)) < 1e-9\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.coder import video as cv\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(\n"
+    "    synth_gop(np.random.default_rng(0), size=64, gop=3).transpose(0, 3, 1, 2)))\n"
+    "for name, weights in (('LSVC-TINY', 'tiny_lsvc_l2'), ('LSVC-TPU-HF-TINY', None),\n"
+    "                      ('LSVC-TPU-TINY-L', 'tiny_lsvctpu_l2')):\n"
+    "    spec = ft.get_codec_model(name, device='cpu')\n"
+    "    if weights:\n"
+    "        ft.load_asset(spec.module, weights)\n"
+    "    else:\n"
+    "        ft.load_flat(spec.module, ft.seeded_flat(name, 0))\n"
+    "    recon, m = ft.rollout(spec, gop)\n"
+    "    assert recon.shape == (2, 3, 64, 64) and bool(torch.isfinite(recon).all())\n"
+    "    streams, rec, bits = cv.lsvc_compress(spec, gop)\n"
+    "    assert torch.equal(cv.lsvc_decompress(spec, gop[0], streams, 2), rec) and bits > 0\n"
+    "    decode, (mv, zs, fs) = ft.build_lsvc_decode(spec.module, 3, 64, 64)\n"
+    "    iframe = spec.module.fold(gop[:1])[0][0]\n"
+    "    assert decode(iframe, mv, zs, fs)[2].shape == (2, 3, 64, 64)\n"
+    "from fastvideocodec_torch.analysis import bd_rate\n"
+    "curve = ([1, 2, 3, 4], [30, 32, 33, 34])\n"
+    "assert abs(bd_rate(*curve, *curve)) < 1e-9\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_lsvc_forms_run_without_jax(blocked_results):
+    check_blocked(blocked_results, "test_lsvc_forms_run_without_jax")
 
 
-def test_training_step_runs_without_jax():
+@runs_blocked(
+    "import os, tempfile, numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+    "from fastvideocodec_torch.ops.math import UniformNoise\n"
+    "from fastvideocodec_torch import train\n"
+    "spec = ft.get_codec_model('LSVC-TPU-TINY', device='cpu')\n"
+    "ft.load_asset(spec.module, 'tiny_lsvctpu_l2')\n"
+    "clip = synth_gop(np.random.default_rng(0), size=64, gop=4)\n"
+    "gop = torch.from_numpy(np.array(clip.transpose(0, 3, 1, 2)))\n"
+    "ft.rollout(spec, gop)\n"
+    "params = train.ready_for_training(spec)\n"
+    "init_fn, step_fn = train.make_train_step(spec, train.TrainConfig())\n"
+    "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
+    "assert all(bool(torch.isfinite(v)) for v in m.values())\n"
+    "with tempfile.TemporaryDirectory() as d:\n"
+    "    train.save_checkpoint(d, {'params': params, 'opt_state': state, 'epoch': 0,\n"
+    "                              'score': 1.0})\n"
+    "    assert train.load_checkpoint(d)['opt_state']['main']['count'] == 1\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_training_step_runs_without_jax(blocked_results):
     """An eval rollout, then a training step and a checkpoint round trip of
     LSVC-TPU-TINY on the CPU, with JAX, optax, orbax and PIL unimportable."""
-    r = run_blocked(
-        "import os, tempfile, numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
-        "from fastvideocodec_torch.ops.math import UniformNoise\n"
-        "from fastvideocodec_torch import train\n"
-        "spec = ft.get_codec_model('LSVC-TPU-TINY', device='cpu')\n"
-        "ft.load_asset(spec.module, 'tiny_lsvctpu_l2')\n"
-        "clip = synth_gop(np.random.default_rng(0), size=64, gop=4)\n"
-        "gop = torch.from_numpy(np.array(clip.transpose(0, 3, 1, 2)))\n"
-        "ft.rollout(spec, gop)\n"
-        "params = train.ready_for_training(spec)\n"
-        "init_fn, step_fn = train.make_train_step(spec, train.TrainConfig())\n"
-        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
-        "assert all(bool(torch.isfinite(v)) for v in m.values())\n"
-        "with tempfile.TemporaryDirectory() as d:\n"
-        "    train.save_checkpoint(d, {'params': params, 'opt_state': state, 'epoch': 0,\n"
-        "                              'score': 1.0})\n"
-        "    assert train.load_checkpoint(d)['opt_state']['main']['count'] == 1\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
-        "                              'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    check_blocked(blocked_results, "test_training_step_runs_without_jax")
 
 
-def test_olft_step_runs_without_jax():
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.cli import train_multiview\n"
+    "from fastvideocodec_torch.data import multiview\n"
+    "from fastvideocodec_torch.data.synthetic import synth_mv_gop\n"
+    "from fastvideocodec_torch.ops.math import UniformNoise\n"
+    "from fastvideocodec_torch.train import olft, TrainConfig, ready_for_training\n"
+    "spec = ft.get_codec_model('MCVC-IA-OLFT-TINY', device='cpu', num_views=3)\n"
+    "ft.load_asset(spec.module, 'tiny_mcvc_l3')\n"
+    "assert spec.olft\n"
+    "clip = synth_mv_gop(np.random.default_rng(0), views=3, size=64, gop=3)\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))\n"
+    "params = ready_for_training(spec)\n"
+    "init_fn, step_fn = olft.make_olft_step(spec, TrainConfig(learning_rate=1e-5), 0.1)\n"
+    "mask = np.array([1, 1, 0], np.float32)\n"
+    "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0), mask)\n"
+    "n = olft.touchup_bytes(m.pop('touch_refs'), m.pop('touch_labels'), m.pop('touch_mask'))\n"
+    "assert n > 0 and all(bool(torch.isfinite(v)) for v in m.values()), m\n"
+    "assert state['main']['count'] == 1\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_olft_step_runs_without_jax(blocked_results):
     """One OLFT step of MCVC-IA-OLFT-TINY on the CPU, its touch-up labels
     priced on the host, with train.olft, data.multiview and
     cli.train_multiview imported and JAX, optax, orbax and PIL
     unimportable."""
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.cli import train_multiview\n"
-        "from fastvideocodec_torch.data import multiview\n"
-        "from fastvideocodec_torch.data.synthetic import synth_mv_gop\n"
-        "from fastvideocodec_torch.ops.math import UniformNoise\n"
-        "from fastvideocodec_torch.train import olft, TrainConfig, ready_for_training\n"
-        "spec = ft.get_codec_model('MCVC-IA-OLFT-TINY', device='cpu', num_views=3)\n"
-        "ft.load_asset(spec.module, 'tiny_mcvc_l3')\n"
-        "assert spec.olft\n"
-        "clip = synth_mv_gop(np.random.default_rng(0), views=3, size=64, gop=3)\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 1, 4, 2, 3)))\n"
-        "params = ready_for_training(spec)\n"
-        "init_fn, step_fn = olft.make_olft_step(spec, TrainConfig(learning_rate=1e-5), 0.1)\n"
-        "mask = np.array([1, 1, 0], np.float32)\n"
-        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0), mask)\n"
-        "n = olft.touchup_bytes(m.pop('touch_refs'), m.pop('touch_labels'), m.pop('touch_mask'))\n"
-        "assert n > 0 and all(bool(torch.isfinite(v)) for v in m.values()), m\n"
-        "assert state['main']['count'] == 1\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
-        "                              'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    check_blocked(blocked_results, "test_olft_step_runs_without_jax")
 
 
-def test_dvc_step_runs_without_jax():
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+    "from fastvideocodec_torch.ops import ms_ssim\n"
+    "from fastvideocodec_torch.ops.math import UniformNoise\n"
+    "from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training\n"
+    "spec = ft.get_codec_model('DVC-TINY', device='cpu')\n"
+    "ft.load_asset(spec.module, 'tiny_dvc_l2')\n"
+    "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))\n"
+    "params = ready_for_training(spec)\n"
+    "init_fn, step_fn = make_train_step(spec, TrainConfig())\n"
+    "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
+    "assert all(bool(torch.isfinite(v)) for v in m.values()), m\n"
+    "assert state['main']['count'] == 1\n"
+    "x = torch.rand(1, 3, 176, 176)\n"
+    "assert abs(float(ms_ssim(x, x)) - 1.0) < 1e-5\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_dvc_step_runs_without_jax(blocked_results):
     """One training step of DVC-TINY on tiny_dvc_l2 on the CPU, and the
     MS-SSIM loss of the module's ops, with JAX, optax, orbax and PIL
     unimportable."""
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
-        "from fastvideocodec_torch.ops import ms_ssim\n"
-        "from fastvideocodec_torch.ops.math import UniformNoise\n"
-        "from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training\n"
-        "spec = ft.get_codec_model('DVC-TINY', device='cpu')\n"
-        "ft.load_asset(spec.module, 'tiny_dvc_l2')\n"
-        "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))\n"
-        "params = ready_for_training(spec)\n"
-        "init_fn, step_fn = make_train_step(spec, TrainConfig())\n"
-        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
-        "assert all(bool(torch.isfinite(v)) for v in m.values()), m\n"
-        "assert state['main']['count'] == 1\n"
-        "x = torch.rand(1, 3, 176, 176)\n"
-        "assert abs(float(ms_ssim(x, x)) - 1.0) < 1e-5\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
-        "                              'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    check_blocked(blocked_results, "test_dvc_step_runs_without_jax")
 
 
-def test_bf16_step_runs_without_jax():
+@runs_blocked(
+    "import numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+    "from fastvideocodec_torch.ops.math import UniformNoise\n"
+    "from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training\n"
+    "spec = ft.get_codec_model('SSF-TPU-TINY', device='cpu')\n"
+    "ft.load_asset(spec.module, 'tiny_ssftpu_l2')\n"
+    "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
+    "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))\n"
+    "params = ready_for_training(spec, torch.bfloat16)\n"
+    "start = {n: p.detach().clone() for n, p in params.items()}\n"
+    "init_fn, step_fn = make_train_step(spec, TrainConfig())\n"
+    "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
+    "assert all(bool(torch.isfinite(v)) for v in m.values()), m\n"
+    "assert {p.dtype for p in params.values()} == {torch.float32}\n"
+    "assert any(not torch.equal(p, start[n]) for n, p in params.items())\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_bf16_step_runs_without_jax(blocked_results):
     """One bf16 training step (float32 masters, bf16 compute) of
     SSF-TPU-TINY on tiny_ssftpu_l2 on the CPU with JAX, optax, orbax and
     PIL unimportable: finite metrics, float32 parameters that moved."""
-    r = run_blocked(
-        "import numpy as np, torch, fastvideocodec_torch as ft\n"
-        "from fastvideocodec_torch.data.synthetic import synth_gop\n"
-        "from fastvideocodec_torch.ops.math import UniformNoise\n"
-        "from fastvideocodec_torch.train import TrainConfig, make_train_step, ready_for_training\n"
-        "spec = ft.get_codec_model('SSF-TPU-TINY', device='cpu')\n"
-        "ft.load_asset(spec.module, 'tiny_ssftpu_l2')\n"
-        "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
-        "gop = torch.from_numpy(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))\n"
-        "params = ready_for_training(spec, torch.bfloat16)\n"
-        "start = {n: p.detach().clone() for n, p in params.items()}\n"
-        "init_fn, step_fn = make_train_step(spec, TrainConfig())\n"
-        "params, state, m = step_fn(params, init_fn(params), gop, UniformNoise(0))\n"
-        "assert all(bool(torch.isfinite(v)) for v in m.values()), m\n"
-        "assert {p.dtype for p in params.values()} == {torch.float32}\n"
-        "assert any(not torch.equal(p, start[n]) for n, p in params.items())\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
-        "                              'fastvideocodec_tpu')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    check_blocked(blocked_results, "test_bf16_step_runs_without_jax")
+
+
+@runs_blocked(
+    "import os, tempfile, numpy as np, torch, fastvideocodec_torch as ft\n"
+    "from fastvideocodec_torch import anchors, data\n"
+    "from fastvideocodec_torch.analysis import rd_points\n"
+    "from fastvideocodec_torch.data.synthetic import synth_gop\n"
+    "from fastvideocodec_torch.train.evaluate import evaluate_video\n"
+    "from fastvideocodec_torch.train.evolve import evolve_on_video\n"
+    "spec = ft.get_codec_model('LSVC-TPU-TINY', device='cpu')\n"
+    "ft.load_asset(spec.module, 'tiny_lsvctpu_l2')\n"
+    "clip = synth_gop(np.random.default_rng(0), size=64, gop=3)\n"
+    "class Clip:\n"
+    "    seen = 0\n"
+    "    def __len__(self):\n"
+    "        return len(clip)\n"
+    "    def __getitem__(self, idx):\n"
+    "        self.seen += 1\n"
+    "        return clip[self.seen - 1], self.seen == len(clip)\n"
+    "_, best = evolve_on_video(spec, [clip], steps=1)\n"
+    "assert np.isfinite(best)\n"
+    "with tempfile.TemporaryDirectory() as d:\n"
+    "    log = os.path.join(d, 'LSVC-TPU-TINY.clip.0.log')\n"
+    "    s = evaluate_video(spec, Clip(), gop_size=3, log_path=log, real_bits=True)\n"
+    "    pts = rd_points(log)\n"
+    "    try:\n"
+    "        data.VideoDataset(d)\n"
+    "    except RuntimeError as e:\n"
+    "        assert 'OpenCV required' in str(e)\n"
+    "    else:\n"
+    "        raise AssertionError('VideoDataset without OpenCV')\n"
+    "assert s['bpp'] > 0 and abs(pts[0]['bpp'] - s['bpp']) < 1e-4, (s, pts)\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu', 'cv2', 'matplotlib')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_eval_path_runs_without_jax(blocked_results):
+    """LSVC-TPU-TINY evolved one step, then evaluated with real bits on an
+    in-memory clip that keeps VideoDataset's contract, its log read back
+    by rd_points, with JAX, optax, orbax, PIL, OpenCV and matplotlib
+    unimportable; VideoDataset raises JAX's error without OpenCV."""
+    check_blocked(blocked_results, "test_eval_path_runs_without_jax")
+
+
+def test_eval_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """cli/eval.py, cli/train.py --evaluate and cli/train_multiview.py
+    --task speed build their codecs on the card unless --device cpu: with
+    no card here each raises where it builds one."""
+    from fastvideocodec_torch.cli import eval as eval_cli
+    from fastvideocodec_torch.cli import train as train_cli
+    from fastvideocodec_torch.cli import train_multiview as mv_cli
+
+    for cli in (eval_cli, train_cli, mv_cli):
+        assert cli.parse_args(["--dataset-dir", "d"]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "empty").mkdir()
+    runs = [
+        lambda: eval_cli.main(["--codec", "LSVC-TPU-TINY", "--dataset-dir", "empty"]),
+        lambda: train_cli.main(["--codec", "LSVC-TPU-TINY", "--dataset-dir", "d", "--evaluate",
+                                "--test-dataset-dir", "empty"]),
+        lambda: mv_cli.main(["--task", "speed", "--codec", "MCVC-IA-TINY", "--max-views", "1"]),
+    ]
+    for run in runs:
+        with pytest.raises((RuntimeError, AssertionError)):
+            run()

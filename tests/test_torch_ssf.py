@@ -29,6 +29,7 @@ from fastvideocodec_torch.weights import load_flat, seeded_flat
 from fastvideocodec_tpu.gop import rollout as jax_rollout
 from fastvideocodec_tpu.models import get_codec_model as jax_get_codec_model
 from fastvideocodec_tpu.ops.warp import space_to_depth as jax_space_to_depth
+from test_torch_train_common import one_torch_thread  # noqa: F401 (autouse)
 
 GOP, H, W = 4, 64, 128
 CONFIGS = [("SSF-TPU-TINY", "tiny_ssftpu_l2"), ("SSF-TPU", "seeded 0")]

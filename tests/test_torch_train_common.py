@@ -5,7 +5,8 @@ JAX's flat tensors onto the port's parameter names, JAX's references
 (``jax_loss_grads``: gop_loss and its gradient under one ``jax.jit`` a
 case, compiled on threads; ``jax_train_steps``: JAX's make_train_step),
 and the bars that hold the port's training to JAX's (one copy of each).
-It holds no test of its own. The bf16 training files
+It holds no test of its own (and ``yuv_clip_dir``, the video directory
+that the eval tests read). The bf16 training files
 (tests/test_torch_train_bf16*.py) take their bars from here too
 (``bf16_drift_failures``).
 
@@ -520,3 +521,19 @@ class ZeroFlowGradient:
 
     def __exit__(self, *exc):
         self.plain.update(self.saved)
+
+
+def yuv_clip_dir(root, clips, black: int = -1):
+    """A directory of raw 1920x1080 I420 videos, ``root/clip{k}.yuv`` for
+    each NHWC clip of ``clips`` (``data/video.py:write_yuv``); with
+    ``black`` >= 0 an all-black frame is inserted at that index of each.
+    Returns the directory as a string."""
+    from fastvideocodec_torch.data import write_yuv
+
+    root.mkdir(parents=True, exist_ok=True)
+    for k, clip in enumerate(clips):
+        frames = list(clip)
+        if black >= 0:
+            frames.insert(black, None)
+        write_yuv(root / f"clip{k}.yuv", frames)
+    return str(root)

@@ -18,7 +18,8 @@ the data pipeline against the JAX package's; the CLI end to end.
   batches.
 - ``cli.train.main`` on that directory with LSVC-TPU-TINY, 1 epoch of 2
   steps of 2 clips at 64x64 on the CPU writes ``ckpt``; ``--resume``
-  carries on from it.
+  carries on from it; ``--evaluate`` on a directory of .yuv videos
+  appends its log record.
 """
 
 import numpy as np
@@ -41,6 +42,8 @@ from fastvideocodec_torch.train import (
     ready_for_training,
     save_checkpoint,
 )
+from fastvideocodec_torch.utils.logs import read_eval_log
+from test_torch_train_common import yuv_clip_dir
 
 GOP, SIZE = 4, 64
 
@@ -322,7 +325,7 @@ def test_prefetch_batches_match_jax(septuplets):
     it.close()
 
 
-def test_cli_trains_writes_ckpt_and_resumes(septuplets, tmp_path, capsys):
+def test_cli_trains_writes_ckpt_and_resumes(septuplets, tmp_path, capsys, monkeypatch):
     args = ["--codec", "LSVC-TPU-TINY", "--dataset-dir", str(septuplets), "--epochs", "1",
             "--steps-per-epoch", "2", "--batch-size", "2", "--frame-size", "64",
             "--device", "cpu", "--ckpt-dir", str(tmp_path)]
@@ -337,8 +340,14 @@ def test_cli_trains_writes_ckpt_and_resumes(septuplets, tmp_path, capsys):
     assert "resumed from epoch 0" in out and "epoch 1 done" in out
     second = load_checkpoint(str(ckpt_dir), prefer_best=False)
     assert second["epoch"] == 1 and second["opt_state"]["main"]["count"] == 4
-    with pytest.raises(SystemExit, match="item 7"):
-        cli.main([*args, "--evaluate"])
+    # --evaluate raised before the eval path was ported: it evaluates the
+    # seeded weights on a directory of .yuv videos and appends a record
+    clips = [synth_gop(np.random.default_rng(2), size=64, gop=3)]
+    videos = yuv_clip_dir(tmp_path / "uvg", clips)
+    monkeypatch.chdir(tmp_path)
+    cli.main([*args, "--evaluate", "--test-dataset-dir", videos, "--test-size", "64x64"])
+    (header, psnrs), = read_eval_log(str(tmp_path / "LSVC-TPU-TINY.uvg.False.log"))
+    assert header["level"] == 0 and header["bpp"] > 0 and len(psnrs) == 3
     # --bf16 raised before bf16 training was ported: it trains 2 steps and
     # checkpoints float32 parameters
     bf16_dir = tmp_path / "bf16"
