@@ -337,11 +337,24 @@ Phases, each timed on its own line:
    backward kernels, frozen parameters bit for bit, the evolved stream
    decoding on an un-evolved receiver) and ``cli/train.py --evaluate
    --evolve``; ``cli/eval.py --real-bits``, ``--task speed`` for 1..6
-   views and the x26x anchors where ffmpeg is there.
+   views and the x26x anchors where ffmpeg is there;
+65-68. the offline tools and the last library modules
+   (``fastvideocodec_torch/tools/tools_smoke.py``, which states each gate):
+   ``tools/train_tiny.py`` on the card (LSVC-TPU at full width, 128x128
+   GOP 8, 10 steps, exactly its forward and backward warp launches and no
+   plain warp or vjp; SSF-TPU-TINY, ELFVC-SP-TPU-TINY through its four
+   stages and MCVC-IA-TINY 2 steps each; every npz in its shipped asset's
+   layout, reloaded bit for bit); ``cli/simulate.py`` over phase 61's log
+   with LSVC-TPU's levels 0 and 4 added (the card's decode times) and over
+   phase 62's ``MCVC-IA.avg.log``; ``warp_volume_pyramid`` bit for bit at
+   1024x2048 with 2 launches, ``ContextVP`` card against CPU, ``flow_to_image``
+   of LSVC-TPU's SpyNet flow, the three knobs; ``tools/speed_sweep.py``'s
+   GOP and SSF encode sweeps at 1024x2048 bf16. The hd head-to-head of the
+   LSVC forms' phase runs through ``tools/price_hd.py``.
 
 Along the way it prints a JSON line of MCVC's numbers, one of the stock
 codecs', one of the DVC family's, one of the training numbers, one of the
-evaluation path's and one of the LSVC forms'; then a JSON line of the
+evaluation path's, one of the tools' and one of the LSVC forms'; then a JSON line of the
 kernels (the five warps, each with its launches on every path it was
 counted on; ``launches`` and the
 times stay those of the path that defined them in earlier slices:
@@ -355,7 +368,7 @@ launches in phase 54 by codec and its times on DVC's step beside them); the thre
 warps, their launches those of phases 47, 48 and 50, their times those
 of phase 52: ten kernels in all; pixel_warp_backward's bf16 instantiation
 on phase 58's bf16 launches under ``bf16_timing_by_path``; the launches
-of phases 61-64 by path under ``launches_by_path`` and
+of phases 61-68 by path under ``launches_by_path`` and
 ``launches_by_eval_path``),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -370,15 +383,28 @@ import functools
 import json
 import os
 import platform
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
+# the timing shared with warp_ab.py and the port's tools (the package is
+# on the path only beside the rest of the repo: alone, this import fails)
+from fastvideocodec_torch.tools.timing import (  # noqa: F401 (warp_ab.py reads them here)
+    F32_FLOPS,
+    FLUSH_BYTES,
+    HBM_BYTES_PER_S,
+    bound_ms,
+    cold_ms,
+    cuda_ms,
+    device_ms,
+    host_ms,
+    timed_runs as _timed_runs,
+)
+
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 SSF_BF16_PSNR_DB = 0.11  # SSF-TPU-TINY bf16 card vs f32 CPU: max per-frame PSNR gap
 SSF_BF16_BPP_REL = 0.095  # and relative bpp gap (an H100 measured 0.0222 dB, 0.019)
 # ELFVC-SP-TPU-TINY bf16 card vs f32 CPU (an H100 measured 0.0803-0.0806 dB and
@@ -432,7 +458,6 @@ SPYNET_SHAPES = [(64, 128), (128, 256), (256, 512), (512, 1024)]  # per GOP
 # gradients through the Function vs autograd through the plain version: the
 # image gradient is a scatter-add whose atomic order may change per run
 GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # rtol, atol x max |grad|
-FLUSH_BYTES = 256 * 2**20  # written between launches: five times the 50 MB L2
 KERNEL_SOURCE = "fastvideocodec_torch/ops/kernels/csrc/warp.cu"
 REPLACES = {
     "flow_warp": "fastvideocodec_tpu/ops/pallas/warp_kernel.py:502",
@@ -575,81 +600,6 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke failed: {msg}")
 
 
-def cuda_ms(torch, fn, *args, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of fn(*args) on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn(*args)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold_ms(torch, fn, *args, flush, reps: int = 5) -> float:
-    """Mean milliseconds of one launch of fn(*args) on the card with the L2
-    cache flushed first: a write of ``flush`` (FLUSH_BYTES) before each
-    launch, the launch alone between two CUDA events. A spin of the card
-    (torch.cuda._sleep, about 0.2 ms) after the flush lets the host enqueue
-    the launch before the start event fires, so the events time the kernel
-    and not the host's call."""
-    fn(*args)
-    total = 0.0
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
-        torch.cuda._sleep(400_000)
-        start.record()
-        fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
-def device_ms(torch, fn, inputs, reps: int = 3):
-    """(mean device milliseconds of one pass of fn(*args) over ``inputs``,
-    kernels a call): under torch.profiler, the sum of the spans of the
-    kernels the calls launch on the card, the host's calls left out; None
-    where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for args in inputs:
-        fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for args in inputs:
-                fn(*args)
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        return None, 0.0
-    return sum(spans) / 1e3 / reps, len(spans) / (reps * len(inputs))
-
-
-def host_ms(torch, fn, inputs, reps: int = 20) -> float:
-    """Mean host milliseconds to enqueue one pass of fn(*args) over
-    ``inputs``: the host clock around ``reps`` passes, the card
-    synchronised before the start only (the queue holds them all)."""
-    for args in inputs:
-        fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        for args in inputs:
-            fn(*args)
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t * 1e3 / reps
-
-
 def ptxas_report(build_log: str, part: str) -> list:
     """(entry, "spills; registers and shared memory") from ptxas's -v report
     in build_log, for each kernel entry whose name holds ``part``."""
@@ -694,19 +644,6 @@ def hold_gradients(torch, got, want, tol, what: str) -> float:
                 f"{what}: max abs {d.max().item()}")
         worst = max(worst, d.max().item() if d.numel() else 0.0)
     return worst
-
-
-def bound_ms(img, flow) -> float:
-    """Least milliseconds for one warp on the card: each input read once and
-    the output written once (each tensor at its own element size), over the
-    HBM rate. The arithmetic (about 40 float ops of coordinates per output
-    pixel and 9 per channel) is far below the float32 rate, so bytes bound
-    it."""
-    nbytes = 2 * img.numel() * img.element_size() + flow.numel() * flow.element_size()
-    pixels = flow.numel() // 2  # full-resolution output pixels, for every flow layout
-    flops = pixels * (40 + 9 * img.numel() // pixels)
-    require(flops / F32_FLOPS < nbytes / HBM_BYTES_PER_S, "warp bound by operations")
-    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def backward_bound_ms(img, flow, need_img, need_flow) -> float:
@@ -1274,22 +1211,7 @@ def main() -> int:
     gop = gop.to("cuda", torch.bfloat16).contiguous()
 
     def timed_runs(fn, *args, runs: int = 3):
-        """(card ms, host enqueue ms) of each run: CUDA events around the
-        call, and the host clock until the call returns, before waiting for
-        the card."""
-        times, enqueue = [], []
-        for _ in range(runs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            t0 = time.perf_counter()
-            fn(*args)
-            enqueue.append((time.perf_counter() - t0) * 1e3)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return times, enqueue
+        return _timed_runs(torch, fn, *args, runs=runs)
 
     with phase("rollout 1024x2048 GOP16 bf16"):
         torch.cuda.synchronize()
@@ -2258,7 +2180,6 @@ def main() -> int:
     # warp ablations, the -A/-S attention, the -L/-O graphs, and JAX's HD
     # head-to-head on the card
     from fastvideocodec_torch.analysis import bd_psnr, bd_rate
-    from fastvideocodec_torch.coder import video as cv
     from fastvideocodec_torch.models.lsvc import LSVC
     from fastvideocodec_torch.models.registry import CodecSpec, place
     from fastvideocodec_torch.weights import seeded_params
@@ -2498,29 +2419,17 @@ def main() -> int:
         del gspec
 
     with phase(f"hd head-to-head {HD_SIZE}x{HD_SIZE} GOP{HD_GOP} f32 real bits"):
-        # JAX's TestHDHeadToHead on the card: four held-out clips (seed 123;
-        # the checkpoints trained on seed 0), levels 0, 2, 4, real bits,
-        # decode == encode on every GOP
-        rng = np.random.default_rng(123)
-        clips = [torch.from_numpy(np.ascontiguousarray(
-            synth_gop_multi(rng, size=HD_SIZE, gop=HD_GOP))).permute(0, 3, 1, 2)
-            .contiguous().cuda() for _ in range(4)]
+        # JAX's TestHDHeadToHead on the card through tools/price_hd.py: four
+        # held-out clips (seed 123; the checkpoints trained on seed 0),
+        # levels 0, 2, 4, real bits, decode == encode on every GOP
+        from fastvideocodec_torch.tools import price_hd
+
+        clips = price_hd.held_out_clips(device="cuda")
         curves = {}
         for name, family in HD_CURVES:
-            bpps, psnrs = [], []
-            for level in (0, 2, 4):
-                hspec = lsvc_model(name, f"hd_{family}_l{level}", torch.float32)
-                codecs = codecs_of(hspec)
-                bs, ps = [], []
-                for c in clips:
-                    streams, recon, bits = cv.lsvc_compress(hspec, c, codecs)
-                    decoded = cv.lsvc_decompress(hspec, c[0], streams, HD_GOP - 1, codecs)
-                    require(torch.equal(decoded, recon), f"hd {name} l{level}: decode != encode")
-                    bs.append(bits / ((HD_GOP - 1) * HD_SIZE * HD_SIZE))
-                    mse = float(torch.mean((recon.float() - c[1:].float()) ** 2))
-                    ps.append(10 * np.log10(1.0 / max(mse, 1e-12)))
-                bpps.append(float(np.mean(bs)))
-                psnrs.append(float(np.mean(ps)))
+            bpps, psnrs = price_hd.curve(
+                name, family, clips,
+                check=lambda what, same: require(same, f"{what}: decode != encode"))
             require(bpps[0] < bpps[1] < bpps[2] and psnrs[0] < psnrs[1] < psnrs[2],
                     f"hd {name}: curve not monotone {bpps} {psnrs}")
             curves[name] = (bpps, psnrs)
@@ -3700,11 +3609,20 @@ def main() -> int:
     training["bf16"] = bf16_rows
     log(json.dumps({"training": training}))
 
-    # ---- the evaluation path (phases 61-64, tools/eval_smoke.py) ----
-    from fastvideocodec_torch.tools import eval_smoke
+    # ---- the evaluation path (phases 61-64, tools/eval_smoke.py), then the
+    # tools and the last library modules (phases 65-68, tools/tools_smoke.py)
+    # on phases 61-62's files ----
+    from fastvideocodec_torch.tools import eval_smoke, tools_smoke
 
-    evaluation = eval_smoke.run(smi)
-    log(json.dumps({"evaluation": evaluation}, default=str))
+    eval_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    try:
+        evaluation = eval_smoke.run(smi, workdir=eval_dir)
+        log(json.dumps({"evaluation": evaluation}, default=str))
+        tools = tools_smoke.run(smi, eval_dir)
+        log(json.dumps({"tools": tools}, default=str))
+    finally:
+        shutil.rmtree(eval_dir, ignore_errors=True)
+    evaluation["launches"].update(tools["launches"])
 
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
         k: {path: {key: t[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms",

@@ -41,14 +41,18 @@ class GaussianConditional(ScaleTable):
     """Round around the means, the interval likelihood, and the coder's
     scale table and CDF tables."""
 
-    def __call__(self, x: torch.Tensor, scales: torch.Tensor, means: torch.Tensor,
+    def __call__(self, x: torch.Tensor, scales: torch.Tensor, means: torch.Tensor | None = None,
                  training: bool = False, noise=None):
         """(x_hat, likelihoods): x_hat = round(x - means) + means in x's
         dtype, the symbol rounded once in that dtype as the decoder receives
         it; the likelihood of that same symbol under N(means, scales^2),
         computed in float32 whatever the activation dtype. In training
         x_hat = x + noise(x), as in the JAX package: the noise goes on x
-        itself, not on x - means, and the likelihood is that of x_hat."""
+        itself, not on x - means, and the likelihood is that of x_hat.
+        Without ``means`` (the JAX package's ``means=None`` branch, which no
+        codec takes) the means are 0: x_hat = round(x)."""
+        if means is None:
+            means = torch.zeros((), dtype=x.dtype, device=x.device)
         means32 = means.float()
         if training:
             x_hat = om.quantize_noise(x, noise)

@@ -172,7 +172,10 @@ class SynthesisMVNet(nn.Module):
 
 
 class AnalysisPriorNet(nn.Module):
-    """abs -> conv3 s1 -> relu -> conv5 s2 -> relu -> conv5 s2."""
+    """abs -> conv3 s1 -> relu -> conv5 s2 -> relu -> conv5 s2 (``abs`` a
+    class attribute, as SSFHyperDecoder's ``act``)."""
+
+    abs = staticmethod(torch.abs)
 
     def __init__(self, in_channels: int = OUT_CHANNEL_M, conv_channels: int = OUT_CHANNEL_N,
                  attn_depth: int = 0):
@@ -184,7 +187,7 @@ class AnalysisPriorNet(nn.Module):
         self.Conv_2 = conv(c, c, 5, 2)
 
     def forward(self, x):
-        x = _attend(self, F.relu(self.Conv_0(torch.abs(x))))
+        x = _attend(self, F.relu(self.Conv_0(self.abs(x))))
         x = F.relu(self.Conv_1(x))
         return self.Conv_2(x)
 

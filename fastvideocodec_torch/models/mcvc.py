@@ -36,16 +36,21 @@ from fastvideocodec_torch.models.ssf import FullResPrediction
 
 class AttnDecoder(nn.Module):
     """Residual cross-view attention, then the ``s2d=1`` SSF decoder
-    (reference MCVC Decoder with attn=True, models.py:2256-2280)."""
+    (reference MCVC Decoder with attn=True, models.py:2256-2280); without
+    ``use_attn`` the decoder alone (JAX ``use_attn=False``, which no
+    registry name passes)."""
 
     def __init__(self, in_channels: int, num_views: int, mid_planes: int, heads: int,
-                 dim_head: int, out_planes: int = 3):
+                 dim_head: int, out_planes: int = 3, use_attn: bool = True):
         super().__init__()
-        self.ConvAttention_0 = ConvAttention(in_channels, heads, dim_head, num_views)
+        self.ConvAttention_0 = (ConvAttention(in_channels, heads, dim_head, num_views)
+                                if use_attn else None)
         self.SSFDecoder_0 = SSFDecoder(in_channels, mid_planes, out_planes, s2d=1)
 
     def forward(self, x):
-        return self.SSFDecoder_0(x + self.ConvAttention_0(x))
+        if self.ConvAttention_0 is not None:
+            x = x + self.ConvAttention_0(x)
+        return self.SSFDecoder_0(x)
 
 
 def mask_views(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -92,7 +97,7 @@ class MCVC(FullResPrediction, nn.Module):
 
     def __init__(self, num_views: int, imbalanced_correlation: bool = True,
                  planes: int = 192, mid_planes: int = 128,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_attn: bool = True):
         super().__init__()
         if num_views < 1:
             raise ValueError(f"MCVC needs num_views >= 1, got {num_views}")
@@ -110,8 +115,10 @@ class MCVC(FullResPrediction, nn.Module):
         self.res_hyperprior = SSFHyperprior(pl)
         if imbalanced_correlation:
             heads, dim_head = (8, 64) if pl >= 128 else (4, max(pl // 4, 8))
-            self.backup_img_decoder = AttnDecoder(pl, num_views, mp, heads, dim_head)
-            self.backup_res_decoder = AttnDecoder(2 * pl, num_views, mp, heads, dim_head)
+            self.backup_img_decoder = AttnDecoder(pl, num_views, mp, heads, dim_head,
+                                                  use_attn=use_attn)
+            self.backup_res_decoder = AttnDecoder(2 * pl, num_views, mp, heads, dim_head,
+                                                  use_attn=use_attn)
 
     def enhance_keyframe(self, x_hat: torch.Tensor, y_hat: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:

@@ -98,7 +98,7 @@ def _lsvc(name: str, dtype: torch.dtype) -> LSVC:
 
 
 def _build(name: str, dtype: torch.dtype, sp_stage: int,
-           num_views: int) -> tuple[str, nn.Module]:
+           num_views: int, use_attn: bool = True) -> tuple[str, nn.Module]:
     if name.startswith("LSVC"):
         return "lsvc", _lsvc(name, dtype)
     # DVC, RLVC and Base: the reference's widths (SpyNet 32/64/32/16 at 7x7,
@@ -152,22 +152,23 @@ def _build(name: str, dtype: torch.dtype, sp_stage: int,
         # OLFT's online fine-tuning changes training only
         widths = dict(planes=48, mid_planes=32) if tiny else {}
         return "mcvc", MCVC(num_views, imbalanced_correlation="-IA" in name, dtype=dtype,
-                            **widths)
+                            use_attn=use_attn, **widths)
     raise ValueError(f"Cannot recognize codec: {name}")
 
 
 def get_codec_model(name: str, dtype: torch.dtype = torch.float32, device="cuda",
                     sp_stage: int = 1, num_views: int = 0, loss_type: str = "P",
-                    compression_level: int = 2) -> CodecSpec:
+                    compression_level: int = 2, use_attn: bool = True) -> CodecSpec:
     """``sp_stage`` (ELFVC-SP only): 1 lets the motion SPnet replace the
     motion latent, 2 the residual SPnet as well. ``num_views`` (MCVC only,
     at least 1 there): the views folded into each batch item; MCVC-Original
     takes the views as the batch of its rollout and needs none.
     ``loss_type`` and ``compression_level``: the training operating point
-    (``CodecSpec.r``)."""
+    (``CodecSpec.r``). ``use_attn=False`` (MCVC-IA only) drops the backup
+    decoders' cross-view attention, as JAX's keyword does."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    family, module = _build(name, dtype, sp_stage, num_views)
+    family, module = _build(name, dtype, sp_stage, num_views, use_attn)
     return CodecSpec(name=name, family=family, module=place(module, dtype, device),
                      loss_type=loss_type, compression_level=compression_level)
 

@@ -25,8 +25,14 @@ Per P-frame, in either form:
 img_* transforms. ``training`` (with ``noise``, an ``ops.math.UniformNoise``
 -like source) draws each hyperprior's noise, the motion's before the
 residual's; the chained reference is detached between frames, as in the
-JAX package. JAX's non-pipeline ``s2d=2`` form (s2d transforms around a
-full-resolution warp) has no registry name and is not ported.
+JAX package.
+
+A third form, ``ScaleSpaceFlow(s2d=2, pipeline_s2d=False)``, has no
+registry name in either package (JAX ``models/ssf.py:46-78``): full-res
+frames, the s2d transforms folding their input in (the motion encoder's
+after the concat: s2d(cat(cur, ref))) and unfolding their output, and the
+full-resolution prediction of ``FullResPrediction`` between them. The
+weight shapes are SSF-TPU's.
 """
 
 from __future__ import annotations
@@ -74,12 +80,21 @@ class FullResPrediction:
 
 
 class ScaleSpaceFlow(nn.Module):
+    """``pipeline_s2d`` (``s2d=2`` only) keeps the inter pipeline in the s2d
+    domain; None takes it with ``s2d=2``, the registry's SSF-TPU."""
+
     def __init__(self, mid_planes: int = 128, planes: int = 192, s2d: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pipeline_s2d: bool | None = None):
         super().__init__()
         if s2d not in (1, 2):
             raise ValueError(f"s2d must be 1 or 2, got {s2d}")
-        self.s2d, self.dtype = s2d, dtype
+        pipeline_s2d = s2d == 2 if pipeline_s2d is None else pipeline_s2d
+        if pipeline_s2d and s2d != 2:
+            raise ValueError("pipeline_s2d needs s2d=2")
+        self.s2d, self.dtype, self.pipeline_s2d = s2d, dtype, pipeline_s2d
+        # the non-pipeline s2d form folds each transform's input in and its
+        # output back out; the others run their transforms as they are
+        self.fold = s2d == 2 and not pipeline_s2d
         mp, pl = mid_planes, planes
         img_c = 3 * s2d * s2d  # a frame's channels in the form's domain
         self.img_encoder = SSFEncoder(img_c, mp, pl, s2d)
@@ -92,11 +107,17 @@ class ScaleSpaceFlow(nn.Module):
         self.res_decoder = SSFDecoder(2 * pl, mp, 3, s2d)
         self.res_hyperprior = SSFHyperprior(pl)
 
+    def enc_in(self, x: torch.Tensor) -> torch.Tensor:
+        return space_to_depth(x, 2) if self.fold else x
+
+    def dec_out(self, x: torch.Tensor) -> torch.Tensor:
+        return depth_to_space(x, 2) if self.fold else x
+
     def make_volume(self, x_ref: torch.Tensor):
         """``s2d=1``: the full-resolution volume [B, 18, H, W]. ``s2d=2``:
         (x_ref, vol_half): level 0 is the s2d reference itself; the blurred
         levels are built at half resolution from its phase mean."""
-        if self.s2d == 1:
+        if not self.pipeline_s2d:
             return FullResPrediction.make_volume(x_ref)
         h = s2d_phase_mean(x_ref, 3)  # == avg_pool2 of the full frame
         return x_ref, gaussian_volume(h, SIGMA0, NUM_LEVELS - 1)
@@ -105,7 +126,7 @@ class ScaleSpaceFlow(nn.Module):
         """motion_info: ``s2d=1`` [B, 3, H, W] (flow x, flow y, scale, the
         flow normalized); ``s2d=2`` [B, 12, H/2, W/2] in the warp's c-major
         phase form."""
-        if self.s2d == 1:
+        if not self.pipeline_s2d:
             return FullResPrediction.warp_prediction(volume, motion_info)
         level0_s2d, vol_half = volume
         return warp_volume_pyramid_s2d(level0_s2d, vol_half, motion_info, NUM_LEVELS)
@@ -115,15 +136,15 @@ class ScaleSpaceFlow(nn.Module):
 
     def fold_gop(self, frames: torch.Tensor) -> torch.Tensor:
         """[T, B, 3, H, W] -> the form's domain: [T, B, 12, H/2, W/2] for
-        ``s2d=2``, the frames themselves for ``s2d=1``."""
-        if self.s2d == 1:
+        ``pipeline_s2d``, the frames themselves otherwise."""
+        if not self.pipeline_s2d:
             return frames
         T = frames.shape[0]
         return space_to_depth(frames.flatten(0, 1), self.s2d).unflatten(0, (T, -1))
 
     def unfold_gop(self, x: torch.Tensor) -> torch.Tensor:
         """The inverse of ``fold_gop``: back to [T, B, 3, H, W]."""
-        if self.s2d == 1:
+        if not self.pipeline_s2d:
             return x
         T = x.shape[0]
         return depth_to_space(x.flatten(0, 1), self.s2d).unflatten(0, (T, -1))
@@ -134,19 +155,19 @@ class ScaleSpaceFlow(nn.Module):
                 + self.res_hyperprior.aux_loss())
 
     def forward_keyframe(self, x: torch.Tensor, training: bool = False, noise=None):
-        y_hat, lik = self.img_hyperprior(self.img_encoder(x), training, noise)
-        return self.img_decoder(y_hat), {"keyframe": lik}
+        y_hat, lik = self.img_hyperprior(self.img_encoder(self.enc_in(x)), training, noise)
+        return self.dec_out(self.img_decoder(y_hat)), {"keyframe": lik}
 
     def forward_inter(self, x_cur: torch.Tensor, x_ref: torch.Tensor, training: bool = False,
                       noise=None):
         """x_cur, x_ref in the form's domain and the model dtype -> (x_rec,
         {"motion": lik, "residual": lik})."""
-        y_motion = self.motion_encoder(torch.cat([x_cur, x_ref], dim=1))
+        y_motion = self.motion_encoder(self.enc_in(torch.cat([x_cur, x_ref], dim=1)))
         y_motion_hat, motion_lik = self.motion_hyperprior(y_motion, training, noise)
-        x_pred = self.forward_prediction(x_ref, self.motion_decoder(y_motion_hat))
-        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(x_cur - x_pred), training,
-                                                 noise)
-        x_res_hat = self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1))
+        x_pred = self.forward_prediction(x_ref, self.dec_out(self.motion_decoder(y_motion_hat)))
+        y_res_hat, res_lik = self.res_hyperprior(self.res_encoder(self.enc_in(x_cur - x_pred)),
+                                                 training, noise)
+        x_res_hat = self.dec_out(self.res_decoder(torch.cat([y_res_hat, y_motion_hat], dim=1)))
         return x_pred + x_res_hat, {"motion": motion_lik, "residual": res_lik}
 
     def forward(self, frames: torch.Tensor, training: bool = False, noise=None):

@@ -27,8 +27,8 @@ inference mode (``_cached``), so that a training step may follow an eval
 rollout in one process.
 
 The SSF scale-space volume ops at the end (blur, volume, the full-resolution
-volume warp, phase mean, s2d upsample, the pyramid warp) are plain
-PyTorch around the pixel warp, as they were XLA fusions on the TPU.
+volume warp, phase mean, s2d upsample, the pyramid warps at full resolution
+and in s2d form) are plain PyTorch around the pixel warp, as they were XLA fusions on the TPU.
 """
 
 from __future__ import annotations
@@ -541,6 +541,45 @@ def warp_volume(volume: torch.Tensor, flow: torch.Tensor, scale_field: torch.Ten
     return out
 
 
+def _hat_blend(sampled: torch.Tensor, z: torch.Tensor, D: int, C: int) -> torch.Tensor:
+    """The depth hat-weight blend over a flat level stack [B, D*C, H, W] by
+    z [B, 1, H, W]: each weight max(0, 1 - |z - d|) cast to the stack's
+    dtype, the levels summed in order (the JAX ``_hat_blend``)."""
+    out = None
+    for d in range(D):
+        wd = torch.clamp(1.0 - torch.abs(z - d), min=0.0).to(sampled.dtype)
+        term = wd * sampled[:, d * C:(d + 1) * C]
+        out = term if out is None else out + term
+    return out
+
+
+def warp_volume_pyramid(level0: torch.Tensor, vol_half: torch.Tensor, flow: torch.Tensor,
+                        scale_field: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """The pyramid scale-space sample at full resolution (the JAX
+    ``warp_volume_pyramid``; no codec of either package calls it, SSF-TPU
+    runs its s2d form ``warp_volume_pyramid_s2d``).
+
+    level0 [B, C, H, W] is the reference frame; vol_half [B, (D-1)*C,
+    H/2, W/2] the half-resolution blurred stack (D = num_levels + 1); flow
+    [B, 2, H, W] normalized as ``warp_volume``'s; scale_field [B, 1, H, W]
+    in [-1, 1]. Two ``pixel_warp`` launches: level 0 by the flow in pixels
+    (W/2, H/2 times it), the stack at half resolution by the avg-pooled
+    flow halved. The depth z is taken as ``warp_volume`` takes it; z in
+    [0, 1) lerps the level-0 sample against the x2-upsampled blend of the
+    stack, z >= 1 blends inside the stack."""
+    B, C, H, W = level0.shape
+    D = num_levels + 1
+    flow_px = (flow.float() * _half_size(H, W, flow.device)).contiguous()
+    s0 = pixel_warp(level0, flow_px)
+    z = torch.clamp(((scale_field + 1.0) * D - 1.0) * 0.5, 0.0, D - 1)
+    flow_h = (avg_pool2(flow_px) * 0.5).contiguous()
+    z_h = torch.clamp(avg_pool2(z), 1.0, D - 1.0) - 1.0
+    sampled_h = pixel_warp(vol_half, flow_h)
+    t = bilinear_upsample_x2(_hat_blend(sampled_h, z_h, D - 1, C))
+    a = torch.clamp(1.0 - z, min=0.0).to(level0.dtype)
+    return a * s0 + (1.0 - a.to(t.dtype)) * t
+
+
 def s2d_phase_mean(x_s2d: torch.Tensor, channels: int) -> torch.Tensor:
     """Mean over the four s2d phases, [B, 4C, H, W] -> [B, C, H, W]: the
     avg_pool2 of the full-resolution image, summed phase by phase."""
@@ -645,5 +684,6 @@ __all__ = [
     "staged_tiles",
     "up2_to_s2d",
     "warp_volume",
+    "warp_volume_pyramid",
     "warp_volume_pyramid_s2d",
 ]

@@ -209,11 +209,28 @@ def write_mv_tree(root: Path, size: int, frames: int = MV_FRAMES) -> str:
     return str(root)
 
 
-def run(smi: str = "") -> dict:
+def eval_clip(tmp: Path, env: dict, frames: int):
+    """Phase 61's clip: (the dataset, its description). A synth_gop_multi
+    clip (seed 0) of ``frames`` frames, written once as a 1920x1080 I420
+    ``tmp/uvg/clip.yuv`` and read back through VideoDataset at W x H
+    (cli/eval.py's default); without OpenCV served from memory."""
+    clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=frames)
+    if env["cv2"]:
+        (tmp / "uvg").mkdir(exist_ok=True)
+        if not (tmp / "uvg" / "clip.yuv").exists():
+            write_yuv(tmp / "uvg" / "clip.yuv", clip)
+        return (VideoDataset(str(tmp / "uvg"), (W, H)),
+                f"{frames} frames of 1920x1080 I420 through VideoDataset at {W}x{H}")
+    return ClipDataset([clip[:, :H, :W]]), f"{frames} frames of {H}x{W} from memory"
+
+
+def run(smi: str = "", workdir: Path | None = None) -> dict:
     """Phases 61-64 on the CUDA card, its kernels built; returns their
     numbers, the launch counts by path (``launches``, each counted from 0
     over its run) among them. ``smi`` names the card in the printed
-    lines."""
+    lines. Their files (phase 61's clip and ``estimated.log``, phase 62's
+    ``MCVC-IA.avg.log``) go to ``workdir``, kept, or else to a temporary
+    directory that is removed."""
     device, size, gop = "cuda", SIZE, GOP
     env = environment()
     log(f"eval environment: {env}")
@@ -231,21 +248,13 @@ def run(smi: str = "") -> dict:
         kw.reset_launches()
         return lambda: launches.__setitem__(path, {k: v for k, v in kw.LAUNCHES.items() if v})
 
-    tmp = Path(tempfile.mkdtemp(prefix="eval_smoke_"))
+    tmp = Path(workdir) if workdir is not None else Path(tempfile.mkdtemp(prefix="eval_smoke_"))
+    tmp.mkdir(parents=True, exist_ok=True)
     try:
         with phase(f"eval {lsvc} {H}x{W} GOP{gop} bf16: estimated bits, then real bits"):
             spec = ft.get_codec_model(lsvc, dtype=torch.bfloat16, device=device)
             ft.load_asset(spec.module, lsvc_asset)
-            clip = synth_gop_multi(np.random.default_rng(0), size=max(H, W), gop=frames)
-            if env["cv2"]:
-                (tmp / "uvg").mkdir()
-                write_yuv(tmp / "uvg" / "clip.yuv", clip)
-                ds = VideoDataset(str(tmp / "uvg"), (W, H))
-                source = f"{frames} frames of 1920x1080 I420 through VideoDataset at {W}x{H}"
-            else:
-                ds = ClipDataset([clip[:, :H, :W]])
-                source = f"{frames} frames of {H}x{W} from memory"
-            del clip
+            ds, source = eval_clip(tmp, env, frames)
             with torch.inference_mode():  # one warm-up GOP outside the timed runs
                 ft.rollout(spec, ev._nchw(np.zeros((gop, H, W, 3), np.float32), device))
             rows = {}
@@ -464,7 +473,8 @@ def run(smi: str = "") -> dict:
             finally:
                 os.chdir(cwd)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if workdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -8,8 +8,11 @@ that ROADMAP.md section 3 lists.
 float32, 64x128 GOP 4, the noise drawn on the host from seed 0)
 ``--repeat`` times on the card under cuDNN's defaults (deterministic off,
 benchmark off), each run's step then once on the CPU on that run's own
-ReLU branches (``tools/train_parity.py:CardBranches``) and held against
-it and against run 0's CPU step; every other card run holds all but 2
+ReLU branches and clamp sides (``tools/train_parity.py:CardBranches``:
+the Laplace scale's clamp, the ``abs`` before AnalysisPriorNet, the
+warps' floor and border clamp) and held against it and against run 0's
+CPU step; it prints the elements of each clamp whose side the CPU's own
+values put elsewhere; every other card run holds all but 2
 GiB of the card's free memory, so that cuDNN's heuristics meet a small
 workspace. Each card run is traced by ``torch.profiler``: it prints the
 CUDA kernels below the ``aten::convolution_backward`` whose weight has
@@ -172,7 +175,7 @@ def wgrad(args) -> dict:
                "layer_gap": own[args.layer + ".weight"], "worst": worst,
                "layer_gap_on_run0_branches": vs_first[args.layer + ".weight"],
                "branch_diffs": sum(int((a != b).sum()) for a, b in zip(first[0], branches.masks)),
-               "cpu_flips": cpu_branches.flips,
+               "cpu_flips": cpu_branches.flips, "cpu_clamp_flips": cpu_branches.clamp_flips,
                "kernels": layer_kernels(prof, shape),
                "kernels_not_in_run0": sorted(names - first[2]),
                "run0_kernels_not_here": sorted(first[2] - names)}
@@ -180,7 +183,9 @@ def wgrad(args) -> dict:
         print(f"run {i} ({'crowded' if i % 2 else 'free'}, {row['free_gib']:.2f} GiB free after "
               f"the step): {args.layer}.weight gap {row['layer_gap']:.3e} on its own branches "
               f"({row['layer_gap_on_run0_branches']:.3e} on run 0's, {row['branch_diffs']} "
-              f"elements differ); worst {worst[0]:.3e} at {worst[1]}; its "
+              f"elements differ); the CPU on its branches: {row['cpu_flips']} activation "
+              f"elements and clamps {row['cpu_clamp_flips']} took the other side; "
+              f"worst {worst[0]:.3e} at {worst[1]}; its "
               f"convolution_backward kernels {[k[:60] for ks in row['kernels'] for k in ks]}; "
               f"kernels not in run 0 {row['kernels_not_in_run0']}; run 0's not here "
               f"{row['run0_kernels_not_here']}", flush=True)

@@ -19,9 +19,10 @@ of a synth_gop_multi clip (seed 0), the noise drawn on the host from seed
   gradient against a float64 recompute from that device's own captured
   tensors (the layer above's output gradient and this layer's output),
   and the elements whose ReLU mask differs between the devices;
-- the same gaps with the CPU on the card's ReLU and leaky ReLU branches
-  and RLVC's clip of the recon (``CardBranches``), and how many activation
-  elements took the other branch on the CPU.
+- the same gaps with the CPU on the card's ReLU and leaky ReLU branches,
+  RLVC's clip of the recon and the clamps' sides (``CardBranches``), and
+  how many activation and clamp elements took the other branch on the
+  CPU.
 
 A pre-activation within float32 noise of 0 may pass its gradient on one
 device and not on the other; that is a branch, not an error of either
@@ -41,32 +42,50 @@ from fastvideocodec_torch import get_codec_model
 from fastvideocodec_torch.data.synthetic import synth_gop_multi
 from fastvideocodec_torch.layers.blocks import cast_once
 from fastvideocodec_torch.layers.spynet import load_pretrained_spynet
-from fastvideocodec_torch.layers.transforms import SSFHyperDecoder
-from fastvideocodec_torch.models import rlvc
+from fastvideocodec_torch.layers.transforms import AnalysisPriorNet, SSFHyperDecoder
+from fastvideocodec_torch.models import lsvc, rlvc
+from fastvideocodec_torch.ops import math as om
+from fastvideocodec_torch.ops import warp as ow
 from fastvideocodec_torch.ops.math import UniformNoise
 from fastvideocodec_torch.train import olft
 from fastvideocodec_torch.train import TrainConfig, gop_loss, ready_for_training
 from fastvideocodec_torch.weights import load_flat, seeded_flat
 
 
+# the clamps whose sides CardBranches records beside the activations' branches
+CLAMPS = ("laplace_scale", "prior_abs", "warp_floor", "warp_border")
+LAPLACE_SCALE = (1e-5, 1e10)  # ops/math.py:laplace_likelihood's clamp of the scale
+
+
 class CardBranches:
     """F.relu and F.leaky_relu wrapped (the SSF hyper decoders' ReLU too,
-    a class attribute), and RLVC's clip of the recon to [0, 1]
-    (``models.rlvc.clip_recon``), as a context. Without ``replay`` each
-    call records its branch in ``masks``: the activations' positive one (x
-    > 0), the clip's inside one (0 <= x <= 1, where its gradient passes);
+    a class attribute), RLVC's clip of the recon to [0, 1]
+    (``models.rlvc.clip_recon``) and the clamps, as a context: LSVC's
+    Laplace scale clamp (``laplace_likelihood``), the ``abs`` before
+    ``AnalysisPriorNet``, and each warp's floor of its sampling coordinate
+    and the coordinate's border clamp (``ops/warp.py:_border_taps``; on the
+    card, where the kernels compute them, the same coordinates computed in
+    torch before each launch: the kernels are bit for bit their plain
+    versions). Without ``replay`` each call records its branch in
+    ``masks``: the activations' positive one (x > 0), the clip's inside
+    one (0 <= x <= 1, where its gradient passes), a clamp's side (-1
+    below, 0 inside, 1 above), abs's sign, a warp axis's (side, floor);
     with the masks another run recorded (the card's) each call takes that
-    run's branch, its value and its gradient, and counts in ``flips`` the
-    elements whose own branch differed. Both runs must make the same calls
-    in the same order (the same model and clip)."""
+    run's branch, its value and its gradient, and counts the elements
+    whose own branch differed: the activations' and the clip's in
+    ``flips``, each clamp's in ``clamp_flips``. Both runs must make the
+    same calls in the same order (the same model and clip)."""
 
     def __init__(self, replay=None):
         self.orig = (F.relu, F.leaky_relu, rlvc.clip_recon)
+        self.orig_clamps = (lsvc.laplace_likelihood, AnalysisPriorNet.abs, ow._border_taps,
+                            ow._dispatch)
         self.masks, self.replay, self.flips = [], replay, 0
+        self.clamp_flips = dict.fromkeys(CLAMPS, 0)
 
-    def branch(self, mine: torch.Tensor):
-        """The card's branch of this call where replaying, else None;
-        records ``mine`` and counts the flips."""
+    def branch(self, mine: torch.Tensor, clamp: str | None = None):
+        """The card's branch of this call where replaying and it differs
+        from ``mine``, else None; records ``mine`` and counts the flips."""
         self.masks.append(mine.cpu())
         if self.replay is None:
             return None
@@ -74,7 +93,10 @@ class CardBranches:
         if want.shape != mine.shape:
             raise RuntimeError("the two runs called the activations apart")
         flipped = int((want != mine).sum())
-        self.flips += flipped
+        if clamp is None:
+            self.flips += flipped
+        else:
+            self.clamp_flips[clamp] += flipped
         return want if flipped else None
 
     def take(self, x, out, slope):
@@ -86,6 +108,59 @@ class CardBranches:
         want = self.branch(((x >= 0) & (x <= 1)).detach())
         return out if want is None else torch.where(want, x, out.detach())
 
+    @staticmethod
+    def _side(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+        return ((x > hi).to(torch.int8) - (x < lo).to(torch.int8)).detach()
+
+    def laplace(self, x, scale):
+        lo, hi = LAPLACE_SCALE
+        want = self.branch(self._side(scale, lo, hi), "laplace_scale")
+        if want is None:
+            return self.orig_clamps[0](x, scale)
+        scale = torch.where(want < 0, lo, torch.where(want > 0, hi, scale))
+        return om.laplace_cdf(x + 0.5, scale) - om.laplace_cdf(x - 0.5, scale)
+
+    def abs(self, x):
+        want = self.branch(torch.sign(x).to(torch.int8).detach(), "prior_abs")
+        return torch.abs(x) if want is None else x * want.to(x.dtype)
+
+    def border_taps(self, u: torch.Tensor, size: int):
+        """``_border_taps`` on the recorded floor and clamp side of each
+        element (the taps and the weight's gradient follow them)."""
+        side = self._side(u, 0.0, size - 1)
+        floor = torch.floor(u.clamp(0.0, size - 1)).to(torch.int32).detach()
+        self.masks.append(torch.stack([side.to(torch.int32), floor]).cpu())
+        if self.replay is None:
+            return self.orig_clamps[2](u, size)
+        want = self.replay[len(self.masks) - 1].to(u.device)
+        if want.shape[1:] != u.shape:
+            raise RuntimeError("the two runs called the warps apart")
+        border = int((want[0] != side).sum())
+        self.clamp_flips["warp_border"] += border
+        self.clamp_flips["warp_floor"] += int(((want[1] != floor) & (want[0] == side)).sum())
+        if not border and torch.equal(want[1], floor):
+            return self.orig_clamps[2](u, size)
+        uc = torch.where(want[0] < 0, 0.0, torch.where(want[0] > 0, float(size - 1), u))
+        u0 = want[1].to(u.dtype)
+        i0 = want[1].long().clamp(0, size - 1)
+        return i0, (i0 + 1).clamp(max=size - 1), uc - u0
+
+    def dispatch(self, name: str, img: torch.Tensor, flow: torch.Tensor):
+        """On the card, the coordinates of the warp's plain version,
+        computed before the launch, through ``border_taps`` (x, then y, as
+        the plain version takes them)."""
+        if not (img.is_cpu and flow.is_cpu):
+            with torch.no_grad():
+                full = ow._full_res_flow(flow) if name == "pixel_warp_s2d_sflow" else flow
+                H, W = full.shape[-2:]
+                if name.startswith("flow_warp"):
+                    ow._taps(full[:, 0], ow._linspace(W, full.device)[None, None, :], W)
+                    ow._taps(full[:, 1], ow._linspace(H, full.device)[None, :, None], H)
+                else:
+                    ow._pixel_taps(full[:, 0], ow._arange(W, full.device)[None, None, :], W)
+                    ow._pixel_taps(full[:, 1], ow._arange(H, full.device)[None, :, None], H)
+        return self.orig_clamps[3](name, img, flow)
+
     def __enter__(self):
         relu, leaky, _ = self.orig
         F.relu = lambda x, inplace=False: self.take(x, relu(x), 0.0)
@@ -93,11 +168,17 @@ class CardBranches:
             x, leaky(x, negative_slope), negative_slope)
         SSFHyperDecoder.act = staticmethod(F.relu)  # the hyper decoders' ReLU
         rlvc.clip_recon = self.clip
+        lsvc.laplace_likelihood = self.laplace
+        AnalysisPriorNet.abs = staticmethod(self.abs)
+        ow._border_taps, ow._dispatch = self.border_taps, self.dispatch
         return self
 
     def __exit__(self, *exc):
         F.relu, F.leaky_relu, rlvc.clip_recon = self.orig
         SSFHyperDecoder.act = staticmethod(self.orig[0])
+        lsvc.laplace_likelihood = self.orig_clamps[0]
+        AnalysisPriorNet.abs = staticmethod(self.orig_clamps[1])
+        ow._border_taps, ow._dispatch = self.orig_clamps[2], self.orig_clamps[3]
 
 
 class CardTouchups:
@@ -213,9 +294,10 @@ def compare(name: str, clip: torch.Tensor, dtype=torch.float32) -> dict:
                   f"{row['card_vs_cpu']:.2e}; card vs float64 of its own tensors "
                   f"{row['card_vs_f64']:.2e}, cpu {row['cpu_vs_f64']:.2e}; ReLU masks "
                   f"differ at {row['relu_masks_differ']} elements")
+    out["clamp_flips"] = cpu_branches.clamp_flips
     print(f"{name}: with the CPU on the card's ReLU branches ({out['flips']} of "
-          f"{out['activation_elements']} activation elements took the other branch): "
-          f"worst gradient gaps {out['card_branches']}")
+          f"{out['activation_elements']} activation and clamp elements took the other branch; "
+          f"clamps {out['clamp_flips']}): worst gradient gaps {out['card_branches']}")
     return out
 
 

@@ -230,13 +230,18 @@ def elfvc_stage_trainable(sp_stage: int):
 
 
 def exponential_decay(init_value: float, transition_steps: int, decay_rate: float,
-                      staircase: bool = False):
+                      staircase: bool = False, end_value: float | None = None):
     """optax.exponential_decay: count -> init_value * decay_rate **
-    (count / transition_steps), the exponent floored when ``staircase``."""
+    (count / transition_steps), the exponent floored when ``staircase``,
+    and bounded by ``end_value`` (below it when the rate decays, above it
+    when it grows)."""
 
     def schedule(count: int) -> float:
         p = count / transition_steps
-        return init_value * decay_rate ** (math.floor(p) if staircase else p)
+        value = init_value * decay_rate ** (math.floor(p) if staircase else p)
+        if end_value is not None:
+            value = max(value, end_value) if decay_rate < 1 else min(value, end_value)
+        return value
 
     return schedule
 

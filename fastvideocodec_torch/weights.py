@@ -13,8 +13,8 @@ names, so a path maps to a ``state_dict`` key by its leaf alone:
 - a ``Dense`` ``kernel`` [in, out] becomes the ``nn.Linear`` ``weight``
   [out, in]: the leaf alone does not say which, the module type does;
 - ``bias``, GDN ``beta``/``gamma``, BitEstimator ``h``/``b``/``a``, GroupNorm
-  and LayerNorm ``scale``/``bias`` and ChannelLayerNorm ``g`` keep their
-  names and shapes.
+  and LayerNorm ``scale``/``bias``, ChannelLayerNorm ``g`` and VPCT's
+  ``wpe``/``param_token`` keep their names and shapes.
 
 Loading raises on any key that maps nowhere and on any parameter left
 unset. ``seeded_flat`` makes a flax-keyed, flax-layout checkpoint of
@@ -106,27 +106,43 @@ def load_asset(module: nn.Module, name: str) -> nn.Module:
         return load_flat(module, {k: data[k] for k in data.files})
 
 
-def flax_shapes(module: nn.Module) -> dict:
-    """{'params/a/b/leaf': flax shape} of every parameter of ``module``: the
-    inverse of the mapping ``load_flat`` applies."""
-    shapes = {}
+def _flax_layout(module: nn.Module):
+    """(flax path, parameter, the permutation that takes it to flax's
+    layout or None) of every parameter of ``module``: the inverse of the
+    mapping ``load_flat`` applies."""
     for tkey, p in module.named_parameters():
         mod_path, leaf = tkey.rsplit(".", 1) if "." in tkey else ("", tkey)
-        shape = tuple(p.shape)
+        perm = None
         if leaf == "weight":
             sub = module.get_submodule(mod_path)
             if isinstance(sub, nn.ConvTranspose2d):
-                shape = (shape[2], shape[3], shape[0], shape[1])  # [k, k, I, O]
+                perm = (2, 3, 0, 1)  # [I, O, k, k] -> [k, k, I, O]
             elif isinstance(sub, CONVS):
-                shape = (shape[2], shape[3], shape[1], shape[0])  # HWIO
+                perm = (2, 3, 1, 0)  # OIHW -> HWIO
             elif isinstance(sub, nn.Linear):
-                shape = (shape[1], shape[0])  # [in, out]
+                perm = (1, 0)  # [out, in] -> [in, out]
             else:
                 raise KeyError(f"no flax layout for {tkey!r}: {type(sub).__name__}")
             leaf = "kernel"
         path = "/".join(["params", *mod_path.split("."), leaf]) if mod_path else f"params/{leaf}"
-        shapes[path] = shape
-    return shapes
+        yield path, p, perm
+
+
+def flax_shapes(module: nn.Module) -> dict:
+    """{'params/a/b/leaf': flax shape} of every parameter of ``module``."""
+    return {path: tuple(p.shape[i] for i in perm) if perm else tuple(p.shape)
+            for path, p, perm in _flax_layout(module)}
+
+
+def flax_flat(module: nn.Module) -> dict:
+    """{'params/a/b/leaf': float32 array in flax layout} of ``module``'s
+    parameters: what ``load_flat`` loads back, and what the JAX package's
+    ``apply`` takes (``flatten_params`` of its variables)."""
+    out = {}
+    for path, p, perm in _flax_layout(module):
+        arr = p.detach().float().cpu().numpy()
+        out[path] = np.ascontiguousarray(arr.transpose(perm) if perm else arr)
+    return out
 
 
 # flax lecun_normal: a normal truncated to +-2 standard deviations, scaled
@@ -204,6 +220,10 @@ def seeded_params(module: nn.Module, seed: int) -> dict:
             value = np.sqrt(0.1 * np.eye(shape[0]) + pedestal)
         elif leaf in ("h", "b", "a"):
             value = rng.normal(0.0, 0.01, shape)
+        elif leaf == "wpe":  # VPCT's position table and start token
+            value = rng.normal(0.0, 0.02, shape)
+        elif leaf == "param_token":
+            value = rng.normal(0.0, 1.0, shape)
         else:
             raise KeyError(f"no initialiser for {key!r}")
         flat[key] = value.astype(np.float32)

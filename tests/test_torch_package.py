@@ -141,7 +141,10 @@ def check_blocked(results: dict, name: str) -> None:
     "             'utils.logs', 'data.vimeo', 'data.loader', 'data.multiview',\n"
     "             'ops.msssim', 'data.video', 'anchors', 'train.evaluate',\n"
     "             'train.evolve', 'cli.eval', 'cli.plot', 'analysis.plots',\n"
-    "             'utils.torch_import'):\n"
+    "             'utils.torch_import', 'cli.simulate', 'analysis.abr',\n"
+    "             'analysis.trace_sim', 'utils.flowviz', 'layers.contextvp',\n"
+    "             'tools.train_tiny', 'tools.price_hd', 'tools.speed_sweep',\n"
+    "             'tools.warp_bench', 'tools.tools_smoke', 'tools.timing'):\n"
     "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
     "bad = [m for m in sys.modules\n"
     "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
@@ -1132,6 +1135,67 @@ def test_eval_entry_points_default_to_the_card(tmp_path, monkeypatch):
                                 "--test-dataset-dir", "empty"]),
         lambda: mv_cli.main(["--task", "speed", "--codec", "MCVC-IA-TINY", "--max-views", "1"]),
     ]
+    for run in runs:
+        with pytest.raises((RuntimeError, AssertionError)):
+            run()
+
+
+@runs_blocked(
+    "import numpy as np, torch\n"
+    "from fastvideocodec_torch.tools import train_tiny as tt\n"
+    "from fastvideocodec_torch.cli import simulate\n"
+    "from fastvideocodec_torch.utils.flowviz import flow_to_image\n"
+    "from fastvideocodec_torch.layers import ContextVP\n"
+    "from fastvideocodec_torch.ops.warp import warp_volume_pyramid\n"
+    "import contextlib, io, tempfile, os\n"
+    "d = tempfile.mkdtemp()\n"
+    "with contextlib.redirect_stdout(io.StringIO()):\n"
+    "    done = tt.main(['lsvctpu', '--levels', '2', '--steps', '1', '--out', d,\n"
+    "                    '--device', 'cpu'])\n"
+    "assert os.path.exists(os.path.join(d, 'tiny_lsvctpu_l2.npz')), done\n"
+    "from fastvideocodec_torch.utils.logs import write_eval_log\n"
+    "for lvl in (0, 2):\n"
+    "    write_eval_log(os.path.join(d, 'a.log'), lvl, 0.1 * (lvl + 1), 0.01, 0.006,\n"
+    "                   [30.0 + lvl] * 32)\n"
+    "with contextlib.redirect_stdout(io.StringIO()):\n"
+    "    (_, r), = simulate.main(['--logs', os.path.join(d, 'a.log'), '--num-traces', '2'])\n"
+    "assert np.isfinite(r['qoe']).all()\n"
+    "assert flow_to_image(np.ones((4, 5, 2), np.float32)).shape == (4, 5, 3)\n"
+    "cvp = ContextVP(8, 8, num_views=2, width=4, height=4)\n"
+    "assert cvp(torch.zeros(4, 8, 4, 4)).shape == (4, 8, 4, 4)\n"
+    "out = warp_volume_pyramid(torch.rand(1, 3, 8, 8), torch.rand(1, 15, 4, 4),\n"
+    "                          torch.zeros(1, 2, 8, 8), torch.zeros(1, 1, 8, 8), 5)\n"
+    "assert out.shape == (1, 3, 8, 8)\n"
+    "bad = [m for m in sys.modules\n"
+    "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
+    "                              'fastvideocodec_tpu', 'cv2', 'matplotlib')]\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+def test_tools_run_without_jax(blocked_results):
+    """train_tiny (one step of LSVC-TPU-TINY, its npz written),
+    cli/simulate.py on a log the port wrote, flow_to_image, ContextVP and
+    warp_volume_pyramid, with JAX, optax, orbax, PIL, OpenCV and
+    matplotlib unimportable."""
+    check_blocked(blocked_results, "test_tools_run_without_jax")
+
+
+def test_tool_entry_points_default_to_the_card():
+    """train_tiny, price_hd and speed_sweep run on the card unless
+    --device cpu: with no card here each raises where it builds a codec."""
+    from fastvideocodec_torch.tools import price_hd, speed_sweep
+    from fastvideocodec_torch.tools import train_tiny as tt
+
+    assert tt.parse_args(["lsvctpu"]).device == "cuda"
+    assert price_hd.parse_args([]).device == "cuda"
+    assert speed_sweep.parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    runs = [lambda: tt.main(["lsvctpu", "--levels", "2", "--steps", "1", "--out", "/nonexistent"]),
+            lambda: speed_sweep.main(["--codec", "LSVC-TPU-TINY", "--gops", "2", "--skip-ssf",
+                                      "--h", "64", "--w", "64"]),
+            lambda: price_hd.main(["LSVC-TPU", "lsvctpuf2"]),
+            lambda: tt.FAMILIES["lsvctpu"].spec(2)]
     for run in runs:
         with pytest.raises((RuntimeError, AssertionError)):
             run()
