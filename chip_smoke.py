@@ -236,8 +236,8 @@ Phases, each timed on its own line:
    the pixel warps' backward kernels' flow gradient zeroed, which must
    fail the gradient bar at the motion decoder;
 47. ELFVC-SP, cli/train.py's default codec, on its default batch of 4
-   clips x 7 frames x 256x256, float32, full width from seeded_flat: 3
-   steps of the default stage, then 3 steps each of
+   clips x 7 frames x 256x256, float32, full width from seeded_flat: 2
+   steps of the default stage, then 2 steps each of
    make_elfvc_stage_optimizer's stages 0, 1 and 2; per stage ms/step by
    CUDA events (median and range), host enqueue, peak GiB, and loss, PSNR,
    bpp and grad_norm of the first and last step; the launches exact and
@@ -282,7 +282,7 @@ Phases, each timed on its own line:
    cuDNN (the seeded DVC step's SpyNet gradient, a small sum of large
    terms, moves with the order of cuDNN's atomic backward), with a control
    that zeroes flow_warp_backward's flow gradient;
-54. those three and RLVC2 and RLVC-HP for 3 steps each on
+54. those three and RLVC2 and RLVC-HP for 2 steps each on
    cli/train.py's default batch of 4 x 7 x 256x256, float32, the readings
    of phase 47; each P-frame 5 flow_warp and 4 flow-only backward launches
    (Base-EC-ER's soft2hard 15 and 5: ``chain_train_launches``), stated
@@ -350,11 +350,27 @@ Phases, each timed on its own line:
    1024x2048 with 2 launches, ``ContextVP`` card against CPU, ``flow_to_image``
    of LSVC-TPU's SpyNet flow, the three knobs; ``tools/speed_sweep.py``'s
    GOP and SSF encode sweeps at 1024x2048 bf16. The hd head-to-head of the
-   LSVC forms' phase runs through ``tools/price_hd.py``.
+   LSVC forms' phase runs through ``tools/price_hd.py``;
+69-70. the multi-device layer (``fastvideocodec_torch/tools/multichip_smoke.py``,
+   which states each gate): ``tools/dryrun_multichip.py 4 --device cuda``,
+   4 ranks over gloo time-sharing the card, each of JAX's four dry-run
+   halves one training step on a mesh at full width (LSVC-TPU from
+   hd_lsvctpuf2_l2 over 'data' on 4 clips of 7 x 256x256 and over (data 2
+   x frame 2) on 2 clips of GOP 16; SSF-TPU seeded over 'data'; MCVC-IA
+   seeded over 'view' 4 on 4 views of 256x256, GOP 4, view 2 failed)
+   against the same step in one process under deterministic cuDNN: loss
+   within 1e-4, gradients within 5e-3 of their max, the ranks bit for bit
+   equal, no plain warp or vjp, the launches exact by rank; then a world of
+   one over NCCL in this process (the data parallel halves of LSVC-TPU and
+   SSF-TPU against the unsharded step: the loss bit for bit, SSF-TPU's
+   parameters bit for bit).
 
 Along the way it prints a JSON line of MCVC's numbers, one of the stock
 codecs', one of the DVC family's, one of the training numbers, one of the
-evaluation path's, one of the tools' and one of the LSVC forms'; then a JSON line of the
+evaluation path's, one of the tools', one of the multi-device steps' (each
+half's losses, gradient gaps, ms/step sharded and single with the note
+that the ranks time-share the card, launches and enqueue ms by rank) and
+one of the LSVC forms'; then a JSON line of the
 kernels (the five warps, each with its launches on every path it was
 counted on; ``launches`` and the
 times stay those of the path that defined them in earlier slices:
@@ -369,7 +385,8 @@ warps, their launches those of phases 47, 48 and 50, their times those
 of phase 52: ten kernels in all; pixel_warp_backward's bf16 instantiation
 on phase 58's bf16 launches under ``bf16_timing_by_path``; the launches
 of phases 61-68 by path under ``launches_by_path`` and
-``launches_by_eval_path``),
+``launches_by_eval_path``; those of phases 69-70's steps, summed over the
+ranks, under ``launches_by_path`` of every kernel),
 the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the run exits non-zero without that line. It needs no JAX and
@@ -505,10 +522,10 @@ def train_launches_of(layers: int) -> dict:
             "flow_warp_s2d_backward": layers}
 # SSF and ELFVC training on the card, float32, full width from
 # seeded_flat(name, 0), the ELFVC-SP forms at sp_stage 1 (cli/train.py's):
-# ELFVC-SP's default stage (3 steps), then 3 steps of each make_elfvc_stage_optimizer
+# ELFVC-SP's default stage (2 steps), then 2 steps of each make_elfvc_stage_optimizer
 # stage (JAX's staged recipe, tools/train_tiny.py:train_elfvc, shortened);
 # the -TPU forms at phase 43's 256x256, GOP 16
-ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 3, 3, 3
+ELFVC_TRAIN_STEPS, ELFVC_STAGE_STEPS, TPU_FORM_STEPS = 2, 2, 3
 DEGENERATE_GRAD_NORM = 1e20  # JAX's ELFVC-SP at its own random init: ~1e30
 # MCVC training on the card, float32, full width from seeded_flat(name, 0):
 # one step card vs CPU of MCVC-IA and MCVC-IA-OLFT on 3 views of 64x128,
@@ -532,7 +549,7 @@ OLFT_UNREACHED = ("img_decoder.", "res_decoder.", "img_hyperprior.", "motion_hyp
 # for RLVC2 and RLVC-HP); then cli/train.py --codec DVC --loss-type M through
 # its main on a tree of CLI_CLIPS 7-frame clips of 256x448 PNGs, 1 epoch of
 # CLI_STEPS steps, its checkpoint's MS-SSIM on the card against the CPU's
-CHAIN_TRAIN = {"DVC": 3, "RLVC": 3, "Base-EC-ER": 3, "RLVC2": 3, "RLVC-HP": 3}
+CHAIN_TRAIN = {"DVC": 2, "RLVC": 2, "Base-EC-ER": 2, "RLVC2": 2, "RLVC-HP": 2}
 SOFT2HARD = ("Base-EC-ER",)
 CLI_CLIPS, CLI_STEPS, MSSSIM_CARD_CPU_REL = 12, 3, 1e-5
 # the launches of a DVC, RLVC or Base training step over ``p_frames``
@@ -3624,6 +3641,15 @@ def main() -> int:
         shutil.rmtree(eval_dir, ignore_errors=True)
     evaluation["launches"].update(tools["launches"])
 
+    # ---- multi-device (phases 69-70, tools/multichip_smoke.py): the four
+    # halves of the dry run on gloo ranks time-sharing the card, then a
+    # world of one over NCCL ----
+    from fastvideocodec_torch.tools import multichip_smoke
+
+    multi = multichip_smoke.run(smi)
+    multi_launches = multi.pop("launches")
+    log(json.dumps({"multi_device": multi}))
+
     log(json.dumps({"lsvc_forms": lsvc_rows, "timing": {
         k: {path: {key: t[key] for key in ("ms", "cold_ms", "plain_ms", "bound_ms",
                                            "library_ms", "launches")}
@@ -3642,7 +3668,8 @@ def main() -> int:
                       **{path: n[name] for path, n in chain_launches.items()},
                       **{path: n[name] for path, n in lsvc_launches.items()},
                       **{f"{path}_train": n[name] for path, n in chain_train_counts.items()},
-                      **{path: n.get(name, 0) for path, n in evaluation["launches"].items()}}
+                      **{path: n.get(name, 0) for path, n in evaluation["launches"].items()},
+                      **{path: n.get(name, 0) for path, n in multi_launches.items()}}
                 for name in kernels}
     # each kernel's top-level numbers stay on the path that defined them in
     # earlier slices (LSVC-TPU's rollout for the two flow warps, SSF-TPU's
@@ -3695,6 +3722,8 @@ def main() -> int:
             "library_ms": lib[bname],
             "launches_by_eval_path": {path: n[bname] for path, n in
                                       evaluation["launches"].items() if n.get(bname)},
+            # the multi-device steps (phases 69-70): one step, summed over ranks
+            "launches_by_path": {path: n.get(bname, 0) for path, n in multi_launches.items()},
             "launches_per_training_step": (
                 per_lsvc_step[bname] if bname in FLOW_BACKWARD
                 else {path: n.get(bname, 0) for path, n in pixel_per_step.items()}),

@@ -14,6 +14,7 @@ import torch
 from fastvideocodec_torch.layers.blocks import frame_dtype
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.math import bits_estimate, psnr_from_mse
+from fastvideocodec_torch.parallel.collectives import WHOLE, Rows, gop_rows
 
 
 def lsvc_gop(spec: CodecSpec, gop: torch.Tensor, training: bool = False, noise=None):
@@ -176,11 +177,14 @@ def view_weights(mask, n: int, device) -> torch.Tensor:
     return mask.to(device, torch.float32)
 
 
-def alive_mse(frames: torch.Tensor, target: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+def alive_mse(frames: torch.Tensor, target: torch.Tensor, alive: torch.Tensor,
+              rows: Rows = WHOLE) -> torch.Tensor:
     """Per-frame MSE over the alive views only, float32 [T]: frames and
-    target [T, B*V, 3, H, W], alive the float32 view mask [B*V]."""
+    target [T, B*V, 3, H, W], alive the float32 view mask [B*V]; of every
+    view when ``rows`` split them over ranks (the sums over the ranks)."""
     per_view = torch.mean((frames.float() - target.float()) ** 2, dim=(2, 3, 4))  # [T, B*V]
-    return torch.sum(per_view * alive, dim=1) / torch.clamp(torch.sum(alive), min=1.0)
+    return (rows.sum(torch.sum(per_view * alive, dim=1))
+            / torch.clamp(rows.sum(torch.sum(alive)), min=1.0))
 
 
 def mcvc_gop(spec: CodecSpec, gop: torch.Tensor, mask=None, training: bool = False,
@@ -196,19 +200,27 @@ def mcvc_gop(spec: CodecSpec, gop: torch.Tensor, mask=None, training: bool = Fal
     [T] over the B*V*H*W pixels of each frame, and ``completeness``, the
     share of the views alive. Eval runs under ``torch.inference_mode``;
     ``training`` draws the quantizers' noise from ``noise`` and keeps the
-    autograd graph."""
-    _, N, _, H, W = gop.shape
+    autograd graph.
+
+    Inside a step on a mesh whose axes split the B*V rows
+    (``parallel.collectives.gop_rows``), gop and mask are this rank's rows:
+    the noise is drawn for every row and sliced, the recon is this rank's
+    rows, and the metrics are the whole GOP's, their sums taken over the
+    ranks."""
+    _, n, _, H, W = gop.shape
+    rows = gop_rows()
+    N = n * rows.parts
     with torch.inference_mode(not training):
-        alive = view_weights(mask, N, gop.device)
-        recons, liks, refs = spec.module(gop, alive, training, noise)
-        bpps = [sum(bits_estimate(part[key]) for part in lik.values() for key in ("y", "z"))
-                / (N * H * W) for lik in liks]
-        mse = alive_mse(recons, gop, alive)
+        alive = view_weights(mask, n, gop.device)
+        recons, liks, refs = spec.module(gop, alive, training, rows.noise(noise, N))
+        bpps = [rows.sum(sum(bits_estimate(part[key]) for part in lik.values()
+                             for key in ("y", "z"))) / (N * H * W) for lik in liks]
+        mse = alive_mse(recons, gop, alive, rows)
         metrics = {
-            "img_loss": 0.5 * (mse + alive_mse(refs, gop, alive)) if training else mse,
+            "img_loss": 0.5 * (mse + alive_mse(refs, gop, alive, rows)) if training else mse,
             "psnr": psnr_from_mse(mse),
             "bpp_est": torch.stack(bpps),
-            "completeness": torch.sum(alive) / N,
+            "completeness": rows.sum(torch.sum(alive)) / N,
         }
     return recons, metrics
 

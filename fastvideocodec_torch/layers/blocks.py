@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fastvideocodec_torch.ops.warp import avg_pool2, bilinear_upsample_x2_ac, depth_to_space
+from fastvideocodec_torch.parallel.collectives import current_time_batch, rows_over
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -494,7 +495,7 @@ class TokenAttention(nn.Module):
         B, N, _ = x.shape
         qkv = self.Dense_0(x).reshape(B, N, 3, self.heads, self.dim_head)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)  # [B, heads, N, d]
-        out = attention(q, k, v).transpose(1, 2).reshape(B, N, -1)
+        out = attention(q, k, v).transpose(1, 2).reshape(B, N, self.heads * self.dim_head)
         return self.Dense_1(out)
 
 
@@ -504,7 +505,11 @@ class SpaceTimeAttention(nn.Module):
     pixels), space attention (tokens = the pixels, batched over the frames)
     and a GEGLU feed-forward, each after a LayerNorm and added back. The
     frames of one call attend to each other, so the batch a caller forms is
-    part of the result."""
+    part of the result. Inside ``parallel.collectives.time_batch`` (a
+    frame-sharded LSVC's batch) x holds this rank's frames of the batch:
+    the time attention gathers the normalized tokens of every frame, mixes
+    them whole and keeps this rank's rows; the space attention and the
+    feed-forward work frame by frame."""
 
     def __init__(self, dim: int, depth: int = 12, heads: int = 8, dim_head: int = 64):
         super().__init__()
@@ -520,11 +525,18 @@ class SpaceTimeAttention(nn.Module):
     def forward(self, x):
         F_, C, H, W = x.shape
         t = x.reshape(F_, C, H * W).transpose(1, 2)  # [F, HW, C]
+        shared = current_time_batch()
         for d in range(self.depth):
             norm = [getattr(self, f"LayerNorm_{3 * d + i}") for i in range(3)]
             time_attn, space_attn = (getattr(self, f"TokenAttention_{2 * d + i}")
                                      for i in range(2))
-            t = t + time_attn(norm[0](t).transpose(0, 1)).transpose(0, 1)
+            if shared is None:
+                t = t + time_attn(norm[0](t).transpose(0, 1)).transpose(0, 1)
+            else:
+                rows, n = shared
+                lo, hi = rows.span(n)
+                mixed = time_attn(rows.gather(norm[0](t), n).transpose(0, 1)).transpose(0, 1)
+                t = t + mixed[lo:hi]
             t = t + space_attn(norm[1](t))
             t = t + getattr(self, f"GEGLUFeedForward_{d}")(norm[2](t))
         return t.transpose(1, 2).reshape(F_, C, H, W).contiguous()
@@ -536,7 +548,10 @@ class ConvAttention(nn.Module):
     V views (``atype=2``, MCVC-IA's cross-view attention) they are the
     (view, y, x) of each V consecutive items of the batch axis, which holds
     the views folded as b*V + v. A zeroed (failed) view stays a token, its
-    k and v 0 (the qkv conv has no bias), as in the JAX package."""
+    k and v 0 (the qkv conv has no bias), as in the JAX package. Inside a
+    step on a mesh whose 'view' axis splits the views, x holds this rank's
+    views of an item: its queries attend to the item's k and v of every
+    view, gathered over the axis in (view, y, x) order."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_views: int = 1):
         super().__init__()
@@ -548,10 +563,13 @@ class ConvAttention(nn.Module):
     def forward(self, x):
         B, _, H, W = x.shape
         V = self.num_views
+        views = rows_over(("view",)) if V > 1 else None
+        conv_in = getattr(self.Conv_0, "compute_dtype", None) or self.Conv_0.weight.dtype
+        if B % V and views is not None and views.parts > 1:
+            return self.shared_views(self.Conv_0(x.to(conv_in)), views)
         if B % V:
             raise ValueError(f"batch {B} is not a whole number of {V} views")
         b, N = B // V, V * H * W
-        conv_in = getattr(self.Conv_0, "compute_dtype", None) or self.Conv_0.weight.dtype
         qkv = self.Conv_0(x.to(conv_in))
         # channel head*d + i of each third, tokens in (view, y, x) order; q, k
         # and v contiguous [b, heads, N, d], which the fused attention needs
@@ -562,6 +580,26 @@ class ConvAttention(nn.Module):
         q, k, v = qkv.reshape(3, b, self.heads, N, self.dim_head).unbind(0)
         out = attention(q, k, v).reshape(b, self.heads, V, H * W, self.dim_head)
         return self.Conv_1(out.permute(0, 2, 1, 4, 3).reshape(B, -1, H, W))
+
+    def shared_views(self, qkv: torch.Tensor, views) -> torch.Tensor:
+        """The attention of this rank's n views of one item (qkv [n, 3 *
+        inner, H, W]), the item's V views split over the ``views`` ranks:
+        its k and v gathered, its own queries."""
+        n, _, H, W = qkv.shape
+        V, heads, d = self.num_views, self.heads, self.dim_head
+        if V % n or (n * views.parts) % V:
+            raise ValueError(f"{n} views a rank over {views.parts} ranks do not split "
+                             f"items of {V} views")
+        inner = heads * d
+        kv = views.gather(qkv[:, inner:], n * views.parts)
+        first = views.index * n // V * V  # the item's first row among the gathered
+        kv = kv[first:first + V].reshape(1, V, 2, heads, d, H * W)
+        k, v = kv.permute(2, 0, 3, 1, 5, 4).contiguous().reshape(2, 1, heads, V * H * W,
+                                                                 d).unbind(0)
+        q = qkv[:, :inner].reshape(1, n, heads, d, H * W).permute(0, 2, 1, 4, 3)
+        out = attention(q.contiguous().reshape(1, heads, n * H * W, d), k, v)
+        out = out.reshape(1, heads, n, H * W, d).permute(0, 2, 1, 4, 3)
+        return self.Conv_1(out.reshape(n, -1, H, W))
 
 
 class SPnet(nn.Module):

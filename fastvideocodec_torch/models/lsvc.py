@@ -36,8 +36,21 @@ so a layer's (or chunk's) batch composition is part of the result.
 The real-bits coder (coder/video.py) runs the same network in pieces
 (``fold`` .. ``sigmas``). ``forward(x, training=True, noise=...)`` is the
 training branch (additive quantization noise, the stop-gradient of
-``detach_tree`` (-D) and of the chain graph). Frame sharding is not
-ported yet.
+``detach_tree`` (-D) and of the chain graph).
+
+Frame sharding (``frame_axis``, set by parallel/frame.py's
+``frame_sharded_spec``): inside a step on a mesh, the stage-1 flow and mv
+batch and each layer's (chunk's) frame batch split over the mesh axis
+(``parallel.collectives``: ceil(n / ranks) frames a rank, a rank short or
+empty). Each rank codes its frames, the quantizers' noise drawn for the
+whole batch and sliced, and gathers the decoded motion and the layer's
+recons, predictions and warps, so that every rank holds every parent.
+The -A/-S time attention gathers its normalized tokens and mixes the
+layer's frames whole (layers/blocks.py). The loss terms are this rank's
+frames' (the recons' rows a rank is given of the gathered layers, its own
+latents' bits), summed over the axis into the whole values every rank
+goes on with; the gradients are summed over the mesh after the backward
+(train/trainer.py).
 """
 
 from __future__ import annotations
@@ -70,6 +83,7 @@ from fastvideocodec_torch.ops import (
     quantize,
     space_to_depth,
 )
+from fastvideocodec_torch.parallel.collectives import frame_rows, time_batch
 
 GRAPHS = ("tree", "chain", "onehop")
 
@@ -89,7 +103,8 @@ class LSVC(nn.Module):
                  conv_channels: int = 0, warp_width: int = 64, warp_tpu: bool = False,
                  warp_stride: int = 4, warp_pooled: bool = False,
                  mv_polyphase_out: bool = False, full_res_warp: bool = False,
-                 mv_full_res_out: bool = False, dtype: torch.dtype = torch.float32):
+                 mv_full_res_out: bool = False, frame_axis: str = "",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if s2d not in (1, 2):
             raise ValueError(f"s2d must be 1 or 2, got {s2d}")
@@ -100,6 +115,7 @@ class LSVC(nn.Module):
         self.per_layer_mv, self.layer_chunk = per_layer_mv, layer_chunk
         self.full_res_warp, self.mv_full_res_out = full_res_warp, mv_full_res_out
         self.warp_pooled = warp_pooled
+        self.frame_axis = frame_axis  # the mesh axis the frame batches split over ("": none)
         stages = 4 if s2d == 1 else 3
         res_c = conv_channels or OUT_CHANNEL_N
         img_c = 3 * s2d * s2d
@@ -233,12 +249,16 @@ class LSVC(nn.Module):
         T, _, H, W = x.shape
         bs = T - 1
         sched = self.schedule(bs)
+        frames = frame_rows(self.frame_axis)
         x, x_flow = self.fold(x)
         target = x[1:]
         bits_mv = torch.zeros((), dtype=torch.float32, device=x.device)
         if not self.per_layer_mv:
-            est_mv = self.optic_flow(x_flow[1:], x_flow[list(sched.ref_index)])
-            mv_hat, bits_mv = self.mv_codec(est_mv, training, noise)
+            lo, hi = frames.span(bs)
+            est_mv = self.optic_flow(x_flow[1 + lo:1 + hi], x_flow[list(sched.ref_index[lo:hi])])
+            with time_batch(frames, bs):
+                mv_hat, bits_mv = self.mv_codec(est_mv, training, frames.noise(noise, bs))
+            mv_hat = frames.gather(mv_hat, bs)
 
         com = [None] * bs
         mc = [None] * bs
@@ -246,23 +266,30 @@ class LSVC(nn.Module):
         bits_res = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in sched.layers:
             for part in self.chunks(layer):
+                n = len(part)
+                lo, hi = frames.span(n)
+                mine = part[lo:hi]  # this rank's frames of the batch (all of it unsharded)
                 ref = torch.stack(
-                    [x[0] if sched.parents[f] == 0 else com[sched.parents[f] - 1] for f in part]
-                )
+                    [x[0] if sched.parents[f] == 0 else com[sched.parents[f] - 1] for f in mine]
+                ) if mine else x[:0]
                 if self.detach_tree or self.graph == "chain":
                     ref = ref.detach()
-                ids = [f - 1 for f in part]
-                if self.per_layer_mv:
-                    est_mv = self.optic_flow(x_flow[list(part)],
-                                             x_flow[[sched.ref_index[i] for i in ids]])
-                    diff, mv_bits = self.mv_codec(est_mv, training, noise)
-                    bits_mv = bits_mv + mv_bits
-                else:
-                    diff = mv_hat[ids]
-                mc_frames, warped_frames = self.motioncompensation(ref, diff)
-                res_hat, rb = self.res_codec(target[ids] - mc_frames, training, noise)
+                ids = [f - 1 for f in mine]
+                part_noise = frames.noise(noise, n)
+                with time_batch(frames, n):
+                    if self.per_layer_mv:
+                        est_mv = self.optic_flow(x_flow[list(mine)],
+                                                 x_flow[[sched.ref_index[i] for i in ids]])
+                        diff, mv_bits = self.mv_codec(est_mv, training, part_noise)
+                        bits_mv = bits_mv + mv_bits
+                    else:
+                        diff = mv_hat[ids]
+                    mc_frames, warped_frames = self.motioncompensation(ref, diff)
+                    res_hat, rb = self.res_codec(target[ids] - mc_frames, training, part_noise)
                 com_frames = torch.clamp(res_hat + mc_frames, 0.0, 1.0)
                 bits_res = bits_res + rb
+                com_frames, mc_frames, warped_frames = (
+                    frames.gather(t, n) for t in (com_frames, mc_frames, warped_frames))
                 for i, f in enumerate(part):
                     com[f - 1] = com_frames[i]
                     mc[f - 1] = mc_frames[i]
@@ -271,10 +298,16 @@ class LSVC(nn.Module):
         com_frames = torch.stack(com)
         mc_frames = torch.stack(mc)
         warped_frames = torch.stack(warped)
+        lo, hi = frames.span(bs)
 
         def mse(a):
-            return torch.mean((a.float() - target.float()) ** 2)
+            if frames.parts == 1:
+                return torch.mean((a.float() - target.float()) ** 2)
+            # this rank's rows of the gathered frames, summed over the axis
+            err = torch.sum((a[lo:hi].float() - target[lo:hi].float()) ** 2)
+            return frames.sum(err / a.numel())
 
+        bits_res, bits_mv = frames.sum(bits_res), frames.sum(bits_mv)
         denom = bs * H * W
         metrics = {
             "rec_loss": mse(com_frames),

@@ -367,21 +367,30 @@ class KernelWarp(torch.autograd.Function):
     SpyNet's level image and the SSF and ELFVC references (detached) do. A
     build or launch failure raises; the plain vjp is never taken here (the
     JAX package's ``custom_vjp`` entry points take the vjp of the exact
-    gather path, not a Pallas kernel). Call as
+    gather path, not a Pallas kernel). An empty batch (a rank's empty share
+    of a split one) launches nothing either way. Call as
     ``KernelWarp.apply(name, img, flow)``."""
 
     @staticmethod
     def forward(ctx, name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         ctx.name = name
         ctx.save_for_backward(img, flow)
-        return _launcher(name)(img, flow)
+        return _launch_nonempty(name, img, flow)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad: torch.Tensor):
         img, flow = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        if not img.shape[0]:
+            return None, *(torch.zeros_like(t) if n else None for t, n in zip((img, flow), needs))
         launch = getattr(kernels, _BACKWARD_LAUNCHER[ctx.name])
-        return None, *launch(img, flow, grad.contiguous(), *ctx.needs_input_grad[1:])
+        return None, *launch(img, flow, grad.contiguous(), *needs)
+
+
+def _launch_nonempty(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The kernel's launcher, or an empty output for an empty batch."""
+    return _launcher(name)(img, flow) if img.shape[0] else torch.empty_like(img)
 
 
 def _dispatch(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -392,7 +401,7 @@ def _dispatch(name: str, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         return PLAIN[name](img, flow)
     if (img.requires_grad or flow.requires_grad) and torch.is_grad_enabled():
         return KernelWarp.apply(name, img, flow)
-    return _launcher(name)(img, flow)
+    return _launch_nonempty(name, img, flow)
 
 
 def _tile_reduce(v: torch.Tensor, tile: tuple, fill: int, op) -> torch.Tensor:

@@ -43,6 +43,8 @@ from fastvideocodec_torch.gop.engine import rollout
 from fastvideocodec_torch.layers.blocks import cast_once, mixed_precision
 from fastvideocodec_torch.models.registry import CodecSpec
 from fastvideocodec_torch.ops.msssim import ms_ssim
+from fastvideocodec_torch.parallel.collectives import gop_share, placement
+from fastvideocodec_torch.parallel.mesh import AXES, axis_group
 
 
 @dataclass
@@ -174,7 +176,8 @@ def gop_loss(spec: CodecSpec, gop: torch.Tensor, training: bool, noise, cfg: Tra
         if spec.family == "elfvc" and module.super_prec:
             loss = loss + cfg.alpha * torch.sum(m["pred_err_norm"])
     aux = module.aux_loss()
-    loss = loss + cfg.r_aux * aux
+    # on a mesh the ranks that share the GOP compute aux whole: one takes its gradient
+    loss = loss + cfg.r_aux * gop_share(getattr(module, "frame_axis", "")).once(aux)
     metrics = {
         "loss": loss,
         "psnr": torch.mean(m["psnr"]),
@@ -346,7 +349,7 @@ def make_elfvc_stage_optimizer(cfg: TrainConfig, sp_stage: int,
 
 
 def make_train_step(spec: CodecSpec, cfg: TrainConfig, optimizer=None,
-                    batched: bool = False) -> tuple:
+                    batched: bool = False, mesh=None) -> tuple:
     """Returns (init_fn(params) -> opt_state, step_fn).
 
     step_fn(params, opt_state, gop, noise[, mask]) -> (params, opt_state,
@@ -357,10 +360,26 @@ def make_train_step(spec: CodecSpec, cfg: TrainConfig, optimizer=None,
     ``batched=True`` gop (and mask) carry a leading batch axis; the loss
     and the metrics are the means over the clips (JAX vmaps the loss;
     here each clip's loss / B is backpropagated in turn, so one clip's
-    graph is alive at a time). ``grad_norm`` is the norm of all
-    gradients (frozen ones too); a parameter the loss does not reach has a
-    zero gradient, as in JAX."""
+    graph is alive at a time). A batched step takes one noise source a
+    clip (a sequence of B), as JAX splits its key a clip, or a single
+    source that the clips draw from in turn. ``grad_norm`` is the norm of
+    all gradients (frozen ones too); a parameter the loss does not reach
+    has a zero gradient, as in JAX.
+
+    ``mesh`` (parallel/mesh.py; None: no process group is touched): the
+    step of one rank of the mesh, every rank calling it at once. Its gop
+    and mask are this rank's part (``parallel.shard_gop``,
+    ``shard_views``, ``gop_frame_sharding``): a batched step's clips split
+    over 'data', and noise then is the whole batch's sources, of which the
+    rank takes its clips'; MCVC's B*V rows split over 'view' (and 'data' in
+    a step that is not batched), LSVC's frames over its ``frame_axis``
+    (``parallel.frame_sharded_spec``). The gradients are summed over the
+    mesh after the backward (each rank's loss holds its own rows' terms and
+    its clips' share of the mean), so every rank takes the same optimizer
+    step and the ranks' parameters stay equal bit for bit; the metrics
+    are the whole batch's, averaged over 'data'."""
     tx = make_optimizer(cfg) if optimizer is None else optimizer
+    row_axes = None if mesh is None else mesh_row_axes(spec, mesh, batched)
 
     def init_fn(params: dict) -> dict:
         return tx.init(params)
@@ -368,24 +387,92 @@ def make_train_step(spec: CodecSpec, cfg: TrainConfig, optimizer=None,
     def step_fn(params: dict, opt_state: dict, gop: torch.Tensor, noise, mask=None):
         for p in params.values():
             p.grad = None
-        with cast_once():  # one cast a master a step
+        on_mesh = contextlib.nullcontext() if mesh is None else placement(mesh, row_axes)
+        with cast_once(), on_mesh:  # one cast a master a step
             if batched:
                 n = gop.shape[0]
+                first, total = (0, n) if mesh is None else clip_share(mesh, n)
+                sources = clip_noise(noise, n, first, total)
                 metrics = {}
                 for b in range(n):
-                    loss, m = gop_loss(spec, gop[b], True, noise, cfg,
+                    loss, m = gop_loss(spec, gop[b], True, sources[b], cfg,
                                        None if mask is None else mask[b])
-                    (loss / n).backward()
+                    (loss / total).backward()
                     for k, v in m.items():
-                        metrics[k] = metrics.get(k, 0.0) + v.detach() / n
+                        metrics[k] = metrics.get(k, 0.0) + v.detach() / total
             else:
                 loss, metrics = gop_loss(spec, gop, True, noise, cfg, mask)
                 loss.backward()
                 metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = reduce_over_mesh(params, metrics, mesh, batched)
         params, opt_state, metrics["grad_norm"] = descend(tx, params, opt_state)
         return params, opt_state, metrics
 
     return init_fn, step_fn
+
+
+def mesh_row_axes(spec: CodecSpec, mesh, batched: bool) -> tuple:
+    """The mesh axes that split a GOP's batch rows in a step of ``spec`` on
+    ``mesh`` (MCVC's B*V: 'view', and 'data' too when the step is not
+    batched); raises ValueError for an axis the step cannot split: 'view'
+    beyond MCVC, a frame axis beyond the LSVC module's ``frame_axis``,
+    'data' in a step that is not batched (but MCVC's)."""
+    sizes = dict(zip(AXES, mesh.mesh.shape))
+    frame_axis = getattr(spec.module, "frame_axis", "") if spec.family == "lsvc" else ""
+    if frame_axis and frame_axis not in AXES:
+        raise ValueError(f"frame_axis {frame_axis!r} is no axis of the mesh {AXES}")
+    mcvc = spec.family == "mcvc"
+    for axis, size in sizes.items():
+        used = ((axis == "data" and (batched or mcvc)) or (axis == "view" and mcvc)
+                or axis == frame_axis)
+        if size > 1 and not used:
+            raise ValueError(f"a {'batched ' if batched else ''}step of {spec.name} cannot "
+                             f"split the mesh's {axis!r} axis ({size})")
+    if not mcvc:
+        return ()
+    return ("view",) if batched else ("data", "view")
+
+
+def clip_share(mesh, n: int) -> tuple:
+    """(the index of this rank's first clip, the batch's clips): a batched
+    step's n clips a rank over 'data'."""
+    _, parts, index = axis_group(mesh, ("data",))
+    return index * n, n * parts
+
+
+def clip_noise(noise, n: int, first: int, total: int) -> list:
+    """The sources of a batched step's n clips from ``first`` of ``total``:
+    its own of a sequence of one source a clip, or one source for all."""
+    if isinstance(noise, (list, tuple)):
+        if len(noise) != total:
+            raise ValueError(f"{len(noise)} noise sources for a batch of {total} clips")
+        return list(noise[first:first + n])
+    if total != n:
+        raise ValueError("a batched step split over ranks takes one noise source a clip")
+    return [noise] * n
+
+
+def reduce_over_mesh(params: dict, metrics: dict, mesh, batched: bool) -> dict:
+    """The gradients summed over every rank of the mesh, in place (one
+    all_reduce of them all); a batched step's metrics summed over 'data'
+    (each rank's are its clips' share of the mean). Returns the metrics."""
+    import torch.distributed as dist
+
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    start = 0
+    for p, g in zip(params.values(), grads):
+        p.grad = flat[start:start + g.numel()].view_as(g)
+        start += g.numel()
+    group, parts, _ = axis_group(mesh, ("data",))
+    if batched and parts > 1:
+        names = list(metrics)
+        values = torch.stack([metrics[k].float() for k in names])
+        dist.all_reduce(values, group=group)
+        metrics = dict(zip(names, values.unbind(0)))
+    return metrics
 
 
 def descend(tx: Optimizer, params: dict, opt_state: dict):

@@ -1,7 +1,8 @@
 """Package-level guards of the PyTorch port.
 
 - The port (its training and evaluation modules too: train/, cli/,
-  utils/, data/, anchors/, analysis/), chip_smoke.py, warp_ab.py and
+  utils/, data/, anchors/, analysis/, the multi-device parallel/ and
+  tools/dryrun_multichip.py, tools/multichip_smoke.py), chip_smoke.py, warp_ab.py and
   real_bits_ab.py import with jax, flax, optax, orbax, PIL, OpenCV,
   matplotlib and fastvideocodec_tpu unimportable (the card's machine has
   none of the JAX ones and no matplotlib); real_bits_ab.py's synchronous
@@ -144,7 +145,10 @@ def check_blocked(results: dict, name: str) -> None:
     "             'utils.torch_import', 'cli.simulate', 'analysis.abr',\n"
     "             'analysis.trace_sim', 'utils.flowviz', 'layers.contextvp',\n"
     "             'tools.train_tiny', 'tools.price_hd', 'tools.speed_sweep',\n"
-    "             'tools.warp_bench', 'tools.tools_smoke', 'tools.timing'):\n"
+    "             'tools.warp_bench', 'tools.tools_smoke', 'tools.timing',\n"
+    "             'parallel', 'parallel.mesh', 'parallel.frame', 'parallel.distributed',\n"
+    "             'parallel.collectives', 'tools.dryrun_multichip',\n"
+    "             'tools.multichip_smoke'):\n"
     "    assert 'fastvideocodec_torch.' + name in sys.modules, name\n"
     "bad = [m for m in sys.modules\n"
     "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'PIL',\n"
